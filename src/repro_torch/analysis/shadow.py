@@ -1,0 +1,117 @@
+"""Runtime shadow checker: instrumented locks enforcing the hierarchy.
+
+Locks are created through :func:`make_lock` with a canonical name from
+``repro_torch.analysis.hierarchy``.  With ``REPRO_SHADOW_LOCKS`` unset
+the factory returns a plain ``threading.Lock``.  With
+``REPRO_SHADOW_LOCKS=1`` it returns a wrapper that keeps a per-thread
+stack of held locks and raises ``LockHierarchyViolation`` on an
+acquisition that does not move strictly down the hierarchy, on
+re-entry of the (non-reentrant) lock, and in
+:func:`assert_no_locks_held` on a hot read path.
+
+The env var is read at each factory call, never at import, so tests can
+flip it without reimporting.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import List, Tuple
+
+from repro_torch.analysis import hierarchy
+
+ENV_FLAG = "REPRO_SHADOW_LOCKS"
+
+_tls = threading.local()
+
+
+class LockHierarchyViolation(AssertionError):
+    """A runtime acquisition violated the declared lock hierarchy."""
+
+
+def shadow_enabled() -> bool:
+    """Read the gate env var now (never snapshotted at import)."""
+    return os.environ.get(ENV_FLAG, "").strip().lower() in (
+        "1", "true", "on", "yes")
+
+
+def _held_stack() -> List[Tuple[str, int]]:
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    return stack
+
+
+def held_locks() -> Tuple[str, ...]:
+    """Canonical names of shadow locks held by the calling thread."""
+    return tuple(name for name, _ in _held_stack())
+
+
+class _ShadowLock:
+    """A ``threading.Lock`` that checks the hierarchy on acquisition."""
+
+    def __init__(self, name: str) -> None:
+        if name not in hierarchy.RANKS:
+            raise LockHierarchyViolation(
+                f"lock name '{name}' is not declared in "
+                f"repro_torch/analysis/hierarchy.py")
+        self._name = name
+        self._rank = hierarchy.RANKS[name]
+        self._inner = threading.Lock()
+
+    def acquire(self, blocking: bool = True, timeout: float = -1):
+        stack = _held_stack()
+        bounded = (not blocking) or timeout >= 0
+        if any(held == self._name for held, _ in stack) and not bounded:
+            raise LockHierarchyViolation(
+                f"re-entry of non-reentrant lock '{self._name}' "
+                f"(held: {[n for n, _ in stack]}): self-deadlock")
+        for held, held_rank in stack:
+            if held != self._name and held_rank >= self._rank:
+                raise LockHierarchyViolation(
+                    f"acquiring '{self._name}' (rank {self._rank}) while "
+                    f"holding '{held}' (rank {held_rank}) inverts the "
+                    f"declared hierarchy")
+        got = self._inner.acquire(blocking, timeout)
+        if got:
+            stack.append((self._name, self._rank))
+        return got
+
+    def release(self) -> None:
+        self._inner.release()
+        stack = _held_stack()
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i][0] == self._name:
+                del stack[i]
+                return
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def locked(self) -> bool:
+        return self._inner.locked()
+
+
+def make_lock(name: str):
+    """A ``threading.Lock`` (shadow-wrapped when the env gate is on)."""
+    if shadow_enabled():
+        return _ShadowLock(name)
+    return threading.Lock()
+
+
+def assert_no_locks_held(where: str) -> None:
+    """Hot-path guard: no shadow lock may be held across a device call.
+
+    No-op unless shadowing is on."""
+    if not shadow_enabled():
+        return
+    held = held_locks()
+    if held:
+        raise LockHierarchyViolation(
+            f"{where}: device work entered while holding {list(held)}; "
+            f"device latency under a lock convoys every other thread")

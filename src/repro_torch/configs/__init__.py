@@ -1,0 +1,5 @@
+"""Configurations the port runs (``dspc``: the paper's own workload)."""
+
+from repro_torch.configs.dspc import CONFIG, SMOKE, DSPCArchConfig
+
+__all__ = ["CONFIG", "SMOKE", "DSPCArchConfig"]

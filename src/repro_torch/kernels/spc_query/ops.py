@@ -1,0 +1,47 @@
+"""Query an SPCIndex through the spc_query kernel.
+
+``spc_query`` dispatches on where the rows lie: CUDA tensors launch the
+kernel (or raise), CPU tensors take the plain version.  There is no
+fallback from one to the other.
+
+The TPU wrapper partitions each batch by a per-row count bound because
+its fp32 kernel is exact only to 2^24.  This kernel counts in int64 and
+is exact for every row, so :func:`exact_query_batch` needs no
+partition: one gather, one kernel launch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.labels import SPCIndex
+from repro_torch.core.query import gather_rows
+from repro_torch.kernels.spc_query.kernel import spc_query_cuda
+from repro_torch.kernels.spc_query.ref import spc_query_ref
+
+
+def spc_query(hub_s, dist_s, cnt_s, hub_t, dist_t, cnt_t):
+    """(dist int32[B], count int64[B]) over gathered [B, L] rows: the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if hub_s.device.type == "cuda":
+        return spc_query_cuda(hub_s, dist_s, cnt_s, hub_t, dist_t, cnt_t)
+    if hub_s.device.type != "cpu":
+        raise ValueError(f"spc_query: unsupported device {hub_s.device}")
+    return spc_query_ref(hub_s, dist_s, cnt_s, hub_t, dist_t, cnt_t)
+
+
+def prep_rows(idx: SPCIndex, s, t):
+    """The six kernel operands for a pair batch: the s side keeps its pad
+    hub n, the t side is re-padded to n + 1 so pads never match."""
+    s = torch.as_tensor(s, device=idx.device).long().reshape(-1)
+    t = torch.as_tensor(t, device=idx.device).long().reshape(-1)
+    hub_s, dist_s, cnt_s = gather_rows(idx, s)
+    hub_t, dist_t, cnt_t = gather_rows(idx, t)
+    hub_t = torch.where(hub_t == idx.n, idx.n + 1, hub_t)
+    return hub_s, dist_s, cnt_s, hub_t, dist_t, cnt_t
+
+
+def exact_query_batch(idx: SPCIndex, s, t):
+    """(dist int32[B], count int64[B]) for B (s, t) pairs through the
+    kernel; exact for every row."""
+    return spc_query(*prep_rows(idx, s, t))
