@@ -7,7 +7,8 @@ factories hand out instrumented locks that enforce the hierarchy.
 
 from repro_torch.analysis.shadow import (LockHierarchyViolation,
                                          assert_no_locks_held, held_locks,
-                                         make_lock, shadow_enabled)
+                                         make_condition, make_lock,
+                                         shadow_enabled)
 
 __all__ = ["LockHierarchyViolation", "assert_no_locks_held", "held_locks",
-           "make_lock", "shadow_enabled"]
+           "make_condition", "make_lock", "shadow_enabled"]

@@ -2,10 +2,12 @@
 
 The port's own copy of the reference table: the names and their order
 are the reference's, so a lock created here ranks exactly where the
-reference's lock of the same name ranks.  Only the two leaf counter
-locks are created by the port so far (``update_stats.lock`` in
-``core.dynamic``, ``serve_stats.lock`` in ``serve.engine``); the rest
-of the table waits for the serving fleet.
+reference's lock of the same name ranks.  The port creates
+``analytics.lock`` (``analytics.betweenness``), ``store.lock``
+(``serve.publish``), ``transport.cond`` (``serve.transport``) and the
+two leaf counter locks (``update_stats.lock`` in ``core.dynamic``,
+``serve_stats.lock`` in ``serve.engine``); the rest of the table waits
+for the serving fleet.
 
 A nested acquisition must move strictly *down* this table; a lock name
 outside it is an error.

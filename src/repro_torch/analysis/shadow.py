@@ -1,13 +1,15 @@
 """Runtime shadow checker: instrumented locks enforcing the hierarchy.
 
-Locks are created through :func:`make_lock` with a canonical name from
+Locks are created through :func:`make_lock` (and conditions through
+:func:`make_condition`) with a canonical name from
 ``repro_torch.analysis.hierarchy``.  With ``REPRO_SHADOW_LOCKS`` unset
-the factory returns a plain ``threading.Lock``.  With
-``REPRO_SHADOW_LOCKS=1`` it returns a wrapper that keeps a per-thread
-stack of held locks and raises ``LockHierarchyViolation`` on an
+the factories return a plain ``threading.Lock`` / ``Condition``.  With
+``REPRO_SHADOW_LOCKS=1`` they return wrappers that keep a per-thread
+stack of held locks and raise ``LockHierarchyViolation`` on an
 acquisition that does not move strictly down the hierarchy, on
-re-entry of the (non-reentrant) lock, and in
-:func:`assert_no_locks_held` on a hot read path.
+re-entry of a non-reentrant lock, on wait / notify without the
+condition held, and in :func:`assert_no_locks_held` on a hot read
+path.
 
 The env var is read at each factory call, never at import, so tests can
 flip it without reimporting.
@@ -49,21 +51,33 @@ def held_locks() -> Tuple[str, ...]:
 
 
 class _ShadowLock:
-    """A ``threading.Lock`` that checks the hierarchy on acquisition."""
+    """A lock that checks the hierarchy on acquisition."""
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str, inner, reentrant: bool = False) -> None:
         if name not in hierarchy.RANKS:
             raise LockHierarchyViolation(
                 f"lock name '{name}' is not declared in "
                 f"repro_torch/analysis/hierarchy.py")
         self._name = name
         self._rank = hierarchy.RANKS[name]
-        self._inner = threading.Lock()
+        self._reentrant = reentrant
+        self._inner = inner
+
+    def _push(self) -> None:
+        _held_stack().append((self._name, self._rank))
+
+    def _pop(self) -> None:
+        stack = _held_stack()
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i][0] == self._name:
+                del stack[i]
+                return
 
     def acquire(self, blocking: bool = True, timeout: float = -1):
         stack = _held_stack()
         bounded = (not blocking) or timeout >= 0
-        if any(held == self._name for held, _ in stack) and not bounded:
+        if any(held == self._name for held, _ in stack) and \
+                not (bounded or self._reentrant):
             raise LockHierarchyViolation(
                 f"re-entry of non-reentrant lock '{self._name}' "
                 f"(held: {[n for n, _ in stack]}): self-deadlock")
@@ -75,16 +89,12 @@ class _ShadowLock:
                     f"declared hierarchy")
         got = self._inner.acquire(blocking, timeout)
         if got:
-            stack.append((self._name, self._rank))
+            self._push()
         return got
 
     def release(self) -> None:
         self._inner.release()
-        stack = _held_stack()
-        for i in range(len(stack) - 1, -1, -1):
-            if stack[i][0] == self._name:
-                del stack[i]
-                return
+        self._pop()
 
     def __enter__(self):
         self.acquire()
@@ -97,11 +107,46 @@ class _ShadowLock:
         return self._inner.locked()
 
 
+class _ShadowCondition(_ShadowLock):
+    """A ``threading.Condition`` whose wait / notify require it held;
+    a wait leaves the held stack while the condition is released."""
+
+    def _require_held(self, op: str) -> None:
+        if not any(n == self._name for n, _ in _held_stack()):
+            raise LockHierarchyViolation(
+                f"'{self._name}.{op}()' called without holding the "
+                f"condition")
+
+    def wait(self, timeout=None):
+        self._require_held("wait")
+        self._pop()
+        try:
+            return self._inner.wait(timeout)
+        finally:
+            self._push()
+
+    def notify(self, n: int = 1) -> None:
+        self._require_held("notify")
+        self._inner.notify(n)
+
+    def notify_all(self) -> None:
+        self._require_held("notify_all")
+        self._inner.notify_all()
+
+
 def make_lock(name: str):
     """A ``threading.Lock`` (shadow-wrapped when the env gate is on)."""
     if shadow_enabled():
-        return _ShadowLock(name)
+        return _ShadowLock(name, threading.Lock())
     return threading.Lock()
+
+
+def make_condition(name: str):
+    """A ``threading.Condition`` over an RLock, so re-entry is legal
+    (shadow-wrapped when the env gate is on)."""
+    if shadow_enabled():
+        return _ShadowCondition(name, threading.Condition(), reentrant=True)
+    return threading.Condition()
 
 
 def assert_no_locks_held(where: str) -> None:

@@ -1,4 +1,5 @@
-"""Configurations the port runs (``dspc``: the paper's own workload)."""
+"""Configurations the port runs: ``dspc`` (the paper's own workload) and
+``pna`` (the GNN of the recommendation re-rank)."""
 
 from repro_torch.configs.dspc import CONFIG, SMOKE, DSPCArchConfig
 

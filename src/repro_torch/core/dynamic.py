@@ -11,11 +11,14 @@ steps it owns:
 * chunked event replay through ``repro_torch.core.hybrid`` with
   host-side stream validation;
 * state dicts with the reference's keys, dtypes and bytes, in both
-  directions, plus a monotone update version.
+  directions, plus a monotone update version;
+* snapshot publishing: ``attach_store()`` wires a
+  ``repro_torch.serve.SnapshotStore`` that receives every committed
+  index at its version.
 
 Every entry point runs on ``device`` (default ``"cuda"``); the CPU is
-used only when asked for.  The reference's ``mesh=``, ``attach_store``
-and ``from_checkpoint`` belong to later slices of the port.
+used only when asked for.  The reference's ``mesh=`` and
+``from_checkpoint`` belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -106,6 +109,7 @@ class DynamicSPC:
         self.device = resolve_device(device)
         self.stats = UpdateStats()
         self._engine = None
+        self._store = None
         self.version = 0  # bumped per committed update
         self._construct_batch = construct_batch
         self.order = vertex_ordering(n, edges, vertex_order)
@@ -131,7 +135,7 @@ class DynamicSPC:
     def rebuild(self) -> None:
         """Reconstruction baseline (what the paper's HP-SPC rerun does)."""
         self.index = self._build(self.index.l_cap)
-        self.version += 1
+        self._commit()
 
     @property
     def n(self) -> int:
@@ -145,6 +149,34 @@ class DynamicSPC:
             from repro_torch.serve.engine import QueryEngine
             self._engine = QueryEngine()
         return self._engine
+
+    # -- snapshot publishing -------------------------------------------------
+    def attach_store(self, store=None):
+        """Attach (or create) a ``repro_torch.serve.SnapshotStore``:
+        every committed update from here on publishes the new index at
+        its bumped version.  Only committed states publish -- a chunk
+        that overflows and replays never exposes its intermediate index.
+        A store ahead of this index's version raises ``ValueError``."""
+        if store is None:
+            from repro_torch.serve.publish import SnapshotStore
+            store = SnapshotStore(self.index, version=self.version)
+        elif store.version is not None and store.version > self.version:
+            raise ValueError(
+                f"store is at version {store.version}, ahead of this "
+                f"service (version {self.version}); restore a newer "
+                f"state or attach a fresh store")
+        elif store.version is None or store.version < self.version:
+            store.publish(self.index, version=self.version)
+        self._store = store
+        return store
+
+    def _commit(self) -> None:
+        """Bump the version and publish the committed snapshot (if a
+        store is attached).  Called exactly once per successful public
+        mutation / event chunk, after overflow retry has settled."""
+        self.version += 1
+        if self._store is not None:
+            self._store.publish(self.index, version=self.version)
 
     def query(self, s: int, t: int) -> Tuple[int, int]:
         return self.engine.query_pair(
@@ -186,7 +218,7 @@ class DynamicSPC:
         self.graph = G.ensure_capacity(self.graph, 2)
         self._retry(lambda g, idx: inc_spc(g, idx, a, b))
         self.stats.bump(inserts=1)
-        self.version += 1
+        self._commit()
 
     def delete_edge(self, a: int, b: int) -> None:
         self._check_edge_ids(a, b)
@@ -203,7 +235,7 @@ class DynamicSPC:
         else:
             self._retry(lambda g, idx: dec_spc(g, idx, a, b))
         self.stats.bump(deletions=1)
-        self.version += 1
+        self._commit()
 
     def insert_edges(self, edges) -> None:
         """Batched insertion: one engine call for the whole batch."""
@@ -217,14 +249,14 @@ class DynamicSPC:
         self.graph = G.ensure_capacity(self.graph, 2 * len(edges))
         self._retry(lambda g, idx: inc_spc_batch(g, idx, edges))
         self.stats.bump(inserts=len(edges))
-        self.version += 1
+        self._commit()
 
     def insert_vertex(self) -> int:
         """Append an isolated vertex (lowest rank)."""
         self.graph = G.add_vertices(self.graph, 1)
         self.index = L.add_vertices(self.index, 1)
         self.order = self.order.grow(1)  # fresh id maps to itself
-        self.version += 1
+        self._commit()
         return self.n - 1
 
     def delete_vertex(self, v: int,
@@ -338,7 +370,7 @@ class DynamicSPC:
                 self.stats.bump(label_regrows=1)
             self.stats.bump(batches=1, batched_events=len(chunk),
                             inserts=n_ins, deletions=len(chunk) - n_ins)
-            self.version += 1
+            self._commit()
 
     # -- introspection -------------------------------------------------------
     def index_entries(self) -> int:
@@ -432,6 +464,7 @@ class DynamicSPC:
         obj.device = resolve_device(device)
         obj.stats = UpdateStats()
         obj._engine = None
+        obj._store = None
         obj.version = int(host.get("version", 0))
         obj._construct_batch = construct_batch
         obj.order = (ordering_from_state(host["order.vertex_of"])

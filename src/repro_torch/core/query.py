@@ -180,6 +180,43 @@ def one_to_all(idx: SPCIndex, h: int, limit=None):
     return _finish(d, c)
 
 
+def one_to_all_cols(idx: SPCIndex, roots: torch.Tensor, cols: torch.Tensor):
+    """:func:`one_to_all` rows of ``roots`` [R] at the columns ``cols``
+    [C] only: (dist int32 [R, C], cnt int64 [R, C]).
+
+    Column v of root h reads only the label rows of h and v, so a row
+    whose other columns are known is patched here at O(R * C * L)
+    instead of O(R * n * L).  Roots are processed in chunks so that the
+    [chunk, C, L] candidate table (int32, with an int64 count table
+    beside it) stays under a quarter of ``_ONE_TO_ALL_ELEMS``.
+    """
+    roots, cols = roots.long(), cols.long()
+    hub = idx.hub[cols].long()                              # [C, L]
+    keep = hub < idx.n
+    flat = hub.reshape(-1)
+    chunk = max(1, (_ONE_TO_ALL_ELEMS >> 2) // max(hub.numel(), 1))
+    ds, cs = [], []
+    for lo in range(0, roots.shape[0], chunk):
+        h = roots[lo:lo + chunk]
+        row_hub = _source_hubs(idx, h, None)
+        dense_d = _dense(idx, row_hub, idx.dist[h], INF)
+        dense_c = _dense(idx, row_hub, idx.cnt[h], 0)
+        r = h.shape[0]
+        cand = torch.where(
+            keep[None],
+            torch.index_select(dense_d, 1, flat).view(r, *hub.shape)
+            + idx.dist[cols][None], _BIG)
+        d = cand.amin(dim=2)
+        prod = idx.cnt[cols][None] * torch.index_select(
+            dense_c, 1, flat).view(r, *hub.shape)
+        c = torch.where(cand == d[..., None], prod, 0).sum(
+            dim=2, dtype=torch.int64)
+        d, c = _finish(d, c)
+        ds.append(d)
+        cs.append(c)
+    return torch.cat(ds), torch.cat(cs)
+
+
 def one_to_all_dist_batch(idx: SPCIndex, roots: torch.Tensor, limit):
     """The distance half of :func:`one_to_all` for many roots at once:
     int32 [R, n+1], row r = PreQuery(roots[r], .) under ``limit``.

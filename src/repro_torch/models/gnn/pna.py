@@ -1,0 +1,139 @@
+"""PNA: Principal Neighbourhood Aggregation [Corso et al., arXiv:2004.05718].
+
+Port of ``repro.models.gnn.pna``.  Messages are reduced with
+{mean, max, min, std} and each aggregate is rescaled by the degree
+scalers {identity, amplification, attenuation}:
+
+    s_amp(d) = log(d + 1) / delta,   s_att(d) = delta / log(d + 1)
+
+The 4 x 3 concatenation plus the node's own state is mixed by a linear
+layer (the "towers = 1" variant), with a residual SiLU update.
+
+The reference keeps each linear layer as ``{"w": [d_in, d_out], "b"}``
+and computes ``x @ w + b``; ``nn.Linear`` stores ``[d_out, d_in]``, so
+:meth:`PNA.load_reference_params` transposes ``w`` on the way in.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.graph import resolve_device
+from repro_torch.models.common import dense_init
+from repro_torch.models.gnn.graph import (GraphBatch, agg_max, agg_min,
+                                          agg_std, graph_readout)
+
+
+@dataclasses.dataclass(frozen=True)
+class PNAConfig:
+    name: str = "pna"
+    n_layers: int = 4
+    d_hidden: int = 75
+    d_in: int = 16
+    n_out: int = 1
+    delta: float = 2.5               # avg log-degree (dataset statistic)
+    node_level: bool = True          # node classification vs graph readout
+    dtype: Any = torch.float32
+
+
+def _linear(d_in: int, d_out: int, cfg: PNAConfig, generator, device):
+    lin = nn.Linear(d_in, d_out, device=device, dtype=cfg.dtype)
+    with torch.no_grad():
+        lin.weight.copy_(dense_init(d_in, d_out, generator=generator,
+                                    dtype=cfg.dtype, device=device).t())
+        lin.bias.zero_()
+    return lin
+
+
+class PNALayer(nn.Module):
+    def __init__(self, cfg: PNAConfig, generator, device) -> None:
+        super().__init__()
+        h = cfg.d_hidden
+        self.delta = cfg.delta
+        # message MLP on (h_i, h_j)
+        self.msg = _linear(2 * h, h, cfg, generator, device)
+        # post-aggregation mix: 12 aggregates + self -> h
+        self.upd = _linear(13 * h, h, cfg, generator, device)
+
+    def forward(self, h: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+        s, r = batch.senders, batch.receivers
+        n1 = batch.n_node + 1
+        edge_mask = batch.edge_mask[:, None]
+        m = F.silu(self.msg(torch.cat([h[r], h[s]], dim=-1)))
+        m = m * edge_mask.to(m.dtype)
+        # aggregators ------------------------------------------------------
+        std, mean, deg = agg_std(m, r, n1)
+        # max/min must ignore pads: pads contribute -inf/+inf start values
+        neg = torch.where(edge_mask, m, -torch.inf)
+        pos = torch.where(edge_mask, m, torch.inf)
+        mx = torch.nan_to_num(agg_max(neg, r, n1), neginf=0.0, posinf=0.0)
+        mn = torch.nan_to_num(agg_min(pos, r, n1), neginf=0.0, posinf=0.0)
+        aggs = torch.cat([mean, mx, mn, std], dim=-1)          # [N+1, 4h]
+        # scalers ----------------------------------------------------------
+        logd = torch.log1p(deg)[:, None]
+        amp = logd / self.delta
+        att = self.delta / torch.clamp(logd, min=1e-6)
+        att = torch.where(deg[:, None] > 0, att, 0.0)
+        scaled = torch.cat([aggs, aggs * amp, aggs * att], dim=-1)
+        out = self.upd(torch.cat([h, scaled], dim=-1))
+        return h + F.silu(out)
+
+
+class PNA(nn.Module):
+    """The PNA network: embed -> ``n_layers`` PNA layers -> head.
+
+    Weights are drawn from ``generator`` (default: a CPU generator
+    seeded 0) unless carried across with :meth:`load_reference_params`.
+    """
+
+    def __init__(self, cfg: PNAConfig, *, generator=None,
+                 device="cuda") -> None:
+        super().__init__()
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        self.embed = _linear(cfg.d_in, cfg.d_hidden, cfg, generator, dev)
+        self.layers = nn.ModuleList(
+            PNALayer(cfg, generator, dev) for _ in range(cfg.n_layers))
+        self.head = _linear(cfg.d_hidden, cfg.n_out, cfg, generator, dev)
+
+    def forward(self, batch: GraphBatch) -> torch.Tensor:
+        h = F.silu(self.embed(batch.nodes.to(self.cfg.dtype)))
+        for layer in self.layers:
+            h = layer(h, batch)
+        out = self.head(h)
+        if self.cfg.node_level:
+            return out[:batch.n_node]
+        out = out * batch.node_mask[:, None].to(out.dtype)
+        return graph_readout(out, batch.graph_id, batch.n_graph, "mean")
+
+    @torch.no_grad()
+    def load_reference_params(self, tree) -> "PNA":
+        """Copy the reference's parameter tree (``pna.init_params``,
+        leaves converted to numpy) into this module."""
+        def put(lin: nn.Linear, p) -> None:
+            w = torch.tensor(np.asarray(p["w"]))
+            b = torch.tensor(np.asarray(p["b"]))
+            if tuple(w.shape) != (lin.in_features, lin.out_features):
+                raise ValueError(
+                    f"reference weight {tuple(w.shape)} does not fit "
+                    f"[{lin.in_features}, {lin.out_features}]")
+            lin.weight.copy_(w.t())
+            lin.bias.copy_(b)
+
+        if len(tree["layers"]) != len(self.layers):
+            raise ValueError(f"reference has {len(tree['layers'])} layers, "
+                             f"this PNA {len(self.layers)}")
+        put(self.embed, tree["embed"])
+        for layer, p in zip(self.layers, tree["layers"]):
+            put(layer.msg, p["msg"])
+            put(layer.upd, p["upd"])
+        put(self.head, tree["head"])
+        return self

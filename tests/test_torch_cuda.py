@@ -2,22 +2,34 @@
 
 They import no JAX, so they run on a machine with the card and PyTorch
 alone: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
-Elsewhere each one skips with its reason.  The CUDA kernel must equal
-its plain PyTorch version exactly (integer outputs), count its
-launches, and carry the main path: a small build -> events -> serve on
-the card answers as the counting BFS does, through the kernel route.
+Elsewhere each one skips with its reason.  The spc_query kernel must
+equal its plain PyTorch version exactly (integer outputs), the
+embedding_bag kernel within rtol = atol = 1e-6 in float32 (1e-2 in
+bfloat16); each counts its launches and rejects what it does not take,
+and a kernel that cannot be loaded raises instead of answering with the
+plain version.  The main paths run on the card: a small build -> events
+-> serve answers as the counting BFS does through the kernel route, and
+the analytics path (store, betweenness, cycles, recommendation -> PNA
+re-rank) gives the CPU's answers.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from repro_torch.analytics import AnalyticsEngine
+from repro_torch.configs.pna import CONFIG as PNA_CONFIG
 from repro_torch.core.bfs import plain_spc_bfs
 from repro_torch.core.dynamic import DynamicSPC
 from repro_torch.data import graph_stream, random_graph_edges
+from repro_torch.kernels import common
+from repro_torch.kernels import embedding_bag as EB
 from repro_torch.kernels.spc_query import launches, spc_query_cuda
 from repro_torch.kernels.spc_query.ref import spc_query_ref
+from repro_torch.models.gnn.pna import PNA
 from repro_torch.serve import QueryEngine
 
 pytestmark = pytest.mark.cuda
@@ -75,3 +87,101 @@ def test_main_path_on_the_card(card):
         assert torch.equal(d, res.dist[:n]) and torch.equal(c, res.cnt[:n])
     assert dict(eng.stats.routes) == {"kernel": len(range(0, n, 7))}
     assert launches.count > before
+
+
+@pytest.mark.parametrize("b,s,v,d", list(chip_smoke.BAG_SWEEP)
+                         + [(300, 8, 100_000, 18), (33, 40, 500, 8),
+                            (5, 0, 10, 8), (64, 3, 50, 70)])
+def test_embedding_bag_kernel_equals_plain_version(card, b, s, v, d):
+    ids, table = chip_smoke.bag_inputs(b, s, v, d,
+                                       np.random.default_rng(b + d), card)
+    ids[0, :min(s, 2)] = v + 3                     # past the table: zero row
+    if s > 2:
+        ids[-1, 2] = -5
+    before = EB.launches.count
+    got = EB.embedding_bag_cuda(ids, table)
+    torch.cuda.synchronize()
+    assert EB.launches.count == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, d)
+    torch.testing.assert_close(got, EB.embedding_bag_ref(ids, table),
+                               rtol=1e-6, atol=1e-6)
+    table16 = table.to(torch.bfloat16)
+    got16 = EB.embedding_bag_cuda(ids, table16)
+    torch.cuda.synchronize()
+    assert got16.dtype == torch.bfloat16
+    torch.testing.assert_close(got16.float(),
+                               EB.embedding_bag_ref(ids, table16.float()),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_embedding_bag_kernel_rejects_what_it_does_not_take(card):
+    ids, table = chip_smoke.bag_inputs(8, 4, 30, 16,
+                                       np.random.default_rng(0), card)
+    with pytest.raises(ValueError, match="dtype"):
+        EB.embedding_bag_cuda(ids.long(), table)
+    with pytest.raises(ValueError, match="dtype"):
+        EB.embedding_bag_cuda(ids, table.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        EB.embedding_bag_cuda(ids.t().contiguous().t(), table)
+    with pytest.raises(ValueError, match="shape"):
+        EB.embedding_bag_cuda(ids[0], table)
+    with pytest.raises(ValueError, match="on cpu"):
+        EB.embedding_bag_cuda(ids, table.cpu())
+
+
+def test_embedding_bag_ops_launch_on_the_card(card):
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.standard_normal((40, 8)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 41, (16, 5)))   # int64, 40 = pad
+    before = EB.launches.count
+    for mode in ("sum", "mean"):
+        got = EB.embedding_bag(ids.to(card), table.to(card), mode=mode,
+                               pad_id=40)
+        torch.testing.assert_close(
+            got.cpu(), EB.embedding_bag(ids, table, mode=mode, pad_id=40),
+            rtol=1e-6, atol=1e-6)
+    assert EB.launches.count == before + 2
+
+
+def test_embedding_bag_raises_when_the_kernel_cannot_load(card, monkeypatch):
+    def broken(name):
+        raise RuntimeError(f"cannot load {name}")
+
+    monkeypatch.setattr(common, "load", broken)
+    ids, table = chip_smoke.bag_inputs(4, 3, 16, 8,
+                                       np.random.default_rng(1), card)
+    before = EB.launches.count
+    with pytest.raises(RuntimeError, match="cannot load embedding_bag"):
+        EB.embedding_bag(ids, table[:16])
+    assert EB.launches.count == before
+
+
+def test_analytics_path_on_the_card(card):
+    n = 150
+    edges = chip_smoke.power_law_edges(n, 500, 1)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        svc = DynamicSPC(n, edges, device=dev, construct_batch=8)
+        eng = AnalyticsEngine(svc.attach_store(), pair_sample=60, top_k=6)
+        pairs = eng.sample_pairs()
+        maint = eng.betweenness_maintainer(pairs)
+        svc.apply_events(graph_stream(edges, n, 4, 4, seed=2), batch_size=8)
+        maint.refresh()
+        view = eng.pin()
+        hot = maint.top(1)[0][0]
+        u = int(view.index.size[:n].argmax())
+        recs = view.recommend(u)
+        pna = PNA(dataclasses.replace(PNA_CONFIG, d_in=4),
+                  generator=torch.Generator().manual_seed(0), device=dev)
+        table = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            (n, 8)).astype(np.float32)).to(dev)
+        before = EB.launches.count
+        _, model, _ = chip_smoke.rerank(view, u, recs, pna, table)
+        results[dev] = (maint.scores(), maint.last_changed,
+                        view.cycles_through_vertex(hot), recs, model,
+                        EB.launches.count - before)
+    got, want = results["cuda"], results["cpu"]
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-12, atol=0)
+    assert got[1:4] == want[1:4]
+    np.testing.assert_allclose(got[4], want[4], rtol=1e-4, atol=1e-5)
+    assert got[5] == 1 and want[5] == 0

@@ -187,6 +187,22 @@ def test_query_cores_match_reference(real_index):
         np.testing.assert_array_equal(host(got), want)
 
 
+def test_one_to_all_cols_equals_reference_rows(real_index, monkeypatch):
+    """The column-restricted one-to-all rows equal the reference's full
+    rows at those columns, in one chunk of roots and in several."""
+    tidx, jidx, _, _ = real_index
+    n = tidx.n
+    roots = [0, 3, 17, n - 1, n]
+    cols = [n - 1, 2, 0, 17, 9, 2]
+    want = [np.stack([host(JQ.one_to_all(jidx, h)[k])[cols] for h in roots])
+            for k in (0, 1)]
+    for elems in (TQ._ONE_TO_ALL_ELEMS, 4 * len(cols) * tidx.l_cap):
+        monkeypatch.setattr(TQ, "_ONE_TO_ALL_ELEMS", elems)
+        for got, w in zip(TQ.one_to_all_cols(tidx, torch.tensor(roots),
+                                             torch.tensor(cols)), want):
+            eq(got, w)
+
+
 def _two_hop_index(counts):
     """Vertex 0 reaches vertex 1 through hub 0 with the given count."""
     n, l_cap = 3, 4

@@ -1,8 +1,14 @@
-"""The port's first slice end to end, and its boundaries.
+"""The port's slices end to end, and their boundaries.
 
 * build -> maintain -> serve at the ``dspc`` SMOKE configuration in both
   packages: identical state after the build and after every event chunk,
   identical answers on every route;
+* section 3 of ``examples/analytics_spc.py`` (recommendation -> PNA
+  re-rank with ``embedding_bag`` pooling) in both packages on the same
+  snapshot, weights and table: the same candidates, the same order, and
+  scores within the PNA tolerance (rtol 1e-4, atol 1e-5);
+* the oracles ``chip_smoke.py`` checks the analytics path with agree
+  with the port's analytics;
 * the port (and ``chip_smoke.py``) imports neither JAX nor ``repro``;
 * ``chip_smoke.py`` refuses to run without a card, or without the
   repository beside it, and prints no result then;
@@ -11,6 +17,7 @@
 
 import ast
 import dataclasses
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -21,16 +28,29 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
+import chip_smoke
+from repro.analytics import AnalyticsEngine as JaxAnalytics
 from repro.configs.dspc import CONFIG as JAX_CONFIG
 from repro.configs.dspc import SMOKE as JAX_SMOKE
 from repro.core.dynamic import DynamicSPC as JaxDSPC
 from repro.data import graph_stream as jax_graph_stream
 from repro.data import random_graph_edges as jax_random_graph_edges
+from repro.kernels.embedding_bag.ops import embedding_bag as jax_bag
+from repro.models.gnn.pna import PNAConfig as JaxPNAConfig
+from repro.models.gnn.pna import forward as jax_pna_forward
+from repro.models.gnn.pna import init_params as jax_pna_init
 from repro.serve import QueryEngine as JaxEngine
+from repro.serve.publish import SnapshotStore as JaxStore
+from repro_torch.analytics import AnalyticsEngine
 from repro_torch.configs.dspc import CONFIG, SMOKE
+from repro_torch.configs.pna import CONFIG as PNA_CONFIG
 from repro_torch.core.dynamic import DynamicSPC
 from repro_torch.data import graph_stream, random_graph_edges
 from repro_torch.kernels import common
+from repro_torch.models.gnn.pna import PNA
 from repro_torch.serve import QueryEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -166,3 +186,118 @@ def test_kernel_build_is_lazy_and_keyed_by_source(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(REPO))  # no bin/nvcc there
     with pytest.raises(RuntimeError, match="nvcc not found"):
         common._nvcc()
+
+
+def test_example_rerank_in_both_packages():
+    """Section 3 of examples/analytics_spc.py at the full PNA width
+    (configs/pna.py CONFIG, d_in = 4) in both packages on the same
+    snapshot, weights and embedding table."""
+    path = os.path.join(REPO, "examples", "analytics_spc.py")
+    spec = importlib.util.spec_from_file_location("analytics_example", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    n = 80
+    edges = random_graph_edges(n, 240, seed=0)
+    j = JaxDSPC(n, edges, l_cap=32)
+    t = DynamicSPC.from_state_dict(
+        n, {k: np.asarray(v) for k, v in j.state_dict().items()},
+        device="cpu")
+    jview = JaxAnalytics(JaxStore(j.index)).pin()
+    tview = AnalyticsEngine(t.attach_store()).pin()
+    u = int(np.argmax(np.asarray(jview.index.size)[:n]))
+    recs = tview.recommend(u)
+    assert [dataclasses.astuple(r) for r in recs] == \
+        [dataclasses.astuple(r) for r in jview.recommend(u)]
+    cand = np.asarray([r.vertex for r in recs])
+    assert len(cand) > 3
+
+    cfg = JaxPNAConfig(n_layers=PNA_CONFIG.n_layers,
+                       d_hidden=PNA_CONFIG.d_hidden, d_in=4)
+    params = jax_pna_init(cfg, jax.random.PRNGKey(0))
+    table = np.random.default_rng(1).standard_normal((n, 8)).astype(
+        np.float32)
+    batch, sub, local = example.ego_batch(jview, u, cand, cfg.d_in)
+    node_scores = np.asarray(jax_pna_forward(params, batch, cfg))[:, 0]
+    ids = [jview.common_neighbor_ids(u, int(x)) for x in cand]
+    padded = np.full((len(cand), max(max(len(i) for i in ids), 1)), n,
+                     dtype=np.int32)
+    for row, i in zip(padded, ids):
+        row[:len(i)] = i
+    np.testing.assert_array_equal(
+        chip_smoke.common_friend_bags(tview, u, cand), padded)
+    pooled = np.asarray(jax_bag(jnp.asarray(padded), jnp.asarray(table),
+                                mode="mean", pad_id=n))
+    want = node_scores[[local[int(x)] for x in cand]] + pooled.mean(axis=1)
+
+    pna = PNA(dataclasses.replace(PNA_CONFIG, d_in=4), device="cpu")
+    pna.load_reference_params(jax.tree.map(np.asarray, params))
+    got_cand, got, sub_n = chip_smoke.rerank(tview, u, recs, pna,
+                                             torch.from_numpy(table))
+    np.testing.assert_array_equal(got_cand, cand)
+    assert sub_n == len(sub)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(np.argsort(-got, kind="stable"),
+                                  np.argsort(-want, kind="stable"))
+
+
+def test_chip_smoke_analytics_oracles_agree_with_the_port():
+    """The edge-list and BFS oracles chip_smoke.py holds the analytics
+    path against, run on the CPU beside the port's answers."""
+    n = 120
+    edges = chip_smoke.power_law_edges(n, 400, 0)
+    svc = DynamicSPC(n, edges, device="cpu", construct_batch=8)
+    eng = AnalyticsEngine(svc.attach_store(), pair_sample=40, top_k=6)
+    pairs = eng.sample_pairs()
+    maint = eng.betweenness_maintainer(pairs)
+    svc.apply_events(graph_stream(edges, n, 4, 4, seed=0), batch_size=8)
+    maint.refresh()
+    want = chip_smoke.bfs_betweenness(svc.graph, *pairs)
+    chip_smoke.check_close("bc", torch.from_numpy(maint.scores()), want,
+                           1e-9, 1e-9)
+    view = eng.pin()
+    for v in range(0, n, 9):
+        cyc = view.cycles_through_vertex(v)
+        assert (cyc.odd_count, cyc.even_count) == \
+            chip_smoke.edge_list_cycles(svc.graph, v), v
+        assert [(r.vertex, r.score) for r in view.recommend(v)] == \
+            chip_smoke.edge_list_recommend(svc.graph, v, 6), v
+    with pytest.raises(AssertionError, match="beyond"):
+        chip_smoke.check_close("x", want + 1.0, want, 1e-9, 1e-9)
+
+
+def test_chip_smoke_bag_bound_counts_distinct_rows():
+    ids = torch.tensor([[0, 3, 3, 9], [12, -1, 3, 1]], dtype=torch.int32)
+    table = torch.zeros(10, 18)                    # V = 9: row 9 is zero
+    nbytes, ops, distinct = chip_smoke.embedding_bag_work(ids, table)
+    assert distinct == 4                           # rows 0, 1, 3 and 9
+    assert nbytes == 8 * 4 + (4 + 2) * 18 * 4
+    assert ops == 2 * 4 * 18
+    bound, by = chip_smoke.bound_ms(nbytes, ops)
+    assert by == "bytes" and bound == 1e3 * nbytes / chip_smoke.HBM_BYTES_PER_S
+
+
+def test_chip_smoke_counts_launches_by_path():
+    """Each main path counts only the launches made inside its own
+    phases; launches between them (oracles, kernel checks) count
+    nowhere, and a path that never launched its kernel fails."""
+    sq, eb = common.LaunchCounter("spc_query"), common.LaunchCounter("eb")
+    counts = chip_smoke.PathLaunches({"spc_query": sq, "embedding_bag": eb})
+    with counts.path("dspc"):
+        sq.count += 3
+    sq.count += 5                                  # an oracle's launches
+    with counts.path("analytics"):
+        eb.count += 1
+    with counts.path("dspc"):
+        sq.count += 2
+    eb.count += 7                                  # a kernel check
+    assert counts.by_path == {"dspc": {"spc_query": 5, "embedding_bag": 0},
+                              "analytics": {"spc_query": 0,
+                                            "embedding_bag": 1}}
+    assert counts.of("spc_query") == (5, {"dspc": 5, "analytics": 0})
+    counts.check()
+    bare = chip_smoke.PathLaunches({"spc_query": sq, "embedding_bag": eb})
+    with bare.path("dspc"):
+        sq.count += 1
+    with pytest.raises(AssertionError, match="embedding_bag never launched "
+                                             "on the analytics path"):
+        bare.check()
