@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke-run the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--halvings K] [--seed S]
+    python3 chip_smoke.py [--halvings K] [--seed S] [--lm-seeds S1,S2,...]
 
 Phases, each reported on its own line(s):
 
@@ -51,11 +51,50 @@ A2. analytics after the chunk -- refreshes the maintainer (and times a
                 recommendation counts equal those taken from the edge
                 list; the card's re-rank equals the same forward on the
                 CPU (rtol 1e-4, atol 1e-5).
+L1. LM params -- ``init_params`` of qwen2-1.5b (``configs/qwen2_1_5b.py``
+                CONFIG with ``tp = 1``: the published 12 query heads, no
+                mesh padding) in bfloat16, drawn from a CUDA generator
+                seeded with ``--seed``.
+L2. prefill  -- 16 prompts of 32768 random token ids (the
+                ``decode_32k`` context; its global batch 128 cut to 16
+                to fit one card), ``s_max = 32768 + 64``, prefilled 4 at
+                a time (blockwise attention), each group's cache copied
+                into the batch cache.
+L3. decode   -- 64 greedy ``decode_step``s; every layer's decode
+                attention runs on the flash_decode kernel.  Step latency
+                from CUDA events, tokens/s from the host clock.  The
+                last 4 steps are then replayed under ``torch.profiler``:
+                the card's busy time per step and its idle share of the
+                step p50.
+L4. consistency -- as ``examples/serve_lm.py`` checks it: the first 2
+                requests prefilled again with the 64 tokens fed to the
+                decode steps (t = 32832, ragged against the 1024-key
+                blocks); its last logits within a relative L2 error of
+                1.87e-2 of the last decode step's (fp32), argmax agreement
+                printed.  Controls: the fed tokens replayed from these
+                requests' prompt cache on the port's route must pass the
+                same limit, and two planted faults in place of decode
+                attention must fail it: the reference's arithmetic
+                (scores and probabilities rounded to bf16) and one
+                1024-position span left out.
+flash_decode is held against its plain version (the KV heads expanded,
+fp32 softmax) at the TPU sweep shapes and GQA groups in float32 (rtol =
+atol = 2e-5, the TPU test's) and bfloat16 (1e-2 against the plain
+version on the fp32 copies of the same bf16 inputs) in phase 3.  At the
+main path's shape (layer 0's cache after L3, after L4) it is held in
+bfloat16 within atol 1e-3 + rtol 1e-2 (the output's RMS is about 0.009
+there; the same check must fail the plain version with its last 1024
+positions left out) and in float32 on the same cache within 2e-5.
+
+``--lm-seeds 0,1,...`` builds the kernels and then only reads L4 and its
+controls for the first 2 requests of each seed (prefilled and decoded
+as 2 requests), prints them and exits.
 
 Launches are counted for each main path on its own: the DSPC path
-(phases 4, 5, 6) and the analytics path (the timed steps of A1 and A2).
-The launch counters are set to 0 just before each of these phases and
-read just after it; the oracles and the kernel checks run outside them
+(phases 4, 5, 6), the analytics path (the timed steps of A1 and A2) and
+the LM path (L2 and L3; flash_decode exactly 28 x 64 times).  The
+launch counters are set to 0 just before each of these phases and read
+just after it; the oracles, L4 and the kernel checks run outside them
 and count nowhere.  Each path must have launched each of its kernels
 (``PATH_KERNELS``).  The line before the last is a JSON object with one
 entry per kernel (its time on the card, its plain version's time, its
@@ -64,6 +103,9 @@ main paths, also by path); the last line is ``{"ok": true, "device":
 {...}}``.  Any failure raises and exits non-zero.  Without a CUDA
 device, or without the repository's sources beside it, the script exits
 1 and prints no result.
+
+Plain products run in full float32 where they are float32
+(``allow_tf32`` off for matmuls and cuDNN), as XLA's on the reference.
 """
 
 from __future__ import annotations
@@ -92,10 +134,13 @@ KERNEL_SOURCES = {
                   "src/repro/kernels/spc_query/kernel.py:38"),
     "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag/kernel.py:29"),
+    "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode/kernel.py:32"),
 }
 
 #: The kernels each main path must launch.
-PATH_KERNELS = {"dspc": ("spc_query",), "analytics": ("embedding_bag",)}
+PATH_KERNELS = {"dspc": ("spc_query",), "analytics": ("embedding_bag",),
+                "lm": ("flash_decode",)}
 
 #: The TPU sweep of tests/kernels/test_kernels.py (b, s, v, d), and the
 #: recsys shapes of configs/dien.py: vocab 100000, D = 18, 8 ids per
@@ -103,6 +148,29 @@ PATH_KERNELS = {"dspc": ("spc_query",), "analytics": ("embedding_bag",)}
 BAG_SWEEP = ((4, 3, 16, 128), (32, 20, 1000, 16), (7, 1, 64, 32))
 BAG_RECSYS = (("serve_p99", 512 * 4), ("serve_bulk", 262144 * 4))
 RECSYS_VOCAB, RECSYS_DIM, RECSYS_BAG = 100_000, 18, 8
+
+#: flash_decode checks (b, h, kvh, s, d): the TPU sweep of
+#: tests/kernels/test_kernels.py as b = BH rows of one head each, then
+#: GQA groups of 4, 6 (qwen2-1.5b at tp = 1) and 12 (two head chunks).
+DECODE_SWEEP = ((4, 1, 1, 64, 32), (8, 1, 1, 1024, 128), (3, 1, 1, 100, 64),
+                (16, 1, 1, 333, 16), (2, 8, 2, 64, 32),
+                (3, 12, 2, 2000, 128), (2, 12, 1, 700, 64))
+#: The LM path: decode_32k's context, the requests decoded together
+#: (its global batch of 128 cut to fit one card) and prefilled together,
+#: decode steps, the requests L4 prefills again, and its limit on the
+#: relative L2 logit error: midway between the port's largest reading
+#: (0.01744) and the bf16-score fault's smallest (0.02003) on an H100
+#: over seeds 0-3 (``--lm-seeds``) and the main run.
+LM_PROMPT, LM_BATCH, LM_GROUP, LM_STEPS = 32768, 16, 4, 64
+LM_CHECK, LM_REL_TOL = 2, 1.87e-2
+#: The span of S that one flash_decode CTA covers at the main path's
+#: shape (33 spans of 1024 positions): the planted faults leave out one.
+LM_FAULT_SPAN = 1024
+#: Decode steps replayed under the profiler for the device-busy time.
+LM_TRACE_STEPS = 4
+#: flash_decode at the main path's shape in bfloat16: |got - want| <=
+#: MAIN_ATOL + MAIN_RTOL |want| (the output's RMS is about 0.009 there).
+MAIN_RTOL, MAIN_ATOL = 1e-2, 1e-3
 
 
 def log(msg: str) -> None:
@@ -302,6 +370,242 @@ def embedding_bag_work(ids, table):
     return nbytes, b * s * d, distinct
 
 
+def decode_inputs(b, h, kvh, s, d, rng, device):
+    """float32 q [b, h, d], k and v [b, s, kvh, d] N(0, 1) and int32
+    lengths uniform over [1, s], with the last row's length 0 when
+    b > 2 (it must give zeros)."""
+    import torch
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((b, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+    lengths = rng.integers(1, s + 1, b).astype(np.int32)
+    if b > 2:
+        lengths[-1] = 0
+    return tuple(x.to(device) for x in (q, k, v, torch.from_numpy(lengths)))
+
+
+def flash_decode_work(q, k, lengths):
+    """(bytes, operations) that the flash_decode function needs on these
+    inputs.  Bytes: the K and V rows of each KV head within its row's
+    length, each read once however many query heads share it, plus q,
+    the output and the lengths.  Operations: 4 D per query head and
+    valid position (a multiply and an add for q . k and for p . v)."""
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    valid = int(lengths.clamp(0, s).sum())
+    nbytes = (2 * valid * kvh * d * k.element_size()
+              + 2 * q.numel() * q.element_size()
+              + lengths.numel() * lengths.element_size())
+    return nbytes, 4 * valid * h * d
+
+
+def prefill_in_groups(params, cfg, prompts, s_max: int, group: int):
+    """``prefill`` the requests ``group`` at a time and copy each group's
+    cache into one batch cache.  Returns (logits [B, Vpad], cache)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    b = prompts.shape[0]
+    cache = tf.init_cache(cfg, b, s_max, device=prompts.device)
+    logits = []
+    for lo in range(0, b, group):
+        lg, part = tf.prefill(params, prompts[lo:lo + group], cfg, s_max)
+        cache["k"][:, lo:lo + group] = part["k"]
+        cache["v"][:, lo:lo + group] = part["v"]
+        cache["lengths"][lo:lo + group] = part["lengths"]
+        logits.append(lg)
+        del part
+    return torch.cat(logits), cache
+
+
+def greedy_decode(params, cfg, cache, token, steps: int):
+    """``steps`` greedy ``decode_step``s, feeding ``token`` int32 [B]
+    first.  Returns (the fed tokens [B, steps], the last step's logits,
+    the cache, each step's device ms from CUDA events -- empty off the
+    card)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    events = ([torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+              if token.is_cuda else [])
+    fed = []
+    if events:
+        events[0].record()
+    for i in range(steps):
+        fed.append(token)
+        logits, cache = tf.decode_step(params, cache, token, cfg)
+        token = logits.argmax(dim=-1).to(torch.int32)
+        if events:
+            events[i + 1].record()
+    if events:
+        torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return torch.stack(fed, dim=1), logits, cache, ms
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def decode_consistency(params, cfg, prompts, fed, last_logits, s_max: int):
+    """Prefill the prompts followed by the fed tokens and compare its
+    last logits with the last decode step's: (relative L2 error in
+    float32, rows whose argmax agrees, the prefill's logits)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    full = torch.cat([prompts, fed.to(prompts.dtype)], dim=1)
+    want, _ = tf.prefill(params, full, cfg, s_max)
+    agree = int((last_logits.argmax(-1) == want.argmax(-1)).sum())
+    return rel_l2(last_logits, want), agree, want
+
+
+def bf16_score_attention(q, k, v, lengths):
+    """A planted fault for L4: decode attention as the reference's
+    ``gqa_decode`` computes it, with the scores and the probabilities
+    rounded to the cache's dtype around a float32 softmax."""
+    import torch
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    qg = q.to(k.dtype).reshape(b, kvh, h // kvh, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k) / float(np.sqrt(d))
+    valid = torch.arange(s, device=k.device) < lengths[:, None]
+    scores = scores.float().masked_fill(~valid[:, None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(k.dtype)
+    ctx = torch.einsum("bkgs,bskd->bkgd", probs, v)
+    return ctx.reshape(b, h, d).to(q.dtype)
+
+
+def drop_span_attention(span: int):
+    """A planted fault for L4: decode attention that leaves out the
+    cache's first ``span`` positions, as a kernel that lost one span."""
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+
+    def attend(q, k, v, lengths):
+        return decode_attention_ref(q, k[:, span:], v[:, span:],
+                                    (lengths - span).clamp(min=0))
+    return attend
+
+
+def replay_decode(params, cfg, cache, fed, start: int, attention=None):
+    """Feed ``fed`` [B, steps] through ``decode_step`` from ``cache``
+    taken back to length ``start`` (its later positions are written
+    again), with ``attention`` in place of ``decode_attention`` if
+    given.  Returns the last step's logits."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as tf
+    cache = dict(cache, lengths=torch.full_like(cache["lengths"], start))
+    saved = A.decode_attention
+    A.decode_attention = attention or saved
+    try:
+        for i in range(fed.shape[1]):
+            logits, cache = tf.decode_step(params, cache, fed[:, i], cfg)
+    finally:
+        A.decode_attention = saved
+    return logits
+
+
+def lm_consistency(params, cfg, prompts, fed, last_logits, cache,
+                   s_max: int, span: int = LM_FAULT_SPAN) -> dict:
+    """L4 and its controls for the requests of ``prompts``: the decode's
+    last logits against a prefill of prompt + fed tokens (``decode``,
+    ``argmax``), then the fed tokens again from these requests' ``cache``
+    on the port's route (``replay``) and with two planted faults in
+    place of decode attention (``bf16_scores``, ``drop_span``), each as
+    a relative L2 error against the same prefill."""
+    rel, agree, want = decode_consistency(params, cfg, prompts, fed,
+                                          last_logits, s_max)
+    t = prompts.shape[1]
+    out = {"decode": rel, "argmax": agree,
+           "replay": rel_l2(replay_decode(params, cfg, cache, fed, t), want)}
+    for name, attend in (("bf16_scores", bf16_score_attention),
+                         ("drop_span", drop_span_attention(span))):
+        out[name] = rel_l2(replay_decode(params, cfg, cache, fed, t, attend),
+                           want)
+    return out
+
+
+def check_l4(l4: dict) -> None:
+    """L4's limit must pass the port's decode, and its replay from the
+    prompts' cache, and fail both planted faults."""
+    for key in ("decode", "replay"):
+        if not l4[key] <= LM_REL_TOL:
+            raise AssertionError(f"L4: {key} logits differ from a prefill "
+                                 f"of the same tokens by {l4[key]:.4g} "
+                                 f"(relative L2), beyond {LM_REL_TOL}")
+    for key in ("bf16_scores", "drop_span"):
+        if not l4[key] > LM_REL_TOL:
+            raise AssertionError(f"L4: the limit {LM_REL_TOL} passes the "
+                                 f"planted fault {key} ({l4[key]:.4g})")
+
+
+def lm_prompts(cfg, seed: int, device):
+    """The LM path's LM_BATCH prompts of LM_PROMPT token ids from
+    ``seed``."""
+    import torch
+    ids = np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    return torch.from_numpy(ids).to(device)
+
+
+def lm_seed_readings(seeds, card: str) -> int:
+    """``--lm-seeds``: L4 and its controls for the first LM_CHECK
+    requests of each seed, with the parameters and prompts the main run
+    draws from that seed (prefilled and decoded as LM_CHECK requests).
+    Prints one line per seed and a JSON object of all; checks nothing."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs.qwen2_1_5b import CONFIG as QWEN_CONFIG
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(QWEN_CONFIG, tp=1)
+    s_max = LM_PROMPT + LM_STEPS
+    readings = {}
+    for seed in seeds:
+        t0 = time.monotonic()
+        params = tf.init_params(
+            cfg, generator=torch.Generator("cuda").manual_seed(seed))
+        prompts = lm_prompts(cfg, seed, "cuda")[:LM_CHECK]
+        logits, cache = tf.prefill(params, prompts, cfg, s_max)
+        fed, last, cache, _ = greedy_decode(
+            params, cfg, cache, logits.argmax(dim=-1).to(torch.int32),
+            LM_STEPS)
+        readings[seed] = lm_consistency(params, cfg, prompts, fed, last,
+                                        cache, s_max)
+        log(f"L4 seed {seed}: {json.dumps(readings[seed])} "
+            f"({time.monotonic() - t0:.3f} s on {card})")
+        del params, logits, cache, fed, last
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"l4_seeds": readings, "limit": LM_REL_TOL,
+                      "card": card}), flush=True)
+    return 0
+
+
+def device_busy_ms(fn):
+    """(ms the card was busy, ms from its first device event's start to
+    its last's end) while ``fn()`` ran: the union of the device events'
+    intervals in a ``torch.profiler`` trace.  (None, None) when the trace
+    holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, None
+    busy, (lo, hi) = 0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    return busy / 1e3, (max(b for _, b in spans) - spans[0][0]) / 1e3
+
+
 def check_close(tag, got, want, rtol, atol):
     """allclose in float64 on the card; returns max |got - want|."""
     import torch
@@ -441,7 +745,12 @@ def main(argv=None) -> int:
     ap.add_argument("--halvings", type=int, default=0,
                     help="halve the dspc CONFIG's n and m this many times")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lm-seeds", default="",
+                    help="comma-separated seeds: build the kernels, then "
+                         "only read L4 and its controls for the first "
+                         f"{LM_CHECK} requests of each seed and exit")
     args = ap.parse_args(argv)
+    start = time.monotonic()
 
     import torch
     if not torch.cuda.is_available():
@@ -454,10 +763,13 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, SRC)
     import dataclasses
+    import gc
     import torch.nn.functional as F
     from repro_torch.analytics import AnalyticsEngine, CycleCount
+    from repro_torch.configs.common import LM_SHAPES
     from repro_torch.configs.dspc import CONFIG
     from repro_torch.configs.pna import CONFIG as PNA_CONFIG
+    from repro_torch.configs.qwen2_1_5b import CONFIG as QWEN_CONFIG
     from repro_torch.core import bfs as B
     from repro_torch.core.dynamic import DynamicSPC
     from repro_torch.core.graph import INF
@@ -466,12 +778,18 @@ def main(argv=None) -> int:
     from repro_torch.kernels import common
     from repro_torch.kernels.embedding_bag import kernel as EB
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.flash_decode import kernel as FD
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
     from repro_torch.kernels.spc_query import kernel as K
     from repro_torch.kernels.spc_query.ops import prep_rows
     from repro_torch.kernels.spc_query.ref import spc_query_ref
+    from repro_torch.models import transformer as tf
     from repro_torch.models.gnn.pna import PNA
     from repro_torch.serve.engine import QueryEngine
 
+    # plain float32 products in full float32, as XLA's on the reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
 
@@ -495,6 +813,9 @@ def main(argv=None) -> int:
     for name, text in common.build_logs.items():
         for line in text.strip().splitlines():
             log(f"  nvcc[{name}]: {line.strip()}")
+    if args.lm_seeds:
+        return lm_seed_readings([int(x) for x in args.lm_seeds.split(",")],
+                                card)
 
     # -- 3a. kernels vs plain on synthetic inputs -------------------------
     max_err = 0
@@ -551,6 +872,28 @@ def main(argv=None) -> int:
     log(f"kernels: embedding_bag == plain on the sweep and the recsys "
         f"shapes (f32 max |diff| {bag_err:.3g}; bf16 within 1e-2)")
 
+    dec_rng = np.random.default_rng(args.seed + 3)
+    dec_err = dec_err16 = 0.0
+    for b, h, kvh, s_len, d in DECODE_SWEEP:
+        tag = f"flash_decode {(b, h, kvh, s_len, d)}"
+        q, k, v, lengths = decode_inputs(b, h, kvh, s_len, d, dec_rng, dev)
+        got = FD.flash_decode_cuda(q, k, v, lengths)
+        torch.cuda.synchronize()
+        dec_err = max(dec_err, check_close(
+            f"{tag} f32", got, decode_attention_ref(q, k, v, lengths), 2e-5,
+            2e-5))
+        if b > 2 and got[-1].any():
+            raise AssertionError(f"{tag}: the row of length 0 is not zero")
+        q16, k16, v16 = (x.to(torch.bfloat16) for x in (q, k, v))
+        got16 = FD.flash_decode_cuda(q16, k16, v16, lengths)
+        torch.cuda.synchronize()
+        dec_err16 = max(dec_err16, check_close(
+            f"{tag} bf16", got16, decode_attention_ref(
+                q16.float(), k16.float(), v16.float(), lengths), 1e-2, 1e-2))
+    log(f"kernels: flash_decode == plain on the TPU sweep and GQA groups "
+        f"(f32 max |diff| {dec_err:.3g}, bf16 {dec_err16:.3g}; rows of "
+        f"length 0 give zeros) on {card}")
+
     # -- 4. main paths: build --------------------------------------------------
     n, m = CONFIG.n >> args.halvings, CONFIG.m >> args.halvings
     reduced = [f"n {CONFIG.n}->{n}", f"m {CONFIG.m}->{m}"] \
@@ -561,7 +904,8 @@ def main(argv=None) -> int:
         f"({time.monotonic() - t0:.2f} s on the host)")
     log(f"reduced: {json.dumps(reduced)}")
     counts = PathLaunches({"spc_query": K.launches,
-                           "embedding_bag": EB.launches})
+                           "embedding_bag": EB.launches,
+                           "flash_decode": FD.launches})
     B.frontier_syncs.count = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -743,9 +1087,6 @@ def main(argv=None) -> int:
         f"{[(int(cand[i]), round(float(model[i]), 4)) for i in order]}; "
         f"equal to the CPU forward (max |diff| {rerank_err:.3g})")
 
-    log(f"launches on the main paths: {json.dumps(counts.by_path)}")
-    counts.check()
-
     # -- 3b. kernels vs plain at the main paths' shapes, and their times -----
     s, t = batches[0]
     rows = prep_rows(svc.index, torch.from_numpy(s).to(dev),
@@ -789,6 +1130,179 @@ def main(argv=None) -> int:
         f"F.embedding_bag {bag_lib_ms:.5f} ms, bound {bag_bound:.7f} ms "
         f"({bag_bytes} B) on {card}")
 
+    # -- L. the LM serving path (examples/serve_lm.py at qwen2-1.5b) --------
+    del svc, store, ana, maint, pinned, view, frozen, served, outs, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one card, no mesh: tp = 1 keeps the published 12 query heads (the
+    # reference's CONFIG pads them to 16 for a 16-way model axis)
+    lm_cfg = dataclasses.replace(QWEN_CONFIG, tp=1)
+    decode_32k = LM_SHAPES["decode_32k"].dims
+    lm_reduced = [f"global_batch {decode_32k['global_batch']}->{LM_BATCH}"]
+    log(f"lm reduced: {json.dumps(lm_reduced)} (context "
+        f"{decode_32k['seq_len']} kept)")
+    t0 = time.monotonic()
+    params = tf.init_params(
+        lm_cfg, generator=torch.Generator("cuda").manual_seed(args.seed),
+        device=dev)
+    torch.cuda.synchronize()
+    log(f"L1: {lm_cfg.name} at tp 1: {lm_cfg.n_layers} layers, d_model "
+        f"{lm_cfg.d_model}, {lm_cfg.padded_heads} query / "
+        f"{lm_cfg.n_kv_heads} KV heads of {lm_cfg.d_head}, d_ff "
+        f"{lm_cfg.d_ff}, vocab {lm_cfg.padded_vocab}; "
+        f"{tf.param_bytes(params)} parameter bytes in {lm_cfg.param_dtype} "
+        f"({time.monotonic() - t0:.2f} s on {card})")
+    s_max = LM_PROMPT + LM_STEPS
+    prompts = lm_prompts(lm_cfg, args.seed, dev)
+    torch.cuda.reset_peak_memory_stats()
+    with counts.path("lm"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, cache = prefill_in_groups(params, lm_cfg, prompts, s_max,
+                                          LM_GROUP)
+        torch.cuda.synchronize()
+        prefill_s = time.monotonic() - t0
+        prefill_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        fed, last, cache, step_ms = greedy_decode(
+            params, lm_cfg, cache, logits.argmax(dim=-1).to(torch.int32),
+            LM_STEPS)
+        torch.cuda.synchronize()
+        decode_s = time.monotonic() - t0
+        decode_peak = torch.cuda.max_memory_allocated()
+    # the last steps again under the profiler: the card's busy time per
+    # step (outside the lm path: the replay counts nowhere)
+    busy_ms, span_ms = device_busy_ms(lambda: replay_decode(
+        params, lm_cfg, cache, fed[:, -LM_TRACE_STEPS:],
+        s_max - LM_TRACE_STEPS))
+    want_launches = lm_cfg.n_layers * LM_STEPS
+    if counts.by_path["lm"]["flash_decode"] != want_launches:
+        raise AssertionError(f"flash_decode launched "
+                             f"{counts.by_path['lm']['flash_decode']} times "
+                             f"on the lm path, want {want_launches}")
+    if not (torch.isfinite(logits).all() and torch.isfinite(last).all()):
+        raise AssertionError("lm: non-finite logits")
+    if tuple(last.shape) != (LM_BATCH, lm_cfg.padded_vocab) or \
+            cache["lengths"].tolist() != [s_max] * LM_BATCH:
+        raise AssertionError(f"lm: logits {tuple(last.shape)}, lengths "
+                             f"{cache['lengths'].tolist()}")
+    lm_numbers = {
+        "requests": LM_BATCH, "prompt": LM_PROMPT, "steps": LM_STEPS,
+        "prefill_group": LM_GROUP, "prefill_s": prefill_s,
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+        "prefill_peak_bytes": prefill_peak,
+        "decode_s": decode_s,
+        "decode_step_ms_p50": float(np.percentile(step_ms, 50)),
+        "decode_step_ms_p90": float(np.percentile(step_ms, 90)),
+        "decode_tokens_per_s": LM_BATCH * LM_STEPS / decode_s,
+        "decode_peak_bytes": decode_peak,
+        "kv_cache_bytes": 2 * cache["k"].numel() * cache["k"].element_size(),
+        "param_bytes": tf.param_bytes(params), "reduced": lm_reduced,
+        "decode_busy_ms_per_step": busy_ms and busy_ms / LM_TRACE_STEPS,
+        "decode_idle_share": busy_ms and 1 - busy_ms / LM_TRACE_STEPS / (
+            float(np.percentile(step_ms, 50)))}
+    log(f"L2: prefill {LM_BATCH} x {LM_PROMPT} tokens in groups of "
+        f"{LM_GROUP}: {prefill_s:.3f} s, peak {prefill_peak} B on "
+        f"{card}")
+    log(f"L3: {LM_STEPS} decode steps x {LM_BATCH} requests: "
+        f"{decode_s:.3f} s, step p50 {lm_numbers['decode_step_ms_p50']:.3f} "
+        f"ms p90 {lm_numbers['decode_step_ms_p90']:.3f} ms, "
+        f"{lm_numbers['decode_tokens_per_s']:.1f} tokens/s, peak "
+        f"{decode_peak} B; flash_decode launched {want_launches} times on "
+        f"{card}")
+    log("L3 trace: " + (
+        f"{LM_TRACE_STEPS} steps replayed under torch.profiler, the card "
+        f"busy {busy_ms:.3f} ms of {span_ms:.3f} ms from its first to its "
+        f"last device event; busy {busy_ms / LM_TRACE_STEPS:.3f} ms per "
+        f"step, idle share {lm_numbers['decode_idle_share']:.4f} of the "
+        f"step p50" if busy_ms else "the profiler saw no device event; "
+        "busy time not measured") + f" on {card}")
+
+    t0 = time.monotonic()
+    check_cache = {"k": cache["k"][:, :LM_CHECK].clone(),
+                   "v": cache["v"][:, :LM_CHECK].clone(),
+                   "lengths": cache["lengths"][:LM_CHECK].clone()}
+    l4 = lm_consistency(params, lm_cfg, prompts[:LM_CHECK], fed[:LM_CHECK],
+                        last[:LM_CHECK], check_cache, s_max)
+    del check_cache
+    lm_numbers.update(consistency=l4)
+    log(f"L4: prefill of {LM_CHECK} x {LM_PROMPT + LM_STEPS} tokens vs the "
+        f"last decode step: relative L2 {l4['decode']:.4g} (limit "
+        f"{LM_REL_TOL}), argmax agrees on {l4['argmax']}/{LM_CHECK}; the "
+        f"fed tokens again from the prompts' cache: {l4['replay']:.4g} on "
+        f"the port's route, planted faults {l4['bf16_scores']:.4g} (scores "
+        f"and probabilities in bf16) and {l4['drop_span']:.4g} (first "
+        f"{LM_FAULT_SPAN} positions left out) ({time.monotonic() - t0:.3f} "
+        f"s on {card})")
+    check_l4(l4)
+    del params, logits, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"launches on the main paths: {json.dumps(counts.by_path)}")
+    counts.check()
+
+    # -- flash_decode at the main path's shape, and its times -----------------
+    k0, v0, lens = cache["k"][0], cache["v"][0], cache["lengths"].clone()
+    qm = torch.randn((LM_BATCH, lm_cfg.padded_heads, lm_cfg.d_head),
+                     generator=torch.Generator("cuda").manual_seed(args.seed),
+                     device=dev).to(torch.bfloat16)
+    got = FD.flash_decode_cuda(qm, k0, v0, lens)
+    torch.cuda.synchronize()
+    q32, k32, v32 = qm.float(), k0.float(), v0.float()
+    want = decode_attention_ref(q32, k32, v32, lens)
+    main_err = check_close("flash_decode at the main path's shape (bf16)",
+                           got, want, MAIN_RTOL, MAIN_ATOL)
+    main_rel = rel_l2(got, want)
+    got32 = FD.flash_decode_cuda(q32, k32, v32, lens)
+    torch.cuda.synchronize()
+    main_err32 = check_close("flash_decode at the main path's shape (f32)",
+                             got32, want, 2e-5, 2e-5)
+    # the bf16 check must fail a kernel that left out its last span
+    lost = decode_attention_ref(q32, k32, v32, lens - LM_FAULT_SPAN).to(
+        torch.bfloat16).double()
+    lost_err = float((lost - want.double()).abs().max())
+    if torch.allclose(lost, want.double(), rtol=MAIN_RTOL, atol=MAIN_ATOL):
+        raise AssertionError(f"the main-shape check passes a kernel that "
+                             f"leaves out a span (max |diff| {lost_err})")
+    del q32, k32, v32, got32, lost
+    log(f"flash_decode at the main path's shape == plain: bf16 max |diff| "
+        f"{main_err:.3g} (rtol {MAIN_RTOL}, atol {MAIN_ATOL}), relative L2 "
+        f"{main_rel:.3g}, output RMS "
+        f"{float(want.norm()) / want.numel() ** 0.5:.3g}; "
+        f"f32 max |diff| {main_err32:.3g} (2e-5); one span of "
+        f"{LM_FAULT_SPAN} left out differs by {lost_err:.3g} and fails on "
+        f"{card}")
+    length = int(lens[0])
+    if lens.tolist() != [length] * LM_BATCH:
+        raise AssertionError(f"unequal lengths {lens.tolist()}")
+    ks = k0[:, :length].transpose(1, 2).contiguous()    # [B, KVH, L, D]
+    vs = v0[:, :length].transpose(1, 2).contiguous()
+    lib = F.scaled_dot_product_attention(qm[:, :, None], ks, vs,
+                                         enable_gqa=True)[:, :, 0]
+    check_close("F.scaled_dot_product_attention", lib, want, MAIN_RTOL,
+                MAIN_ATOL)
+    del want
+    fd_ms = cuda_ms(lambda: FD.flash_decode_cuda(qm, k0, v0, lens), 100)
+    fd_plain_ms = cuda_ms(lambda: decode_attention_ref(qm, k0, v0, lens), 5,
+                          warmup=1)
+    fd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qm[:, :, None], ks, vs, enable_gqa=True), 100)
+    fd_bytes, fd_ops = flash_decode_work(qm, k0, lens)
+    fd_bound, fd_by = bound_ms(fd_bytes, fd_ops)
+    fd_shape = {"B": LM_BATCH, "H": lm_cfg.padded_heads,
+                "KVH": lm_cfg.n_kv_heads, "S": int(k0.shape[1]),
+                "D": lm_cfg.d_head, "lengths": length, "dtype": "bfloat16"}
+    log(f"flash_decode at {json.dumps(fd_shape)}: {fd_ms:.5f} ms "
+        f"({fd_bytes / fd_ms / 1e6:.1f} GB/s), plain {fd_plain_ms:.4f} ms, "
+        f"SDPA {fd_lib_ms:.5f} ms, bound {fd_bound:.5f} ms ({fd_bytes} B, "
+        f"{fd_by}); {lm_cfg.n_layers} launches take "
+        f"{lm_cfg.n_layers * fd_ms:.3f} ms of a "
+        f"{lm_numbers['decode_step_ms_p50']:.3f} ms step on {card}")
+    log(f"lm: {json.dumps(lm_numbers)} on {card}")
+    del cache, k0, v0, ks, vs
+
     kernels = [{
         "name": "spc_query", "route": "cuda",
         "source": KERNEL_SOURCES["spc_query"][0],
@@ -807,7 +1321,22 @@ def main(argv=None) -> int:
         "ms": bag_ms, "plain_ms": bag_plain_ms, "bound_ms": bag_bound,
         "bound_by": bag_by, "library_ms": bag_lib_ms,
         "shape": list(bags.shape), "shapes": bag_shapes,
+    }, {
+        "name": "flash_decode", "route": "cuda",
+        "source": KERNEL_SOURCES["flash_decode"][0],
+        "replaces": KERNEL_SOURCES["flash_decode"][1],
+        "launches": counts.of("flash_decode")[0],
+        "launches_by_path": counts.of("flash_decode")[1],
+        "max_abs_err": max(dec_err, dec_err16, main_err, main_err32),
+        "f32_max_abs_err": dec_err,
+        "main_max_abs_err": main_err, "main_rel_l2": main_rel,
+        "main_f32_max_abs_err": main_err32, "main_tol": [MAIN_RTOL, MAIN_ATOL],
+        "main_lost_span_max_abs_err": lost_err,
+        "ms": fd_ms, "plain_ms": fd_plain_ms, "bound_ms": fd_bound,
+        "bound_by": fd_by, "bytes": fd_bytes, "library_ms": fd_lib_ms,
+        "shape": fd_shape,
     }]
+    log(f"chip_smoke: {time.monotonic() - start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

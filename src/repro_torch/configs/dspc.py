@@ -10,6 +10,8 @@ reference does.  ``SMOKE`` is the CPU test size, ``CONFIG`` the size
 
 import dataclasses
 
+from repro_torch.configs.common import DSPC_SHAPES, ArchSpec
+
 
 @dataclasses.dataclass(frozen=True)
 class DSPCArchConfig:
@@ -51,3 +53,7 @@ SMOKE = DSPCArchConfig(name="dspc-smoke", n=64, m=160, l_cap=16,
                        deadline_s=10.0, frontdoor_batch=64,
                        analytics_pair_sample=64, analytics_top_k=8,
                        analytics_v_block=64)
+
+SPEC = ArchSpec(arch_id="dspc", family="dspc", config=CONFIG, smoke=SMOKE,
+                shapes=DSPC_SHAPES,
+                source="this paper (Feng et al., 2023)")

@@ -1,0 +1,36 @@
+"""GQA decode-attention entry point (port of
+``repro.kernels.flash_decode.ops``).
+
+The device decides the route: CUDA tensors launch the kernel (or
+raise), CPU tensors take the plain version.  There is no fallback from
+one to the other, and the reference's ``use_kernel`` and ``block_*``
+flags have no counterpart.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_decode.kernel import flash_decode_cuda
+from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """q [B, H, D]; k, v [B, S, KVH, D]; lengths int [B] -> [B, H, D].
+
+    Query head h attends over KV head h // (H / KVH), masked to
+    positions ``< lengths[b]``.  On the card the kernel reads the cache
+    in this layout; the plain CPU route expands the KV heads as the
+    reference does."""
+    h, kvh = q.shape[1], k.shape[2]
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"{h} query heads do not divide into {kvh} KV "
+                         f"heads")
+    if q.device.type == "cuda":
+        return flash_decode_cuda(q.contiguous(), k.contiguous(),
+                                 v.contiguous(),
+                                 lengths.to(torch.int32).contiguous())
+    if q.device.type != "cpu":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    return decode_attention_ref(q, k, v, lengths)

@@ -1,0 +1,216 @@
+"""GQA attention for the LM (port of the GQA half of
+``repro.models.attention``): RoPE, the projections, the plain causal
+path, one-token decode against the KV cache, and blockwise prefill.
+
+On one card there is no mesh: the reference's ``shard_act`` constraints
+have no counterpart, and query heads are padded to a multiple of
+``cfg.tp`` only as the configuration says (``tp = 1`` keeps the
+published count).  The MLA functions wait for the MLA slice.
+
+Two places differ from the reference on purpose, and say so below:
+decode writes the new K and V rows into the cache in place, and the
+blockwise prefill slices the true tail block (the reference clamps the
+last block's start and masks it by the unclamped positions, which is
+wrong when t is not a multiple of ``block_k``).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import resolve_device
+from repro_torch.kernels.flash_decode.ops import decode_attention
+from repro_torch.models.common import dense_init
+
+
+# -------------------------------------------------------------------------
+# RoPE
+# -------------------------------------------------------------------------
+def rope_tables(positions: torch.Tensor, dim: int, theta: float = 10000.0):
+    """positions int [...] -> (cos, sin) float64 [..., dim/2].
+
+    Float64 as in the reference, where x64 is on and the inverse
+    frequencies are a float64 numpy array."""
+    ang = positions.to(torch.float32).to(torch.float64)[..., None] * \
+        _inv_freq(dim, theta, positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freq(dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The reference's float64 inverse frequencies, copied to ``device``
+    once (a copy from host memory per decode step would wait for the
+    card)."""
+    inv = 1.0 / (theta ** (np.arange(0, dim, 2) / dim))
+    return torch.from_numpy(inv).to(device)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x [..., dim]; rotate-half convention; cos/sin broadcast
+    [..., dim/2].  Computed in the tables' float64, cast back."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def pad_heads(n_heads: int, multiple: int) -> int:
+    return int(-(-n_heads // multiple) * multiple)
+
+
+# -------------------------------------------------------------------------
+# GQA
+# -------------------------------------------------------------------------
+def init_gqa(cfg, *, generator: torch.Generator, device="cuda",
+             lead: tuple = ()) -> dict:
+    """wq [d, hq * dh], wk, wv [d, kv * dh], wo [hq * dh, d] (and zero
+    biases with ``cfg.qkv_bias``), each with ``lead`` leading axes."""
+    device = resolve_device(device)
+    d, hq = cfg.d_model, cfg.padded_heads
+    kv, dh = cfg.n_kv_heads, cfg.d_head
+    kw = dict(generator=generator, dtype=cfg.param_dtype, device=device,
+              lead=lead)
+    p = {"wq": dense_init(d, hq * dh, **kw),
+         "wk": dense_init(d, kv * dh, **kw),
+         "wv": dense_init(d, kv * dh, **kw),
+         "wo": dense_init(hq * dh, d, **kw)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", hq * dh), ("bk", kv * dh), ("bv", kv * dh)):
+            p[name] = torch.zeros((*lead, width), dtype=cfg.param_dtype,
+                                  device=device)
+    return p
+
+
+def _proj_qkv_gqa(p, x, cfg, positions):
+    b, t, _ = x.shape
+    hq, kv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, t, hq, dh)
+    k = k.reshape(b, t, kv, dh)
+    v = v.reshape(b, t, kv, dh)
+    cos, sin = rope_tables(positions, dh, cfg.rope_theta)  # [b, t, dh/2]
+    q = apply_rope(q, cos[:, :, None, :], sin[:, :, None, :])
+    k = apply_rope(k, cos[:, :, None, :], sin[:, :, None, :])
+    return q, k, v
+
+
+def _expand_kv(x: torch.Tensor, hq: int, kv: int) -> torch.Tensor:
+    """[b, t, kv, dh] -> [b, t, hq, dh]: query head h reads KV head
+    h // ceil(hq / kv) (``jnp.repeat`` over the head axis)."""
+    return x.repeat_interleave(-(-hq // kv), dim=2)[:, :, :hq]
+
+
+def gqa_train(p, x, cfg, positions):
+    """Causal self-attention over the full sequence (the plain prefill
+    core): ``[b, h, t, t]`` scores, fp32 softmax.  Returns
+    (out [b, t, d], (k, v) [b, t, kv, dh])."""
+    b, t, _ = x.shape
+    hq, kv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
+    q, k, v = _proj_qkv_gqa(p, x, cfg, positions)
+    k_full, v_full = _expand_kv(k, hq, kv), _expand_kv(v, hq, kv)
+    scores = torch.einsum("bthd,bshd->bhts", q, k_full) / float(np.sqrt(dh))
+    mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+    scores = torch.where(mask, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhts,bshd->bthd", probs, v_full).reshape(b, t, hq * dh)
+    return ctx @ p["wo"], (k, v)
+
+
+def gqa_decode(p, x, cache_k, cache_v, lengths, cfg):
+    """One-token decode against the cache.
+
+    x [b, 1, d]; cache_k, cache_v [b, S, kv, dh]; lengths int32 [b], the
+    valid length before this token.  The new K and V rows are written
+    **in place** into ``cache_k`` and ``cache_v`` at ``lengths`` (the
+    reference returns updated copies; at serving size a copy per step is
+    out of the question), clamped to S - 1 as the reference's
+    ``dynamic_update_slice`` clamps.  Attention runs through
+    :func:`decode_attention` (the flash_decode kernel on the card) over
+    positions ``<= lengths``, the new token included.  Returns
+    (out [b, 1, d], cache_k, cache_v)."""
+    b = x.shape[0]
+    hq, kv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
+    positions = lengths[:, None]
+    q, k_new, v_new = _proj_qkv_gqa(p, x, cfg, positions)
+    rows = torch.arange(b, device=x.device)
+    at = lengths.long().clamp(0, cache_k.shape[1] - 1)
+    cache_k[rows, at] = k_new[:, 0]
+    cache_v[rows, at] = v_new[:, 0]
+    # pad q up to kv * ceil(hq / kv) heads so that head counts that do
+    # not divide (phi3: 48 padded q heads, 10 kv) work
+    group = -(-hq // kv)
+    hq_pad = kv * group
+    q = q.reshape(b, hq, dh)
+    if hq_pad != hq:
+        q = torch.cat([q, q.new_zeros((b, hq_pad - hq, dh))], dim=1)
+    ctx = decode_attention(q, cache_k, cache_v, lengths + 1)
+    ctx = ctx.reshape(b, 1, hq_pad * dh)[..., :hq * dh]
+    return ctx @ p["wo"], cache_k, cache_v
+
+
+# -------------------------------------------------------------------------
+# Blockwise (flash-style) attention for long prefill.
+# -------------------------------------------------------------------------
+def blockwise_attention(q, make_kv_block, t_kv: int, block_k: int,
+                        scale: float, q_positions):
+    """q [b, h, t, dh]; ``make_kv_block(start)`` -> (k, v [b, n, h, dh])
+    for the true block ``[start, min(start + block_k,
+    t_kv))``; causal mask by absolute positions (key ``start + j`` is
+    seen by queries with ``q_positions >= start + j``).  ``q_positions``
+    must not decrease along t, as prefill's do.
+
+    Keys and values stream through in blocks with the online-softmax
+    recurrence, in float32.  The rows whose queries all precede a block
+    are left out of it: the reference's arithmetic adds exactly 0 to
+    them and rescales them by exactly 1, so no number changes, and a
+    causal prefill does about half the reference's work.
+    Returns [b, h, t, dh] float32."""
+    b, h, t, dh = q.shape
+    q32 = q.float()
+    m = torch.full((b, h, t), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, t), device=q.device)
+    acc = torch.zeros((b, h, t, dh), device=q.device)
+    last = q_positions.amax(dim=0).contiguous()       # [t], sorted
+    for start in range(0, t_kv, block_k):
+        lo = int(torch.searchsorted(last, start))
+        if lo == t:
+            continue
+        k_blk, v_blk = make_kv_block(start)
+        n = k_blk.shape[1]
+        kt = k_blk.float().transpose(1, 2)                  # [b, h, n, dh]
+        s = torch.einsum("bhtd,bhsd->bhts", q32[:, :, lo:], kt) * scale
+        kpos = start + torch.arange(n, device=q.device)
+        s.masked_fill_(q_positions[:, None, lo:, None] < kpos, -1e30)
+        m_old = m[:, :, lo:]
+        m_new = torch.maximum(m_old, s.amax(dim=-1))
+        p = s.sub_(m_new[..., None]).exp_()
+        corr = torch.exp(m_old - m_new)
+        l[:, :, lo:] = l[:, :, lo:] * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhts,bshd->bhtd", p, v_blk.float())
+        acc[:, :, lo:] = acc[:, :, lo:] * corr[..., None] + pv
+        m[:, :, lo:] = m_new
+    return acc / l.clamp(min=1e-30)[..., None]
+
+
+def gqa_prefill_blockwise(p, x, cfg, positions, block_k: int = 1024):
+    """GQA prefill with blockwise attention; returns (out, (k, v))."""
+    b, t, _ = x.shape
+    hq, kv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
+    q, k, v = _proj_qkv_gqa(p, x, cfg, positions)
+
+    def kv_block(start):
+        return (_expand_kv(k[:, start:start + block_k], hq, kv),
+                _expand_kv(v[:, start:start + block_k], hq, kv))
+
+    ctx = blockwise_attention(q.transpose(1, 2), kv_block, t, block_k,
+                              1.0 / math.sqrt(dh), positions)
+    ctx = ctx.transpose(1, 2).to(x.dtype).reshape(b, t, hq * dh)
+    return ctx @ p["wo"], (k, v)

@@ -1,0 +1,256 @@
+"""Decoder-only LM serving (port of the dense-GQA part of
+``repro.models.transformer``): parameters, the KV cache, ``prefill``
+and ``decode_step``.
+
+Parameters are a nested dict of tensors in the reference's layout --
+[in, out] weights, the layers stacked on a leading [L] axis -- so
+:func:`load_reference_params` is a plain copy of the reference's tree.
+The layer loop is a Python loop over views of that stack.
+
+Configurations with ``attn="mla"`` or experts raise
+``NotImplementedError``: MLA and MoE wait for their slices, and
+``forward_train`` / ``make_train_loss`` for the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import moe as M
+from repro_torch.models.common import dense_init, init_rms, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Every field of the reference's config, so config files read the
+    same; ``param_dtype`` and ``act_dtype`` are torch dtypes.  On one
+    card the mesh-only fields -- ``sharded_decode``, ``seq_parallel``,
+    ``remat``, ``unroll_scans`` and ``moe_groups`` -- have no effect,
+    and ``tp`` only pads the query heads and the vocabulary."""
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 128
+    attn: str = "gqa"              # "gqa" | "mla"
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    # MLA dims (deepseek-v2)
+    kv_lora: int = 512
+    q_lora: int = 0                # 0 = no q compression
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # MoE
+    moe_experts: int = 0           # 0 = dense FFN
+    moe_shared: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_norm_topk: bool = True
+    moe_groups: int = 16
+    aux_loss_weight: float = 0.001
+    # system
+    tp: int = 16                   # head and vocab padding multiple
+    param_dtype: Any = torch.bfloat16
+    act_dtype: Any = torch.bfloat16
+    remat: bool = True
+    max_seq: int = 4096
+    sharded_decode: bool = True
+    blockwise_prefill_from: int = 8192  # t >= this: flash-style prefill
+    prefill_block_k: int = 1024
+    seq_parallel: bool = True
+    unroll_scans: bool = False
+
+    @property
+    def padded_heads(self) -> int:
+        return A.pad_heads(self.n_heads, self.tp)
+
+    @property
+    def padded_vocab(self) -> int:
+        return A.pad_heads(self.vocab, self.tp)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe_experts > 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count (unpadded)."""
+        d, l, v = self.d_model, self.n_layers, self.vocab
+        if self.attn == "mla":
+            dqk = self.qk_nope_dim + self.qk_rope_dim
+            h = self.n_heads
+            attn = (self.q_lora * (d + h * dqk) if self.q_lora
+                    else d * h * dqk)
+            attn += d * (self.kv_lora + self.qk_rope_dim)
+            attn += self.kv_lora * h * (self.qk_nope_dim + self.v_head_dim)
+            attn += h * self.v_head_dim * d
+        else:
+            attn = d * self.d_head * (self.n_heads * 2 + self.n_kv_heads * 2)
+        if self.is_moe:
+            ffn = (3 * d * self.moe_d_ff * (self.moe_experts + self.moe_shared)
+                   + d * self.moe_experts)
+        else:
+            ffn = 3 * d * self.d_ff
+        return l * (attn + ffn + 2 * d) + 2 * v * d
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top-k + shared)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, l = self.d_model, self.n_layers
+        ffn_all = 3 * d * self.moe_d_ff * self.moe_experts
+        ffn_act = 3 * d * self.moe_d_ff * self.moe_top_k
+        return self.param_count() - l * (ffn_all - ffn_act)
+
+
+def _check_supported(cfg: TransformerConfig) -> None:
+    if cfg.attn != "gqa":
+        raise NotImplementedError(f"{cfg.name}: attn={cfg.attn!r} is not "
+                                  f"ported yet (GQA only)")
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported yet")
+
+
+# -------------------------------------------------------------------------
+# Parameters
+# -------------------------------------------------------------------------
+def init_params(cfg: TransformerConfig, *, generator=None,
+                device="cuda") -> dict:
+    """Random parameters in the reference's tree layout, drawn with a
+    ``torch.Generator`` (default: seed 0 on ``device``).  The numbers
+    differ from ``jax.random``'s; tests carry the reference's across
+    with :func:`load_reference_params`."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    lead = (cfg.n_layers,)
+    kw = dict(generator=generator, dtype=cfg.param_dtype, device=dev)
+    d, vp = cfg.d_model, cfg.padded_vocab
+    layers = {
+        "attn": A.init_gqa(cfg, generator=generator, device=dev, lead=lead),
+        "ffn": M.init_dense_ffn(d, cfg.d_ff, lead=lead, **kw),
+        "ln1": init_rms(d, dtype=cfg.param_dtype, device=dev).repeat(
+            cfg.n_layers, 1),
+        "ln2": init_rms(d, dtype=cfg.param_dtype, device=dev).repeat(
+            cfg.n_layers, 1),
+    }
+    return {"embed": dense_init(vp, d, scale=0.02, **kw), "layers": layers,
+            "ln_f": init_rms(d, dtype=cfg.param_dtype, device=dev),
+            "lm_head": dense_init(d, vp, **kw)}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # numpy has no bfloat16 of its own
+        t = torch.from_numpy(np.array(a).view(np.uint16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def load_reference_params(tree, *, device="cuda") -> dict:
+    """The reference's parameter tree (``transformer.init_params``,
+    leaves as numpy arrays) as the same tree of tensors on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: load_reference_params(v, device=dev)
+                for k, v in tree.items()}
+    return _tensor(tree, dev)
+
+
+def param_bytes(params: dict) -> int:
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
+
+
+def _layer(tree, i: int):
+    """Layer ``i``'s parameters: views into the stacked [L, ...] tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# -------------------------------------------------------------------------
+# Serving: prefill + decode
+# -------------------------------------------------------------------------
+def abstract_cache(cfg: TransformerConfig, batch: int, s_max: int) -> dict:
+    """The cache's shapes and dtypes, as tensors on the meta device."""
+    _check_supported(cfg)
+    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.empty(shape, dtype=cfg.act_dtype, device="meta"),
+            "v": torch.empty(shape, dtype=cfg.act_dtype, device="meta"),
+            "lengths": torch.empty((batch,), dtype=torch.int32,
+                                   device="meta")}
+
+
+def init_cache(cfg: TransformerConfig, batch: int, s_max: int, *,
+               device="cuda") -> dict:
+    """A zero cache: k, v [L, batch, s_max, kv, dh] in ``act_dtype`` and
+    lengths int32 [batch]."""
+    dev = resolve_device(device)
+    return {k: torch.zeros(x.shape, dtype=x.dtype, device=dev)
+            for k, x in abstract_cache(cfg, batch, s_max).items()}
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            s_max: int):
+    """Full-sequence forward that also fills the KV cache.
+
+    tokens int [b, t] on the device the parameters lie on.  Prompts of
+    ``t >= cfg.blockwise_prefill_from`` take the blockwise attention.
+    Returns (logits [b, Vpad] of the last position, cache) with the
+    cache of :func:`init_cache` filled to length t."""
+    _check_supported(cfg)
+    b, t = tokens.shape
+    x = params["embed"][tokens].to(cfg.act_dtype)
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=tokens.device).expand(b, t)
+    if t >= cfg.blockwise_prefill_from:
+        def attn_fn(p, h, c, pos):
+            return A.gqa_prefill_blockwise(p, h, c, pos,
+                                           block_k=cfg.prefill_block_k)
+    else:
+        attn_fn = A.gqa_train
+    cache = init_cache(cfg, b, s_max, device=tokens.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h, (k, v) = attn_fn(lp["attn"], rms_norm(lp["ln1"], x), cfg,
+                            positions)
+        cache["k"][i, :, :t] = k
+        cache["v"][i, :, :t] = v
+        x = x + h
+        x = x + M.dense_ffn(lp["ffn"], rms_norm(lp["ln2"], x))
+    logits = rms_norm(params["ln_f"], x[:, -1]) @ params["lm_head"]
+    cache["lengths"].fill_(t)
+    return logits, cache
+
+
+def decode_step(params: dict, cache: dict, token: torch.Tensor,
+                cfg: TransformerConfig):
+    """One decode step: token int [b] -> (logits [b, Vpad], cache).
+
+    Each layer writes its new K and V rows **in place** into
+    ``cache["k"]`` and ``cache["v"]``; the returned cache shares those
+    tensors and carries ``lengths + 1``."""
+    _check_supported(cfg)
+    x = params["embed"][token[:, None]].to(cfg.act_dtype)
+    lengths = cache["lengths"]
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h, _, _ = A.gqa_decode(lp["attn"], rms_norm(lp["ln1"], x),
+                               cache["k"][i], cache["v"][i], lengths, cfg)
+        x = x + h
+        x = x + M.dense_ffn(lp["ffn"], rms_norm(lp["ln2"], x))
+    logits = rms_norm(params["ln_f"], x[:, 0]) @ params["lm_head"]
+    return logits, {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}

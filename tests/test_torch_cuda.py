@@ -7,10 +7,14 @@ equal its plain PyTorch version exactly (integer outputs), the
 embedding_bag kernel within rtol = atol = 1e-6 in float32 (1e-2 in
 bfloat16); each counts its launches and rejects what it does not take,
 and a kernel that cannot be loaded raises instead of answering with the
-plain version.  The main paths run on the card: a small build -> events
--> serve answers as the counting BFS does through the kernel route, and
-the analytics path (store, betweenness, cycles, recommendation -> PNA
-re-rank) gives the CPU's answers.
+plain version.  The flash_decode kernel equals its plain version within
+rtol = atol = 2e-5 in float32 and 1e-2 in bfloat16 (against the plain
+version on the fp32 copies of the same inputs), zeros at length 0.  The
+main paths run on the card: a small build -> events -> serve answers as
+the counting BFS does through the kernel route, the analytics path
+(store, betweenness, cycles, recommendation -> PNA re-rank) gives the
+CPU's answers, and the LM path at qwen2-1.5b ``SMOKE`` (prefill, then
+decode through the kernel) gives the CPU's logits.
 """
 
 import dataclasses
@@ -27,8 +31,10 @@ from repro_torch.core.dynamic import DynamicSPC
 from repro_torch.data import graph_stream, random_graph_edges
 from repro_torch.kernels import common
 from repro_torch.kernels import embedding_bag as EB
+from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels.spc_query import launches, spc_query_cuda
 from repro_torch.kernels.spc_query.ref import spc_query_ref
+from repro_torch.models import transformer as tf
 from repro_torch.models.gnn.pna import PNA
 from repro_torch.serve import QueryEngine
 
@@ -185,3 +191,109 @@ def test_analytics_path_on_the_card(card):
     assert got[1:4] == want[1:4]
     np.testing.assert_allclose(got[4], want[4], rtol=1e-4, atol=1e-5)
     assert got[5] == 1 and want[5] == 0
+
+
+@pytest.mark.parametrize("b,h,kvh,s,d", list(chip_smoke.DECODE_SWEEP)
+                         + [(5, 16, 2, 4100, 128), (3, 6, 3, 65, 16),
+                            (1, 12, 2, 1, 32)])
+def test_flash_decode_kernel_equals_plain_version(card, b, h, kvh, s, d):
+    q, k, v, lengths = chip_smoke.decode_inputs(
+        b, h, kvh, s, d, np.random.default_rng(b * s + d), card)
+    before = FD.launches.count
+    got = FD.flash_decode_cuda(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert FD.launches.count == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, h, d)
+    torch.testing.assert_close(got, FD.decode_attention_ref(q, k, v, lengths),
+                               rtol=2e-5, atol=2e-5)
+    if b > 2:
+        assert not got[-1].any()                   # length 0: zeros
+    q16, k16, v16 = (x.to(torch.bfloat16) for x in (q, k, v))
+    got16 = FD.flash_decode_cuda(q16, k16, v16, lengths)
+    torch.cuda.synchronize()
+    assert got16.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got16.float(), FD.decode_attention_ref(q16.float(), k16.float(),
+                                               v16.float(), lengths),
+        rtol=1e-2, atol=1e-2)
+
+
+def test_flash_decode_kernel_rejects_what_it_does_not_take(card):
+    q, k, v, lengths = chip_smoke.decode_inputs(
+        2, 4, 2, 64, 32, np.random.default_rng(0), card)
+    with pytest.raises(ValueError, match="dtypes"):
+        FD.flash_decode_cuda(q.half(), k, v, lengths)
+    with pytest.raises(ValueError, match="dtype"):
+        FD.flash_decode_cuda(q, k, v, lengths.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        FD.flash_decode_cuda(q, k.transpose(1, 2).contiguous().transpose(
+            1, 2), v, lengths)
+    with pytest.raises(ValueError, match="head dim"):
+        FD.flash_decode_cuda(q[..., :24].contiguous(),
+                             k[..., :24].contiguous(),
+                             v[..., :24].contiguous(), lengths)
+    with pytest.raises(ValueError, match="do not divide"):
+        FD.flash_decode_cuda(q[:, :3].contiguous(), k, v, lengths)
+    with pytest.raises(ValueError, match="on cpu"):
+        FD.flash_decode_cuda(q, k.cpu(), v, lengths)
+
+
+def test_flash_decode_ops_launch_on_the_card(card):
+    q, k, v, lengths = chip_smoke.decode_inputs(
+        3, 6, 2, 300, 64, np.random.default_rng(2), card)
+    before = FD.launches.count
+    got = FD.decode_attention(q, k, v, lengths.long())
+    assert FD.launches.count == before + 1
+    torch.testing.assert_close(
+        got.cpu(), FD.decode_attention(q.cpu(), k.cpu(), v.cpu(),
+                                       lengths.cpu()), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_decode_raises_when_the_kernel_cannot_load(card, monkeypatch):
+    def broken(name):
+        raise RuntimeError(f"cannot load {name}")
+
+    monkeypatch.setattr(common, "load", broken)
+    q, k, v, lengths = chip_smoke.decode_inputs(
+        2, 4, 2, 64, 32, np.random.default_rng(1), card)
+    before = FD.launches.count
+    with pytest.raises(RuntimeError, match="cannot load flash_decode"):
+        FD.decode_attention(q, k, v, lengths)
+    assert FD.launches.count == before
+
+
+def numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
+def test_lm_path_on_the_card(card):
+    """qwen2-1.5b SMOKE in float32: prefill (plain and blockwise) and
+    greedy decode on the card give the CPU's logits, and every decode
+    step of every layer launches the kernel once."""
+    from repro_torch.configs.qwen2_1_5b import SMOKE as QWEN_SMOKE
+    cfg = dataclasses.replace(QWEN_SMOKE, param_dtype=torch.float32,
+                              act_dtype=torch.float32,
+                              blockwise_prefill_from=32, prefill_block_k=16)
+    params = tf.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (3, 40)).astype(np.int32))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        p = tf.load_reference_params(numpy_tree(params), device=dev)
+        for t in (20, 40):                         # plain, then blockwise
+            logits, cache = chip_smoke.prefill_in_groups(
+                p, cfg, prompts[:, :t].to(dev), t + 6, 2)
+            before = FD.launches.count
+            fed, last, cache, _ = chip_smoke.greedy_decode(
+                p, cfg, cache, logits.argmax(-1).to(torch.int32), 6)
+            results[dev, t] = (logits.cpu(), fed.cpu(), last.cpu(),
+                               FD.launches.count - before)
+    for t in (20, 40):
+        cpu, gpu = results["cpu", t], results["cuda", t]
+        torch.testing.assert_close(gpu[0], cpu[0], rtol=1e-4, atol=1e-4)
+        assert torch.equal(gpu[1], cpu[1])
+        torch.testing.assert_close(gpu[2], cpu[2], rtol=1e-4, atol=1e-4)
+        assert cpu[3] == 0 and gpu[3] == cfg.n_layers * 6

@@ -12,6 +12,9 @@
 * the port (and ``chip_smoke.py``) imports neither JAX nor ``repro``;
 * ``chip_smoke.py`` refuses to run without a card, or without the
   repository beside it, and prints no result then;
+* ``chip_smoke.py``'s LM path (grouped prefill, greedy decode, the
+  decode / prefill consistency check) at qwen2-1.5b ``SMOKE`` on the
+  CPU, its flash_decode byte count and its launch counting by path;
 * the port's copies of the configuration and the data generators agree
   with the reference's."""
 
@@ -281,7 +284,9 @@ def test_chip_smoke_counts_launches_by_path():
     phases; launches between them (oracles, kernel checks) count
     nowhere, and a path that never launched its kernel fails."""
     sq, eb = common.LaunchCounter("spc_query"), common.LaunchCounter("eb")
-    counts = chip_smoke.PathLaunches({"spc_query": sq, "embedding_bag": eb})
+    fd = common.LaunchCounter("flash_decode")
+    kernels = {"spc_query": sq, "embedding_bag": eb, "flash_decode": fd}
+    counts = chip_smoke.PathLaunches(kernels)
     with counts.path("dspc"):
         sq.count += 3
     sq.count += 5                                  # an oracle's launches
@@ -290,14 +295,117 @@ def test_chip_smoke_counts_launches_by_path():
     with counts.path("dspc"):
         sq.count += 2
     eb.count += 7                                  # a kernel check
-    assert counts.by_path == {"dspc": {"spc_query": 5, "embedding_bag": 0},
-                              "analytics": {"spc_query": 0,
-                                            "embedding_bag": 1}}
-    assert counts.of("spc_query") == (5, {"dspc": 5, "analytics": 0})
+    with counts.path("lm"):
+        fd.count += 28 * 64
+    fd.count += 9                                  # the main-shape check
+    zero = dict.fromkeys(kernels, 0)
+    assert counts.by_path == {
+        "dspc": dict(zero, spc_query=5), "analytics": dict(zero,
+                                                           embedding_bag=1),
+        "lm": dict(zero, flash_decode=1792)}
+    assert counts.of("spc_query") == (5, {"dspc": 5, "analytics": 0,
+                                          "lm": 0})
+    assert counts.of("flash_decode") == (1792, {"dspc": 0, "analytics": 0,
+                                                "lm": 1792})
     counts.check()
-    bare = chip_smoke.PathLaunches({"spc_query": sq, "embedding_bag": eb})
+    bare = chip_smoke.PathLaunches(kernels)
     with bare.path("dspc"):
         sq.count += 1
+    with bare.path("lm"):
+        fd.count += 1
     with pytest.raises(AssertionError, match="embedding_bag never launched "
                                              "on the analytics path"):
         bare.check()
+    no_lm = chip_smoke.PathLaunches(kernels)
+    for path, c in (("dspc", sq), ("analytics", eb)):
+        with no_lm.path(path):
+            c.count += 1
+    with pytest.raises(AssertionError, match="flash_decode never launched "
+                                             "on the lm path"):
+        no_lm.check()
+
+
+def test_chip_smoke_flash_decode_bound_counts_valid_rows():
+    """K and V are read once per KV head within each row's length,
+    whatever the number of query heads that share them."""
+    q = torch.zeros(2, 12, 128, dtype=torch.bfloat16)
+    k = torch.zeros(2, 100, 2, 128, dtype=torch.bfloat16)
+    lengths = torch.tensor([100, 30], dtype=torch.int32)
+    nbytes, ops = chip_smoke.flash_decode_work(q, k, lengths)
+    assert nbytes == 2 * 130 * 2 * 128 * 2 + 2 * (2 * 12 * 128 * 2) + 2 * 4
+    assert ops == 4 * 130 * 12 * 128
+    q = torch.zeros(16, 12, 128, dtype=torch.bfloat16)
+    k = torch.zeros(16, 32832, 2, 128, dtype=torch.bfloat16, device="meta")
+    nbytes, ops = chip_smoke.flash_decode_work(
+        q, k, torch.full((16,), 32832, dtype=torch.int32))
+    bound, by = chip_smoke.bound_ms(nbytes, ops)
+    assert by == "bytes" and 0.16 < bound < 0.161   # ~537 MB at 3.35 TB/s
+
+
+def test_chip_smoke_lm_path_on_the_cpu():
+    """Grouped prefill equals one prefill of the whole batch; greedy
+    decode feeds the prefill's argmax first and grows the cache one
+    position a step; a prefill of prompt + fed tokens reproduces the
+    last decode step's logits."""
+    from repro_torch.configs.qwen2_1_5b import SMOKE as QWEN_SMOKE
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(QWEN_SMOKE, param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    params = tf.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                            device="cpu")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (5, 12)).astype(np.int32))
+    s_max = 12 + 4
+    logits, cache = chip_smoke.prefill_in_groups(params, cfg, prompts, s_max,
+                                                 2)
+    want_logits, want_cache = tf.prefill(params, prompts, cfg, s_max)
+    torch.testing.assert_close(logits, want_logits, rtol=1e-5, atol=1e-5)
+    for name in ("k", "v"):
+        torch.testing.assert_close(cache[name], want_cache[name], rtol=1e-5,
+                                   atol=1e-5)
+    assert torch.equal(cache["lengths"], want_cache["lengths"])
+    first = logits.argmax(dim=-1).to(torch.int32)
+    fed, last, cache, ms = chip_smoke.greedy_decode(params, cfg, cache, first,
+                                                    4)
+    assert ms == [] and fed.shape == (5, 4) and torch.equal(fed[:, 0], first)
+    assert cache["lengths"].tolist() == [16] * 5
+    check_cache = {name: cache[name][:, :2].clone() for name in ("k", "v")}
+    check_cache["lengths"] = cache["lengths"][:2].clone()
+    l4 = chip_smoke.lm_consistency(params, cfg, prompts[:2], fed[:2],
+                                   last[:2], check_cache, s_max, span=4)
+    assert l4["decode"] < 1e-5 and l4["argmax"] == 2
+    # the replay rewrites the same positions and gives the same logits;
+    # in float32 the reference-style attention rounds nothing, while
+    # leaving out 4 of 12 prompt positions moves the logits
+    assert l4["replay"] < 1e-5 and l4["bf16_scores"] < 1e-5
+    assert l4["drop_span"] > 1e-2
+    for name in ("k", "v"):      # the replays rewrite only the fed rows
+        assert torch.equal(check_cache[name][:, :, :12],
+                           cache[name][:, :2, :12])
+    chip_smoke.check_l4(dict(l4, bf16_scores=0.5, drop_span=0.5))
+    for bad in (dict(decode=0.5), dict(replay=0.5), dict(drop_span=0.0)):
+        with pytest.raises(AssertionError, match="L4"):
+            chip_smoke.check_l4({**l4, "bf16_scores": 0.5,
+                                 "drop_span": 0.5, **bad})
+
+
+def test_chip_smoke_bf16_score_attention_rounds_like_the_reference():
+    """The planted fault computes the reference's gqa_decode arithmetic:
+    equal to the plain version in float32, off it in bfloat16."""
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    r = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(r.standard_normal(s).astype(np.float32))
+               for s in ((2, 6, 16), (2, 40, 2, 16), (2, 40, 2, 16)))
+    lengths = torch.tensor([40, 17], dtype=torch.int32)
+    want = decode_attention_ref(q, k, v, lengths)
+    torch.testing.assert_close(
+        chip_smoke.bf16_score_attention(q, k, v, lengths), want, rtol=1e-5,
+        atol=1e-5)
+    q16, k16, v16 = (x.to(torch.bfloat16) for x in (q, k, v))
+    got16 = chip_smoke.bf16_score_attention(q16, k16, v16, lengths)
+    assert got16.dtype == torch.bfloat16
+    assert 0 < chip_smoke.rel_l2(got16, decode_attention_ref(
+        q16.float(), k16.float(), v16.float(), lengths)) < 5e-2
+    short = chip_smoke.drop_span_attention(8)(q, k, v, lengths)
+    torch.testing.assert_close(short, decode_attention_ref(
+        q, k[:, 8:], v[:, 8:], lengths - 8))
