@@ -12,7 +12,14 @@ Phases, each reported on its own line(s):
 3. kernels   -- holds each kernel against its plain PyTorch version on
                 the card.  spc_query exactly (integer outputs): the TPU
                 sweep shapes, hand-made rows with counts 2^24 + 1 and
-                above 2^32, and 1024 pairs gathered from the built index.
+                above 2^32, rows whose hubs repeat (the reference
+                microbench's draw and a hand-made pair), and 1024 pairs
+                gathered from the built index.  segment_matmul on the
+                TPU sweep (ids up to n + 5, then shifted to negatives)
+                within rtol = atol = 1e-6 in float32 and 1e-2 in
+                bfloat16 against the float32 sum of the same values,
+                at E = 0, and on one segment of 14329 edges (integer
+                values: exact); two launches bitwise equal.
                 embedding_bag within rtol = atol = 1e-6 in float32 (only
                 the fp32 summation order differs) and 1e-2 in bfloat16
                 against the float32 sum of the same bfloat16 rows: the
@@ -25,6 +32,19 @@ Phases, each reported on its own line(s):
                 l_cap=None)`` on a power-law graph at the ``dspc``
                 configuration's scale (n = 65536, m = 524288, weights
                 proportional to i^-0.8), halved ``--halvings`` times.
+K.  kernels   -- the kernel microbench entry point
+                (``repro_torch.bench.kernels_bench``): spc_query at
+                b = 4096 pairs of l = 64 labels and segment_matmul at
+                e = 16384, n = 2048, d = 128 (the reference's defaults),
+                then ``gather_scatter`` of 128 node features over the
+                built graph's edge slots (E = 2m, N = n, dst unsorted).
+                Outside the path: that aggregation equal to the plain
+                version bit for bit in float32 and bfloat16 (features
+                rounded to multiples of 2^-6, so every sum is exact);
+                on N(0, 1) messages two launches bitwise equal and
+                within the fp32 summation bound of the float64 sum; the
+                BFS relaxation form (D = 1, n + 1 segments) equal to
+                the int64 ``edge_relax``; and the times at each shape.
 A1. analytics, pinned before the chunk -- attaches a ``SnapshotStore``,
                 seeds ``TopKBetweenness`` (512 sampled pairs x all n
                 candidates) and pins a snapshot, keeping a copy of it.
@@ -91,8 +111,9 @@ controls for the first 2 requests of each seed (prefilled and decoded
 as 2 requests), prints them and exits.
 
 Launches are counted for each main path on its own: the DSPC path
-(phases 4, 5, 6), the analytics path (the timed steps of A1 and A2) and
-the LM path (L2 and L3; flash_decode exactly 28 x 64 times).  The
+(phases 4, 5, 6), the kernels path (K), the analytics path (the timed
+steps of A1 and A2) and the LM path (L2 and L3; flash_decode exactly
+28 x 64 times).  The
 launch counters are set to 0 just before each of these phases and read
 just after it; the oracles, L4 and the kernel checks run outside them
 and count nowhere.  Each path must have launched each of its kernels
@@ -132,6 +153,8 @@ SCALAR_OPS_PER_S = 67e12
 KERNEL_SOURCES = {
     "spc_query": ("src/repro_torch/csrc/spc_query.cu",
                   "src/repro/kernels/spc_query/kernel.py:38"),
+    "segment_matmul": ("src/repro_torch/csrc/segment_matmul.cu",
+                       "src/repro/kernels/segment_matmul/kernel.py:34"),
     "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag/kernel.py:29"),
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
@@ -139,8 +162,18 @@ KERNEL_SOURCES = {
 }
 
 #: The kernels each main path must launch.
-PATH_KERNELS = {"dspc": ("spc_query",), "analytics": ("embedding_bag",),
-                "lm": ("flash_decode",)}
+PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
+                                                    "segment_matmul"),
+                "analytics": ("embedding_bag",), "lm": ("flash_decode",)}
+
+#: The segment_matmul sweep of tests/kernels/test_kernels.py (e, n, d),
+#: inputs drawn as that test draws them (ids in [0, n + 5): some dropped).
+SEG_SWEEP = ((100, 30, 16), (1000, 128, 64), (513, 65, 8), (64, 300, 4))
+#: The longest segment of the dspc CONFIG graph (vertex degree 14329):
+#: one segment of this many edges is checked on its own.
+SEG_LONG = 14329
+#: The width of the node features the kernels path aggregates.
+SEG_FEATURES = 128
 
 #: The TPU sweep of tests/kernels/test_kernels.py (b, s, v, d), and the
 #: recsys shapes of configs/dien.py: vocab 100000, D = 18, 8 ids per
@@ -252,6 +285,28 @@ def big_count_rows(device):
     want = ([1, 3, 4], [big24, big24 * 7, big32 * 3 + 5 + 1])
     return (tuple(torch.tensor(r, dtype=dt, device=device)
                   for r, dt in zip(rows, dts)), want)
+
+
+def repeated_hub_rows(device):
+    """One hand-made pair whose hubs repeat on both sides at two
+    distances (rows sorted by hub only), and its (dist, count) worked
+    out by hand over the L x L table.  Hub 2: s at (dist 2, cnt 5) and
+    (1, 2), t at (3, 3) and (1, 4): sums 5, 3, 4 and 2 (2 x 4 = 8).  Hub
+    7: s at (0, 1) and (3, 7), t at (INF, 6), (4, 2) and (2, 5): sums
+    4, 2 (1 x 5 = 5), 7 and 5.  So (2, 8 + 5).  Taking only the first t
+    entry of each hub gives (4, 6); stopping a run at its INF entry
+    gives (2, 8)."""
+    import torch
+    INF = 1 << 28
+    n = 10
+    hub_s, dist_s, cnt_s = [2, 2, 5, 7, 7, n], [2, 1, 0, 0, 3, INF], \
+        [5, 2, 3, 1, 7, 0]
+    hub_t, dist_t, cnt_t = [2, 2, 4, 7, 7, 7], [3, 1, 0, INF, 4, 2], \
+        [3, 4, 9, 6, 2, 5]
+    rows = (hub_s, dist_s, cnt_s, hub_t, dist_t, cnt_t)
+    dts = (torch.int32, torch.int32, torch.int64) * 2
+    return (tuple(torch.tensor([r], dtype=dt, device=device)
+                  for r, dt in zip(rows, dts)), ([2], [13]))
 
 
 def spc_query_work(rows):
@@ -368,6 +423,65 @@ def embedding_bag_work(ids, table):
     elem = table.element_size()
     nbytes = ids.numel() * ids.element_size() + (distinct + b) * d * elem
     return nbytes, b * s * d, distinct
+
+
+def segment_sweep_inputs(e: int, n: int, d: int, device):
+    """float32 vals [e, d] ~ N(0, 1) and int32 dst [e] over [0, n + 5)
+    (ids from n on are dropped), drawn as TestSegmentMatmul draws them."""
+    import torch
+    r = np.random.default_rng(e + n)
+    vals = torch.from_numpy(r.standard_normal((e, d)).astype(np.float32))
+    dst = torch.from_numpy(r.integers(0, n + 5, e).astype(np.int32))
+    return vals.to(device), dst.to(device)
+
+
+def quantized_features(n: int, d: int, rng, device):
+    """float32 [n, d]: N(0, 1) rounded to multiples of 2^-6 and clipped
+    to [-4, 4].  Every partial sum of fewer than 2^16 such values is a
+    multiple of 2^-6 below 2^18, exact in float32 in any order, and the
+    values stay multiples of 2^-6 in bfloat16; so a kernel that sums them
+    must equal its plain version bit for bit."""
+    import torch
+    x = np.clip(np.round(rng.standard_normal((n, d)) * 64) / 64, -4, 4)
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+def segment_matmul_work(vals, dst, n: int):
+    """(bytes, operations, longest segment) that the segment_matmul
+    function needs on these inputs.  Bytes: each kept row of vals once,
+    dst once and the output once.  Operations: one add per kept edge and
+    column."""
+    import torch
+    keep = (dst >= 0) & (dst < n)
+    kept = int(keep.sum())
+    d, elem = vals.shape[1], vals.element_size()
+    nbytes = kept * d * elem + dst.numel() * dst.element_size() + n * d * elem
+    longest = int(torch.bincount(dst[keep].long()).max()) if kept else 0
+    return nbytes, kept * d, longest
+
+
+def check_summation_bound(tag, got, vals, dst, n: int, chunk: int):
+    """Float32 segment sums ``got`` against the float64 sums of the same
+    values, within the forward error bound of float32 summation at the
+    kernel's depth: a term passes through at most ``chunk`` adds inside
+    its chunk and one add per chunk its segment spans after that, so
+    |got - sum| <= depth x 2^-24 x sum |x| per entry.  Returns the
+    largest |got - sum|."""
+    import torch
+    keep = (dst >= 0) & (dst < n)
+    ids, x = dst[keep].long(), vals[keep].double()
+    d = vals.shape[1]
+    truth = torch.zeros((n, d), dtype=torch.float64,
+                        device=vals.device).index_add_(0, ids, x)
+    abs_sum = torch.zeros_like(truth).index_add_(0, ids, x.abs())
+    longest = int(torch.bincount(ids).max()) if ids.numel() else 0
+    depth = chunk + longest // chunk + 2
+    diff = (got.double() - truth).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if not bool((diff <= depth * 2.0 ** -24 * abs_sum).all()):
+        raise AssertionError(f"{tag}: max |diff| {err} from the float64 "
+                             f"sum, beyond {depth} x 2^-24 x sum |x|")
+    return err
 
 
 def decode_inputs(b, h, kvh, s, d, rng, device):
@@ -766,6 +880,7 @@ def main(argv=None) -> int:
     import gc
     import torch.nn.functional as F
     from repro_torch.analytics import AnalyticsEngine, CycleCount
+    from repro_torch.bench import kernels_bench as KB
     from repro_torch.configs.common import LM_SHAPES
     from repro_torch.configs.dspc import CONFIG
     from repro_torch.configs.pna import CONFIG as PNA_CONFIG
@@ -780,6 +895,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     from repro_torch.kernels.flash_decode import kernel as FD
     from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    from repro_torch.kernels.segment_matmul import kernel as SM
+    from repro_torch.kernels.segment_matmul.ops import gather_scatter
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
     from repro_torch.kernels.spc_query import kernel as K
     from repro_torch.kernels.spc_query.ops import prep_rows
     from repro_torch.kernels.spc_query.ref import spc_query_ref
@@ -834,6 +952,70 @@ def main(argv=None) -> int:
         raise AssertionError(f"big counts: {got} != {want}")
     log(f"kernels: spc_query == plain on the sweep and on counts "
         f"{want[1]} (exact)")
+    # hubs that repeat within a row: the reference microbench's own draw,
+    # and a hand-made pair
+    rows = tuple(torch.from_numpy(x).to(dev) for x in KB.query_inputs())
+    got = K.spc_query_cuda(*rows)
+    torch.cuda.synchronize()
+    max_err = max(max_err, check_equal("microbench rows (repeated hubs)",
+                                       got, spc_query_ref(*rows)))
+    rows, want = repeated_hub_rows(dev)
+    got = K.spc_query_cuda(*rows)
+    torch.cuda.synchronize()
+    max_err = max(max_err, check_equal("repeated hubs", got,
+                                       spc_query_ref(*rows)))
+    if [got[0].tolist(), got[1].tolist()] != list(want):
+        raise AssertionError(f"repeated hubs: {got} != {want}")
+    log(f"kernels: spc_query == plain on rows with repeated hubs (the "
+        f"microbench draw, {tuple(rows[0].shape)} hand-made: {want}) (exact)")
+
+    seg_err, seg_err16 = 0.0, 0.0
+    for e, n_seg, d in SEG_SWEEP:
+        vals, dst = segment_sweep_inputs(e, n_seg, d, dev)
+        for tag, ids in (("", dst), (" negative ids", dst - 5)):
+            got = SM.segment_matmul_cuda(vals, ids, n_seg)
+            again = SM.segment_matmul_cuda(vals, ids, n_seg)
+            torch.cuda.synchronize()
+            seg_err = max(seg_err, check_close(
+                f"segment_matmul {(e, n_seg, d)}{tag} f32", got,
+                segment_matmul_ref(vals, ids, n_seg), 1e-6, 1e-6))
+            if not torch.equal(got, again):
+                raise AssertionError(f"segment_matmul {(e, n_seg, d)}{tag}: "
+                                     f"two launches differ")
+            vals16 = vals.to(torch.bfloat16)
+            got16 = SM.segment_matmul_cuda(vals16, ids, n_seg)
+            torch.cuda.synchronize()
+            if got16.dtype != torch.bfloat16:
+                raise AssertionError(f"segment_matmul bf16 gave {got16.dtype}")
+            seg_err16 = max(seg_err16, check_close(
+                f"segment_matmul {(e, n_seg, d)}{tag} bf16", got16.float(),
+                segment_matmul_ref(vals16.float(), ids, n_seg), 1e-2, 1e-2))
+    empty = SM.segment_matmul_cuda(vals[:0], dst[:0], 7)
+    torch.cuda.synchronize()
+    if empty.shape != (7, vals.shape[1]) or empty.any():
+        raise AssertionError(f"segment_matmul with E = 0: {empty}")
+    # one segment of SEG_LONG edges among others, ids shuffled; integer
+    # values, so every order of summation gives the same floats
+    seg_rng = np.random.default_rng(args.seed + 4)
+    long_ids = np.concatenate([np.full(SEG_LONG, 7),
+                               seg_rng.integers(-3, 40, 3000)])
+    long_dst = torch.from_numpy(seg_rng.permutation(long_ids)
+                                .astype(np.int32))
+    long_vals = torch.from_numpy(seg_rng.integers(
+        -8, 9, (long_ids.size, 64)).astype(np.float32))
+    long_dst, long_vals = long_dst.to(dev), long_vals.to(dev)
+    for x in (long_vals, long_vals.to(torch.bfloat16)):
+        got = SM.segment_matmul_cuda(x, long_dst, 32)
+        again = SM.segment_matmul_cuda(x, long_dst, 32)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, segment_matmul_ref(x, long_dst, 32))
+                and torch.equal(got, again)):
+            raise AssertionError(f"segment_matmul: a segment of {SEG_LONG} "
+                                 f"edges ({x.dtype}) differs from plain")
+    log(f"kernels: segment_matmul == plain on the TPU sweep, with negative "
+        f"ids, unsorted, at E = 0 and with a segment of {SEG_LONG} edges "
+        f"(f32 max |diff| {seg_err:.3g}, bf16 {seg_err16:.3g} against the "
+        f"f32 sum; the long segment exact); two launches bitwise equal")
 
     bag_err, bag_shapes = 0.0, []
     for tag, (b, s, v, d) in ([(f"sweep{shape}", shape)
@@ -904,6 +1086,7 @@ def main(argv=None) -> int:
         f"({time.monotonic() - t0:.2f} s on the host)")
     log(f"reduced: {json.dumps(reduced)}")
     counts = PathLaunches({"spc_query": K.launches,
+                           "segment_matmul": SM.launches,
                            "embedding_bag": EB.launches,
                            "flash_decode": FD.launches})
     B.frontier_syncs.count = 0
@@ -925,6 +1108,100 @@ def main(argv=None) -> int:
     engine = QueryEngine(route="auto")
     sources = rng.choice(n, size=8, replace=False)
     oracle(svc, engine, sources, "after build")
+
+    # -- K. the kernel microbench path, then K2 at the graph's shape -------
+    g_src, g_dst = live_edges(svc.graph)
+    g_dst32 = g_dst.to(torch.int32)
+    feats = quantized_features(n, SEG_FEATURES, seg_rng, dev)
+    t0 = time.monotonic()
+    with counts.path("kernels"):
+        q_row, = KB.query_kernel_vs_plain(seed=args.seed)
+        s_row, = KB.segment_matmul_vs_segment_sum(seed=args.seed)
+        agg = gather_scatter(feats, g_src, g_dst, n)
+        torch.cuda.synchronize()
+    kernels_s = time.monotonic() - t0
+    msgs = torch.index_select(feats, 0, g_src)
+    g_longest = segment_matmul_work(msgs, g_dst32, n)[2]
+    if g_longest >= 1 << 16:
+        raise AssertionError(f"a segment of {g_longest} edges: sums of the "
+                             f"quantized features are no longer exact")
+    if not torch.equal(agg, segment_matmul_ref(msgs, g_dst32, n)):
+        raise AssertionError("gather_scatter at the graph's shape differs "
+                             "from the plain version (exact sums)")
+    msgs16 = msgs.to(torch.bfloat16)
+    agg16 = SM.segment_matmul_cuda(msgs16, g_dst32, n)
+    torch.cuda.synchronize()
+    if not torch.equal(agg16, segment_matmul_ref(msgs16, g_dst32, n)):
+        raise AssertionError("segment_matmul bf16 at the graph's shape "
+                             "differs from the plain version (exact sums)")
+    # N(0, 1) messages: the order of summation shows in the floats, so
+    # two launches must agree bit for bit; held to the float64 sum within
+    # the error bound of fp32 summation at the kernel's depth
+    normal = torch.randn(msgs.shape, generator=torch.Generator(
+        "cuda").manual_seed(args.seed), device=dev)
+    got = SM.segment_matmul_cuda(normal, g_dst32, n)
+    again = SM.segment_matmul_cuda(normal, g_dst32, n)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("segment_matmul: two launches at the graph's "
+                             "shape differ")
+    g_err = check_summation_bound("segment_matmul at the graph's shape",
+                                  got, normal, g_dst32, n, SM.CHUNK)
+    del got, again
+    # the BFS relaxation form: D = 1, counts of a random frontier, n + 1
+    # segments; exact against the port's int64 edge_relax
+    cnt = torch.from_numpy(seg_rng.integers(1, 5, n + 1)).to(dev)
+    frontier = torch.from_numpy(seg_rng.random(n + 1) < 0.5).to(dev)
+    frontier[n] = False
+    relax = torch.where(frontier[g_src], cnt[g_src], 0).float()[:, None]
+    got = SM.segment_matmul_cuda(relax, g_dst32, n + 1)
+    torch.cuda.synchronize()
+    if not torch.equal(got[:, 0].long(), B.edge_relax(g_src, g_dst, cnt,
+                                                      frontier)):
+        raise AssertionError("segment_matmul differs from edge_relax on "
+                             "the graph's relaxation")
+    mb_vals, mb_dst = (torch.from_numpy(x)
+                       for x in KB.segment_inputs(seed=args.seed))
+    seg_shapes = [{
+        "shape": "microbench", "edges": s_row["edges"],
+        "nodes": s_row["nodes"], "d": s_row["d"], "dtype": "float32",
+        "dst": "sorted", "longest_segment": s_row["longest_segment"],
+        "chunks": s_row["chunks"], "ms": s_row["kernel_ms"],
+        "plain_ms": s_row["plain_ms"], "library_ms": s_row["index_add_ms"],
+        "bytes": segment_matmul_work(mb_vals, mb_dst, s_row["nodes"])[0]}]
+    g_dst64 = g_dst32.long()
+    for tag, x, n_seg, ids in (("graph f32", normal, n, g_dst32),
+                               ("graph bf16", msgs16, n, g_dst32),
+                               ("relaxation", relax, n + 1, g_dst32)):
+        nbytes, _, longest = segment_matmul_work(x, ids, n_seg)
+        seg_shapes.append({
+            "shape": tag, "edges": x.shape[0], "nodes": n_seg,
+            "d": x.shape[1], "dtype": str(x.dtype).split(".")[-1],
+            "dst": "graph slots (unsorted)", "longest_segment": longest,
+            "chunks": SM.chunks(x.shape[0]),
+            "ms": cuda_ms(lambda: SM.segment_matmul_cuda(x, ids, n_seg), 50),
+            "plain_ms": cuda_ms(lambda: segment_matmul_ref(x, ids, n_seg),
+                                20),
+            "library_ms": cuda_ms(lambda: torch.zeros(
+                (n_seg, x.shape[1]), dtype=x.dtype, device=dev).index_add_(
+                    0, g_dst64, x), 50),
+            "sort_ms": cuda_ms(lambda: torch.sort(ids, stable=True), 50),
+            "bytes": nbytes})
+    seg_shapes[-1]["edge_relax_ms"] = cuda_ms(
+        lambda: B.edge_relax(g_src, g_dst, cnt, frontier), 50)
+    for row in seg_shapes:
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            row["bytes"], row["edges"] * row["d"])
+        log(f"segment_matmul {row['shape']}: {json.dumps(row)} on {card}")
+    log(f"kernels path: {kernels_s:.3f} s; spc_query microbench "
+        f"{json.dumps(q_row)}; gather_scatter over {g_src.numel()} edge "
+        f"slots x {SEG_FEATURES} into {n} segments equal to plain (exact, "
+        f"f32 and bf16); N(0, 1) max |diff| {g_err:.3g} from the float64 "
+        f"sum; relaxation equal to edge_relax; on {card}")
+    del (g_src, g_dst, g_dst32, g_dst64, feats, agg, msgs, msgs16, agg16,
+         normal, relax, cnt, frontier, got)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- A1. analytics pinned before the chunk ----------------------------------
     store = svc.attach_store()
@@ -1311,6 +1588,18 @@ def main(argv=None) -> int:
         "launches_by_path": counts.of("spc_query")[1], "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "plain_merge_ms": merge_ms,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "microbench": q_row,
+    }, {
+        "name": "segment_matmul", "route": "cuda",
+        "source": KERNEL_SOURCES["segment_matmul"][0],
+        "replaces": KERNEL_SOURCES["segment_matmul"][1],
+        "launches": counts.of("segment_matmul")[0],
+        "launches_by_path": counts.of("segment_matmul")[1],
+        "max_abs_err": seg_err, "bf16_max_abs_err": seg_err16,
+        "graph_max_abs_err_vs_float64": g_err, "deterministic": True,
+        "chunk": SM.CHUNK, **{k: seg_shapes[1][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": seg_shapes[1]["shape"], "shapes": seg_shapes,
     }, {
         "name": "embedding_bag", "route": "cuda",
         "source": KERNEL_SOURCES["embedding_bag"][0],

@@ -14,11 +14,19 @@
 //     Pallas kernel counts in fp32, exact only to 2^24).  Products and
 //     sums wrap modulo 2^64 exactly as the reference's int64 does; they
 //     are formed on unsigned 64-bit values so the wrap is defined.
-//   * no L x L comparison table: rows are sorted by hub id with the pad
-//     sentinel last (src/repro/core/labels.py:3-5), so each lane of a
-//     warp walks a strided slice of L(s) and binary-searches its hub in
-//     L(t) -- the semantics of _intersect_merge
-//     (src/repro/core/query.py:60-76).
+//   * no L x L comparison table: rows must be sorted by hub id (the
+//     index keeps them so, with the pad sentinel last:
+//     src/repro/core/labels.py:3-5), so each lane of a warp walks a
+//     strided slice of L(s), binary-searches the lower bound of its hub
+//     in L(t) and walks the run of equal hubs from there.  A hub may
+//     repeat on either side (the reference's microbench draws such
+//     rows); every equal pair counts, as in the L x L table.  Labels
+//     with dist >= INF are skipped on both sides: their sums are >= INF,
+//     and a minimum >= INF answers (INF, 0) whatever the counts.  So a
+//     pad run of L(t), which can be L long, is never walked: pad labels
+//     of L(s) are skipped before the search, and a real label's hub is
+//     never the pad hub.  On rows of distinct hubs the run costs one
+//     extra compare per match.
 //
 // Layout: one warp per pair, 8 warps per 256-thread block.  Lanes keep
 // a running (min_d, cnt) and combine with __shfl_down_sync under the
@@ -70,6 +78,8 @@ __global__ void spc_query_kernel(const int32_t* __restrict__ hub_s,
   int best_d = kBig;
   unsigned long long best_c = 0ull;
   for (int i = lane; i < L; i += 32) {
+    const int di = ds[i];
+    if (di >= kInf) continue;
     const int h = hs[i];
     // lower_bound of h in the sorted row L(t) (searchsorted, left side)
     int lo = 0, hi = L;
@@ -77,16 +87,19 @@ __global__ void spc_query_kernel(const int32_t* __restrict__ hub_s,
       const int mid = (lo + hi) >> 1;
       if (ht[mid] < h) lo = mid + 1; else hi = mid;
     }
-    const int p = lo < L ? lo : L - 1;
-    if (ht[p] != h) continue;
-    const int dsum = ds[i] + dt[p];
-    const unsigned long long prod =
-        (unsigned long long)cs[i] * (unsigned long long)ct[p];
-    if (dsum < best_d) {
-      best_d = dsum;
-      best_c = prod;
-    } else if (dsum == best_d) {
-      best_c += prod;
+    // every entry of the run of h in L(t)
+    for (int q = lo; q < L && ht[q] == h; ++q) {
+      const int dq = dt[q];
+      if (dq >= kInf) continue;
+      const int dsum = di + dq;
+      const unsigned long long prod =
+          (unsigned long long)cs[i] * (unsigned long long)ct[q];
+      if (dsum < best_d) {
+        best_d = dsum;
+        best_c = prod;
+      } else if (dsum == best_d) {
+        best_c += prod;
+      }
     }
   }
   for (int off = 16; off > 0; off >>= 1) {

@@ -2,6 +2,8 @@
 
 * ``spc_query`` -- batched label-row intersection (the serving hot path;
   replaces the Pallas kernel of ``repro.kernels.spc_query``).
+* ``segment_matmul`` -- segment sums of edge values (scatter-add and
+  GNN aggregation; replaces ``repro.kernels.segment_matmul``).
 * ``embedding_bag`` -- in-bag row sums (the re-rank's pooling; replaces
   ``repro.kernels.embedding_bag``).
 * ``flash_decode`` -- one-token GQA attention over a KV cache (the LM

@@ -6,6 +6,11 @@ Replaces the Pallas TPU kernel ``_kernel`` of
 returns (dist int32[B], count int64[B]), exact for every row (the TPU
 kernel counts in fp32, exact only to 2^24).
 
+Each row must be sorted by hub id, as the index keeps its rows; a hub
+may repeat on either side, and every pair of equal hubs counts, as in
+the reference's L x L table.  Unsorted rows are outside the contract:
+the kernel binary-searches L(t) and would miss matches there.
+
 The wrapper checks device, dtype, shape and contiguity, allocates the
 outputs with ``torch.empty``, launches on the current stream, raises if
 ``cudaGetLastError`` reports a failed launch, and counts the launch in

@@ -19,11 +19,12 @@ from repro_torch.core.graph import resolve_device
 
 
 def dense_init(d_in: int, d_out: int, *, generator: torch.Generator,
-               dtype=torch.float32, device="cpu",
+               dtype=torch.float32, device="cuda",
                scale: float | None = None, lead: tuple = ()) -> torch.Tensor:
     """[*lead, d_in, d_out] weights drawn N(0, 1) * ``scale`` (default
     1 / sqrt(d_in)), in the reference's [in, out] layout; ``lead`` adds
     leading axes (the LM's stacked layers)."""
+    device = resolve_device(device)
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((*lead, d_in, d_out), generator=generator,
                     dtype=torch.float32, device=generator.device)

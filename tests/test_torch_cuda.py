@@ -9,7 +9,13 @@ bfloat16); each counts its launches and rejects what it does not take,
 and a kernel that cannot be loaded raises instead of answering with the
 plain version.  The flash_decode kernel equals its plain version within
 rtol = atol = 2e-5 in float32 and 1e-2 in bfloat16 (against the plain
-version on the fp32 copies of the same inputs), zeros at length 0.  The
+version on the fp32 copies of the same inputs), zeros at length 0.
+spc_query counts every pair of equal hubs where a hub repeats within a
+row, and stays exact on padded rows at L = 2048.  The segment_matmul
+kernel equals its plain version within rtol = atol = 1e-6 in float32
+(1e-2 in bfloat16 against the float32 sum of the same values), exactly
+where every order of summation gives the same floats, and two launches
+give the same bits; the microbench entry point runs.  The
 main paths run on the card: a small build -> events -> serve answers as
 the counting BFS does through the kernel route, the analytics path
 (store, betweenness, cycles, recommendation -> PNA re-rank) gives the
@@ -25,6 +31,7 @@ import torch
 
 import chip_smoke
 from repro_torch.analytics import AnalyticsEngine
+from repro_torch.bench import kernels_bench as KB
 from repro_torch.configs.pna import CONFIG as PNA_CONFIG
 from repro_torch.core.bfs import plain_spc_bfs
 from repro_torch.core.dynamic import DynamicSPC
@@ -32,6 +39,7 @@ from repro_torch.data import graph_stream, random_graph_edges
 from repro_torch.kernels import common
 from repro_torch.kernels import embedding_bag as EB
 from repro_torch.kernels import flash_decode as FD
+from repro_torch.kernels import segment_matmul as SM
 from repro_torch.kernels.spc_query import launches, spc_query_cuda
 from repro_torch.kernels.spc_query.ref import spc_query_ref
 from repro_torch.models import transformer as tf
@@ -297,3 +305,133 @@ def test_lm_path_on_the_card(card):
         assert torch.equal(gpu[1], cpu[1])
         torch.testing.assert_close(gpu[2], cpu[2], rtol=1e-4, atol=1e-4)
         assert cpu[3] == 0 and gpu[3] == cfg.n_layers * 6
+
+
+def test_kernel_counts_every_pair_of_repeated_hubs(card):
+    rows = tuple(torch.from_numpy(x).to(card)
+                 for x in KB.query_inputs(1024, 64, seed=0))
+    d, c = spc_query_cuda(*rows)
+    d_p, c_p = spc_query_ref(*rows)
+    assert torch.equal(d, d_p) and torch.equal(c, c_p)
+    rows, (want_d, want_c) = chip_smoke.repeated_hub_rows(card)
+    d, c = spc_query_cuda(*rows)
+    torch.cuda.synchronize()
+    assert d.tolist() == want_d and c.tolist() == want_c
+
+
+@pytest.mark.parametrize("t_pad", ["n", "n + 1"])
+def test_kernel_on_padded_rows_with_repeats_at_l_2048(card, t_pad):
+    """Rows padded as the index pads them (hub n, dist INF) at L = 2048,
+    hubs repeating: a pad run of L(t) as long as the row is never walked,
+    and the answer is the L x L table's."""
+    b, l_cap, n = 32, 2048, 300
+    rng = np.random.default_rng(11)
+    out = []
+    for pad in (n, n if t_pad == "n" else n + 1):
+        hub = np.full((b, l_cap), pad, dtype=np.int32)
+        dist = np.full((b, l_cap), 1 << 28, dtype=np.int32)
+        cnt = np.zeros((b, l_cap), dtype=np.int64)
+        for r in range(b):
+            k = int(rng.integers(0, 600))
+            hub[r, :k] = np.sort(rng.integers(0, n, k))
+            dist[r, :k] = rng.integers(0, 12, k)
+            cnt[r, :k] = rng.integers(1, 9, k)
+        out += [hub, dist, cnt]
+    rows = tuple(torch.from_numpy(x).to(card) for x in out)
+    d, c = spc_query_cuda(*rows)
+    d_p, c_p = spc_query_ref(*rows)
+    assert torch.equal(d, d_p) and torch.equal(c, c_p)
+    assert (d < (1 << 28)).any()
+
+
+@pytest.mark.parametrize("e,n,d", list(chip_smoke.SEG_SWEEP)
+                         + [(0, 7, 16), (5000, 40, 1), (3000, 9, 260),
+                            (777, 1, 12)])
+def test_segment_matmul_kernel_equals_plain_version(card, e, n, d):
+    """Float32 within rtol = atol = 1e-6 of the plain version where
+    segments are as short as the TPU sweep's (8 edges on average); the
+    longer segments of the last three shapes (125 to 777 edges) within
+    the error bound of float32 summation of the float64 sum instead,
+    where the two summation orders part by more than 1e-6."""
+    vals, dst = chip_smoke.segment_sweep_inputs(e, n, d, card)
+    for ids in (dst, dst - 5):                     # ids >= n, then < 0
+        before = SM.launches.count
+        got = SM.segment_matmul_cuda(vals, ids, n)
+        again = SM.segment_matmul_cuda(vals, ids, n)
+        torch.cuda.synchronize()
+        assert SM.launches.count == before + 2
+        assert got.dtype == torch.float32 and got.shape == (n, d)
+        assert torch.equal(got, again)
+        if (e, n, d) in chip_smoke.SEG_SWEEP or e == 0:
+            torch.testing.assert_close(
+                got, SM.segment_matmul_ref(vals, ids, n), rtol=1e-6,
+                atol=1e-6)
+        chip_smoke.check_summation_bound("f32", got, vals, ids, n,
+                                         SM.kernel.CHUNK)
+        vals16 = vals.to(torch.bfloat16)
+        got16 = SM.segment_matmul_cuda(vals16, ids, n)
+        torch.cuda.synchronize()
+        assert got16.dtype == torch.bfloat16
+        torch.testing.assert_close(
+            got16.float(), SM.segment_matmul_ref(vals16.float(), ids, n),
+            rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_segment_matmul_long_segments_are_exact(card, aligned):
+    """Segments far longer than a chunk, ids shuffled, integer values (so
+    every order of summation gives the same floats); also through the
+    scalar loads of a vals view that is not 16-byte aligned."""
+    rng = np.random.default_rng(5)
+    ids = np.concatenate([np.full(chip_smoke.SEG_LONG, 3), np.full(700, 0),
+                          rng.integers(-2, 12, 2000)])
+    dst = torch.from_numpy(rng.permutation(ids).astype(np.int32)).to(card)
+    e, d = ids.size, 128
+    flat = torch.from_numpy(rng.integers(-8, 9, e * d + 1).astype(
+        np.float32)).to(card)
+    vals = (flat[:-1] if aligned else flat[1:]).view(e, d)
+    for x in (vals, vals.to(torch.bfloat16)):
+        got = SM.segment_matmul_cuda(x, dst, 10)
+        torch.cuda.synchronize()
+        assert torch.equal(got, SM.segment_matmul_ref(x, dst, 10))
+
+
+def test_segment_matmul_rejects_what_it_does_not_take(card):
+    vals, dst = chip_smoke.segment_sweep_inputs(100, 30, 16, card)
+    with pytest.raises(ValueError, match="dtype"):
+        SM.segment_matmul_cuda(vals, dst.long(), 30)
+    with pytest.raises(ValueError, match="dtype"):
+        SM.segment_matmul_cuda(vals.half(), dst, 30)
+    with pytest.raises(ValueError, match="contiguous"):
+        SM.segment_matmul_cuda(vals.t().contiguous().t(), dst, 30)
+    with pytest.raises(ValueError, match="shape"):
+        SM.segment_matmul_cuda(vals, dst[:50], 30)
+    with pytest.raises(ValueError, match="on cpu"):
+        SM.segment_matmul_cuda(vals, dst.cpu(), 30)
+    assert SM.segment_matmul_cuda(vals, dst, 0).shape == (0, 16)
+
+
+def test_segment_matmul_ops_launch_on_the_card(card):
+    rng = np.random.default_rng(4)
+    feats = torch.from_numpy(rng.standard_normal((50, 8)).astype(np.float32))
+    src = torch.from_numpy(rng.integers(0, 50, 400))
+    dst = torch.from_numpy(rng.integers(-3, 53, 400))          # int64
+    dst[:3] = torch.tensor([2 ** 40, -2 ** 40, 2 ** 32 + 1])   # dropped
+    before = SM.launches.count
+    got = SM.scatter_add(feats[src].to(card), dst.to(card), 50)
+    torch.testing.assert_close(got.cpu(), SM.scatter_add(feats[src], dst, 50),
+                               rtol=1e-6, atol=1e-6)
+    got = SM.gather_scatter(feats.to(card), src.to(card), dst.to(card), 50)
+    torch.testing.assert_close(
+        got.cpu(), SM.gather_scatter(feats, src, dst, 50), rtol=1e-6,
+        atol=1e-6)
+    assert SM.launches.count == before + 2
+
+
+def test_kernels_bench_runs_on_the_card(card):
+    q, = KB.query_kernel_vs_plain(256, 64, seed=1)
+    s, = KB.segment_matmul_vs_segment_sum(4096, 512, 128, seed=1)
+    assert q["device"] == torch.cuda.get_device_name(0)
+    assert q["kernel_us_per_q"] > 0 and q["plain_us_per_q"] > 0
+    assert s["kernel_ms"] > 0 and s["index_add_ms"] > 0
+    assert s["chunks"] == SM.kernel.chunks(4096)

@@ -136,7 +136,8 @@ def test_configs_and_weight_layout():
                 device="cpu")
     assert all(torch.equal(a, b) for a, b in
                zip(model.state_dict().values(), again.state_dict().values()))
-    w = dense_init(400, 3, generator=torch.Generator().manual_seed(1))
+    w = dense_init(400, 3, generator=torch.Generator().manual_seed(1),
+                   device="cpu")
     assert w.shape == (400, 3) and abs(float(w.std()) - 0.05) < 0.01
     params = JP.init_params(dataclasses.replace(JAX_SMOKE, d_in=4))
     with pytest.raises(ValueError, match="layers"):

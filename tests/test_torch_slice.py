@@ -48,6 +48,7 @@ from repro.models.gnn.pna import init_params as jax_pna_init
 from repro.serve import QueryEngine as JaxEngine
 from repro.serve.publish import SnapshotStore as JaxStore
 from repro_torch.analytics import AnalyticsEngine
+from repro_torch.bench import kernels_bench
 from repro_torch.configs.dspc import CONFIG, SMOKE
 from repro_torch.configs.pna import CONFIG as PNA_CONFIG
 from repro_torch.core.dynamic import DynamicSPC
@@ -137,12 +138,20 @@ def test_port_and_smoke_script_import_no_jax_or_reference():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
-        print("IMPORTED", len(names))
+        print("IMPORTED", " ".join(names))
     """)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
                           text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 20
+    imported = proc.stdout.split("IMPORTED")[-1].split()
+    assert len(imported) >= 20
+    assert {"repro_torch.bench.kernels_bench",
+            "repro_torch.kernels.segment_matmul.kernel",
+            "repro_torch.kernels.segment_matmul.ops",
+            "repro_torch.kernels.segment_matmul.ref"} <= set(imported)
+    scanned = {os.path.relpath(f, PORT) for f in files}
+    assert {"bench/kernels_bench.py",
+            "kernels/segment_matmul/ops.py"} <= scanned
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
@@ -285,11 +294,17 @@ def test_chip_smoke_counts_launches_by_path():
     nowhere, and a path that never launched its kernel fails."""
     sq, eb = common.LaunchCounter("spc_query"), common.LaunchCounter("eb")
     fd = common.LaunchCounter("flash_decode")
-    kernels = {"spc_query": sq, "embedding_bag": eb, "flash_decode": fd}
+    sm = common.LaunchCounter("segment_matmul")
+    kernels = {"spc_query": sq, "segment_matmul": sm, "embedding_bag": eb,
+               "flash_decode": fd}
     counts = chip_smoke.PathLaunches(kernels)
     with counts.path("dspc"):
         sq.count += 3
     sq.count += 5                                  # an oracle's launches
+    with counts.path("kernels"):
+        sq.count += 52
+        sm.count += 53
+    sm.count += 4                                  # a kernel check
     with counts.path("analytics"):
         eb.count += 1
     with counts.path("dspc"):
@@ -300,29 +315,44 @@ def test_chip_smoke_counts_launches_by_path():
     fd.count += 9                                  # the main-shape check
     zero = dict.fromkeys(kernels, 0)
     assert counts.by_path == {
-        "dspc": dict(zero, spc_query=5), "analytics": dict(zero,
-                                                           embedding_bag=1),
+        "dspc": dict(zero, spc_query=5),
+        "kernels": dict(zero, spc_query=52, segment_matmul=53),
+        "analytics": dict(zero, embedding_bag=1),
         "lm": dict(zero, flash_decode=1792)}
-    assert counts.of("spc_query") == (5, {"dspc": 5, "analytics": 0,
-                                          "lm": 0})
-    assert counts.of("flash_decode") == (1792, {"dspc": 0, "analytics": 0,
-                                                "lm": 1792})
+    assert counts.of("spc_query") == (57, {"dspc": 5, "kernels": 52,
+                                           "analytics": 0, "lm": 0})
+    assert counts.of("segment_matmul") == (53, {"dspc": 0, "kernels": 53,
+                                                "analytics": 0, "lm": 0})
+    assert counts.of("flash_decode") == (1792, {"dspc": 0, "kernels": 0,
+                                                "analytics": 0, "lm": 1792})
     counts.check()
     bare = chip_smoke.PathLaunches(kernels)
     with bare.path("dspc"):
         sq.count += 1
+    with bare.path("kernels"):
+        sq.count += 1
+        sm.count += 1
     with bare.path("lm"):
         fd.count += 1
     with pytest.raises(AssertionError, match="embedding_bag never launched "
                                              "on the analytics path"):
         bare.check()
     no_lm = chip_smoke.PathLaunches(kernels)
-    for path, c in (("dspc", sq), ("analytics", eb)):
+    for path, c in (("dspc", sq), ("kernels", sq), ("kernels", sm),
+                    ("analytics", eb)):
         with no_lm.path(path):
             c.count += 1
     with pytest.raises(AssertionError, match="flash_decode never launched "
                                              "on the lm path"):
         no_lm.check()
+    no_k2 = chip_smoke.PathLaunches(kernels)
+    for path, c in (("dspc", sq), ("kernels", sq), ("analytics", eb),
+                    ("lm", fd)):
+        with no_k2.path(path):
+            c.count += 1
+    with pytest.raises(AssertionError, match="segment_matmul never launched "
+                                             "on the kernels path"):
+        no_k2.check()
 
 
 def test_chip_smoke_flash_decode_bound_counts_valid_rows():
@@ -409,3 +439,58 @@ def test_chip_smoke_bf16_score_attention_rounds_like_the_reference():
     short = chip_smoke.drop_span_attention(8)(q, k, v, lengths)
     torch.testing.assert_close(short, decode_attention_ref(
         q, k[:, 8:], v[:, 8:], lengths - 8))
+
+
+def test_chip_smoke_segment_bound_counts_kept_rows():
+    """vals rows of kept edges once, dst once, the output once; the
+    figures of the three shapes chip_smoke times."""
+    vals = torch.zeros((6, 4))
+    dst = torch.tensor([0, 2, 2, -1, 5, 1], dtype=torch.int32)
+    assert chip_smoke.segment_matmul_work(vals, dst, 3) == (
+        4 * 4 * 4 + 6 * 4 + 3 * 4 * 4, 4 * 4, 2)
+    mb_vals, mb_dst = (torch.from_numpy(x)
+                       for x in kernels_bench.segment_inputs())
+    assert chip_smoke.segment_matmul_work(mb_vals, mb_dst, 2048)[0] == 9502720
+    e, n = 1048576, 65536
+    dst = torch.from_numpy(np.random.default_rng(0).integers(
+        0, n, e).astype(np.int32))
+    for dtype, want in ((torch.float32, 574619648),
+                        (torch.bfloat16, 289406976)):
+        msgs = torch.empty((e, 128), dtype=dtype, device="meta")
+        nbytes, ops, _ = chip_smoke.segment_matmul_work(msgs, dst, n)
+        assert (nbytes, ops) == (want, e * 128)
+    relax = torch.empty((e, 1), device="meta")
+    nbytes, _, _ = chip_smoke.segment_matmul_work(relax, dst, n + 1)
+    assert nbytes == 8650756
+    bound, by = chip_smoke.bound_ms(574619648, e * 128)
+    assert by == "bytes" and abs(bound - 0.17153) < 1e-5
+
+
+def test_chip_smoke_summation_bound_catches_a_lost_edge():
+    rng = np.random.default_rng(8)
+    vals = torch.from_numpy(rng.standard_normal((3000, 8)).astype(np.float32))
+    dst = torch.from_numpy(rng.integers(-1, 6, 3000).astype(np.int32))
+    got = torch.zeros((5, 8)).index_add_(
+        0, dst[(dst >= 0) & (dst < 5)].long(), vals[(dst >= 0) & (dst < 5)])
+    assert chip_smoke.check_summation_bound("ok", got, vals, dst, 5, 128) \
+        < 1e-4
+    first = int(((dst >= 0) & (dst < 5)).nonzero()[0])
+    lost = got.clone()
+    lost[dst[first]] -= vals[first]
+    with pytest.raises(AssertionError, match="beyond"):
+        chip_smoke.check_summation_bound("lost", lost, vals, dst, 5, 128)
+
+
+def test_chip_smoke_quantized_features_sum_exactly():
+    """Sums of the quantized features come out the same in any order,
+    in float32 and after rounding the features to bfloat16."""
+    feats = chip_smoke.quantized_features(20000, 4, np.random.default_rng(1),
+                                          "cpu")
+    assert float(feats.abs().max()) <= 4
+    for x in (feats, feats.to(torch.bfloat16).float()):
+        assert bool(((x * 64).frac() == 0).all())
+        forward = torch.zeros(4)
+        for row in x:
+            forward += row
+        assert torch.equal(forward, x.flip(0).sum(0))
+        assert torch.equal(forward, x.double().sum(0).float())
