@@ -14,20 +14,22 @@ Phases, each reported on its own line(s):
                 sweep shapes, hand-made rows with counts 2^24 + 1 and
                 above 2^32, rows whose hubs repeat (the reference
                 microbench's draw and a hand-made pair), and 1024 pairs
-                gathered from the built index.  segment_matmul on the
-                TPU sweep (ids up to n + 5, then shifted to negatives)
-                within rtol = atol = 1e-6 in float32 and 1e-2 in
-                bfloat16 against the float32 sum of the same values,
-                at E = 0, and on one segment of 14329 edges (integer
-                values: exact); two launches bitwise equal.
+                gathered from the built index.  segment_matmul in both
+                its designs (sorted and blocked, whichever the plan
+                picks) on the TPU sweep (ids up to n + 5, then shifted
+                to negatives) within rtol = atol = 1e-6 in float32 and
+                1e-2 in bfloat16 against the float32 sum of the same
+                values, at E = 0, and on one segment of 14329 edges
+                (integer values: exact); two launches bitwise equal.
                 embedding_bag within rtol = atol = 1e-6 in float32 (only
                 the fp32 summation order differs) and 1e-2 in bfloat16
                 against the float32 sum of the same bfloat16 rows: the
                 TPU sweep shapes, the
                 recsys shapes of ``configs/dien.py`` (vocab 100000,
                 D = 18, 8 ids per bag, 512 x 4 and 262144 x 4 bags) and
-                the re-rank's own bags.  The main-path shapes are checked
-                and timed after phase A2.
+                the re-rank's own bags; ids that count from the end
+                (F1) through the kernel and the ops, exactly.  The
+                main-path shapes are checked and timed after phase A2.
 4. build     -- ``DynamicSPC(..., device="cuda", construct_batch=32,
                 l_cap=None)`` on a power-law graph at the ``dspc``
                 configuration's scale (n = 65536, m = 524288, weights
@@ -38,13 +40,17 @@ K.  kernels   -- the kernel microbench entry point
                 e = 16384, n = 2048, d = 128 (the reference's defaults),
                 then ``gather_scatter`` of 128 node features over the
                 built graph's edge slots (E = 2m, N = n, dst unsorted).
-                Outside the path: that aggregation equal to the plain
-                version bit for bit in float32 and bfloat16 (features
-                rounded to multiples of 2^-6, so every sum is exact);
-                on N(0, 1) messages two launches bitwise equal and
-                within the fp32 summation bound of the float64 sum; the
-                BFS relaxation form (D = 1, n + 1 segments) equal to
-                the int64 ``edge_relax``; and the times at each shape.
+                Outside the path, in both designs: that aggregation
+                equal to the plain version bit for bit in float32 and
+                bfloat16 (features rounded to multiples of 2^-6, so every
+                sum is exact); on N(0, 1) messages two launches bitwise
+                equal and within the fp32 summation bound of the float64
+                sum at the design's depth; the BFS relaxation form (D =
+                1, n + 1 segments) equal to the int64 ``edge_relax``.
+                Then at each shape (the microbench and the graph's three)
+                both designs and ``index_add_`` timed in turn, SEG_REPS
+                rounds, and the card's busy time per call of the planned
+                design and of ``index_add_`` from a profiler trace.
 A1. analytics, pinned before the chunk -- attaches a ``SnapshotStore``,
                 seeds ``TopKBetweenness`` (512 sampled pairs x all n
                 candidates) and pins a snapshot, keeping a copy of it.
@@ -85,7 +91,8 @@ L3. decode   -- 64 greedy ``decode_step``s; every layer's decode
                 from CUDA events, tokens/s from the host clock.  The
                 last 4 steps are then replayed under ``torch.profiler``:
                 the card's busy time per step and its idle share of the
-                step p50.
+                step p50, and (replayed again) its top kernels by device
+                ms per step.
 L4. consistency -- as ``examples/serve_lm.py`` checks it: the first 2
                 requests prefilled again with the 64 tokens fed to the
                 decode steps (t = 32832, ragged against the 1024-key
@@ -95,16 +102,24 @@ L4. consistency -- as ``examples/serve_lm.py`` checks it: the first 2
                 requests' prompt cache on the port's route must pass the
                 same limit, and two planted faults in place of decode
                 attention must fail it: the reference's arithmetic
-                (scores and probabilities rounded to bf16) and one
-                1024-position span left out.
+                (scores and probabilities rounded to bf16) and one span
+                of the kernel at the main path's shape left out (the
+                span comes from the kernel's own ``plan``).
 flash_decode is held against its plain version (the KV heads expanded,
 fp32 softmax) at the TPU sweep shapes and GQA groups in float32 (rtol =
 atol = 2e-5, the TPU test's) and bfloat16 (1e-2 against the plain
-version on the fp32 copies of the same bf16 inputs) in phase 3.  At the
-main path's shape (layer 0's cache after L3, after L4) it is held in
-bfloat16 within atol 1e-3 + rtol 1e-2 (the output's RMS is about 0.009
-there; the same check must fail the plain version with its last 1024
-positions left out) and in float32 on the same cache within 2e-5.
+version on the fp32 copies of the same inputs; both routes, the
+planned one twice and bitwise equal) in phase 3.  At the main path's
+shape (layer 0's cache after L3, after L4) it is held in bfloat16
+within atol 1e-3 + rtol 1e-2 on the tensor-core route and on the
+CUDA-core route (the output's RMS is about 0.009 there; the same check
+must fail the plain version with its last span left out) and in
+float32 on the same cache within 2e-5; then both routes and SDPA are
+timed in turn, FD_REPS rounds; the planned route's kernels' device ms
+per call come from the L3 trace.  The build prints each kernel
+function's registers, shared memory and spills (``nvcc -Xptxas -v``)
+and fails if a redesigned kernel (``flash_decode_mma``,
+``block_sums``) spills.
 
 ``--lm-seeds 0,1,...`` builds the kernels and then only reads L4 and its
 controls for the first 2 requests of each seed (prefilled and decoded
@@ -133,6 +148,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -174,6 +190,10 @@ SEG_SWEEP = ((100, 30, 16), (1000, 128, 64), (513, 65, 8), (64, 300, 4))
 SEG_LONG = 14329
 #: The width of the node features the kernels path aggregates.
 SEG_FEATURES = 128
+#: Rounds in which both segment_matmul designs and index_add_ are timed
+#: in turn at each shape, and back-to-back calls traced for the card's
+#: busy time per call.
+SEG_REPS, SEG_TRACE_CALLS = 3, 20
 
 #: The TPU sweep of tests/kernels/test_kernels.py (b, s, v, d), and the
 #: recsys shapes of configs/dien.py: vocab 100000, D = 18, 8 ids per
@@ -196,18 +216,52 @@ DECODE_SWEEP = ((4, 1, 1, 64, 32), (8, 1, 1, 1024, 128), (3, 1, 1, 100, 64),
 #: over seeds 0-3 (``--lm-seeds``) and the main run.
 LM_PROMPT, LM_BATCH, LM_GROUP, LM_STEPS = 32768, 16, 4, 64
 LM_CHECK, LM_REL_TOL = 2, 1.87e-2
-#: The span of S that one flash_decode CTA covers at the main path's
-#: shape (33 spans of 1024 positions): the planted faults leave out one.
-LM_FAULT_SPAN = 1024
-#: Decode steps replayed under the profiler for the device-busy time.
-LM_TRACE_STEPS = 4
+#: Decode steps replayed under the profiler for the device-busy time,
+#: and the kernels of a step reported by device time.
+LM_TRACE_STEPS, LM_TOP_KERNELS = 4, 8
 #: flash_decode at the main path's shape in bfloat16: |got - want| <=
 #: MAIN_ATOL + MAIN_RTOL |want| (the output's RMS is about 0.009 there).
 MAIN_RTOL, MAIN_ATOL = 1e-2, 1e-3
+#: Rounds in which flash_decode's two routes and SDPA are timed in turn at
+#: the main path's shape.
+FD_REPS = 3
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_usage(log: str) -> list:
+    """Each kernel function's registers, spills and static shared memory
+    as ``nvcc -Xptxas -v`` printed them in ``log``: a list of
+    ``{"function", "registers", "spill_stores", "spill_loads",
+    "smem"}``, the function's name read out of its mangled name with its
+    template arguments (``flash_decode_mma<128>``)."""
+    import re
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        mangled, info = part.split("'", 1)
+        info = info.split("Compile time", 1)[0]
+        m = re.search(r"_cu_[0-9a-f]{8}(\d+)([A-Za-z_]\w*)", mangled)
+        name, args = mangled, ""
+        if m:
+            name = m.group(2)[:int(m.group(1))]
+            args = m.group(2)[int(m.group(1)):]
+        if args.startswith("I"):
+            targs = re.findall(r"Li(\d+)E|13__nv_(bfloat16)|(?<=[IE])f",
+                               args.split("EEv", 1)[0])
+            name += "<" + ", ".join(i or ("bf16" if t else "float")
+                                    for i, t in targs) + ">"
+
+        def num(pattern):
+            found = re.search(pattern, info)
+            return int(found.group(1)) if found else 0
+        out.append({"function": name,
+                    "registers": num(r"Used (\d+) registers"),
+                    "spill_stores": num(r"(\d+) bytes spill stores"),
+                    "spill_loads": num(r"(\d+) bytes spill loads"),
+                    "smem": num(r"(\d+) bytes smem")})
+    return out
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -410,6 +464,20 @@ def bag_inputs(b: int, s: int, v: int, d: int, rng, device):
     return ids.to(device), torch.from_numpy(table).to(device)
 
 
+def wrapped_id_rows(device):
+    """F1's smallest input: a table of V = 4 rows [1, 2] .. [7, 8] plus
+    the zero row, and ids that count from the end (-3 reads row 2, -5 row
+    0, -1 the zero row), one past the table (4) and below -(V + 1) (-6,
+    -10^6: the zero row in the port, F2).  Returns (ids int32 [6, 1],
+    table float32 [5, 2], the rows the bags must give)."""
+    import torch
+    table = torch.tensor([[1, 2], [3, 4], [5, 6], [7, 8], [0, 0]],
+                         dtype=torch.float32, device=device)
+    ids = torch.tensor([[-3], [-1], [-5], [4], [-6], [-10 ** 6]],
+                       dtype=torch.int32, device=device)
+    return ids, table, [[5, 6], [0, 0], [1, 2], [0, 0], [0, 0], [0, 0]]
+
+
 def embedding_bag_work(ids, table):
     """(bytes, operations, distinct rows) that the embedding_bag function
     needs on these inputs.  Bytes: the ids, each distinct table row the
@@ -418,7 +486,8 @@ def embedding_bag_work(ids, table):
     import torch
     b, s = ids.shape
     v1, d = table.shape
-    rows = torch.where((ids >= 0) & (ids < v1 - 1), ids, v1 - 1)
+    wrapped = torch.where(ids < 0, ids + v1, ids)        # from the end
+    rows = torch.where((wrapped >= 0) & (wrapped < v1 - 1), wrapped, v1 - 1)
     distinct = int(torch.unique(rows).numel())
     elem = table.element_size()
     nbytes = ids.numel() * ids.element_size() + (distinct + b) * d * elem
@@ -433,6 +502,15 @@ def segment_sweep_inputs(e: int, n: int, d: int, device):
     vals = torch.from_numpy(r.standard_normal((e, d)).astype(np.float32))
     dst = torch.from_numpy(r.integers(0, n + 5, e).astype(np.int32))
     return vals.to(device), dst.to(device)
+
+
+def sequential_plain(vals, dst, n: int):
+    """segment_matmul's plain version on the CPU copy of the inputs,
+    moved back: there ``index_add_`` adds in index order, the same float32
+    sums on every run, where on the card its atomics add in an order that
+    changes from run to run."""
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
+    return segment_matmul_ref(vals.cpu(), dst.cpu(), n).to(vals.device)
 
 
 def quantized_features(n: int, d: int, rng, device):
@@ -460,14 +538,15 @@ def segment_matmul_work(vals, dst, n: int):
     return nbytes, kept * d, longest
 
 
-def check_summation_bound(tag, got, vals, dst, n: int, chunk: int):
+def check_summation_bound(tag, got, vals, dst, n: int, design: str):
     """Float32 segment sums ``got`` against the float64 sums of the same
     values, within the forward error bound of float32 summation at the
-    kernel's depth: a term passes through at most ``chunk`` adds inside
-    its chunk and one add per chunk its segment spans after that, so
-    |got - sum| <= depth x 2^-24 x sum |x| per entry.  Returns the
-    largest |got - sum|."""
+    depth of the segment_matmul ``design`` that summed them (the most
+    adds a term passes through, ``summation_depth``): |got - sum| <=
+    depth x 2^-24 x sum |x| per entry.  Returns the largest
+    |got - sum|."""
     import torch
+    from repro_torch.kernels.segment_matmul.kernel import summation_depth
     keep = (dst >= 0) & (dst < n)
     ids, x = dst[keep].long(), vals[keep].double()
     d = vals.shape[1]
@@ -475,7 +554,7 @@ def check_summation_bound(tag, got, vals, dst, n: int, chunk: int):
                         device=vals.device).index_add_(0, ids, x)
     abs_sum = torch.zeros_like(truth).index_add_(0, ids, x.abs())
     longest = int(torch.bincount(ids).max()) if ids.numel() else 0
-    depth = chunk + longest // chunk + 2
+    depth = summation_depth(design, longest)
     diff = (got.double() - truth).abs()
     err = float(diff.max()) if diff.numel() else 0.0
     if not bool((diff <= depth * 2.0 ** -24 * abs_sum).all()):
@@ -618,14 +697,25 @@ def replay_decode(params, cfg, cache, fed, start: int, attention=None):
     return logits
 
 
+def lm_fault_span(cfg, sms: int) -> int:
+    """The span of S that one flash_decode CTA covers when the LM path's
+    LM_BATCH requests decode on a card of ``sms`` SMs (the kernel's own
+    ``plan``): the planted faults leave out one."""
+    from repro_torch.kernels.flash_decode.kernel import plan
+    return plan(LM_BATCH, cfg.n_kv_heads, cfg.padded_heads,
+                LM_PROMPT + LM_STEPS, cfg.d_head, cfg.act_dtype,
+                sms).split_len
+
+
 def lm_consistency(params, cfg, prompts, fed, last_logits, cache,
-                   s_max: int, span: int = LM_FAULT_SPAN) -> dict:
+                   s_max: int, span: int) -> dict:
     """L4 and its controls for the requests of ``prompts``: the decode's
     last logits against a prefill of prompt + fed tokens (``decode``,
     ``argmax``), then the fed tokens again from these requests' ``cache``
     on the port's route (``replay``) and with two planted faults in
-    place of decode attention (``bf16_scores``, ``drop_span``), each as
-    a relative L2 error against the same prefill."""
+    place of decode attention (``bf16_scores``, ``drop_span``: the
+    first ``span`` positions left out), each as a relative L2 error
+    against the same prefill."""
     rel, agree, want = decode_consistency(params, cfg, prompts, fed,
                                           last_logits, s_max)
     t = prompts.shape[1]
@@ -673,6 +763,8 @@ def lm_seed_readings(seeds, card: str) -> int:
     from repro_torch.models import transformer as tf
     cfg = dataclasses.replace(QWEN_CONFIG, tp=1)
     s_max = LM_PROMPT + LM_STEPS
+    span = lm_fault_span(cfg, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     readings = {}
     for seed in seeds:
         t0 = time.monotonic()
@@ -684,14 +776,14 @@ def lm_seed_readings(seeds, card: str) -> int:
             params, cfg, cache, logits.argmax(dim=-1).to(torch.int32),
             LM_STEPS)
         readings[seed] = lm_consistency(params, cfg, prompts, fed, last,
-                                        cache, s_max)
+                                        cache, s_max, span)
         log(f"L4 seed {seed}: {json.dumps(readings[seed])} "
             f"({time.monotonic() - t0:.3f} s on {card})")
         del params, logits, cache, fed, last
         gc.collect()
         torch.cuda.empty_cache()
     print(json.dumps({"l4_seeds": readings, "limit": LM_REL_TOL,
-                      "card": card}), flush=True)
+                      "drop_span": span, "card": card}), flush=True)
     return 0
 
 
@@ -718,6 +810,33 @@ def device_busy_ms(fn):
         hi = max(hi, b)
     busy += hi - lo
     return busy / 1e3, (max(b for _, b in spans) - spans[0][0]) / 1e3
+
+
+def kernel_name(raw: str) -> str:
+    """A kernel's name as a trace shows it, without its return type,
+    anonymous namespaces and parameters: ``flash_decode_mma<128>``."""
+    name = raw.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0]
+
+
+def device_ms_by_kernel(fn, per: int) -> dict:
+    """Device milliseconds of each kernel that ``fn()`` launched, by
+    kernel name (``kernel_name``), divided by ``per`` (the steps ``fn``
+    makes), from a ``torch.profiler`` trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = kernel_name(e.name)
+            out[name] = out.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / per
+    return out
 
 
 def check_close(tag, got, want, rtol, atol):
@@ -892,6 +1011,7 @@ def main(argv=None) -> int:
     from repro_torch.data.pipelines import graph_stream
     from repro_torch.kernels import common
     from repro_torch.kernels.embedding_bag import kernel as EB
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     from repro_torch.kernels.flash_decode import kernel as FD
     from repro_torch.kernels.flash_decode.ref import decode_attention_ref
@@ -931,6 +1051,19 @@ def main(argv=None) -> int:
     for name, text in common.build_logs.items():
         for line in text.strip().splitlines():
             log(f"  nvcc[{name}]: {line.strip()}")
+    usage = {name: ptxas_usage(text)
+             for name, text in common.build_logs.items()}
+    for name, funcs in usage.items():
+        log(f"ptxas[{name}]: " + "; ".join(
+            f"{f['function']} {f['registers']} registers, smem {f['smem']} "
+            f"B, spills {f['spill_stores']}/{f['spill_loads']} B"
+            for f in funcs))
+    spilled = [f["function"] for f in usage.get("flash_decode", [])
+               + usage.get("segment_matmul", [])
+               if f["function"].startswith(("flash_decode_mma", "block_sums"))
+               and f["spill_stores"] + f["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"the redesigned kernels spill: {spilled}")
     if args.lm_seeds:
         return lm_seed_readings([int(x) for x in args.lm_seeds.split(",")],
                                 card)
@@ -969,31 +1102,36 @@ def main(argv=None) -> int:
     log(f"kernels: spc_query == plain on rows with repeated hubs (the "
         f"microbench draw, {tuple(rows[0].shape)} hand-made: {want}) (exact)")
 
+    # both designs on every input, whichever the plan picks
+    seg_designs = {"sorted": SM._sorted_cuda, "blocked": SM._blocked_cuda}
     seg_err, seg_err16 = 0.0, 0.0
     for e, n_seg, d in SEG_SWEEP:
         vals, dst = segment_sweep_inputs(e, n_seg, d, dev)
-        for tag, ids in (("", dst), (" negative ids", dst - 5)):
-            got = SM.segment_matmul_cuda(vals, ids, n_seg)
-            again = SM.segment_matmul_cuda(vals, ids, n_seg)
+        for (tag, ids), (design, run) in itertools.product(
+                (("", dst), (" negative ids", dst - 5)), seg_designs.items()):
+            tag = f"segment_matmul {(e, n_seg, d)}{tag} {design}"
+            got = run(vals, ids, n_seg)
+            again = run(vals, ids, n_seg)
             torch.cuda.synchronize()
             seg_err = max(seg_err, check_close(
-                f"segment_matmul {(e, n_seg, d)}{tag} f32", got,
-                segment_matmul_ref(vals, ids, n_seg), 1e-6, 1e-6))
+                f"{tag} f32", got, sequential_plain(vals, ids, n_seg),
+                1e-6, 1e-6))
             if not torch.equal(got, again):
-                raise AssertionError(f"segment_matmul {(e, n_seg, d)}{tag}: "
-                                     f"two launches differ")
+                raise AssertionError(f"{tag}: two launches differ")
             vals16 = vals.to(torch.bfloat16)
-            got16 = SM.segment_matmul_cuda(vals16, ids, n_seg)
+            got16 = run(vals16, ids, n_seg)
             torch.cuda.synchronize()
             if got16.dtype != torch.bfloat16:
                 raise AssertionError(f"segment_matmul bf16 gave {got16.dtype}")
             seg_err16 = max(seg_err16, check_close(
-                f"segment_matmul {(e, n_seg, d)}{tag} bf16", got16.float(),
+                f"{tag} bf16", got16.float(),
                 segment_matmul_ref(vals16.float(), ids, n_seg), 1e-2, 1e-2))
-    empty = SM.segment_matmul_cuda(vals[:0], dst[:0], 7)
-    torch.cuda.synchronize()
-    if empty.shape != (7, vals.shape[1]) or empty.any():
-        raise AssertionError(f"segment_matmul with E = 0: {empty}")
+    for design, run in seg_designs.items():
+        empty = run(vals[:0], dst[:0], 7)
+        torch.cuda.synchronize()
+        if empty.shape != (7, vals.shape[1]) or empty.any():
+            raise AssertionError(f"segment_matmul {design} with E = 0: "
+                                 f"{empty}")
     # one segment of SEG_LONG edges among others, ids shuffled; integer
     # values, so every order of summation gives the same floats
     seg_rng = np.random.default_rng(args.seed + 4)
@@ -1004,18 +1142,21 @@ def main(argv=None) -> int:
     long_vals = torch.from_numpy(seg_rng.integers(
         -8, 9, (long_ids.size, 64)).astype(np.float32))
     long_dst, long_vals = long_dst.to(dev), long_vals.to(dev)
-    for x in (long_vals, long_vals.to(torch.bfloat16)):
-        got = SM.segment_matmul_cuda(x, long_dst, 32)
-        again = SM.segment_matmul_cuda(x, long_dst, 32)
+    for (design, run), x in itertools.product(
+            seg_designs.items(), (long_vals, long_vals.to(torch.bfloat16))):
+        got = run(x, long_dst, 32)
+        again = run(x, long_dst, 32)
         torch.cuda.synchronize()
         if not (torch.equal(got, segment_matmul_ref(x, long_dst, 32))
                 and torch.equal(got, again)):
-            raise AssertionError(f"segment_matmul: a segment of {SEG_LONG} "
-                                 f"edges ({x.dtype}) differs from plain")
-    log(f"kernels: segment_matmul == plain on the TPU sweep, with negative "
-        f"ids, unsorted, at E = 0 and with a segment of {SEG_LONG} edges "
-        f"(f32 max |diff| {seg_err:.3g}, bf16 {seg_err16:.3g} against the "
-        f"f32 sum; the long segment exact); two launches bitwise equal")
+            raise AssertionError(f"segment_matmul {design}: a segment of "
+                                 f"{SEG_LONG} edges ({x.dtype}) differs "
+                                 f"from plain")
+    log(f"kernels: segment_matmul == plain in both designs on the TPU "
+        f"sweep, with negative ids, unsorted, at E = 0 and with a segment of "
+        f"{SEG_LONG} edges (f32 max |diff| {seg_err:.3g}, bf16 "
+        f"{seg_err16:.3g} against the f32 sum; the long segment exact); two "
+        f"launches bitwise equal")
 
     bag_err, bag_shapes = 0.0, []
     for tag, (b, s, v, d) in ([(f"sweep{shape}", shape)
@@ -1053,6 +1194,19 @@ def main(argv=None) -> int:
         log(f"embedding_bag {tag}: {json.dumps(bag_shapes[-1])}")
     log(f"kernels: embedding_bag == plain on the sweep and the recsys "
         f"shapes (f32 max |diff| {bag_err:.3g}; bf16 within 1e-2)")
+    # F1: ids in [-(V + 1), -1] read from the end, as the reference reads
+    # them; below that the zero row (F2)
+    ids, table, want = wrapped_id_rows(dev)
+    for tag, got in (("kernel", EB.embedding_bag_cuda(ids, table)),
+                     ("ops", embedding_bag(ids, table[:-1]))):
+        torch.cuda.synchronize()
+        if got.tolist() != want or not torch.equal(
+                got, embedding_bag_ref(ids, table)):
+            raise AssertionError(f"embedding_bag {tag} on ids "
+                                 f"{ids[:, 0].tolist()}: {got.tolist()} != "
+                                 f"{want}")
+    log(f"kernels: embedding_bag (kernel and ops) reads ids "
+        f"{ids[:, 0].tolist()} of a 4-row table as rows {want} (exact)")
 
     dec_rng = np.random.default_rng(args.seed + 3)
     dec_err = dec_err16 = 0.0
@@ -1067,14 +1221,26 @@ def main(argv=None) -> int:
         if b > 2 and got[-1].any():
             raise AssertionError(f"{tag}: the row of length 0 is not zero")
         q16, k16, v16 = (x.to(torch.bfloat16) for x in (q, k, v))
+        want16 = decode_attention_ref(q16.float(), k16.float(), v16.float(),
+                                      lengths)
+        # the planned route (the tensor cores at D 64 and 128), twice, and
+        # the CUDA-core route
         got16 = FD.flash_decode_cuda(q16, k16, v16, lengths)
+        again = FD.flash_decode_cuda(q16, k16, v16, lengths)
+        simt16 = FD._simt_cuda(q16, k16, v16, lengths)
         torch.cuda.synchronize()
-        dec_err16 = max(dec_err16, check_close(
-            f"{tag} bf16", got16, decode_attention_ref(
-                q16.float(), k16.float(), v16.float(), lengths), 1e-2, 1e-2))
+        if not torch.equal(got16, again):
+            raise AssertionError(f"{tag} bf16: two launches differ")
+        for route, out in (("planned", got16), ("simt", simt16)):
+            dec_err16 = max(dec_err16, check_close(
+                f"{tag} bf16 {route}", out, want16, 1e-2, 1e-2))
+            if b > 2 and out[-1].any():
+                raise AssertionError(f"{tag} bf16 {route}: the row of "
+                                     f"length 0 is not zero")
     log(f"kernels: flash_decode == plain on the TPU sweep and GQA groups "
-        f"(f32 max |diff| {dec_err:.3g}, bf16 {dec_err16:.3g}; rows of "
-        f"length 0 give zeros) on {card}")
+        f"(f32 max |diff| {dec_err:.3g}, bf16 {dec_err16:.3g} on both "
+        f"routes; rows of length 0 give zeros; two launches bitwise equal) "
+        f"on {card}")
 
     # -- 4. main paths: build --------------------------------------------------
     n, m = CONFIG.n >> args.halvings, CONFIG.m >> args.halvings
@@ -1129,64 +1295,87 @@ def main(argv=None) -> int:
         raise AssertionError("gather_scatter at the graph's shape differs "
                              "from the plain version (exact sums)")
     msgs16 = msgs.to(torch.bfloat16)
-    agg16 = SM.segment_matmul_cuda(msgs16, g_dst32, n)
-    torch.cuda.synchronize()
-    if not torch.equal(agg16, segment_matmul_ref(msgs16, g_dst32, n)):
-        raise AssertionError("segment_matmul bf16 at the graph's shape "
-                             "differs from the plain version (exact sums)")
-    # N(0, 1) messages: the order of summation shows in the floats, so
-    # two launches must agree bit for bit; held to the float64 sum within
-    # the error bound of fp32 summation at the kernel's depth
+    # N(0, 1) messages: the order of summation shows in the floats
     normal = torch.randn(msgs.shape, generator=torch.Generator(
         "cuda").manual_seed(args.seed), device=dev)
-    got = SM.segment_matmul_cuda(normal, g_dst32, n)
-    again = SM.segment_matmul_cuda(normal, g_dst32, n)
-    torch.cuda.synchronize()
-    if not torch.equal(got, again):
-        raise AssertionError("segment_matmul: two launches at the graph's "
-                             "shape differ")
-    g_err = check_summation_bound("segment_matmul at the graph's shape",
-                                  got, normal, g_dst32, n, SM.CHUNK)
-    del got, again
     # the BFS relaxation form: D = 1, counts of a random frontier, n + 1
-    # segments; exact against the port's int64 edge_relax
+    # segments
     cnt = torch.from_numpy(seg_rng.integers(1, 5, n + 1)).to(dev)
     frontier = torch.from_numpy(seg_rng.random(n + 1) < 0.5).to(dev)
     frontier[n] = False
     relax = torch.where(frontier[g_src], cnt[g_src], 0).float()[:, None]
-    got = SM.segment_matmul_cuda(relax, g_dst32, n + 1)
-    torch.cuda.synchronize()
-    if not torch.equal(got[:, 0].long(), B.edge_relax(g_src, g_dst, cnt,
-                                                      frontier)):
-        raise AssertionError("segment_matmul differs from edge_relax on "
-                             "the graph's relaxation")
-    mb_vals, mb_dst = (torch.from_numpy(x)
+    relaxed = B.edge_relax(g_src, g_dst, cnt, frontier)
+    # both designs at the graph's shapes (the plan picks the sorted one):
+    # the quantized features exactly in f32 and bf16; the N(0, 1) messages
+    # bit for bit across two launches and within the error bound of fp32
+    # summation of the float64 sum; the relaxation equal to the int64
+    # edge_relax
+    g_err = 0.0
+    for design, run in seg_designs.items():
+        for x in (msgs, msgs16):
+            if not torch.equal(run(x, g_dst32, n),
+                               segment_matmul_ref(x, g_dst32, n)):
+                raise AssertionError(f"segment_matmul {design} {x.dtype} at "
+                                     f"the graph's shape differs from the "
+                                     f"plain version (exact sums)")
+        got = run(normal, g_dst32, n)
+        again = run(normal, g_dst32, n)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"segment_matmul {design}: two launches at "
+                                 f"the graph's shape differ")
+        g_err = max(g_err, check_summation_bound(
+            f"segment_matmul {design} at the graph's shape", got, normal,
+            g_dst32, n, design))
+        got = run(relax, g_dst32, n + 1)
+        torch.cuda.synchronize()
+        if not torch.equal(got[:, 0].long(), relaxed):
+            raise AssertionError(f"segment_matmul {design} differs from "
+                                 f"edge_relax on the graph's relaxation")
+    del got, again
+    # the times of both designs, index_add_ and the plain version at each
+    # shape, SEG_REPS rounds in turn; the card's busy time per call of the
+    # planned design and of index_add_ from a trace of back-to-back calls
+    mb_vals, mb_dst = (torch.from_numpy(x).to(dev)
                        for x in KB.segment_inputs(seed=args.seed))
-    seg_shapes = [{
-        "shape": "microbench", "edges": s_row["edges"],
-        "nodes": s_row["nodes"], "d": s_row["d"], "dtype": "float32",
-        "dst": "sorted", "longest_segment": s_row["longest_segment"],
-        "chunks": s_row["chunks"], "ms": s_row["kernel_ms"],
-        "plain_ms": s_row["plain_ms"], "library_ms": s_row["index_add_ms"],
-        "bytes": segment_matmul_work(mb_vals, mb_dst, s_row["nodes"])[0]}]
-    g_dst64 = g_dst32.long()
-    for tag, x, n_seg, ids in (("graph f32", normal, n, g_dst32),
-                               ("graph bf16", msgs16, n, g_dst32),
-                               ("relaxation", relax, n + 1, g_dst32)):
+    seg_shapes = []
+    for tag, x, n_seg, ids, order in (
+            ("microbench", mb_vals, s_row["nodes"], mb_dst, "sorted"),
+            ("graph f32", normal, n, g_dst32, "graph slots (unsorted)"),
+            ("graph bf16", msgs16, n, g_dst32, "graph slots (unsorted)"),
+            ("relaxation", relax, n + 1, g_dst32, "graph slots (unsorted)")):
+        ids64 = ids.long()
+        design = SM.plan(x.shape[0], n_seg, x.shape[1], x.dtype)
+        calls = {"sorted": lambda: SM._sorted_cuda(x, ids, n_seg),
+                 "blocked": lambda: SM._blocked_cuda(x, ids, n_seg),
+                 "index_add_": lambda: torch.zeros(
+                     (n_seg, x.shape[1]), dtype=x.dtype,
+                     device=dev).index_add_(0, ids64, x)}
+        reps = {k: [] for k in calls}
+        for _ in range(SEG_REPS):
+            for k, fn in calls.items():
+                reps[k].append(cuda_ms(fn, 50))
+        busy = {k: device_busy_ms(lambda: [calls[k]() for _ in range(
+            SEG_TRACE_CALLS)])[0] for k in (design, "index_add_")}
         nbytes, _, longest = segment_matmul_work(x, ids, n_seg)
         seg_shapes.append({
             "shape": tag, "edges": x.shape[0], "nodes": n_seg,
             "d": x.shape[1], "dtype": str(x.dtype).split(".")[-1],
-            "dst": "graph slots (unsorted)", "longest_segment": longest,
-            "chunks": SM.chunks(x.shape[0]),
-            "ms": cuda_ms(lambda: SM.segment_matmul_cuda(x, ids, n_seg), 50),
+            "dst": order, "longest_segment": longest, "design": design,
+            "ms": float(np.median(reps[design])),
+            "sorted_ms": reps["sorted"], "blocked_ms": reps["blocked"],
+            "device_ms": busy[design] and busy[design] / SEG_TRACE_CALLS,
             "plain_ms": cuda_ms(lambda: segment_matmul_ref(x, ids, n_seg),
                                 20),
-            "library_ms": cuda_ms(lambda: torch.zeros(
-                (n_seg, x.shape[1]), dtype=x.dtype, device=dev).index_add_(
-                    0, g_dst64, x), 50),
+            "library_ms": float(np.median(reps["index_add_"])),
+            "index_add_ms": reps["index_add_"],
+            "library_device_ms": busy["index_add_"] and busy[
+                "index_add_"] / SEG_TRACE_CALLS,
             "sort_ms": cuda_ms(lambda: torch.sort(ids, stable=True), 50),
             "bytes": nbytes})
+        if tag == "microbench":
+            seg_shapes[-1].update(bench_ms=s_row["kernel_ms"],
+                                  bench_index_add_ms=s_row["index_add_ms"])
     seg_shapes[-1]["edge_relax_ms"] = cuda_ms(
         lambda: B.edge_relax(g_src, g_dst, cnt, frontier), 50)
     for row in seg_shapes:
@@ -1196,10 +1385,10 @@ def main(argv=None) -> int:
     log(f"kernels path: {kernels_s:.3f} s; spc_query microbench "
         f"{json.dumps(q_row)}; gather_scatter over {g_src.numel()} edge "
         f"slots x {SEG_FEATURES} into {n} segments equal to plain (exact, "
-        f"f32 and bf16); N(0, 1) max |diff| {g_err:.3g} from the float64 "
-        f"sum; relaxation equal to edge_relax; on {card}")
-    del (g_src, g_dst, g_dst32, g_dst64, feats, agg, msgs, msgs16, agg16,
-         normal, relax, cnt, frontier, got)
+        f"f32 and bf16, both designs); N(0, 1) max |diff| {g_err:.3g} from "
+        f"the float64 sum; relaxation equal to edge_relax; on {card}")
+    del (g_src, g_dst, g_dst32, feats, agg, msgs, msgs16, normal, relax, cnt,
+         frontier, relaxed, mb_vals, mb_dst, x, ids, ids64, calls)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1453,6 +1642,12 @@ def main(argv=None) -> int:
     busy_ms, span_ms = device_busy_ms(lambda: replay_decode(
         params, lm_cfg, cache, fed[:, -LM_TRACE_STEPS:],
         s_max - LM_TRACE_STEPS))
+    # the same steps again, the card's ms per step by kernel
+    step_kernels = device_ms_by_kernel(lambda: replay_decode(
+        params, lm_cfg, cache, fed[:, -LM_TRACE_STEPS:],
+        s_max - LM_TRACE_STEPS), LM_TRACE_STEPS)
+    step_kernels = dict(sorted(step_kernels.items(),
+                               key=lambda kv: -kv[1])[:LM_TOP_KERNELS])
     want_launches = lm_cfg.n_layers * LM_STEPS
     if counts.by_path["lm"]["flash_decode"] != want_launches:
         raise AssertionError(f"flash_decode launched "
@@ -1478,7 +1673,8 @@ def main(argv=None) -> int:
         "param_bytes": tf.param_bytes(params), "reduced": lm_reduced,
         "decode_busy_ms_per_step": busy_ms and busy_ms / LM_TRACE_STEPS,
         "decode_idle_share": busy_ms and 1 - busy_ms / LM_TRACE_STEPS / (
-            float(np.percentile(step_ms, 50)))}
+            float(np.percentile(step_ms, 50))),
+        "decode_step_ms_by_kernel": step_kernels}
     log(f"L2: prefill {LM_BATCH} x {LM_PROMPT} tokens in groups of "
         f"{LM_GROUP}: {prefill_s:.3f} s, peak {prefill_peak} B on "
         f"{card}")
@@ -1488,6 +1684,8 @@ def main(argv=None) -> int:
         f"{lm_numbers['decode_tokens_per_s']:.1f} tokens/s, peak "
         f"{decode_peak} B; flash_decode launched {want_launches} times on "
         f"{card}")
+    log(f"L3 trace by kernel, device ms per step (the top "
+        f"{LM_TOP_KERNELS}): {json.dumps(step_kernels)} on {card}")
     log("L3 trace: " + (
         f"{LM_TRACE_STEPS} steps replayed under torch.profiler, the card "
         f"busy {busy_ms:.3f} ms of {span_ms:.3f} ms from its first to its "
@@ -1500,8 +1698,10 @@ def main(argv=None) -> int:
     check_cache = {"k": cache["k"][:, :LM_CHECK].clone(),
                    "v": cache["v"][:, :LM_CHECK].clone(),
                    "lengths": cache["lengths"][:LM_CHECK].clone()}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fault_span = lm_fault_span(lm_cfg, sms)
     l4 = lm_consistency(params, lm_cfg, prompts[:LM_CHECK], fed[:LM_CHECK],
-                        last[:LM_CHECK], check_cache, s_max)
+                        last[:LM_CHECK], check_cache, s_max, fault_span)
     del check_cache
     lm_numbers.update(consistency=l4)
     log(f"L4: prefill of {LM_CHECK} x {LM_PROMPT + LM_STEPS} tokens vs the "
@@ -1510,7 +1710,8 @@ def main(argv=None) -> int:
         f"fed tokens again from the prompts' cache: {l4['replay']:.4g} on "
         f"the port's route, planted faults {l4['bf16_scores']:.4g} (scores "
         f"and probabilities in bf16) and {l4['drop_span']:.4g} (first "
-        f"{LM_FAULT_SPAN} positions left out) ({time.monotonic() - t0:.3f} "
+        f"{fault_span} positions, one span of the kernel at the main "
+        f"path's shape, left out) ({time.monotonic() - t0:.3f} "
         f"s on {card})")
     check_l4(l4)
     del params, logits, prompts
@@ -1525,31 +1726,45 @@ def main(argv=None) -> int:
     qm = torch.randn((LM_BATCH, lm_cfg.padded_heads, lm_cfg.d_head),
                      generator=torch.Generator("cuda").manual_seed(args.seed),
                      device=dev).to(torch.bfloat16)
+    fd_route = FD.plan(LM_BATCH, lm_cfg.n_kv_heads, lm_cfg.padded_heads,
+                       int(k0.shape[1]), lm_cfg.d_head, torch.bfloat16,
+                       sms).route
     got = FD.flash_decode_cuda(qm, k0, v0, lens)
+    again = FD.flash_decode_cuda(qm, k0, v0, lens)
+    old = FD._simt_cuda(qm, k0, v0, lens)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("flash_decode: two launches at the main path's "
+                             "shape differ")
     q32, k32, v32 = qm.float(), k0.float(), v0.float()
     want = decode_attention_ref(q32, k32, v32, lens)
-    main_err = check_close("flash_decode at the main path's shape (bf16)",
-                           got, want, MAIN_RTOL, MAIN_ATOL)
+    main_err = check_close(f"flash_decode ({fd_route}) at the main path's "
+                           f"shape (bf16)", got, want, MAIN_RTOL, MAIN_ATOL)
     main_rel = rel_l2(got, want)
+    simt_err = check_close("flash_decode (simt) at the main path's shape "
+                           "(bf16)", old, want, MAIN_RTOL, MAIN_ATOL)
+    simt_rel = rel_l2(old, want)
+    del again, old
     got32 = FD.flash_decode_cuda(q32, k32, v32, lens)
     torch.cuda.synchronize()
     main_err32 = check_close("flash_decode at the main path's shape (f32)",
                              got32, want, 2e-5, 2e-5)
     # the bf16 check must fail a kernel that left out its last span
-    lost = decode_attention_ref(q32, k32, v32, lens - LM_FAULT_SPAN).to(
+    lost = decode_attention_ref(q32, k32, v32, lens - fault_span).to(
         torch.bfloat16).double()
     lost_err = float((lost - want.double()).abs().max())
     if torch.allclose(lost, want.double(), rtol=MAIN_RTOL, atol=MAIN_ATOL):
         raise AssertionError(f"the main-shape check passes a kernel that "
                              f"leaves out a span (max |diff| {lost_err})")
     del q32, k32, v32, got32, lost
-    log(f"flash_decode at the main path's shape == plain: bf16 max |diff| "
-        f"{main_err:.3g} (rtol {MAIN_RTOL}, atol {MAIN_ATOL}), relative L2 "
-        f"{main_rel:.3g}, output RMS "
+    log(f"flash_decode at the main path's shape == plain: bf16 on the "
+        f"{fd_route} route max |diff| {main_err:.3g} (rtol {MAIN_RTOL}, atol "
+        f"{MAIN_ATOL}), relative L2 {main_rel:.3g}, bitwise equal across two "
+        f"launches; on the simt route {simt_err:.3g}, relative L2 "
+        f"{simt_rel:.3g}; output RMS "
         f"{float(want.norm()) / want.numel() ** 0.5:.3g}; "
         f"f32 max |diff| {main_err32:.3g} (2e-5); one span of "
-        f"{LM_FAULT_SPAN} left out differs by {lost_err:.3g} and fails on "
+        f"{fault_span} left out differs by {lost_err:.3g} and fails on "
         f"{card}")
     length = int(lens[0])
     if lens.tolist() != [length] * LM_BATCH:
@@ -1561,27 +1776,53 @@ def main(argv=None) -> int:
     check_close("F.scaled_dot_product_attention", lib, want, MAIN_RTOL,
                 MAIN_ATOL)
     del want
-    fd_ms = cuda_ms(lambda: FD.flash_decode_cuda(qm, k0, v0, lens), 100)
+    # the planned route, the CUDA-core route and SDPA in turn
+    fd_calls = {fd_route: lambda: FD.flash_decode_cuda(qm, k0, v0, lens),
+                "simt": lambda: FD._simt_cuda(qm, k0, v0, lens),
+                "sdpa": lambda: F.scaled_dot_product_attention(
+                    qm[:, :, None], ks, vs, enable_gqa=True)}
+    fd_reps = {k: [] for k in fd_calls}
+    for _ in range(FD_REPS):
+        for k, fn in fd_calls.items():
+            fd_reps[k].append(cuda_ms(fn, 100))
+    fd_ms = float(np.median(fd_reps[fd_route]))
+    fd_lib_ms = float(np.median(fd_reps["sdpa"]))
+    # what the card runs in one call: each kernel's device ms per call
+    # flash_decode's kernels in the decode step's trace (28 calls a step)
+    fd_trace = {k: v / lm_cfg.n_layers for k, v in step_kernels.items()
+                if k.startswith("flash_decode")}
     fd_plain_ms = cuda_ms(lambda: decode_attention_ref(qm, k0, v0, lens), 5,
                           warmup=1)
-    fd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qm[:, :, None], ks, vs, enable_gqa=True), 100)
     fd_bytes, fd_ops = flash_decode_work(qm, k0, lens)
     fd_bound, fd_by = bound_ms(fd_bytes, fd_ops)
     fd_shape = {"B": LM_BATCH, "H": lm_cfg.padded_heads,
                 "KVH": lm_cfg.n_kv_heads, "S": int(k0.shape[1]),
                 "D": lm_cfg.d_head, "lengths": length, "dtype": "bfloat16"}
-    log(f"flash_decode at {json.dumps(fd_shape)}: {fd_ms:.5f} ms "
+    log(f"flash_decode at {json.dumps(fd_shape)}: {fd_route} "
+        f"{json.dumps(fd_reps[fd_route])} ms, simt "
+        f"{json.dumps(fd_reps['simt'])} ms, SDPA {json.dumps(fd_reps['sdpa'])} "
+        f"ms in {FD_REPS} rounds; median {fd_ms:.5f} ms "
         f"({fd_bytes / fd_ms / 1e6:.1f} GB/s), plain {fd_plain_ms:.4f} ms, "
         f"SDPA {fd_lib_ms:.5f} ms, bound {fd_bound:.5f} ms ({fd_bytes} B, "
         f"{fd_by}); {lm_cfg.n_layers} launches take "
         f"{lm_cfg.n_layers * fd_ms:.3f} ms of a "
         f"{lm_numbers['decode_step_ms_p50']:.3f} ms step on {card}")
+    log(f"flash_decode in the L3 trace, device ms per call by kernel: "
+        f"{json.dumps(fd_trace)} on {card}")
     log(f"lm: {json.dumps(lm_numbers)} on {card}")
     del cache, k0, v0, ks, vs
 
+    def paths_of(kernel):
+        return [p for p, names in PATH_KERNELS.items() if kernel in names]
+
+    def usage_of(kernel):
+        return {f["function"]: [f["registers"], f["smem"], f["spill_stores"],
+                                f["spill_loads"]]
+                for f in usage.get(kernel, [])}
+
     kernels = [{
         "name": "spc_query", "route": "cuda",
+        "path": paths_of("spc_query"), "ptxas": usage_of("spc_query"),
         "source": KERNEL_SOURCES["spc_query"][0],
         "replaces": KERNEL_SOURCES["spc_query"][1],
         "launches": counts.of("spc_query")[0],
@@ -1591,6 +1832,10 @@ def main(argv=None) -> int:
         "microbench": q_row,
     }, {
         "name": "segment_matmul", "route": "cuda",
+        "path": paths_of("segment_matmul"),
+        "ptxas": usage_of("segment_matmul"),
+        "design": seg_shapes[1]["design"],
+        "microbench_design": seg_shapes[0]["design"],
         "source": KERNEL_SOURCES["segment_matmul"][0],
         "replaces": KERNEL_SOURCES["segment_matmul"][1],
         "launches": counts.of("segment_matmul")[0],
@@ -1602,6 +1847,8 @@ def main(argv=None) -> int:
         "shape": seg_shapes[1]["shape"], "shapes": seg_shapes,
     }, {
         "name": "embedding_bag", "route": "cuda",
+        "path": paths_of("embedding_bag"),
+        "ptxas": usage_of("embedding_bag"),
         "source": KERNEL_SOURCES["embedding_bag"][0],
         "replaces": KERNEL_SOURCES["embedding_bag"][1],
         "launches": counts.of("embedding_bag")[0],
@@ -1612,6 +1859,12 @@ def main(argv=None) -> int:
         "shape": list(bags.shape), "shapes": bag_shapes,
     }, {
         "name": "flash_decode", "route": "cuda",
+        "path": paths_of("flash_decode"), "ptxas": usage_of("flash_decode"),
+        "design": fd_route, "ms_rounds": fd_reps[fd_route],
+        "trace_ms_per_call": fd_trace,
+        "simt_ms": fd_reps["simt"], "library_ms_rounds": fd_reps["sdpa"],
+        "main_simt_max_abs_err": simt_err, "main_simt_rel_l2": simt_rel,
+        "fault_span": fault_span,
         "source": KERNEL_SOURCES["flash_decode"][0],
         "replaces": KERNEL_SOURCES["flash_decode"][1],
         "launches": counts.of("flash_decode")[0],

@@ -5,9 +5,10 @@
 
 ``query_kernel_vs_plain`` times the spc_query kernel against its plain
 version (the L x L table) on b pairs of l labels each;
-``segment_matmul_vs_segment_sum`` times the segment_matmul kernel
-against its plain version and one ``index_add_`` call on e edges into n
-segments of width d, ids sorted.  Both draw their inputs with numpy in
+``segment_matmul_vs_segment_sum`` times the segment_matmul kernel (the
+design its ``plan`` picks: at the defaults the blocked one) against its
+plain version and one ``index_add_`` call on e edges into n segments of
+width d, ids sorted.  Both draw their inputs with numpy in
 the reference's order of generator calls, so a seed gives the
 reference's inputs (counts int64 here, float32 there).  Hub rows are
 sorted draws from [0, 500), so a hub often repeats within a row.
@@ -15,7 +16,10 @@ sorted draws from [0, 500), so a hub often repeats within a row.
 On the card each function first holds the kernel against its plain
 version, spc_query exactly and segment_matmul within rtol = atol = 1e-6,
 and raises on a mismatch; then it times each from CUDA events after a
-warm-up.  With ``device="cpu"`` only the plain versions run, timed on
+warm-up.  segment_matmul's plain version is held on the CPU copy of the
+inputs: there ``index_add_`` adds in index order, the same sums on
+every run, where on the card its float atomics add in an order that
+changes from run to run (by a few ulps of the partial sums).  With ``device="cpu"`` only the plain versions run, timed on
 the host clock, and the kernel columns are None.
 """
 
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import resolve_device
-from repro_torch.kernels.segment_matmul.kernel import (chunks,
+from repro_torch.kernels.segment_matmul.kernel import (chunks, plan,
                                                        segment_matmul_cuda)
 from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
 from repro_torch.kernels.spc_query.kernel import spc_query_cuda
@@ -122,7 +126,7 @@ def segment_matmul_vs_segment_sum(e: int = 16384, n: int = 2048,
     kernel_ms = None
     if dev.type == "cuda":
         got = segment_matmul_cuda(vals, dst, n)
-        want = segment_matmul_ref(vals, dst, n)
+        want = segment_matmul_ref(vals.cpu(), dst.cpu(), n).to(dev)
         if not torch.allclose(got, want, rtol=1e-6, atol=1e-6):
             raise RuntimeError(
                 f"segment_matmul: the kernel differs from its plain version "
@@ -136,7 +140,8 @@ def segment_matmul_vs_segment_sum(e: int = 16384, n: int = 2048,
     longest = int(torch.bincount(dst64, minlength=1).max()) if e else 0
     out = [{"name": "segment_matmul", "device": _device_name(dev),
             "edges": e, "nodes": n, "d": d, "longest_segment": longest,
-            "chunks": chunks(e), "kernel_ms": kernel_ms,
+            "design": plan(e, n, d, vals.dtype), "chunks": chunks(e),
+            "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "index_add_ms": library_ms}]
     _print(out)
     return out

@@ -5,8 +5,12 @@
 // embedding_bag_pallas -> _embedding_bag_jit -> pallas_call).
 //
 //   out[b, :] = sum over s < S of table[row(ids[b, s]), :]
-//   row(i)    = i if 0 <= i < V, else V   (table[V] is the zero row the
-//                                          ops wrapper appends)
+//   row(i)    = i          if 0 <= i < V
+//             = V + 1 + i  if -(V + 1) <= i < 0  (from the end, as the
+//                                                reference's jnp.take
+//                                                and Pallas kernel read it)
+//             = V          otherwise  (table[V] is the zero row the ops
+//                                      wrapper appends)
 //
 // fp32 accumulation; the output is written once in the table's dtype
 // (float32 or bfloat16, the latter rounded to nearest even).
@@ -19,8 +23,10 @@
 // consecutive elements.  Each lane sums its columns over s = 0..S-1 in
 // order: a fixed summation order and no atomics, so the kernel is
 // deterministic and differs from a plain fp32 sum only by that order.
-// Loads are scalar, so any D (8 and 18 included) is read exactly to the
-// end of each row and never past it.
+// The slot loop is unrolled by 4, so a lane has up to 4 rows in flight
+// before their adds, which stay in slot order.  Loads are scalar, so
+// any D (8 and 18 included) is read exactly to the end of each row and
+// never past it.
 //
 // Bound on this card: bytes.  The function must read the ids (4 B per
 // slot), each distinct table row it touches once (D elements), and
@@ -61,17 +67,21 @@ __global__ void embedding_bag_kernel(const int32_t* __restrict__ ids,
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (bag >= B) return;  // whole warps exit together
   const int32_t* bag_ids = ids + bag * (long long)S;
-  const long long zero_row = V1 - 1;
+  const int zero_row = (int)(V1 - 1);  // V1 < 2^31: the wrapper checks
   for (int d0 = 0; d0 < D; d0 += 32) {
     const int d = d0 + lane;
     float acc = 0.f;
     for (int s0 = 0; s0 < S; s0 += 32) {
       const int n_ids = S - s0 < 32 ? S - s0 : 32;
       const int32_t my_id = lane < n_ids ? bag_ids[s0 + lane] : 0;
+      // unrolled so that several rows are in flight; the adds stay in
+      // slot order
+#pragma unroll 4
       for (int j = 0; j < n_ids; ++j) {
         const int32_t id = __shfl_sync(0xffffffffu, my_id, j);
-        const long long row = (id >= 0 && id < zero_row) ? id : zero_row;
-        if (d < D) acc += to_float(table[row * D + d]);
+        const int w = id < 0 ? id + zero_row + 1 : id;  // from the end
+        const int row = (unsigned)w < (unsigned)zero_row ? w : zero_row;
+        if (d < D) acc += to_float(table[(long long)row * D + d]);
       }
     }
     if (d < D) store(out + bag * (long long)D + d, acc);

@@ -10,29 +10,56 @@
 //
 // with G = H / KVH query heads per KV head.  q is [B, H, D]; k and v are
 // read in the cache's own layout [B, S, KVH, D] (never expanded to H
-// heads); float32 or bfloat16 in, fp32 softmax and accumulation, the
-// output in the input's dtype.  A row with length 0 gives zeros.
+// heads); fp32 softmax and accumulation, the output in the input's
+// dtype.  A row with length 0 gives zeros.
 //
 // The TPU kernel walks a sequential (row block, S block) grid and
 // carries (m, l, acc) in VMEM from one S block to the next.  Blocks on
-// Hopper run in no order, so nothing carries across them.  Here:
+// Hopper run in no order, so nothing carries across them: pass 1 cuts S
+// into spans, one CTA per (b, KV head, head chunk, span), each writing
+// its span's unnormalised (acc, m, l) to fp32 scratch; pass 2
+// (flash_decode_merge), one CTA per (b, h), merges the spans by
+// log-sum-exp in fixed span order -- the merge the reference does across
+// chips (src/repro/models/attention.py:8-11) -- and writes
+// acc / max(l, 1e-30).  No atomics: the result is deterministic.  The
+// wrapper (kernels/flash_decode/kernel.py) picks pass 1's route by dtype
+// and D alone:
 //
-//   pass 1 (flash_decode_split): grid (B * KVH * head chunks, splits).
-//     One 128-thread CTA takes one KV head of one request and a span of
-//     `split_len` cache positions, and serves every query head of its
-//     group (up to KG = 8 per chunk) from one read of each K and V row.
-//     It walks the span in tiles of 64 positions: D / 8 lanes read one
-//     row with 16-byte loads (8 elements a lane), so a warp reads whole
-//     rows; the KG dot products are reduced across those lanes with
-//     shuffles into a [KG, 64] score tile in shared memory; one warp per
-//     head then takes the tile's max, rescales (m, l) and turns the
-//     scores into probabilities (base-2 exponent, the scale folded into
-//     q); every thread then adds p * v into its fp32 accumulators.  The
-//     span's unnormalised (acc, m, l) go to fp32 scratch.
-//   pass 2 (flash_decode_merge): one CTA per (b, h) merges the splits by
-//     log-sum-exp in fixed split order -- the merge the reference does
-//     across chips (src/repro/models/attention.py:8-11) -- and writes
-//     acc / max(l, 1e-30).  No atomics: the result is deterministic.
+//   tensor cores (flash_decode_mma; bfloat16, D = 64 or 128, the LM's
+//     route).  A CTA of 4 warps serves the whole GQA group of its KV
+//     head, up to 16 query heads, as the M = 16 rows of
+//     mma.sync.m16n8k16 products in bf16 with fp32 accumulators (rows
+//     past the group are zero).  Each warp owns every 4th tile of 16
+//     cache positions of the span and keeps its own (m, l, O[16 x D]) in
+//     registers; its K and V tiles flow through its own 3-stage ring in
+//     shared memory, filled by 16-byte cp.async.cg copies (zeros past the
+//     row's end) and waited on with cp.async.wait_group and __syncwarp:
+//     no __syncthreads until the 4 warps' states are merged once at the
+//     end of the span.  A tile's rows are 256 bytes (D = 128), so its
+//     16-byte chunks are stored XOR-swizzled by row (chunk ^ (row % 8))
+//     and ldmatrix (K) and ldmatrix.trans (V) read 8 rows without bank
+//     conflicts.  q is not scaled in bf16: the scale goes onto the fp32
+//     scores.  P = exp2(s - m) is split into a bf16 pair hi + lo (lo =
+//     P - hi) and P @ V is taken as two products, so P keeps about 16
+//     bits where one bf16 product would keep 8.  The wrapper cuts S so
+//     that the CTAs make one wave of 2 per SM (96 KB of rings each at
+//     D = 128): 8 spans of 4112 positions at the LM's shape, 256 CTAs.
+//     Smaller spans lost more to each CTA's fill and drain than they
+//     gained in balance over the 132 SMs.  Both passes are launched with
+//     programmatic dependent launch: pass 2 is scheduled while pass 1
+//     drains (pass 1 signals it after its loop) and waits for pass 1's
+//     writes itself, which takes a launch gap off every call.
+//   CUDA cores (flash_decode_split; float32, and D = 16 or 32).  One
+//     128-thread CTA serves up to KG = 8 query heads of its group from
+//     one read of each K and V row, in tiles of 64 positions: D / 8
+//     lanes read one row with 16-byte loads (8 elements a lane); the KG
+//     dot products are reduced across those lanes with shuffles into a
+//     [KG, 64] score tile in shared memory; one warp per head takes the
+//     tile's max, rescales (m, l) and turns the scores into
+//     probabilities (base-2 exponent, the scale folded into fp32 q);
+//     every thread then adds p * v into its fp32 accumulators.  A tile's
+//     K loads are issued together before any math and its V loads
+//     before the softmax; there is no multi-stage pipeline.
 //
 // Bound on this card: bytes.  The function must read K and V of each KV
 // head within lengths once (2 * len * D elements per (b, kvh)), q, and
@@ -40,11 +67,9 @@
 // LM decode shape (B = 16, H = 12, KVH = 2, D = 128, bf16, len ~32.8k)
 // that is ~537 MB, ~0.160 ms at 3.35 TB/s (H100 SXM), against ~0.048 ms
 // of fp32 work at 67 TFLOP/s; chip_smoke.flash_decode_work counts it on
-// each run's lengths.  The design reads each cache row once per KV head
-// (the GQA group shares it) and splits S so that B * KVH = 32 rows still
-// fill 132 SMs.  A tile's K loads are issued together before any math
-// and its V loads before the softmax; there is no multi-stage cp.async
-// or TMA pipeline and no tensor-core (wgmma) product yet: later work.
+// each run's lengths.  Both routes read each cache row once per KV head
+// (the GQA group shares it) and split S so that B * KVH = 32 rows still
+// fill 132 SMs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -276,11 +301,18 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Wait for the kernels this one depends on to finish and their writes
+// to show (a no-op unless launched with programmatic dependent launch).
+__device__ __forceinline__ void wait_for_inputs() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // Pass 2: one CTA per (b, h); splits merged in order.
 template <typename T>
 __global__ void flash_decode_merge(const float* __restrict__ part_acc,
                                    const float* __restrict__ part_ml,
                                    T* __restrict__ out, int D, int n_splits) {
+  wait_for_inputs();
   const long long row = blockIdx.x;
   const float* ml = part_ml + row * n_splits * 2;
   float m = -INFINITY;
@@ -361,6 +393,365 @@ int launch_d(int D, int kg, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---- the tensor-core route -------------------------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaRows = 16;   // query heads per CTA: the M of m16n8k16
+constexpr int kWarpTile = 16;  // cache positions per warp tile
+constexpr int kStages = 3;     // tiles in each warp's ring
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where
+// `full` is false (src-size 0: nothing is read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// c += a @ b: a 16 x 16 bf16 (4 registers), b 16 x 8 bf16 (2), c fp32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x, y) as a bf16 pair hi and the pair of what hi leaves out, lo.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = pack_bf16(h);
+  lo = pack_bf16(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// Element offset of 16-byte chunk c of row r in a [kWarpTile, D] tile.
+template <int D>
+__device__ __forceinline__ int swizzled(int r, int c) {
+  return r * D + ((c ^ (r & 7)) << 3);
+}
+
+// Pass 1 on the tensor cores.  Grid (B * KVH * head chunks of 16,
+// n_splits), kMmaWarps warps.  Dynamic shared memory: each warp's ring
+// of kStages (K, V) tile pairs; reused at the end for the warps' states.
+// part_acc, part_ml as for flash_decode_split.
+template <int D>
+__global__ void __launch_bounds__(32 * kMmaWarps)
+flash_decode_mma(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const int32_t* __restrict__ lengths,
+                 float* __restrict__ part_acc, float* __restrict__ part_ml,
+                 int S, int H, int KVH, int n_chunks, int split_len,
+                 int n_splits, float scale_log2) {
+  constexpr int C = D / 8;       // 16-byte chunks per row
+  constexpr int KS = D / 16;     // k-steps of q . k
+  constexpr int NT = D / 8;      // n-tiles of p @ v
+  constexpr int TILE = kWarpTile * D;
+  static_assert(D == 64 || D == 128, "the tensor-core route takes D 64, 128");
+
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4) +
+                        (threadIdx.x >> 5) * (kStages * 2 * TILE);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, gc = (lane & 3) * 2;  // fragment row, column
+  const int chunk = blockIdx.x % n_chunks;
+  const int bkv = blockIdx.x / n_chunks;
+  const int b = bkv / KVH, kvh = bkv % KVH;
+  const int G = H / KVH;
+  const int split = blockIdx.y;
+
+  wait_for_inputs();
+  int len = lengths[b];
+  len = len < 0 ? 0 : (len > S ? S : len);
+  const int s_begin = split * split_len;
+  const int s_end = min(len, s_begin + split_len);
+  const int n_tiles =
+      s_end > s_begin ? (s_end - s_begin + kWarpTile - 1) / kWarpTile : 0;
+  const int my_tiles =
+      n_tiles > warp ? (n_tiles - warp + kMmaWarps - 1) / kMmaWarps : 0;
+
+  // q as the A operand: rows = this chunk's query heads (zero past G)
+  uint32_t qa[KS][4];
+  {
+    const int g0 = chunk * kMmaRows + gr, g1 = g0 + 8;
+    const long long head0 = (long long)b * H + (long long)kvh * G;
+    const uint32_t* q0 =
+        reinterpret_cast<const uint32_t*>(q + (head0 + g0) * D + gc);
+    const uint32_t* q1 =
+        reinterpret_cast<const uint32_t*>(q + (head0 + g1) * D + gc);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      qa[kk][0] = g0 < G ? q0[kk * 8] : 0u;
+      qa[kk][1] = g1 < G ? q1[kk * 8] : 0u;
+      qa[kk][2] = g0 < G ? q0[kk * 8 + 4] : 0u;
+      qa[kk][3] = g1 < G ? q1[kk * 8 + 4] : 0u;
+    }
+  }
+
+  const long long row_stride = (long long)KVH * D;
+  const __nv_bfloat16* kb = k + ((long long)b * S * KVH + kvh) * D;
+  const __nv_bfloat16* vb = v + ((long long)b * S * KVH + kvh) * D;
+
+  // this warp's i-th tile into stage i % kStages; always one group
+  auto issue = [&](int i) {
+    if (i < my_tiles) {
+      const int t0 = s_begin + (warp + i * kMmaWarps) * kWarpTile;
+      __nv_bfloat16* ks = ring + (i % kStages) * 2 * TILE;
+#pragma unroll
+      for (int u = 0; u < kWarpTile * C / 32; ++u) {
+        const int r = (lane + 32 * u) / C, c = (lane + 32 * u) % C;
+        const bool full = t0 + r < s_end;
+        const long long off = (long long)(full ? t0 + r : t0) * row_stride +
+                              c * 8;
+        const uint32_t dst = smem_addr(ks + swizzled<D>(r, c));
+        cp_async16(dst, kb + off, full);
+        cp_async16(dst + TILE * 2, vb + off, full);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float o[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // rows gr and gr + 8
+  float l0 = 0.f, l1 = 0.f;              // this lane's share of the sums
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  for (int i = 0; i < my_tiles; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncwarp();  // tile i is in; every lane is done with tile i - 1
+    issue(i + kStages - 1);
+    const __nv_bfloat16* ks = ring + (i % kStages) * 2 * TILE;
+    const __nv_bfloat16* vs = ks + TILE;
+    const int t0 = s_begin + (warp + i * kMmaWarps) * kWarpTile;
+
+    // scores: positions t0 + 0..7 (sc[0]) and t0 + 8..15 (sc[1])
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    {
+      const int j = lane >> 3;
+      const int r = ((j >> 1) << 3) + (lane & 7);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, smem_addr(ks + swizzled<D>(r, kk * 2 + (j & 1))));
+        mma_bf16(sc[0], qa[kk], kf[0], kf[1]);
+        mma_bf16(sc[1], qa[kk], kf[2], kf[3]);
+      }
+    }
+    // online softmax in base 2 on the fp32 scores
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = t0 + nt * 8 + gc + (e & 1) < s_end;
+        sc[nt][e] = valid ? sc[nt][e] * scale_log2 : -INFINITY;
+        if (e < 2) mx0 = fmaxf(mx0, sc[nt][e]);
+        else mx1 = fmaxf(mx1, sc[nt][e]);
+      }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
+    }
+    // finite: position t0 < s_end is in every row's quad
+    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+    const float a0 = exp2f(m0 - n0), a1 = exp2f(m1 - n1);  // 0 at first
+    m0 = n0;
+    m1 = n1;
+    float p[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[nt][e] = exp2f(sc[nt][e] - (e < 2 ? n0 : n1));
+    l0 = l0 * a0 + (p[0][0] + p[0][1] + p[1][0] + p[1][1]);
+    l1 = l1 * a1 + (p[0][2] + p[0][3] + p[1][2] + p[1][3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      o[j][0] *= a0;
+      o[j][1] *= a0;
+      o[j][2] *= a1;
+      o[j][3] *= a1;
+    }
+    // P as the A operand (k = the tile's 16 positions), hi and lo
+    uint32_t ph[4], pl[4];
+    split_bf16(p[0][0], p[0][1], ph[0], pl[0]);
+    split_bf16(p[0][2], p[0][3], ph[1], pl[1]);
+    split_bf16(p[1][0], p[1][1], ph[2], pl[2]);
+    split_bf16(p[1][2], p[1][3], ph[3], pl[3]);
+    {
+      const int j = lane >> 3;
+      const int r = ((j & 1) << 3) + (lane & 7);
+#pragma unroll
+      for (int jt = 0; jt < NT; jt += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, smem_addr(vs + swizzled<D>(r, jt + (j >> 1))));
+        mma_bf16(o[jt], ph, vf[0], vf[1]);
+        mma_bf16(o[jt], pl, vf[0], vf[1]);
+        mma_bf16(o[jt + 1], ph, vf[2], vf[3]);
+        mma_bf16(o[jt + 1], pl, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  // the merge pass may be scheduled now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+#pragma unroll
+  for (int o2 = 1; o2 < 4; o2 <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
+  }
+
+  const int rows = min(kMmaRows, G - chunk * kMmaRows);
+  const long long row0 = (long long)b * H + (long long)kvh * G +
+                         chunk * kMmaRows;
+  // merge the warps' states in warp order, once per span
+  __syncthreads();  // every warp is done with its ring
+  float* red = reinterpret_cast<float*>(smem4);  // [warps][16][D]
+  float* ml = red + kMmaWarps * kMmaRows * D;    // [warps][16][2]
+  float* r0 = red + (warp * kMmaRows + gr) * D + gc;
+  float* r1 = r0 + 8 * D;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    r0[j * 8] = o[j][0];
+    r0[j * 8 + 1] = o[j][1];
+    r1[j * 8] = o[j][2];
+    r1[j * 8 + 1] = o[j][3];
+  }
+  if ((lane & 3) == 0) {
+    ml[(warp * kMmaRows + gr) * 2] = m0;
+    ml[(warp * kMmaRows + gr) * 2 + 1] = l0;
+    ml[(warp * kMmaRows + gr + 8) * 2] = m1;
+    ml[(warp * kMmaRows + gr + 8) * 2 + 1] = l1;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < rows * D; idx += 32 * kMmaWarps) {
+    const int r = idx / D, d = idx % D;
+    float m = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w)
+      m = fmaxf(m, ml[(w * kMmaRows + r) * 2]);
+    float acc = 0.f, l = 0.f;
+    if (m != -INFINITY) {  // else no position of the span is valid
+#pragma unroll
+      for (int w = 0; w < kMmaWarps; ++w) {
+        const float f = exp2f(ml[(w * kMmaRows + r) * 2] - m);
+        acc = fmaf(red[(w * kMmaRows + r) * D + d], f, acc);
+        l = fmaf(ml[(w * kMmaRows + r) * 2 + 1], f, l);
+      }
+    }
+    const long long at = (row0 + r) * n_splits + split;
+    part_acc[at * D + d] = acc;
+    if (d == 0) {
+      part_ml[at * 2] = m;
+      part_ml[at * 2 + 1] = l;
+    }
+  }
+}
+
+template <int D>
+constexpr size_t mma_smem() {
+  return (size_t)kMmaWarps * kStages * 2 * kWarpTile * D * 2;
+}
+
+// Launch `kernel` on `st` with programmatic dependent launch: it may be
+// scheduled while the kernel before it on the stream drains, and waits
+// for that kernel's results itself (griddepcontrol.wait), so the gap
+// between two launches shrinks.
+template <typename... Params, typename... Args>
+cudaError_t launch_after(void (*kernel)(Params...), dim3 grid,
+                         dim3 block, size_t smem, cudaStream_t st,
+                         Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v,
+               const void* lengths, void* out, void* part_acc, void* part_ml,
+               int B, int S, int H, int KVH, int split_len, int n_splits,
+               cudaStream_t st) {
+  static_assert(mma_smem<D>() >= (size_t)kMmaWarps * kMmaRows * (D + 2) * 4,
+                "the ring must hold the warps' states for the merge");
+  const int G = H / KVH;
+  const int n_chunks = (G + kMmaRows - 1) / kMmaRows;
+  const long long rows = (long long)B * KVH * n_chunks;
+  if (rows > 2147483647LL || n_splits > 65535 || split_len % kWarpTile)
+    return (int)cudaErrorInvalidValue;
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)mma_smem<D>());
+    if (err != cudaSuccess) return (int)err;
+    opted = true;
+  }
+  const float scale_log2 = kLog2e / sqrtf((float)D);
+  cudaError_t err = launch_after(
+      flash_decode_mma<D>, dim3((unsigned)rows, n_splits),
+      dim3(32 * kMmaWarps), mma_smem<D>(), st, (const __nv_bfloat16*)q,
+      (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (const int32_t*)lengths, (float*)part_acc, (float*)part_ml, S, H, KVH,
+      n_chunks, split_len, n_splits, scale_log2);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_after(flash_decode_merge<__nv_bfloat16>,
+                     dim3((unsigned)((long long)B * H)),
+                     dim3(D < 128 ? D : 128), 0, st, (const float*)part_acc,
+                     (const float*)part_ml, (__nv_bfloat16*)out, D, n_splits);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  dtype 0 = float32,
@@ -389,5 +780,29 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
     return launch_d<__nv_bfloat16>(D, kg, q, k, v, lengths, out, part_acc,
                                    part_ml, B, S, H, KVH, split_len, n_splits,
                                    st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Plain C entry point of the tensor-core route, bound with ctypes: q, k,
+// v bfloat16, D 64 or 128, H a multiple of KVH; part_acc and part_ml as
+// for flash_decode_launch, split_len a multiple of 16.  Launches both
+// passes on `stream`, with programmatic dependent launch, and returns
+// cudaGetLastError() (0 on success); never synchronises.
+extern "C" int flash_decode_mma_launch(const void* q, const void* k,
+                                       const void* v, const void* lengths,
+                                       void* out, void* part_acc,
+                                       void* part_ml, int B, int S, int H,
+                                       int KVH, int D, int split_len,
+                                       int n_splits, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 ||
+      split_len <= 0 || n_splits <= 0 || (long long)split_len * n_splits < S)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64)
+    return launch_mma<64>(q, k, v, lengths, out, part_acc, part_ml, B, S, H,
+                          KVH, split_len, n_splits, st);
+  if (D == 128)
+    return launch_mma<128>(q, k, v, lengths, out, part_acc, part_ml, B, S,
+                           H, KVH, split_len, n_splits, st);
   return (int)cudaErrorInvalidValue;
 }

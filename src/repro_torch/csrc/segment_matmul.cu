@@ -8,16 +8,15 @@
 //
 // for i in [0, N); ids outside [0, N), negatives included, are dropped.
 // Sums run in fp32 and are cast once to the dtype of vals (f32 or bf16);
-// a segment with no edge gets zeros.
+// a segment with no edge gets zeros.  Neither design below uses a float
+// atomic: each adds in a fixed order, so the result is the same bit for
+// bit from run to run.
 //
 // The TPU kernel forms a [E_blk, N_blk] one-hot tile for every (node
 // block, edge block) and puts one_hot^T @ vals on the MXU: O(E N D) work
 // for an O(E D) function, because the TPU has no fast scatter.  Hopper
-// needs no one-hot.  The wrapper sorts dst stably (torch.sort, index
-// bookkeeping only), and this file does the sums as a segmented
-// reduction over the sorted order, reading each row of vals through
-// the permutation, with no float atomics, so the result is the same bit
-// for bit from run to run.
+// needs no one-hot.  The wrapper (kernels/segment_matmul/kernel.py)
+// picks one of two designs from the shapes (E, N, D, dtype) alone.
 //
 // Bound on this card: the function must read vals once (E D s bytes),
 // dst once (4 E) and write out once (N D s); at the full-graph
@@ -25,7 +24,38 @@
 // f32) that is 574.6 MB, 0.17 ms at 3.35 TB/s (H100 SXM): bound by bytes
 // (chip_smoke.segment_matmul_work counts it on each run's inputs).
 //
-// Design.  Degrees follow a power law: on that graph the longest
+// The blocked design (block_sums), for few segments.  The TPU kernel's
+// node-block decomposition without its one-hot product: one launch, no
+// sort, no scratch in device memory.  One CTA of 8 warps owns `nblk`
+// consecutive segments and keeps their fp32 rows in shared memory;
+// segment n0 + r belongs to warp r % 8, which alone adds into its row.
+// The CTA reads dst in steps of 4096 ids (16-byte loads, one step ahead;
+// after the first CTA the ids come from L2): warp w lists, in id order,
+// the hits of the block in the w-th eighth of the step (ballot counts
+// and a prefix sum over the lanes); after a __syncthreads every warp
+// walks the 8 lists in order, queues the hits of its own segments and
+// adds their rows, lanes over D, 16 rows in flight.  So each segment is
+// summed in id order from zero, one add after another -- the float32
+// sum of a sequential loop -- and a run of hits (sorted ids put all of
+// a block's edges in one run) is still shared by the 8 warps when its
+// segments differ.  At the end the CTA writes every row of its block
+// once (an empty segment keeps its zeros).  Every CTA reads all of dst,
+// so its id traffic is E x 4 x ceil(N / nblk) bytes: the wrapper takes
+// this design only where that is no more than the E D s bytes of vals,
+// and where the CTAs are enough for vals.  At the kernel microbench's
+// shape (E = 16384, N = 2048, D = 128, f32) nblk = 16 gives 128 CTAs
+// and 8 MB of ids read from L2 beside 8 MB of vals.  The edges of one
+// segment are added by one warp, and a block that owns most of the
+// edges (ids skewed onto a few segments) is read by one SM: the shapes
+// cannot show that, so the wrapper bounds the average bytes of vals per
+// CTA instead.
+//
+// The sorted design, for many segments.  The wrapper sorts dst stably
+// (torch.sort, index bookkeeping only), and the kernels below do the
+// sums as a segmented reduction over the sorted order, reading each row
+// of vals through the permutation.
+//
+// Its chunks.  Degrees follow a power law: on that graph the longest
 // segment has 14329 edges and the mean 16, so one warp per segment would
 // leave the card idle behind one warp.  Instead the sorted edge list is
 // cut into fixed chunks of `chunk` positions, whatever the segments:
@@ -279,6 +309,185 @@ int launch(const void* vals, const void* skey, const void* perm,
   return (int)cudaGetLastError();
 }
 
+// ---- the blocked design ---------------------------------------------
+
+constexpr int kBlockWarps = 8;
+constexpr int kScanIds = 4 * 32 * 4;            // ids one warp scans a step
+constexpr int kStepIds = kScanIds * kBlockWarps;  // ids a CTA scans a step
+constexpr int kHitsInFlight = 16;  // rows of vals a lane loads before adding
+constexpr int kQueue = 2 * 32;     // a warp's hits waiting for their adds
+
+// Four ids from position e: one 16-byte load where all four lie inside
+// dst and `vec` says dst is 16-byte aligned (e is a multiple of 4), else
+// scalar loads; -1 (a dropped id) past the end.
+__device__ __forceinline__ int4 load_ids(const int32_t* __restrict__ dst,
+                                         long long e, long long E,
+                                         bool vec) {
+  if (vec && e + 4 <= E) return __ldg(reinterpret_cast<const int4*>(dst + e));
+  int4 r;
+  r.x = e < E ? __ldg(dst + e) : -1;
+  r.y = e + 1 < E ? __ldg(dst + e + 1) : -1;
+  r.z = e + 2 < E ? __ldg(dst + e + 2) : -1;
+  r.w = e + 3 < E ? __ldg(dst + e + 3) : -1;
+  return r;
+}
+
+template <int VW>
+__device__ __forceinline__ void smem_add(float* a, const float* v);
+template <>
+__device__ __forceinline__ void smem_add<4>(float* a, const float* v) {
+  float4 x = *reinterpret_cast<float4*>(a);
+  x.x += v[0]; x.y += v[1]; x.z += v[2]; x.w += v[3];
+  *reinterpret_cast<float4*>(a) = x;
+}
+template <>
+__device__ __forceinline__ void smem_add<1>(float* a, const float* v) {
+  a[0] += v[0];
+}
+
+// Add the rows of a warp's `queued` hits (edge, offset in the block)
+// into `acc`, in queue order, lanes over D, kHitsInFlight rows in flight.
+template <typename T, int VW>
+__device__ __forceinline__ void add_queued(const T* __restrict__ vals,
+                                           const int2* queue, int queued,
+                                           float* acc, int D, int lane) {
+  const int col_groups = (D + 32 * VW - 1) / (32 * VW);
+  for (int i = 0; i < queued; i += kHitsInFlight) {
+    const int cnt = queued - i < kHitsInFlight ? queued - i
+                                               : kHitsInFlight;
+    for (int cg = 0; cg < col_groups; ++cg) {
+      const int col = (cg * 32 + lane) * VW;
+      if (col >= D) break;
+      float v[kHitsInFlight][VW];
+#pragma unroll
+      for (int u = 0; u < kHitsInFlight; ++u)
+        if (u < cnt) Vec<T, VW>::load(
+            vals + (long long)queue[i + u].x * D + col, v[u]);
+#pragma unroll
+      for (int u = 0; u < kHitsInFlight; ++u)
+        if (u < cnt) smem_add<VW>(acc + queue[i + u].y * D + col, v[u]);
+    }
+  }
+}
+
+// One CTA per block of nblk segments; segment n0 + r belongs to warp
+// r % 8, which alone adds its rows.  Dynamic shared memory: the block's
+// [nblk, D] fp32 accumulators, 8 lists of up to kScanIds hits (edge,
+// offset in the block) with their counts, and 8 queues of kQueue hits.
+// Each step of kStepIds ids has two phases: warp w scans the w-th
+// eighth of the step (its ids loaded a step ahead) and lists its hits in
+// id order; then every warp walks the 8 lists in order and adds the hits
+// of its own segments.  So every segment is summed in id order from
+// zero, one add after another: the float32 sum a sequential loop would
+// give, the same bits on every launch.
+template <typename T, int VW>
+__global__ void __launch_bounds__(32 * kBlockWarps, 1)
+block_sums(const T* __restrict__ vals, const int32_t* __restrict__ dst,
+           T* __restrict__ out, long long E, int N, int D, int nblk,
+           int ids_vec) {
+  extern __shared__ float4 smem4[];
+  float* acc = reinterpret_cast<float*>(smem4);
+  int2* lists = reinterpret_cast<int2*>(acc + nblk * D);
+  int2* queue = lists + kBlockWarps * kScanIds + (threadIdx.x >> 5) * kQueue;
+  int* counts = reinterpret_cast<int*>(lists + kBlockWarps * kScanIds +
+                                       kBlockWarps * kQueue);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * nblk;
+  const int nb = N - n0 < nblk ? N - n0 : nblk;
+  for (int i = threadIdx.x; i < nb * D; i += 32 * kBlockWarps) acc[i] = 0.f;
+  int2* mine = lists + warp * kScanIds;
+  const bool vec = ids_vec != 0;
+
+  int4 ids[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    ids[j] = load_ids(dst, (long long)warp * kScanIds + (j * 32 + lane) * 4,
+                      E, vec);
+  int queued = 0;  // the same in every lane
+  for (long long base = 0; base < E; base += kStepIds) {
+    // phase 1: list the hits of this warp's eighth, in id order
+    const long long e_lo = base + (long long)warp * kScanIds;
+    int listed = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int x[4] = {ids[j].x, ids[j].y, ids[j].z, ids[j].w};
+      unsigned m = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        m |= ((unsigned)x[k] - (unsigned)n0 < (unsigned)nb ? 1u : 0u) << k;
+      if (__ballot_sync(kFull, m) == 0u) continue;  // the same in all lanes
+      const int c = __popc(m);
+      int pre = c;  // inclusive prefix sum of the lanes' hits
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(kFull, pre, o);
+        if (lane >= o) pre += t;
+      }
+      const int e0 = (int)(e_lo + (j * 32 + lane) * 4);
+      int pos = listed + pre - c;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (m >> k & 1u) mine[pos++] = make_int2(e0 + k, x[k] - n0);
+      listed += __shfl_sync(kFull, pre, 31);
+    }
+    if (lane == 0) counts[warp] = listed;
+    // the next step's ids, in flight during phase 2
+    if (base + kStepIds < E) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ids[j] = load_ids(dst, e_lo + kStepIds + (j * 32 + lane) * 4, E,
+                          vec);
+    }
+    __syncthreads();
+    // phase 2: this warp's hits from the 8 lists, in list order
+    for (int w = 0; w < kBlockWarps; ++w) {
+      const int n = counts[w];
+      for (int c0 = 0; c0 < n; c0 += 32) {
+        const int2 hit = c0 + lane < n ? lists[w * kScanIds + c0 + lane]
+                                       : make_int2(0, -1);
+        const bool own = hit.y >= 0 && hit.y % kBlockWarps == warp;
+        const unsigned sel = __ballot_sync(kFull, own);
+        if (own) queue[queued + __popc(sel & ((1u << lane) - 1))] = hit;
+        queued += __popc(sel);
+        if (queued >= 32) {
+          __syncwarp();
+          add_queued<T, VW>(vals, queue, queued, acc, D, lane);
+          __syncwarp();  // every lane has read the queue
+          queued = 0;
+        }
+      }
+    }
+    __syncthreads();  // the lists are refilled next step
+  }
+  __syncwarp();
+  add_queued<T, VW>(vals, queue, queued, acc, D, lane);
+
+  // every row of the block once (an empty segment keeps its zeros)
+  __syncthreads();
+  T* o = out + (long long)n0 * D;
+  for (int i = threadIdx.x * VW; i < nb * D; i += 32 * kBlockWarps * VW)
+    Vec<T, VW>::store(o + i, acc + i);
+}
+
+// Bytes of dynamic shared memory block_sums needs for nblk x D: at most
+// 45 KB for the wrapper's nblk x D <= 2048, inside the 48 KB a launch
+// may ask for without opting in.
+inline size_t block_smem(int nblk, int D) {
+  return (size_t)nblk * D * sizeof(float) +
+         (size_t)kBlockWarps * (kScanIds + kQueue) * sizeof(int2) +
+         kBlockWarps * sizeof(int);
+}
+
+template <typename T, int VW>
+int launch_blocked(const void* vals, const void* dst, void* out, long long E,
+                   int N, int D, int nblk, int ids_vec, cudaStream_t stream) {
+  const long long blocks = ((long long)N + nblk - 1) / nblk;
+  block_sums<T, VW><<<(unsigned)blocks, 32 * kBlockWarps,
+                      block_smem(nblk, D), stream>>>(
+      (const T*)vals, (const int32_t*)dst, (T*)out, E, N, D, nblk, ids_vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  vals [E, D] (dtype 0: f32,
@@ -306,4 +515,32 @@ extern "C" int segment_matmul_launch(const void* vals, const void* skey,
                                          out, E, N, D, chunk, s)
               : launch<__nv_bfloat16, 1>(vals, skey, perm, starts, partial,
                                          out, E, N, D, chunk, s);
+}
+
+// Plain C entry point of the blocked design, bound with ctypes.  vals
+// [E, D] (dtype 0: f32, 1: bf16), dst int32 [E] in any order, out [N, D]
+// in the dtype of vals; nblk segments per CTA.  vec4 != 0 asks for
+// 4-wide vector loads of vals and stores of out (D % 4 == 0, both
+// aligned to 4 elements); ids_vec != 0 for 16-byte loads of dst (dst
+// 16-byte aligned).  One launch on `stream`, no scratch; returns
+// cudaGetLastError() (0 on success); never synchronises.
+extern "C" int segment_matmul_blocked_launch(const void* vals,
+                                             const void* dst, void* out,
+                                             long long E, int N, int D,
+                                             int nblk, int dtype, int vec4,
+                                             int ids_vec, void* stream) {
+  if (E < 0 || E > 2147483647LL || N <= 0 || D <= 0 || nblk <= 0 ||
+      dtype < 0 || dtype > 1 || block_smem(nblk, D) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) {
+    return vec4 ? launch_blocked<float, 4>(vals, dst, out, E, N, D, nblk,
+                                           ids_vec, s)
+                : launch_blocked<float, 1>(vals, dst, out, E, N, D, nblk,
+                                           ids_vec, s);
+  }
+  return vec4 ? launch_blocked<__nv_bfloat16, 4>(vals, dst, out, E, N, D,
+                                                 nblk, ids_vec, s)
+              : launch_blocked<__nv_bfloat16, 1>(vals, dst, out, E, N, D,
+                                                 nblk, ids_vec, s);
 }

@@ -8,7 +8,8 @@ library's file name carries a hash of its source, so an edited source
 is rebuilt and a stale library is never loaded.
 
 Every launching wrapper owns a :class:`LaunchCounter` and adds one to it
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else, and calls its C entry
+through :func:`launch`.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 PACKAGE_ROOT = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT.parents[1] / "build"
@@ -32,8 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-#: nvcc's output (``-Xptxas -v``: registers, shared memory, spills) and
-#: build seconds of each library built by this process, by kernel name.
+#: nvcc's output (``-Xptxas -v``: registers, shared memory, spills) of
+#: each library built or found by :func:`build`, by kernel name (kept
+#: beside the library, so a library built by an earlier process has it).
 build_logs: Dict[str, str] = {}
 
 
@@ -43,6 +47,20 @@ class LaunchCounter:
     def __init__(self, name: str) -> None:
         self.name = name
         self.count = 0
+
+
+def launch(dev: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)``: a C entry called with the raw handle of
+    PyTorch's current stream on ``dev``, with ``dev`` the current device
+    for the call (a kernel launches on the current device).  Returns what
+    ``fn`` returns, a ``cudaError_t``.  The device is switched only when
+    it is not the current one already, which keeps the host's share of a
+    small launch small."""
+    current = torch.cuda.current_device()
+    if dev.index is None or dev.index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
 
 
 def _nvcc() -> str:
@@ -76,6 +94,8 @@ def build(names: Sequence[str]) -> Dict[str, float]:
         out = library_path(name)
         if out.exists():
             seconds[name] = 0.0
+            if out.with_suffix(".log").exists():
+                build_logs[name] = out.with_suffix(".log").read_text()
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -91,6 +111,7 @@ def build(names: Sequence[str]) -> Dict[str, float]:
             failures.append(f"nvcc failed for {name} "
                             f"(exit {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("\n".join(failures))

@@ -5,7 +5,9 @@ Replaces the Pallas TPU kernel ``_kernel`` of
 ``src/repro/kernels/embedding_bag/kernel.py:29``.  Takes ids int32
 [B, S] and a float32 or bfloat16 table [V + 1, D] whose last row is
 zero, and returns [B, D] in the table's dtype: the fp32 sum of each
-bag's rows, ids outside [0, V) hitting the zero row.
+bag's rows.  An id in [0, V) reads its row, an id in [-(V + 1), -1]
+row V + 1 + id (from the end, as the reference reads it), and any other
+id the zero row.
 
 The wrapper checks device, dtype, shape and contiguity, allocates the
 output with ``torch.empty``, launches on the current stream, raises if
@@ -68,11 +70,9 @@ def embedding_bag_cuda(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if s >= 2 ** 31 or d >= 2 ** 31 or v1 >= 2 ** 31:
         raise ValueError(f"unsupported shape: ids {tuple(ids.shape)}, "
                          f"table {tuple(table.shape)}")
-    fn = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ids.data_ptr(), table.data_ptr(), out.data_ptr(), b, s, d,
-                 v1, _DTYPE_CODES[table.dtype], stream)
+    err = common.launch(dev, _entry(), ids.data_ptr(), table.data_ptr(),
+                        out.data_ptr(), b, s, d, v1,
+                        _DTYPE_CODES[table.dtype])
     if err != 0:
         raise RuntimeError(f"embedding_bag launch failed: cudaError {err}")
     launches.count += 1

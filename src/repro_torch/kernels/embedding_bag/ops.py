@@ -35,8 +35,11 @@ def _bag_sum(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def embedding_bag(ids: torch.Tensor, table: torch.Tensor, *,
                   mode: str = "sum", pad_id: int | None = None
                   ) -> torch.Tensor:
-    """out[b] = pool over s of table[ids[b, s]] (pad ids contribute 0;
-    ``mode="mean"`` divides by the number of valid ids, at least 1)."""
+    """out[b] = pool over s of table[ids[b, s]] (pad ids and ids from V
+    on contribute 0, ids in [-(V + 1), -1] read row V + 1 + id of the
+    table with its zero row, as the reference reads them;
+    ``mode="mean"`` divides by the number of ids below V, at least 1,
+    the reference's count)."""
     if mode not in ("sum", "mean"):
         raise ValueError(mode)
     v = table.shape[0]

@@ -70,11 +70,8 @@ def spc_query_cuda(hub_s, dist_s, cnt_s, hub_t, dist_t, cnt_t):
         return d, c
     if l_cap == 0 or b >= 2 ** 31 or l_cap >= 2 ** 31:
         raise ValueError(f"unsupported shape {shape}")
-    fn = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(x.data_ptr() for x in rows), d.data_ptr(), c.data_ptr(),
-                 b, l_cap, stream)
+    err = common.launch(dev, _entry(), *(x.data_ptr() for x in rows),
+                        d.data_ptr(), c.data_ptr(), b, l_cap)
     if err != 0:
         raise RuntimeError(f"spc_query launch failed: cudaError {err}")
     launches.count += 1

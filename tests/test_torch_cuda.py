@@ -15,7 +15,11 @@ row, and stays exact on padded rows at L = 2048.  The segment_matmul
 kernel equals its plain version within rtol = atol = 1e-6 in float32
 (1e-2 in bfloat16 against the float32 sum of the same values), exactly
 where every order of summation gives the same floats, and two launches
-give the same bits; the microbench entry point runs.  The
+give the same bits; its blocked design equals a sequential float32 loop
+bit for bit; the microbench entry point runs.  flash_decode's
+tensor-core route (bfloat16, D 64 and 128) equals its plain version
+within 1e-2 on groups of 1 to 40 heads with ragged and zero lengths,
+and embedding_bag reads ids in [-(V + 1), -1] from the end.  The
 main paths run on the card: a small build -> events -> serve answers as
 the counting BFS does through the kernel route, the analytics path
 (store, betweenness, cycles, recommendation -> PNA re-rank) gives the
@@ -364,10 +368,10 @@ def test_segment_matmul_kernel_equals_plain_version(card, e, n, d):
         assert torch.equal(got, again)
         if (e, n, d) in chip_smoke.SEG_SWEEP or e == 0:
             torch.testing.assert_close(
-                got, SM.segment_matmul_ref(vals, ids, n), rtol=1e-6,
+                got, chip_smoke.sequential_plain(vals, ids, n), rtol=1e-6,
                 atol=1e-6)
-        chip_smoke.check_summation_bound("f32", got, vals, ids, n,
-                                         SM.kernel.CHUNK)
+        chip_smoke.check_summation_bound(
+            "f32", got, vals, ids, n, SM.kernel.plan(e, n, d, vals.dtype))
         vals16 = vals.to(torch.bfloat16)
         got16 = SM.segment_matmul_cuda(vals16, ids, n)
         torch.cuda.synchronize()
@@ -435,3 +439,152 @@ def test_kernels_bench_runs_on_the_card(card):
     assert q["kernel_us_per_q"] > 0 and q["plain_us_per_q"] > 0
     assert s["kernel_ms"] > 0 and s["index_add_ms"] > 0
     assert s["chunks"] == SM.kernel.chunks(4096)
+
+
+def test_embedding_bag_reads_ids_from_the_end(card):
+    """F1 on the card: ids in [-(V + 1), -1] read row V + 1 + id through
+    the kernel and the ops, as the reference reads them; ids past the
+    table and below -(V + 1) (F2) read the zero row."""
+    ids, table, want = chip_smoke.wrapped_id_rows(card)
+    before = EB.launches.count
+    got = EB.embedding_bag_cuda(ids, table)
+    ops = EB.embedding_bag(ids, table[:-1])
+    ops_mean = EB.embedding_bag(ids.long(), table[:-1], mode="mean")
+    torch.cuda.synchronize()
+    assert EB.launches.count == before + 3
+    assert got.tolist() == want and ops.tolist() == want
+    assert torch.equal(got, EB.embedding_bag_ref(ids, table))
+    torch.testing.assert_close(
+        ops_mean.cpu(), EB.embedding_bag(ids.long().cpu(), table[:-1].cpu(),
+                                         mode="mean"), rtol=0, atol=0)
+    rng = np.random.default_rng(21)
+    v = 300
+    ids, table = chip_smoke.bag_inputs(64, 9, v, 24, rng, card)
+    ids = torch.where(ids % 3 == 0, ids - (v + 1), ids)       # from the end
+    for x in (table, table.to(torch.bfloat16)):
+        torch.testing.assert_close(
+            EB.embedding_bag_cuda(ids, x).float(),
+            EB.embedding_bag_ref(ids, x.float()), rtol=1e-2 if
+            x.dtype == torch.bfloat16 else 1e-6, atol=1e-2 if
+            x.dtype == torch.bfloat16 else 1e-6)
+
+
+def _segment_cases():
+    """(e, n, d, ids transform): the sweep with unsorted ids, ids past n
+    and negative ids, segments with no edge, and E = 0."""
+    return [(e, n, d, shift) for e, n, d in chip_smoke.SEG_SWEEP
+            for shift in (0, -5)] + [(0, 7, 16, 0), (16384, 2048, 128, 0),
+                                     (3000, 500, 64, -3), (100, 4000, 8, 0)]
+
+
+@pytest.mark.parametrize("e,n,d,shift", _segment_cases())
+def test_segment_matmul_blocked_design_equals_plain_version(card, e, n, d,
+                                                            shift):
+    """The blocked design sums each segment in id order from zero, one
+    add after another: bit for bit the float32 sum of a sequential loop
+    (``np.add.at``), so within rtol = atol = 1e-6 of the plain version
+    where segments are short and within the error bound of float32
+    summation everywhere; bfloat16 the same sums rounded once; two
+    launches bitwise equal; one launch a call, and at the microbench
+    shape the plan picks it."""
+    vals, dst = chip_smoke.segment_sweep_inputs(e, n, d, card)
+    ids = dst + shift
+    if (e, n, d) == (16384, 2048, 128):
+        assert SM.kernel.plan(e, n, d, torch.float32) == "blocked"
+    before = SM.launches.count
+    got = SM.kernel._blocked_cuda(vals, ids, n)
+    again = SM.kernel._blocked_cuda(vals, ids, n)
+    torch.cuda.synchronize()
+    assert SM.launches.count == before + 2
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    assert torch.equal(got, again)
+    keep = ((ids >= 0) & (ids < n)).cpu().numpy()
+    sequential = np.zeros((n, d), np.float32)
+    np.add.at(sequential, ids.cpu().numpy()[keep], vals.cpu().numpy()[keep])
+    assert torch.equal(got.cpu(), torch.from_numpy(sequential))
+    if e <= 2 * n or (e, n, d) in chip_smoke.SEG_SWEEP:
+        torch.testing.assert_close(
+            got, chip_smoke.sequential_plain(vals, ids, n), rtol=1e-6,
+            atol=1e-6)
+    chip_smoke.check_summation_bound("blocked", got, vals, ids, n, "blocked")
+    vals16 = vals.to(torch.bfloat16)
+    got16 = SM.kernel._blocked_cuda(vals16, ids, n)
+    torch.cuda.synchronize()
+    assert got16.dtype == torch.bfloat16
+    sequential16 = np.zeros((n, d), np.float32)
+    np.add.at(sequential16, ids.cpu().numpy()[keep],
+              vals16.float().cpu().numpy()[keep])
+    assert torch.equal(got16.cpu(),
+                       torch.from_numpy(sequential16).to(torch.bfloat16))
+    torch.testing.assert_close(
+        got16.float(), SM.segment_matmul_ref(vals16.float(), ids, n),
+        rtol=1e-2, atol=1e-2)
+
+
+def test_segment_matmul_blocked_design_on_long_segments_is_exact(card):
+    """Integer values, so every order of summation gives the same floats:
+    a segment of 14329 edges among others, ids shuffled, through aligned
+    and unaligned vals and dst."""
+    rng = np.random.default_rng(6)
+    ids = np.concatenate([np.full(chip_smoke.SEG_LONG, 3), np.full(700, 0),
+                          rng.integers(-2, 12, 2000)])
+    flat_ids = torch.from_numpy(np.concatenate(
+        [[0], rng.permutation(ids)]).astype(np.int32)).to(card)
+    e, d = ids.size, 64
+    flat = torch.from_numpy(rng.integers(-8, 9, e * d + 1).astype(
+        np.float32)).to(card)
+    for aligned in (True, False):
+        vals = (flat[:-1] if aligned else flat[1:]).view(e, d)
+        dst = flat_ids[1:] if not aligned else flat_ids[1:].clone()
+        for x in (vals, vals.to(torch.bfloat16)):
+            got = SM.kernel._blocked_cuda(x, dst, 10)
+            torch.cuda.synchronize()
+            assert torch.equal(got, SM.segment_matmul_ref(x, dst, 10))
+
+
+def test_segment_matmul_blocked_design_refuses_wide_rows(card):
+    vals, dst = chip_smoke.segment_sweep_inputs(100, 30, 300, card)
+    before = SM.launches.count
+    with pytest.raises(ValueError, match="blocked design"):
+        SM.kernel._blocked_cuda(vals, dst, 30)
+    assert SM.launches.count == before
+    assert SM.kernel.plan(100, 30, 300, torch.float32) == "sorted"
+
+
+#: DECODE_SWEEP shapes the tensor-core route takes (bf16, D 64 or 128),
+#: groups of 1, 6 and 12, and two more: 16 heads over 1 KV head (one
+#: full M tile) and 40 over 2 (two head chunks of 16 and one of 4 rows).
+MMA_SHAPES = [x for x in chip_smoke.DECODE_SWEEP if x[4] in (64, 128)] + [
+    (3, 16, 1, 1000, 128), (3, 40, 2, 333, 64), (17, 6, 1, 4160, 128)]
+
+
+@pytest.mark.parametrize("b,h,kvh,s,d", MMA_SHAPES)
+def test_flash_decode_mma_route_equals_plain_version(card, b, h, kvh, s, d):
+    """bfloat16 at D 64 and 128 runs on the tensor cores: within 1e-2 of
+    the plain version on the fp32 copies of the same inputs (and of the
+    CUDA-core route), ragged lengths, length 0 giving zeros, lengths
+    past S clamped, and two launches bitwise equal."""
+    rng = np.random.default_rng(b * s + h)
+    q, k, v, lengths = chip_smoke.decode_inputs(b, h, kvh, s, d, rng, card)
+    if b > 3:
+        lengths[0] = s + 7                     # past the cache: all of it
+        lengths[1] = 63                        # inside the first tile
+    q16, k16, v16 = (x.to(torch.bfloat16) for x in (q, k, v))
+    assert FD.plan(b, kvh, h, s, d, torch.bfloat16,
+                   torch.cuda.get_device_properties(0)
+                   .multi_processor_count).route == "mma"
+    before = FD.launches.count
+    got = FD.flash_decode_cuda(q16, k16, v16, lengths)
+    again = FD.flash_decode_cuda(q16, k16, v16, lengths)
+    simt = FD.kernel._simt_cuda(q16, k16, v16, lengths)
+    torch.cuda.synchronize()
+    assert FD.launches.count == before + 3
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, d)
+    assert torch.equal(got, again)
+    want = FD.decode_attention_ref(q16.float(), k16.float(), v16.float(),
+                                   lengths)
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), simt.float(), rtol=1e-2,
+                               atol=1e-2)
+    if b > 2:
+        assert not got[-1].any()               # length 0: zeros

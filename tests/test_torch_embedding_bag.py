@@ -53,17 +53,40 @@ def test_plain_version_matches_reference_and_pallas(b, s, v, d):
 
 
 def test_ids_outside_the_table_hit_the_zero_row():
-    ids, table = inputs(6, 5, 20, 8)
-    ids[0, 1], ids[2, 4], ids[5, 0] = 20, 10 ** 6, -3
+    """The same ids, negatives included, through both packages: an id in
+    [-(V + 1), -1] reads row V + 1 + id (from the end) in the port's
+    plain version, the reference's plain version and its Pallas kernel;
+    ids from V on read the zero row.  Below -(V + 1) the reference gives
+    NaN (plain) and row 0 (Pallas); the port keeps the zero row there."""
+    v = 20
+    ids, table = inputs(6, 5, v, 8)
+    ids[0, 1], ids[2, 4], ids[5, 0] = v, 10 ** 6, -3
+    ids[1, 0], ids[3, 2], ids[4, 4] = -1, -(v + 1), -v
     got = embedding_bag_ref(torch.from_numpy(ids), torch.from_numpy(table))
-    kept = np.where((ids >= 0) & (ids < 20), ids, 20)
-    want = table[kept].sum(axis=1)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
-    ref_ids = np.where(ids < 0, 20, ids)        # reference: clamp above
-    np.testing.assert_allclose(
-        got.numpy(), np.asarray(jax_ref(jnp.asarray(ref_ids),
-                                        jnp.asarray(table))),
-        rtol=1e-6, atol=1e-6)
+    rows = np.where(ids < 0, ids + v + 1, np.minimum(ids, v))
+    np.testing.assert_allclose(got.numpy(), table[rows].sum(axis=1),
+                               rtol=1e-6, atol=1e-6)
+    for want in (jax_ref(jnp.asarray(ids), jnp.asarray(table)),
+                 embedding_bag_pallas(jnp.asarray(ids), jnp.asarray(table),
+                                      interpret=True)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+    # the smallest input of the fault: V = 4, rows [1, 2] .. [7, 8]
+    small = np.asarray([[1, 2], [3, 4], [5, 6], [7, 8], [0, 0]], np.float32)
+    few = np.asarray([[-3], [-1], [-5], [4]], np.int32)
+    got = embedding_bag_ref(torch.from_numpy(few), torch.from_numpy(small))
+    assert got.tolist() == [[5, 6], [0, 0], [1, 2], [0, 0]]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(embedding_bag_pallas(
+        jnp.asarray(few), jnp.asarray(small), interpret=True)))
+    # F2: below -(V + 1) the port keeps the zero row; the reference does not
+    below = np.asarray([[-6], [-7], [-10 ** 6]], np.int32)
+    got = embedding_bag_ref(torch.from_numpy(below), torch.from_numpy(small))
+    assert not got.any()
+    assert np.isnan(np.asarray(jax_ref(jnp.asarray(below),
+                                       jnp.asarray(small)))[:2]).all()
+    np.testing.assert_array_equal(np.asarray(embedding_bag_pallas(
+        jnp.asarray(below), jnp.asarray(small), interpret=True))[:2],
+        small[[0, 0]])
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean"])
@@ -72,6 +95,8 @@ def test_ops_with_pad_id_match_reference(mode, b, s, v, d):
     ids, table = inputs(b, s, v, d)
     table = table[:v]                              # ops append the zero row
     pad = v + 7
+    ids[2::3, 0] = -(v + 1)                        # from the end: row 0
+    ids[3::4, -1] = -2                             # from the end: row v - 1
     ids[::2, -1] = pad
     ids[1, :] = pad                                # an all-pad bag: zeros
     got = embedding_bag(torch.from_numpy(ids), torch.from_numpy(table),

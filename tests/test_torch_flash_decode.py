@@ -171,15 +171,30 @@ def test_kernel_that_cannot_load_raises(monkeypatch):
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 64, 128])
 @pytest.mark.parametrize("b,kvh,h,s", [(16, 2, 12, 32832), (4, 1, 1, 64),
                                        (1, 2, 12, 100), (16, 1, 1, 333),
-                                       (2, 2, 32, 5000)])
-def test_plan_covers_the_cache(b, kvh, h, s):
-    kg, n_chunks, split_len, n_splits = plan(b, kvh, h, s, sms=132)
+                                       (2, 2, 32, 5000), (1, 1, 40, 70)])
+def test_plan_covers_the_cache(b, kvh, h, s, d, dtype):
+    """The route follows the dtype and D alone; its heads per CTA cover
+    the group, its spans (multiples of TILE) cover S with no empty span,
+    and the CTAs stay within a wave on the tensor cores."""
+    p = plan(b, kvh, h, s, d, dtype, sms=132)
     group = h // kvh
-    assert kg in (1, 2, 4, 8) and kg * n_chunks >= group
-    assert kg >= min(group, 8) and (kg == 1 or kg // 2 < min(group, 8))
-    assert split_len % FD.TILE == 0
-    assert n_splits * split_len >= s > (n_splits - 1) * split_len
-    if (b, kvh, h, s) == (16, 2, 12, 32832):   # the LM main path
-        assert (kg, n_chunks, split_len, n_splits) == (8, 1, 1024, 33)
+    mma = dtype == torch.bfloat16 and d in (64, 128)
+    assert p.route == ("mma" if mma else "simt")
+    assert p.heads * p.n_chunks >= group > p.heads * (p.n_chunks - 1)
+    if mma:
+        assert p.heads == FD.MMA_HEADS
+        rows = b * kvh * p.n_chunks
+        assert rows * p.n_splits <= max(rows, FD.CTAS_PER_SM["mma"] * 132)
+    else:
+        assert p.heads in (1, 2, 4, 8) and p.heads >= min(group, 8)
+        assert p.heads == 1 or p.heads // 2 < min(group, 8)
+    assert p.split_len % FD.TILE[p.route] == 0
+    assert p.n_splits * p.split_len >= s > (p.n_splits - 1) * p.split_len
+    assert FD.cut(p.route, b, kvh, h, s, 132) == p
+    if (b, kvh, h, s, d) == (16, 2, 12, 32832, 128):   # the LM main path
+        assert p == (("mma", 16, 1, 4112, 8) if mma
+                     else ("simt", 8, 1, 1024, 33))

@@ -11,6 +11,7 @@ kernel itself runs only on the card (``tests/test_torch_cuda.py``).
 """
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from repro_torch.kernels.segment_matmul import (gather_scatter, launches,
                                                 scatter_add,
                                                 segment_matmul_cuda,
                                                 segment_matmul_ref)
+from repro_torch.kernels.segment_matmul import kernel as SMK
 
 #: tests/kernels/test_kernels.py::TestSegmentMatmul (e, n, d, block_e,
 #: block_n).
@@ -163,20 +165,70 @@ def test_relaxation_form_matches_segment_sum_and_edge_relax():
 def test_kernel_wrapper_takes_only_cuda_tensors():
     vals, dst = torch.zeros((4, 8)), torch.zeros(4, dtype=torch.int32)
     before = launches.count
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        segment_matmul_cuda(vals, dst, 3)
+    for fn in (segment_matmul_cuda, SMK._sorted_cuda, SMK._blocked_cuda):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            fn(vals, dst, 3)
     with pytest.raises(ValueError, match="unsupported device"):
         scatter_add(vals.to("meta"), dst.to("meta"), 3)
     assert launches.count == before
 
 
 def test_kernel_source_sums_without_atomics():
-    """Deterministic by construction: the kernel adds in a fixed order
-    and never with an atomic."""
+    """Deterministic by construction: both designs add in a fixed order
+    and never with an atomic; the blocked one has one kernel and no
+    scratch in device memory, the sorted one three kernels."""
     path = os.path.join(os.path.dirname(__file__), os.pardir, "src",
                         "repro_torch", "csrc", "segment_matmul.cu")
     source = open(path).read()
     assert "src/repro/kernels/segment_matmul/kernel.py:34" in source
     code = "\n".join(line.split("//")[0] for line in source.splitlines())
     assert "atomic" not in code.lower()
-    assert "__global__" in code
+    kernels = sorted(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
+        code))
+    assert kernels == ["block_sums", "chunk_sums", "combine",
+                       "segment_starts"]
+    # the blocked design's one kernel takes no scratch in device memory
+    blocked = code[code.index("block_sums("):code.index(") {", code.index(
+        "block_sums("))]
+    assert "partial" not in blocked and "starts" not in blocked
+    assert 'extern "C" int segment_matmul_blocked_launch' in code
+
+
+#: (E, N, D, dtype, design): the kernel microbench, the dspc graph's three
+#: shapes (f32, bf16 aggregation; the relaxation), and the edges of the
+#: blocked design's two conditions.
+PLANS = [
+    (16384, 2048, 128, torch.float32, "blocked"),       # the microbench
+    (1048576, 65536, 128, torch.float32, "sorted"),     # the graph
+    (1048576, 65536, 128, torch.bfloat16, "sorted"),
+    (1048576, 65537, 1, torch.float32, "sorted"),       # the relaxation
+    (16384, 2049, 128, torch.float32, "sorted"),        # 129 CTAs of ids
+    (16384, 2048, 128, torch.bfloat16, "sorted"),       # ids > bf16 vals
+    (16384, 1024, 128, torch.bfloat16, "blocked"),
+    (65536, 2048, 128, torch.float32, "blocked"),       # 256 KB a CTA
+    (65537, 2048, 128, torch.float32, "sorted"),
+    (0, 7, 16, torch.float32, "blocked"),               # E = 0: one launch
+    (100, 30, 256, torch.float32, "blocked"),           # 8 segments a CTA
+    (100, 30, 257, torch.float32, "sorted"),            # too wide
+    (64, 300, 4, torch.float32, "blocked"),           # 2 CTAs of 256
+    (64, 3000, 4, torch.float32, "sorted"),           # 12 CTAs of ids
+]
+
+
+@pytest.mark.parametrize("e,n,d,dtype,design", PLANS)
+def test_plan_picks_the_design_from_shapes(e, n, d, dtype, design):
+    assert SMK.plan(e, n, d, dtype) == design
+    nblk = SMK.block_segments(d)
+    if design == "blocked":
+        ctas = -(-n // nblk)
+        elem = 4 if dtype == torch.float32 else 2
+        assert 8 <= nblk and nblk * d <= SMK.BLOCK_ELEMS
+        assert 4 * e * ctas <= e * d * elem <= ctas * SMK.BLOCK_VAL_BYTES
+    if (e, n, d) == (16384, 2048, 128):
+        assert nblk == 16 and -(-n // nblk) == 128
+
+
+def test_summation_depth_of_each_design():
+    assert SMK.summation_depth("sorted", 14329) == 128 + 111 + 2
+    assert SMK.summation_depth("blocked", 40) == 40

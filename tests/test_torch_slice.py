@@ -466,19 +466,20 @@ def test_chip_smoke_segment_bound_counts_kept_rows():
     assert by == "bytes" and abs(bound - 0.17153) < 1e-5
 
 
-def test_chip_smoke_summation_bound_catches_a_lost_edge():
+@pytest.mark.parametrize("design", ["sorted", "blocked"])
+def test_chip_smoke_summation_bound_catches_a_lost_edge(design):
     rng = np.random.default_rng(8)
     vals = torch.from_numpy(rng.standard_normal((3000, 8)).astype(np.float32))
     dst = torch.from_numpy(rng.integers(-1, 6, 3000).astype(np.int32))
     got = torch.zeros((5, 8)).index_add_(
         0, dst[(dst >= 0) & (dst < 5)].long(), vals[(dst >= 0) & (dst < 5)])
-    assert chip_smoke.check_summation_bound("ok", got, vals, dst, 5, 128) \
-        < 1e-4
+    assert chip_smoke.check_summation_bound("ok", got, vals, dst, 5,
+                                            design) < 1e-4
     first = int(((dst >= 0) & (dst < 5)).nonzero()[0])
     lost = got.clone()
     lost[dst[first]] -= vals[first]
     with pytest.raises(AssertionError, match="beyond"):
-        chip_smoke.check_summation_bound("lost", lost, vals, dst, 5, 128)
+        chip_smoke.check_summation_bound("lost", lost, vals, dst, 5, design)
 
 
 def test_chip_smoke_quantized_features_sum_exactly():
@@ -494,3 +495,29 @@ def test_chip_smoke_quantized_features_sum_exactly():
             forward += row
         assert torch.equal(forward, x.flip(0).sum(0))
         assert torch.equal(forward, x.double().sum(0).float())
+
+
+def test_chip_smoke_sequential_plain_adds_in_index_order():
+    """The oracle chip_smoke holds segment_matmul against at 1e-6: the
+    plain version on the CPU, which adds in index order (bit for bit a
+    sequential float32 loop), so the same inputs give the same sums on
+    every run."""
+    rng = np.random.default_rng(12)
+    vals = torch.from_numpy((rng.standard_normal((4000, 16)) * 3).astype(
+        np.float32))
+    dst = torch.from_numpy(rng.integers(-2, 40, 4000).astype(np.int32))
+    got = chip_smoke.sequential_plain(vals, dst, 37)
+    keep = ((dst >= 0) & (dst < 37)).numpy()
+    want = np.zeros((37, 16), np.float32)
+    np.add.at(want, dst.numpy()[keep], vals.numpy()[keep])
+    assert got.device == vals.device
+    assert torch.equal(got, torch.from_numpy(want))
+
+
+def test_chip_smoke_kernel_name_keeps_template_arguments():
+    assert chip_smoke.kernel_name(
+        "void (anonymous namespace)::flash_decode_mma<128>(__nv_bfloat16 "
+        "const*, int)") == "flash_decode_mma<128>"
+    assert chip_smoke.kernel_name(
+        "cudnn::fusion::lean_reduction_kernel<false, false, false>") == \
+        "cudnn::fusion::lean_reduction_kernel<false, false, false>"
