@@ -10,11 +10,16 @@ Phases, each reported on its own line(s):
                 ``src/repro_torch/csrc`` (one ``nvcc`` per source,
                 started together) and prints the build seconds.
 3. kernels   -- holds each kernel against its plain PyTorch version on
-                the card.  spc_query exactly (integer outputs): the TPU
-                sweep shapes, hand-made rows with counts 2^24 + 1 and
-                above 2^32, rows whose hubs repeat (the reference
-                microbench's draw and a hand-made pair), and 1024 pairs
-                gathered from the built index.  segment_matmul in both
+                the card.  spc_query exactly (integer outputs), each
+                input in three ways: the gathered form (the fused
+                kernel with identity ids), the warp kernel, and
+                the index form (the rows written into an index and read
+                by id): the TPU sweep shapes, hand-made rows with
+                counts 2^24 + 1 and above 2^32, rows whose hubs repeat
+                (the reference microbench's draw and a hand-made pair);
+                then the index form on two [4097, 2048] indexes (hubs
+                distinct, hubs repeating, a tenth of the rows full) at
+                ids 0, n - 1, n and outside [0, n].  segment_matmul in both
                 its designs (sorted and blocked, whichever the plan
                 picks) on the TPU sweep (ids up to n + 5, then shifted
                 to negatives) within rtol = atol = 1e-6 in float32 and
@@ -27,9 +32,25 @@ Phases, each reported on its own line(s):
                 TPU sweep shapes, the
                 recsys shapes of ``configs/dien.py`` (vocab 100000,
                 D = 18, 8 ids per bag, 512 x 4 and 262144 x 4 bags) and
-                the re-rank's own bags; ids that count from the end
-                (F1) through the kernel and the ops, exactly.  The
-                main-path shapes are checked and timed after phase A2.
+                the re-rank's own bags, the packed design twice and the
+                warp design all bitwise equal; at the recsys
+                shapes both designs and ``F.embedding_bag`` timed in
+                turn, K3_REPS rounds, beside the HBM bound and an L2
+                reckoning from L2's rate measured on the card (PyTorch
+                kernels over 16 MB that stays in L2: row sums and a
+                copy; the faster); ids that
+                count from the end (F1) through the kernel and the ops,
+                exactly.  The main-path shapes are checked and timed
+                after phase A2: spc_query's fused kernel on the first
+                serve batch against the gathered route (gather, re-pad,
+                warp kernel), the warp kernel alone and the plain merge,
+                K1_REPS rounds in turn, and the card's time per call of
+                the fused kernel, the warp kernel and the whole gathered
+                route from a CUDA graph of K1_GRAPH_CALLS calls replayed
+                back to back (``graph_ms``: no host work between the
+                calls); embedding_bag's two designs and
+                ``F.embedding_bag`` at the re-rank's bags, K3_REPS
+                rounds, and both designs from a CUDA graph.
 4. build     -- ``DynamicSPC(..., device="cuda", construct_batch=32,
                 l_cap=None)`` on a power-law graph at the ``dspc``
                 configuration's scale (n = 65536, m = 524288, weights
@@ -60,7 +81,18 @@ A1. analytics, pinned before the chunk -- attaches a ``SnapshotStore``,
 6. serve     -- 64 batches of 1024 random pairs through
                 ``QueryEngine(route="auto")`` (the kernel route on the
                 card), then the same batches on the plain-torch merge
-                route; both must agree.
+                route; both must agree.  Then 32 batches replayed under
+                ``torch.profiler``: the card's busy time per batch, its
+                idle share of the batch p50, and its us per batch by
+                kernel.
+6b. query_batch -- one batch of the configuration's query_batch =
+                1048576 pairs through ``QueryEngine(route="auto")``,
+                three times (one launch each): seconds, the peak
+                device memory above the index, and the id copy and the
+                kernel alone from CUDA events; held exactly against the
+                gathered route run in slices of 1024 pairs (the gathered
+                route is not run whole: its operands would take about
+                69 GB).
 A2. analytics after the chunk -- refreshes the maintainer (and times a
                 full recompute on the same snapshot beside it), checks
                 the pinned snapshot is byte-identical to its copy, counts
@@ -91,8 +123,8 @@ L3. decode   -- 64 greedy ``decode_step``s; every layer's decode
                 from CUDA events, tokens/s from the host clock.  The
                 last 4 steps are then replayed under ``torch.profiler``:
                 the card's busy time per step and its idle share of the
-                step p50, and (replayed again) its top kernels by device
-                ms per step.
+                step p50, and from the same trace its top kernels by
+                device ms per step.
 L4. consistency -- as ``examples/serve_lm.py`` checks it: the first 2
                 requests prefilled again with the 64 tokens fed to the
                 decode steps (t = 32832, ragged against the 1024-key
@@ -118,19 +150,19 @@ float32 on the same cache within 2e-5; then both routes and SDPA are
 timed in turn, FD_REPS rounds; the planned route's kernels' device ms
 per call come from the L3 trace.  The build prints each kernel
 function's registers, shared memory and spills (``nvcc -Xptxas -v``)
-and fails if a redesigned kernel (``flash_decode_mma``,
-``block_sums``) spills.
+and fails if a redesigned kernel (``REDESIGNED``: ``flash_decode_mma``,
+``block_sums``, ``spc_query_fused``, ``embedding_bag_packed``) spills.
 
 ``--lm-seeds 0,1,...`` builds the kernels and then only reads L4 and its
 controls for the first 2 requests of each seed (prefilled and decoded
 as 2 requests), prints them and exits.
 
 Launches are counted for each main path on its own: the DSPC path
-(phases 4, 5, 6), the kernels path (K), the analytics path (the timed
-steps of A1 and A2) and the LM path (L2 and L3; flash_decode exactly
-28 x 64 times).  The
-launch counters are set to 0 just before each of these phases and read
-just after it; the oracles, L4 and the kernel checks run outside them
+(phases 4, 5, 6 and the first call of 6b), the kernels path (K), the
+analytics path (the timed steps of A1 and A2) and the LM path (L2 and
+L3; flash_decode exactly 28 x 64 times).  The launch counters are set
+to 0 just before each of these phases and read just after it; the
+oracles, L4 and the kernel checks run outside them
 and count nowhere.  Each path must have launched each of its kernels
 (``PATH_KERNELS``).  The line before the last is a JSON object with one
 entry per kernel (its time on the card, its plain version's time, its
@@ -177,6 +209,10 @@ KERNEL_SOURCES = {
                      "src/repro/kernels/flash_decode/kernel.py:32"),
 }
 
+#: The kernel functions redesigned for the card, which must not spill.
+REDESIGNED = ("flash_decode_mma", "block_sums", "spc_query_fused",
+              "embedding_bag_packed")
+
 #: The kernels each main path must launch.
 PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
                                                     "segment_matmul"),
@@ -195,6 +231,18 @@ SEG_FEATURES = 128
 #: busy time per call.
 SEG_REPS, SEG_TRACE_CALLS = 3, 20
 
+#: spc_query: the vertices (and pairs) of the synthetic L = 2048
+#: indexes its index form is checked on; rounds in which the fused
+#: kernel, the gathered route (gather, re-pad, warp kernel), the warp kernel
+#: alone and the plain merge are timed in turn at the main path's shape,
+#: calls in the CUDA graph that gives the card's time per call; serve
+#: batches replayed under the profiler; the slices in which the
+#: configuration's query_batch is checked against the gathered route.
+K1_SYNTH_N, K1_REPS, K1_GRAPH_CALLS = 4096, 3, 20
+SERVE_TRACE_BATCHES, QUERY_SLICE = 32, 1024
+#: Rounds in which embedding_bag's two designs and F.embedding_bag are
+#: timed in turn; the bytes of the tensor that probes L2's read rate.
+K3_REPS, L2_PROBE_BYTES = 3, 16 << 20
 #: The TPU sweep of tests/kernels/test_kernels.py (b, s, v, d), and the
 #: recsys shapes of configs/dien.py: vocab 100000, D = 18, 8 ids per
 #: bag, 4 bags per example at serve_p99 (512) and serve_bulk (262144).
@@ -248,7 +296,7 @@ def ptxas_usage(log: str) -> list:
             name = m.group(2)[:int(m.group(1))]
             args = m.group(2)[int(m.group(1)):]
         if args.startswith("I"):
-            targs = re.findall(r"Li(\d+)E|13__nv_(bfloat16)|(?<=[IE])f",
+            targs = re.findall(r"L[ib](\d+)E|13__nv_(bfloat16)|(?<=[IE])f",
                                args.split("EEv", 1)[0])
             name += "<" + ", ".join(i or ("bf16" if t else "float")
                                     for i, t in targs) + ">"
@@ -382,6 +430,113 @@ def spc_query_work(rows):
               + hub_t.numel() * hub_t.element_size()
               + 24 * common + b * (4 + 8))
     return nbytes, real + 4 * common, common
+
+
+def spc_query_index_work(idx, s, t, rows):
+    """(bytes, operations, common hubs) that the spc_query function needs
+    for the pairs (s, t) when it reads the rows from the index by id:
+    the ids (8 + 8 bytes a pair); the real hubs of each distinct row
+    queried, once, plus the pad after them where the row is not full
+    (where the row ends); dist and cnt at the common hubs (24 bytes
+    each); the outputs (12 bytes a pair).  ``rows`` are the same pairs'
+    gathered rows (``prep_rows``), on which the common hubs and the
+    operations are counted as :func:`spc_query_work` counts them."""
+    import torch
+    from repro_torch.kernels.spc_query.ops import wrap_ids
+    queried = torch.unique(torch.cat([wrap_ids(idx, s), wrap_ids(idx, t)]))
+    real = (idx.hub[queried] < idx.n).sum(dim=1)
+    hub_bytes = 4 * int((real + (real < idx.l_cap).long()).sum())
+    _, ops, common = spc_query_work(rows)
+    b = rows[0].shape[0]
+    return 16 * b + hub_bytes + 24 * common + 12 * b, ops, common
+
+
+def rows_as_index(rows, n: int):
+    """Gathered [B, L] rows whose real hubs lie below ``n`` as an index:
+    the s rows, then the t rows, then pad rows, the pads (hubs from n
+    on) rewritten to the index's own pad hub m = max(n, 2 B), which is
+    above every real hub.  Returns (SPCIndex with m + 1 rows, s ids, t
+    ids): the index form of the same pairs."""
+    import torch
+    from repro_torch.core.labels import SPCIndex
+    INF = 1 << 28
+    hub_s, dist_s, cnt_s, hub_t, dist_t, cnt_t = rows
+    b, l_cap = hub_s.shape
+    m = max(n, 2 * b)
+    dev = hub_s.device
+    extra = m + 1 - 2 * b
+    hub = torch.cat([hub_s, hub_t, torch.full((extra, l_cap), m,
+                                              dtype=torch.int32,
+                                              device=dev)])
+    hub = torch.where(hub >= n, m, hub).contiguous()
+    dist = torch.cat([dist_s, dist_t, torch.full((extra, l_cap), INF,
+                                                 dtype=torch.int32,
+                                                 device=dev)])
+    cnt = torch.cat([cnt_s, cnt_t, torch.zeros((extra, l_cap),
+                                               dtype=torch.int64,
+                                               device=dev)])
+    idx = SPCIndex(hub=hub, dist=dist.contiguous(), cnt=cnt.contiguous(),
+                   size=(hub < m).sum(dim=1, dtype=torch.int32),
+                   cnt_sum=cnt.sum(dim=1),
+                   overflow=torch.zeros((), dtype=torch.int32, device=dev),
+                   n=m)
+    ids = torch.arange(b, dtype=torch.int64, device=dev)
+    return idx, ids, ids + b
+
+
+def synthetic_index(n: int, l_cap: int, rng, device, repeat: bool = False):
+    """An SPCIndex [n + 1, l_cap] padded as the index pads it (hub n, dist
+    INF, cnt 0): each row's real length uniform over [0, l_cap], a tenth
+    of the rows full; hubs sorted, distinct (n >= l_cap) or, with
+    ``repeat``, drawn with replacement from the first min(64, n) hubs
+    (a real hub lies below the pad hub n)."""
+    from repro_torch.core.labels import index_from_numpy
+    INF = 1 << 28
+    hub = np.full((n + 1, l_cap), n, dtype=np.int32)
+    dist = np.full((n + 1, l_cap), INF, dtype=np.int32)
+    cnt = np.zeros((n + 1, l_cap), dtype=np.int64)
+    size = np.zeros(n + 1, dtype=np.int32)
+    size[:n] = rng.integers(0, l_cap + 1, n)
+    size[:n][rng.random(n) < 0.1] = l_cap
+    for v in range(n):
+        k = int(size[v])
+        hub[v, :k] = np.sort(rng.integers(0, min(64, n), k) if repeat
+                             else rng.choice(n, size=k, replace=False))
+        dist[v, :k] = rng.integers(0, 12, k)
+        cnt[v, :k] = rng.integers(1, 9, k)
+    return index_from_numpy(n, hub, dist, cnt, size, device=device)
+
+
+def index_ids(n: int, b: int, rng, device):
+    """int64 ids s, t [b] uniform over [0, n], the first pairs at ids 0,
+    n - 1, n and outside [0, n] (-1, -(n + 1), -(n + 5), n + 3)."""
+    import torch
+    s, t = rng.integers(0, n + 1, b), rng.integers(0, n + 1, b)
+    odd = np.asarray([0, n - 1, n, -1, -(n + 1), -(n + 5), n + 3])
+    k = min(b, odd.size)
+    s[:k], t[:k] = odd[:k], odd[::-1][:k]
+    return (torch.from_numpy(s).to(device), torch.from_numpy(t).to(device))
+
+
+def index_plain(idx, s, t):
+    """The index form's plain version on the index's device: the rows
+    gathered under the reference's gather rule, t re-padded, the L x L
+    table with int64 counts."""
+    from repro_torch.kernels.spc_query.ops import prep_rows
+    from repro_torch.kernels.spc_query.ref import spc_query_ref
+    return spc_query_ref(*prep_rows(idx, s, t))
+
+
+def gathered_route(idx, s, t):
+    """The serve route before the fused kernel: gather the six [B, L] operands,
+    re-pad hub_t, then the warp kernel."""
+    import torch
+    from repro_torch.core.query import gather_rows
+    from repro_torch.kernels.spc_query.kernel import _warp_cuda
+    hub_s, dist_s, cnt_s = gather_rows(idx, s)
+    hub_t, dist_t, cnt_t = gather_rows(idx, t)
+    hub_t = torch.where(hub_t == idx.n, idx.n + 1, hub_t)
+    return _warp_cuda(hub_s, dist_s, cnt_s, hub_t, dist_t, cnt_t)
 
 
 def check_equal(tag, got, want):
@@ -787,29 +942,89 @@ def lm_seed_readings(seeds, card: str) -> int:
     return 0
 
 
-def device_busy_ms(fn):
-    """(ms the card was busy, ms from its first device event's start to
-    its last's end) while ``fn()`` ran: the union of the device events'
-    intervals in a ``torch.profiler`` trace.  (None, None) when the trace
-    holds no device event."""
+def l2_rate(device, calls: int = 50):
+    """(bytes/s, {probe: bytes/s}): the rate at which PyTorch kernels move
+    a float32 tensor of L2_PROBE_BYTES that stays in the 50 MB L2 from
+    call to call, from each kernel's device time in a ``torch.profiler``
+    trace.  Probes: sums of rows of 1024 (reads), and a copy into a
+    second such tensor (its reads and writes counted).  The faster is a
+    lower bound on L2's rate (neither need reach it)."""
+    import torch
+    x = torch.randn(L2_PROBE_BYTES // 4, device=device)
+    y = torch.empty_like(x)
+    probes = {"row sums": (lambda: x.view(-1, 1024).sum(dim=1),
+                           L2_PROBE_BYTES),
+              "copy": (lambda: y.copy_(x), 2 * L2_PROBE_BYTES)}
+    rates = {}
+    for name, (fn, nbytes) in probes.items():
+        fn()
+        by = device_trace(lambda: [fn() for _ in range(calls)], calls)[2]
+        rates[name] = nbytes / (max(by.values()) * 1e-3)
+    return max(rates.values()), rates
+
+
+def sector_bytes(ids, table):
+    """Bytes of the 32-byte L2 sectors that embedding_bag's row reads
+    span, each slot's row once per occurrence (the table's rows laid out
+    from an address aligned to 32 bytes)."""
+    import torch
+    v1, d = table.shape
+    rb = d * table.element_size()
+    wrapped = torch.where(ids < 0, ids + v1, ids).long()
+    rows = torch.where((wrapped >= 0) & (wrapped < v1 - 1), wrapped, v1 - 1)
+    start = rows * rb
+    return 32 * int(((start + rb - 1) // 32 - start // 32 + 1).sum())
+
+
+def device_events(fn, expect=None, tries: int = 5):
+    """The device events (kernels, copies; no annotations) of ``fn()`` in
+    a ``torch.profiler`` trace.  On this card the tracer has now and then
+    returned a trace with none of them, so the trace is taken again, up
+    to ``tries`` times, until it holds some -- or, with ``expect`` (a
+    kernel-name prefix, a count), exactly that many of those kernels.
+    [] when no trace does."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        return None, None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.name.startswith("ProfilerStep")]
+        if expect is None and events or expect is not None and sum(
+                kernel_name(e.name).startswith(expect[0])
+                for e in events) == expect[1]:
+            return events
+    return []
+
+
+def device_trace(fn, per: int = 1, expect=None):
+    """(ms the card was busy, ms from its first device event's start to
+    its last's end, {kernel name: device ms / per}) while ``fn()`` ran,
+    from one ``torch.profiler`` trace (:func:`device_events`): busy is
+    the union of the device events' intervals, ``per`` the steps ``fn``
+    makes.  (None, None, {}) when no trace holds the device events."""
+    events = device_events(fn, expect)
+    if not events:
+        return None, None, {}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, (lo, hi) = 0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
             busy, lo = busy + hi - lo, a
         hi = max(hi, b)
     busy += hi - lo
-    return busy / 1e3, (max(b for _, b in spans) - spans[0][0]) / 1e3
+    by_kernel = {}
+    for e in events:
+        name = kernel_name(e.name)
+        by_kernel[name] = by_kernel.get(name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / per
+    return (busy / 1e3, (max(b for _, b in spans) - spans[0][0]) / 1e3,
+            by_kernel)
 
 
 def kernel_name(raw: str) -> str:
@@ -819,24 +1034,25 @@ def kernel_name(raw: str) -> str:
     return name.split("(")[0]
 
 
-def device_ms_by_kernel(fn, per: int) -> dict:
-    """Device milliseconds of each kernel that ``fn()`` launched, by
-    kernel name (``kernel_name``), divided by ``per`` (the steps ``fn``
-    makes), from a ``torch.profiler`` trace."""
+def graph_ms(fn, calls: int = 20, reps: int = 20) -> float:
+    """Device ms per call of ``fn()``: ``calls`` calls captured in one CUDA
+    graph, the graph replayed ``reps`` times between CUDA events.  The
+    replays run the calls' kernels back to back with no host work between
+    them, so a call that is host-bound back to back (a small kernel behind
+    its wrapper's Python) shows what the card spends on it."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = kernel_name(e.name)
-            out[name] = out.get(name, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3 / per
-    return out
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, reps) / calls
+    del graph
+    return ms
 
 
 def check_close(tag, got, want, rtol, atol):
@@ -1058,9 +1274,8 @@ def main(argv=None) -> int:
             f"{f['function']} {f['registers']} registers, smem {f['smem']} "
             f"B, spills {f['spill_stores']}/{f['spill_loads']} B"
             for f in funcs))
-    spilled = [f["function"] for f in usage.get("flash_decode", [])
-               + usage.get("segment_matmul", [])
-               if f["function"].startswith(("flash_decode_mma", "block_sums"))
+    spilled = [f["function"] for funcs in usage.values() for f in funcs
+               if f["function"].startswith(REDESIGNED)
                and f["spill_stores"] + f["spill_loads"]]
     if spilled:
         raise AssertionError(f"the redesigned kernels spill: {spilled}")
@@ -1069,38 +1284,59 @@ def main(argv=None) -> int:
                                 card)
 
     # -- 3a. kernels vs plain on synthetic inputs -------------------------
+    # spc_query exactly: each input in the gathered form (the fused kernel
+    # with identity ids), through the warp kernel, and in the index
+    # form (the rows written into an index, read by id)
     max_err = 0
+    k1_inputs = []
     for b, l_cap in ((4, 8), (130, 16), (256, 32), (17, 128)):
-        rows = sweep_rows(b, l_cap, max(50, 2 * l_cap), rng, dev)
-        got = K.spc_query_cuda(*rows)
-        torch.cuda.synchronize()
-        max_err = max(max_err, check_equal(f"sweep({b},{l_cap})", got,
-                                           spc_query_ref(*rows)))
+        n_hub = max(50, 2 * l_cap)
+        k1_inputs.append((f"sweep({b},{l_cap})",
+                          sweep_rows(b, l_cap, n_hub, rng, dev), n_hub, None))
     rows, want = big_count_rows(dev)
-    got = K.spc_query_cuda(*rows)
-    torch.cuda.synchronize()
-    max_err = max(max_err, check_equal("big counts", got,
-                                       spc_query_ref(*rows)))
-    if got[0].tolist() != want[0] or got[1].tolist() != want[1]:
-        raise AssertionError(f"big counts: {got} != {want}")
-    log(f"kernels: spc_query == plain on the sweep and on counts "
-        f"{want[1]} (exact)")
-    # hubs that repeat within a row: the reference microbench's own draw,
-    # and a hand-made pair
-    rows = tuple(torch.from_numpy(x).to(dev) for x in KB.query_inputs())
-    got = K.spc_query_cuda(*rows)
-    torch.cuda.synchronize()
-    max_err = max(max_err, check_equal("microbench rows (repeated hubs)",
-                                       got, spc_query_ref(*rows)))
+    k1_inputs.append(("big counts", rows, 3, want))
+    # hubs that repeat within a row: the reference microbench's own draw
+    # (hubs below 500), and a hand-made pair
+    k1_inputs.append(("microbench rows (repeated hubs)",
+                      tuple(torch.from_numpy(x).to(dev)
+                            for x in KB.query_inputs()), 500, None))
     rows, want = repeated_hub_rows(dev)
-    got = K.spc_query_cuda(*rows)
-    torch.cuda.synchronize()
-    max_err = max(max_err, check_equal("repeated hubs", got,
-                                       spc_query_ref(*rows)))
-    if [got[0].tolist(), got[1].tolist()] != list(want):
-        raise AssertionError(f"repeated hubs: {got} != {want}")
-    log(f"kernels: spc_query == plain on rows with repeated hubs (the "
-        f"microbench draw, {tuple(rows[0].shape)} hand-made: {want}) (exact)")
+    k1_inputs.append(("repeated hubs", rows, 10, want))
+    for tag, rows, n_hub, want in k1_inputs:
+        plain = spc_query_ref(*rows)
+        idx, s_ids, t_ids = rows_as_index(rows, n_hub)
+        for form, got in (
+                ("gathered", K.spc_query_cuda(*rows)),
+                ("warp", K._warp_cuda(*rows)),
+                ("index", K.spc_query_index_cuda(idx.hub, idx.dist, idx.cnt,
+                                                 s_ids, t_ids)),
+                ("index plain", index_plain(idx, s_ids, t_ids))):
+            torch.cuda.synchronize()
+            max_err = max(max_err, check_equal(f"{tag} {form}", got, plain))
+            if want is not None and [got[0].tolist(),
+                                     got[1].tolist()] != list(want):
+                raise AssertionError(f"{tag} {form}: {got} != {want}")
+    log(f"kernels: spc_query == plain on the sweep, on counts "
+        f"{k1_inputs[4][3][1]} and on rows with repeated hubs (the "
+        f"microbench draw; hand-made: {k1_inputs[-1][3]}), in the gathered "
+        f"form, the warp kernel and the index form (exact)")
+    # the index form on [n + 1, 2048] indexes with pads, whole rows and
+    # hubs distinct or repeating, at ids outside [0, n] too
+    synth_rng = np.random.default_rng(args.seed + 5)
+    for repeat in (False, True):
+        idx = synthetic_index(K1_SYNTH_N, 2048, synth_rng, dev, repeat)
+        s_ids, t_ids = index_ids(idx.n, K1_SYNTH_N, synth_rng, dev)
+        got = K.spc_query_index_cuda(idx.hub, idx.dist, idx.cnt, s_ids,
+                                     t_ids)
+        torch.cuda.synchronize()
+        max_err = max(max_err, check_equal(
+            f"index (n {idx.n}, L 2048, repeat {repeat})", got,
+            index_plain(idx, s_ids, t_ids)))
+    del idx, s_ids, t_ids
+    log(f"kernels: spc_query index form == plain on two [{K1_SYNTH_N + 1}, "
+        f"2048] indexes (hubs distinct, hubs repeating; a tenth of the rows "
+        f"full) at {K1_SYNTH_N} pairs with ids 0, n - 1, n, -1, -(n + 1), "
+        f"-(n + 5), n + 3 (exact)")
 
     # both designs on every input, whichever the plan picks
     seg_designs = {"sorted": SM._sorted_cuda, "blocked": SM._blocked_cuda}
@@ -1158,6 +1394,15 @@ def main(argv=None) -> int:
         f"{seg_err16:.3g} against the f32 sum; the long segment exact); two "
         f"launches bitwise equal")
 
+    # the packed design (the route) and the warp design on each
+    # input: within the tolerances of the plain version, and equal to each
+    # other bit for bit (both add each column's rows in slot order)
+    l2, l2_probes = l2_rate(dev)
+    log(f"L2: PyTorch kernels over a {L2_PROBE_BYTES} B float32 tensor that "
+        f"stays in L2 move, in TB/s: "
+        f"{json.dumps({k: v / 1e12 for k, v in l2_probes.items()})} (each "
+        f"kernel's device time); the fastest, {l2 / 1e12:.3f} TB/s, is the "
+        f"L2 rate of the reckoning below on {card}")
     bag_err, bag_shapes = 0.0, []
     for tag, (b, s, v, d) in ([(f"sweep{shape}", shape)
                                for shape in BAG_SWEEP]
@@ -1166,32 +1411,55 @@ def main(argv=None) -> int:
                                  for name, b in BAG_RECSYS]):
         ids, table = bag_inputs(b, s, v, d, rng, dev)
         truth = embedding_bag_ref(ids, table)
-        got = EB.embedding_bag_cuda(ids, table)
-        torch.cuda.synchronize()
-        bag_err = max(bag_err, check_close(f"embedding_bag {tag} f32", got,
-                                           truth, 1e-6, 1e-6))
         table16 = table.to(torch.bfloat16)
-        got16 = EB.embedding_bag_cuda(ids, table16)
-        torch.cuda.synchronize()
-        check_close(f"embedding_bag {tag} bf16", got16,
-                    embedding_bag_ref(ids, table16.float()), 1e-2, 1e-2)
+        for x in (table, table16):
+            got, again = EB.embedding_bag_cuda(ids, x), EB.embedding_bag_cuda(
+                ids, x)
+            old = EB._warp_cuda(ids, x)
+            torch.cuda.synchronize()
+            if x.dtype == torch.float32:
+                bag_err = max(bag_err, check_close(
+                    f"embedding_bag {tag} f32", got, truth, 1e-6, 1e-6))
+            else:
+                check_close(f"embedding_bag {tag} bf16", got,
+                            embedding_bag_ref(ids, x.float()), 1e-2, 1e-2)
+            if not (torch.equal(got, again) and torch.equal(got, old)):
+                raise AssertionError(f"embedding_bag {tag} {x.dtype}: two "
+                                     f"launches, or the two designs, differ")
         if tag.startswith("sweep"):
             continue
         lib = F.embedding_bag(ids, table, mode="sum")
         check_close(f"F.embedding_bag {tag}", lib, truth, 1e-5, 1e-5)
+        bag_calls = {"packed": lambda: EB.embedding_bag_cuda(ids, table),
+                     "warp": lambda: EB._warp_cuda(ids, table),
+                     "library": lambda: F.embedding_bag(ids, table,
+                                                        mode="sum")}
+        bag_reps = {k: [] for k in bag_calls}
+        for _ in range(K3_REPS):
+            for k, fn in bag_calls.items():
+                bag_reps[k].append(cuda_ms(fn, 50))
+        bag_device = {k: graph_ms(bag_calls[k]) for k in ("packed", "warp")}
         nbytes, ops, distinct = embedding_bag_work(ids, table)
         bound, by = bound_ms(nbytes, ops)
+        # every slot's row read once per occurrence, from L2, in sectors
+        l2_bytes = sector_bytes(ids, table)
         bag_shapes.append({
             "shape": tag, "bags": b, "ids_per_bag": s, "rows": v + 1,
             "dim": d, "distinct_rows": distinct,
-            "ms": cuda_ms(lambda: EB.embedding_bag_cuda(ids, table), 50),
+            "design": EB.plan(d, table.dtype, table.data_ptr())._asdict(),
+            "ms": float(np.median(bag_reps["packed"])),
+            "ms_rounds": bag_reps["packed"], "warp_ms": bag_reps["warp"],
+            "device_ms": bag_device,
             "bf16_ms": cuda_ms(lambda: EB.embedding_bag_cuda(ids, table16),
                                50),
             "plain_ms": cuda_ms(lambda: embedding_bag_ref(ids, table), 10),
-            "library_ms": cuda_ms(lambda: F.embedding_bag(
-                ids, table, mode="sum"), 50),
-            "bound_ms": bound, "bound_by": by, "bytes": nbytes})
-        log(f"embedding_bag {tag}: {json.dumps(bag_shapes[-1])}")
+            "library_ms": float(np.median(bag_reps["library"])),
+            "library_ms_rounds": bag_reps["library"],
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "l2_sector_bytes": l2_bytes,
+            "l2_bound_ms": 1e3 * (l2_bytes / l2 + (nbytes - distinct * d
+                                  * table.element_size()) / HBM_BYTES_PER_S)})
+        log(f"embedding_bag {tag}: {json.dumps(bag_shapes[-1])} on {card}")
     log(f"kernels: embedding_bag == plain on the sweep and the recsys "
         f"shapes (f32 max |diff| {bag_err:.3g}; bf16 within 1e-2)")
     # F1: ids in [-(V + 1), -1] read from the end, as the reference reads
@@ -1355,7 +1623,7 @@ def main(argv=None) -> int:
         for _ in range(SEG_REPS):
             for k, fn in calls.items():
                 reps[k].append(cuda_ms(fn, 50))
-        busy = {k: device_busy_ms(lambda: [calls[k]() for _ in range(
+        busy = {k: device_trace(lambda: [calls[k]() for _ in range(
             SEG_TRACE_CALLS)])[0] for k in (design, "index_add_")}
         nbytes, _, longest = segment_matmul_work(x, ids, n_seg)
         seg_shapes.append({
@@ -1436,7 +1704,7 @@ def main(argv=None) -> int:
     # -- 6. serve -----------------------------------------------------------
     batches = [(rng.integers(0, n, 1024), rng.integers(0, n, 1024))
                for _ in range(64)]
-    served = {}
+    served, serve_us = {}, {}
     for route in ("auto", "merge"):
         eng = QueryEngine(route=route)
         evs = [torch.cuda.Event(enable_timing=True) for _ in range(65)]
@@ -1460,10 +1728,96 @@ def main(argv=None) -> int:
         if route == "auto" and dict(eng.stats.routes) != {"kernel": 65}:
             raise AssertionError(f"auto did not take the kernel route: "
                                  f"{eng.stats.routes}")
+        serve_us[route] = us
     for (d0, c0), (d1, c1) in zip(served["auto"], served["merge"]):
         if not (torch.equal(d0, d1) and torch.equal(c0, c1)):
             raise AssertionError("serve: kernel and merge routes differ")
     log("serve: kernel and merge routes agree on all 64 batches")
+    # the card's busy time per batch, batches replayed under the profiler
+    # (outside the path: the replay counts nowhere)
+    eng = QueryEngine(route="auto")
+    replay = batches[:SERVE_TRACE_BATCHES]
+
+    def serve_replay():
+        for s, t in replay:
+            eng.query_batch(svc.index, s, t)
+    serve_busy, serve_span, serve_kernels = device_trace(
+        serve_replay, len(replay), ("spc_query_fused", len(replay)))
+    serve_p50 = float(np.percentile(serve_us["auto"], 50))
+    serve = {"batch_us_p50": serve_p50,
+             "batch_us_p90": float(np.percentile(serve_us["auto"], 90)),
+             "merge_batch_us_p50": float(np.percentile(serve_us["merge"],
+                                                        50)),
+             "busy_us_per_batch": serve_busy and 1e3 * serve_busy
+             / len(replay),
+             "idle_share": serve_busy and 1 - 1e3 * serve_busy / len(replay)
+             / serve_p50,
+             "device_us_per_batch_by_kernel": {
+                 k: 1e3 * v for k, v in serve_kernels.items()}}
+    log("serve trace: " + (
+        f"{len(replay)} batches replayed under torch.profiler, the card busy "
+        f"{serve_busy:.4f} ms of {serve_span:.4f} ms from its first to its "
+        f"last device event; busy {serve['busy_us_per_batch']:.2f} us per "
+        f"batch, idle share {serve['idle_share']:.4f} of the batch p50 "
+        f"{serve_p50:.1f} us; by kernel, us per batch: "
+        f"{json.dumps(serve['device_us_per_batch_by_kernel'])}"
+        if serve_busy else "the profiler saw no device event; busy time "
+        "not measured") + f" on {card}")
+
+    # -- 6b. one batch of the configuration's query_batch pairs -------------
+    qb = CONFIG.query_batch
+    big_s, big_t = rng.integers(0, n, qb), rng.integers(0, n, qb)
+    eng = QueryEngine(route="auto")
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    big_secs, d_big, c_big = [], None, None
+    for k in range(3):
+        d_big = c_big = None                # one batch's answers at a time
+        launched = K.launches.count
+        t0 = time.monotonic()
+        with counts.path("dspc") if k == 0 else contextlib.nullcontext():
+            d_big, c_big = eng.query_batch(svc.index, big_s, big_t)
+            torch.cuda.synchronize()
+        big_secs.append(time.monotonic() - t0)
+        if k and K.launches.count != launched + 1:
+            raise AssertionError(f"a batch of {qb} pairs made "
+                                 f"{K.launches.count - launched} launches")
+    big_peak = torch.cuda.max_memory_allocated() - base_mem
+    # the card's part of such a batch: the id copy and the kernel, timed
+    # apart with CUDA events
+    big_ids = np.stack([big_s, big_t])
+    s_big, t_big = torch.from_numpy(big_ids).to(dev)
+    big_kernels = {
+        "ids_to_device": cuda_ms(lambda: torch.from_numpy(big_ids).to(dev),
+                                 5),
+        "spc_query_fused": cuda_ms(lambda: K.spc_query_index_cuda(
+            svc.index.hub, svc.index.dist, svc.index.cnt, s_big, t_big), 5)}
+    del s_big, t_big
+    # against the gathered route, QUERY_SLICE pairs at a time
+    wrong = torch.zeros((), dtype=torch.int64, device=dev)
+    for lo in range(0, qb, QUERY_SLICE):
+        sl = slice(lo, lo + QUERY_SLICE)
+        d0, c0 = gathered_route(svc.index,
+                                torch.from_numpy(big_s[sl]).to(dev),
+                                torch.from_numpy(big_t[sl]).to(dev))
+        wrong += (d0 != d_big[sl]).sum() + (c0 != c_big[sl]).sum()
+    if int(wrong) or d_big.shape != (qb,) or c_big.dtype != torch.int64:
+        raise AssertionError(f"the batch of {qb} pairs differs from the "
+                             f"gathered route in {int(wrong)} answers")
+    big = {"pairs": qb, "s": big_secs, "qps": qb / min(big_secs),
+           "peak_bytes_above_index": big_peak,
+           "device_ms": big_kernels,
+           "connected": int((d_big < INF).sum())}
+    log(f"serve[{qb} pairs]: one QueryEngine(route='auto') batch in "
+        f"{', '.join(f'{x:.4f}' for x in big_secs)} s (3 calls, one launch "
+        f"each), {big['qps']:.1f} qps, peak device memory {big_peak} B above "
+        f"the index; the id copy and the kernel alone "
+        f"{json.dumps(big_kernels)} ms; "
+        f"equal to the gathered route run in slices of "
+        f"{QUERY_SLICE} (exact); {big['connected']} pairs connected on "
+        f"{card}")
+    del d_big, c_big, d0, c0, big_s, big_t
 
     # -- A2. analytics after the chunk --------------------------------------
     cfg = dataclasses.replace(PNA_CONFIG, d_in=4)
@@ -1554,50 +1908,95 @@ def main(argv=None) -> int:
         f"equal to the CPU forward (max |diff| {rerank_err:.3g})")
 
     # -- 3b. kernels vs plain at the main paths' shapes, and their times -----
-    s, t = batches[0]
-    rows = prep_rows(svc.index, torch.from_numpy(s).to(dev),
-                     torch.from_numpy(t).to(dev))
-    rows = tuple(r.contiguous() for r in rows)
-    got = K.spc_query_cuda(*rows)
-    torch.cuda.synchronize()
-    max_err = max(max_err, check_equal("main-path rows", got,
-                                       spc_query_ref(*rows)))
+    s_dev, t_dev = (torch.from_numpy(x).to(dev) for x in batches[0])
+    rows = tuple(r.contiguous() for r in prep_rows(svc.index, s_dev, t_dev))
+    plain = spc_query_ref(*rows)
     b, l_cap = rows[0].shape
-    got = merge_rows(*rows)
-    torch.cuda.synchronize()
-    check_equal("main-path rows, plain merge", got, spc_query_ref(*rows))
-    ms = cuda_ms(lambda: K.spc_query_cuda(*rows), reps=200)
+    hub, dist_m, cnt_m = svc.index.hub, svc.index.dist, svc.index.cnt
+    k1_calls = {
+        "fused": lambda: K.spc_query_index_cuda(hub, dist_m, cnt_m, s_dev,
+                                                t_dev),
+        "gathered_route": lambda: gathered_route(svc.index, s_dev, t_dev),
+        "warp": lambda: K._warp_cuda(*rows),
+        "merge": lambda: merge_rows(*rows)}
+    for tag, fn in list(k1_calls.items()) + [
+            ("gathered form", lambda: K.spc_query_cuda(*rows))]:
+        got = fn()
+        torch.cuda.synchronize()
+        max_err = max(max_err, check_equal(f"main-path pairs, {tag}", got,
+                                           plain))
+    k1_reps = {k: [] for k in k1_calls}
+    for _ in range(K1_REPS):
+        for k, fn in k1_calls.items():
+            k1_reps[k].append(cuda_ms(fn, 200 if k != "merge" else 50))
+    # what the card spends per call, the whole route for the gathered one:
+    # calls replayed back to back from a CUDA graph
+    k1_busy = {k: graph_ms(k1_calls[k], K1_GRAPH_CALLS)
+               for k in ("fused", "gathered_route", "warp")}
+    ms = float(np.median(k1_reps["fused"]))
     # plain_ms: the L x L table the kernel is held against (the
-    # correctness reference); plain_merge_ms: the port's plain-torch
-    # sorted merge, the same function at the same shape
+    # correctness reference); the plain merge is the same function in
+    # plain torch at the same shape
     plain_ms = cuda_ms(lambda: spc_query_ref(*rows), reps=5, warmup=1)
-    merge_ms = cuda_ms(lambda: merge_rows(*rows), reps=50)
-    nbytes, ops, common_hubs = spc_query_work(rows)
+    merge_ms = float(np.median(k1_reps["merge"]))
+    nbytes, ops, common_hubs = spc_query_index_work(svc.index, s_dev, t_dev,
+                                                     rows)
     bound, by = bound_ms(nbytes, ops)
-    log(f"spc_query at (B={b}, L={l_cap}): {ms:.5f} ms, plain table "
-        f"{plain_ms:.4f} ms, plain merge {merge_ms:.5f} ms, bound "
-        f"{bound:.5f} ms ({nbytes} B, {ops} ops, {common_hubs} common "
-        f"hubs) on {card}")
+    full_bytes = spc_query_work(rows)[0]
+    bound_full = bound_ms(full_bytes, ops)[0]
+    k1_main = {"B": b, "L": l_cap, "design": K.plan(l_cap),
+               "ms_rounds": k1_reps["fused"],
+               "gathered_route_ms": k1_reps["gathered_route"],
+               "warp_ms": k1_reps["warp"], "merge_ms": k1_reps["merge"],
+               "device_ms_per_call": k1_busy, "bytes": nbytes,
+               "bytes_full_rows": full_bytes, "bound_full_rows_ms":
+               bound_full, "common_hubs": common_hubs}
+    log(f"spc_query at (B={b}, L={l_cap}): fused {ms:.5f} ms (rounds "
+        f"{json.dumps(k1_reps['fused'])}), the gathered route (gather, re-pad, "
+        f"warp kernel) {json.dumps(k1_reps['gathered_route'])}, the warp "
+        f"kernel alone {json.dumps(k1_reps['warp'])}, plain merge "
+        f"{json.dumps(k1_reps['merge'])} ms; the card's ms per call (CUDA "
+        f"graph) {json.dumps(k1_busy)}; plain table {plain_ms:.4f} ms; "
+        f"bound {bound:.5f} ms ({nbytes} "
+        f"B read by id, {ops} ops, {common_hubs} common hubs; both hub rows "
+        f"in full: {full_bytes} B, {bound_full:.5f} ms) on {card}")
 
     bags = torch.from_numpy(common_friend_bags(view, u, cand)).to(dev)
     tz = torch.cat([table, torch.zeros_like(table[:1])]).to(dev)
     got = EB.embedding_bag_cuda(bags, tz)
+    old = EB._warp_cuda(bags, tz)
     torch.cuda.synchronize()
     bag_err = max(bag_err, check_close("embedding_bag main-path bags", got,
                                        embedding_bag_ref(bags, tz),
                                        1e-6, 1e-6))
-    bag_ms = cuda_ms(lambda: EB.embedding_bag_cuda(bags, tz), 200)
+    if not torch.equal(got, old):
+        raise AssertionError("embedding_bag at the re-rank's bags: the two "
+                             "designs differ")
+    rerank_calls = {"packed": lambda: EB.embedding_bag_cuda(bags, tz),
+                    "warp": lambda: EB._warp_cuda(bags, tz),
+                    "library": lambda: F.embedding_bag(bags, tz, mode="sum")}
+    rerank_reps = {k: [] for k in rerank_calls}
+    for _ in range(K3_REPS):
+        for k, fn in rerank_calls.items():
+            rerank_reps[k].append(cuda_ms(fn, 200))
+    rerank_device = {k: graph_ms(rerank_calls[k]) for k in ("packed",
+                                                             "warp")}
+    bag_ms = float(np.median(rerank_reps["packed"]))
     bag_plain_ms = cuda_ms(lambda: embedding_bag_ref(bags, tz), 200)
-    bag_lib_ms = cuda_ms(lambda: F.embedding_bag(bags, tz, mode="sum"), 200)
+    bag_lib_ms = float(np.median(rerank_reps["library"]))
     bag_bytes, bag_ops, _ = embedding_bag_work(bags, tz)
     bag_bound, bag_by = bound_ms(bag_bytes, bag_ops)
     log(f"embedding_bag at the re-rank's bags {tuple(bags.shape)}, table "
-        f"{tuple(tz.shape)}: {bag_ms:.5f} ms, plain {bag_plain_ms:.5f} ms, "
-        f"F.embedding_bag {bag_lib_ms:.5f} ms, bound {bag_bound:.7f} ms "
-        f"({bag_bytes} B) on {card}")
+        f"{tuple(tz.shape)}: packed {json.dumps(rerank_reps['packed'])}, warp "
+        f"{json.dumps(rerank_reps['warp'])}, F.embedding_bag "
+        f"{json.dumps(rerank_reps['library'])} ms in {K3_REPS} rounds, the "
+        f"card's ms per call (CUDA graph) {json.dumps(rerank_device)}; "
+        f"median {bag_ms:.5f} ms, plain {bag_plain_ms:.5f} ms, bound "
+        f"{bag_bound:.7f} ms ({bag_bytes} B) on {card}")
 
     # -- L. the LM serving path (examples/serve_lm.py at qwen2-1.5b) --------
-    del svc, store, ana, maint, pinned, view, frozen, served, outs, rows
+    del (svc, store, ana, maint, pinned, view, frozen, served, outs, rows,
+         hub, dist_m, cnt_m, plain, k1_calls, s_dev, t_dev)
     gc.collect()
     torch.cuda.empty_cache()
     # one card, no mesh: tp = 1 keeps the published 12 query heads (the
@@ -1639,11 +2038,8 @@ def main(argv=None) -> int:
         decode_peak = torch.cuda.max_memory_allocated()
     # the last steps again under the profiler: the card's busy time per
     # step (outside the lm path: the replay counts nowhere)
-    busy_ms, span_ms = device_busy_ms(lambda: replay_decode(
-        params, lm_cfg, cache, fed[:, -LM_TRACE_STEPS:],
-        s_max - LM_TRACE_STEPS))
-    # the same steps again, the card's ms per step by kernel
-    step_kernels = device_ms_by_kernel(lambda: replay_decode(
+    # and its ms per step by kernel
+    busy_ms, span_ms, step_kernels = device_trace(lambda: replay_decode(
         params, lm_cfg, cache, fed[:, -LM_TRACE_STEPS:],
         s_max - LM_TRACE_STEPS), LM_TRACE_STEPS)
     step_kernels = dict(sorted(step_kernels.items(),
@@ -1827,9 +2223,11 @@ def main(argv=None) -> int:
         "replaces": KERNEL_SOURCES["spc_query"][1],
         "launches": counts.of("spc_query")[0],
         "launches_by_path": counts.of("spc_query")[1], "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "plain_merge_ms": merge_ms,
+        "ms": ms, "device_ms": k1_busy["fused"], "plain_ms": plain_ms,
+        "plain_merge_ms": merge_ms,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "microbench": q_row,
+        "design": k1_main["design"], "main": k1_main, "serve": serve,
+        "query_batch": big, "microbench": q_row,
     }, {
         "name": "segment_matmul", "route": "cuda",
         "path": paths_of("segment_matmul"),
@@ -1856,6 +2254,11 @@ def main(argv=None) -> int:
         "max_abs_err": bag_err,
         "ms": bag_ms, "plain_ms": bag_plain_ms, "bound_ms": bag_bound,
         "bound_by": bag_by, "library_ms": bag_lib_ms,
+        "design": EB.plan(tz.shape[1], tz.dtype, tz.data_ptr())._asdict(),
+        "ms_rounds": rerank_reps["packed"], "warp_ms": rerank_reps["warp"],
+        "device_ms": rerank_device,
+        "library_ms_rounds": rerank_reps["library"],
+        "l2_bytes_per_s": l2, "l2_probes": l2_probes,
         "shape": list(bags.shape), "shapes": bag_shapes,
     }, {
         "name": "flash_decode", "route": "cuda",

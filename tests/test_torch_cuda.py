@@ -24,10 +24,19 @@ main paths run on the card: a small build -> events -> serve answers as
 the counting BFS does through the kernel route, the analytics path
 (store, betweenness, cycles, recommendation -> PNA re-rank) gives the
 CPU's answers, and the LM path at qwen2-1.5b ``SMOKE`` (prefill, then
-decode through the kernel) gives the CPU's logits.
+decode through the kernel) gives the CPU's logits.  spc_query's fused
+kernel reads rows by vertex id: it equals its plain version on a built
+index padded to L = 2048 at B 1, 7, 1024 and 4096 (ids outside [0, n]
+among them), on long rows whose hubs repeat, at L 16000 (64000 bytes of
+staged row) and 16400 (searched in device memory), rejects what it does
+not take, and the op and the engine launch it once per batch with no [B, L]
+gather.  embedding_bag's packed design equals its plain version at D 8,
+18, 32 and 130 in float32 and bfloat16 with F1's ids, equals the warp
+design bit for bit, and two launches give the same bits.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -44,7 +53,12 @@ from repro_torch.kernels import common
 from repro_torch.kernels import embedding_bag as EB
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import segment_matmul as SM
-from repro_torch.kernels.spc_query import launches, spc_query_cuda
+from repro_torch.kernels.embedding_bag.kernel import (
+    _warp_cuda as bag_warp_cuda)
+from repro_torch.core.labels import repad
+from repro_torch.kernels.spc_query import (exact_query_batch, launches, plan,
+                                           prep_rows, spc_query_cuda,
+                                           spc_query_index_cuda)
 from repro_torch.kernels.spc_query.ref import spc_query_ref
 from repro_torch.models import transformer as tf
 from repro_torch.models.gnn.pna import PNA
@@ -588,3 +602,157 @@ def test_flash_decode_mma_route_equals_plain_version(card, b, h, kvh, s, d):
                                atol=1e-2)
     if b > 2:
         assert not got[-1].any()               # length 0: zeros
+
+
+@functools.lru_cache(maxsize=None)
+def built_index_2048():
+    """A built index (n 400, power law) padded to L = 2048, as the dspc
+    configuration's index is at full scale."""
+    n = 400
+    svc = DynamicSPC(n, random_graph_edges(n, 1600, seed=5), l_cap=None,
+                     construct_batch=8)
+    return repad(svc.index, 2048)
+
+
+@pytest.mark.parametrize("b", [1, 7, 1024, 4096])
+def test_fused_kernel_equals_plain_version_on_a_built_index(card, b):
+    idx = built_index_2048()
+    s, t = chip_smoke.index_ids(idx.n, b, np.random.default_rng(b), card)
+    before = launches.count
+    d, c = spc_query_index_cuda(idx.hub, idx.dist, idx.cnt, s, t)
+    torch.cuda.synchronize()
+    assert launches.count == before + 1
+    assert d.dtype == torch.int32 and c.dtype == torch.int64
+    d_p, c_p = chip_smoke.index_plain(idx, s, t)
+    assert torch.equal(d, d_p) and torch.equal(c, c_p)
+    if b >= 1024:
+        assert (d < (1 << 28)).any()
+
+
+@pytest.mark.parametrize("repeat", [False, True])
+def test_fused_kernel_on_long_rows_that_repeat_hubs(card, repeat):
+    """Rows of every length up to L = 2048 (a tenth full), hubs distinct
+    or drawn with replacement from 64: every pair of equal hubs counts,
+    in the index form and in the gathered form of the same pairs."""
+    rng = np.random.default_rng(12)
+    idx = chip_smoke.synthetic_index(2048, 2048, rng, card, repeat)
+    s, t = chip_smoke.index_ids(idx.n, 1024, rng, card)
+    d, c = spc_query_index_cuda(idx.hub, idx.dist, idx.cnt, s, t)
+    rows = tuple(r.contiguous() for r in prep_rows(idx, s, t))
+    d_g, c_g = spc_query_cuda(*rows)
+    d_p, c_p = spc_query_ref(*rows)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d_p) and torch.equal(c, c_p)
+    assert torch.equal(d_g, d_p) and torch.equal(c_g, c_p)
+
+
+@pytest.mark.parametrize("l_cap,design", [(16000, "staged"),
+                                          (16400, "global")])
+def test_fused_kernel_past_48_kb_of_staging_and_past_its_limit(card, l_cap,
+                                                               design):
+    """Rows of 16000 labels stage 64000 bytes of shared memory a CTA, past
+    the 48 KB a launch gets without asking; rows of 16400 pass the staging
+    limit and are searched in device memory."""
+    assert plan(l_cap) == design
+    rng = np.random.default_rng(l_cap)
+    idx = chip_smoke.synthetic_index(40, l_cap, rng, card, repeat=True)
+    s, t = chip_smoke.index_ids(idx.n, 8, rng, card)
+    d, c = spc_query_index_cuda(idx.hub, idx.dist, idx.cnt, s, t)
+    d_p, c_p = chip_smoke.index_plain(idx, s, t)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d_p) and torch.equal(c, c_p)
+
+
+def test_index_kernel_rejects_what_it_does_not_take(card):
+    rng = np.random.default_rng(0)
+    idx = chip_smoke.synthetic_index(64, 32, rng, card)
+    s, t = chip_smoke.index_ids(idx.n, 16, rng, card)
+    hub, dist, cnt = idx.hub, idx.dist, idx.cnt
+    with pytest.raises(ValueError, match="dtype"):
+        spc_query_index_cuda(hub, dist, cnt, s.int(), t)
+    with pytest.raises(ValueError, match="dtype"):
+        spc_query_index_cuda(hub, dist, cnt.float(), s, t)
+    with pytest.raises(ValueError, match="on cpu"):
+        spc_query_index_cuda(hub, dist, cnt, s.cpu(), t)
+    with pytest.raises(ValueError, match="CUDA"):
+        spc_query_index_cuda(hub.cpu(), dist.cpu(), cnt.cpu(), s.cpu(),
+                             t.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        spc_query_index_cuda(hub, dist, cnt, s[::2], t[::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        spc_query_index_cuda(hub.t().contiguous().t(), dist, cnt, s, t)
+    with pytest.raises(ValueError, match="shape"):
+        spc_query_index_cuda(hub, dist, cnt, s, t[:4])
+
+
+def test_exact_query_batch_is_one_launch_and_no_gather(card, monkeypatch):
+    """On the card the op and the engine launch the fused kernel once per
+    batch and gather no [B, L] operand: the gather is made to raise, and
+    the peak memory stays below one such operand."""
+    import repro_torch.kernels.spc_query.ops as ops
+    idx = built_index_2048()
+    rng = np.random.default_rng(3)
+    s, t = chip_smoke.index_ids(idx.n, 4096, rng, card)
+    want = chip_smoke.index_plain(idx, s, t)
+
+    def no_gather(*args):
+        raise AssertionError("a [B, L] gather on the card")
+    monkeypatch.setattr(ops, "gather_rows", no_gather)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = launches.count
+    got = exact_query_batch(idx, s, t)
+    torch.cuda.synchronize()
+    assert launches.count == before + 1
+    assert torch.cuda.max_memory_allocated() - base < 4096 * 2048 * 4
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    eng = QueryEngine()
+    s_ok, t_ok = (rng.integers(0, idx.n, 1000) for _ in range(2))
+    before = launches.count
+    d, c = eng.query_batch(idx, s_ok, t_ok)
+    torch.cuda.synchronize()
+    assert launches.count == before + 1
+    assert dict(eng.stats.routes) == {"kernel": 1}
+    monkeypatch.undo()
+    d_p, c_p = chip_smoke.index_plain(idx, torch.from_numpy(s_ok).to(card),
+                                      torch.from_numpy(t_ok).to(card))
+    assert torch.equal(d, d_p) and torch.equal(c, c_p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 18, 32, 130])
+def test_packed_embedding_bag_equals_plain_version(card, d, dtype):
+    """The packed design at D 8, 18, 32 and 130 with F1's ids (from the
+    end, past the table, below -(V + 1)): within 1e-6 of the plain
+    version in float32 (1e-2 in bfloat16, against the float32 sum of the
+    same bfloat16 rows), and equal to the warp design bit for
+    bit."""
+    v = 1000
+    ids, table = chip_smoke.bag_inputs(300, 9, v, d,
+                                       np.random.default_rng(d), card)
+    ids[::3, 0] -= v + 1                       # [-(V + 1), -2]: from the end
+    ids[1::5, 1] = v + 7                       # past the table: zero row
+    ids[2::7, 2] = -(v + 1) - 5                # below -(V + 1): zero row
+    x = table.to(dtype)
+    before = EB.launches.count
+    got = EB.embedding_bag_cuda(ids, x)
+    old = bag_warp_cuda(ids, x)
+    torch.cuda.synchronize()
+    assert EB.launches.count == before + 2
+    assert got.dtype == dtype and got.shape == (300, d)
+    tol = 1e-6 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(),
+                               EB.embedding_bag_ref(ids, x.float()),
+                               rtol=tol, atol=tol)
+    assert torch.equal(got, old)
+
+
+def test_packed_embedding_bag_launches_are_bitwise_equal(card):
+    ids, table = chip_smoke.bag_inputs(4096, 8, 100_000, 18,
+                                       np.random.default_rng(9), card)
+    for x in (table, table.to(torch.bfloat16)):
+        a = EB.embedding_bag_cuda(ids, x)
+        b = EB.embedding_bag_cuda(ids, x)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)

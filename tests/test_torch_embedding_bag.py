@@ -152,3 +152,22 @@ def test_no_fallback_off_the_cpu():
     path = common.library_path("embedding_bag")
     assert path.parent == common.BUILD_DIR
     assert path.name.startswith("libembedding_bag-")
+
+
+def test_packed_plan_reads_the_widest_vector_a_row_allows():
+    """The packed design's vectors: the widest of 16, 8, 4 (and 2 in
+    bfloat16) bytes dividing the row and the table's address, and the
+    bags a warp holds (floor(32 / vectors) up to 16 vectors a row, else
+    one); on CPU tensors both designs' wrappers raise."""
+    from repro_torch.kernels.embedding_bag.kernel import _warp_cuda, plan
+    assert plan(18, torch.float32) == (8, 9, 3)          # the recsys rows
+    assert plan(8, torch.float32) == (16, 2, 16)         # the re-rank's
+    assert plan(32, torch.float32) == (16, 8, 4)
+    assert plan(130, torch.float32) == (8, 65, 1)
+    assert plan(18, torch.bfloat16) == (4, 9, 3)
+    assert plan(9, torch.bfloat16) == (2, 9, 3)
+    assert plan(8, torch.float32, table_ptr=8) == (8, 4, 8)
+    ids, table = inputs(4, 3, 16, 8)
+    for fn in (embedding_bag_cuda, _warp_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(torch.from_numpy(ids), torch.from_numpy(table))

@@ -6,7 +6,12 @@ table); it must agree with the reference's ``spc_query_ref`` (fp32
 counts: equal wherever the count is below 2^24), with the Pallas kernel
 in interpret mode through ``index_query_batch``, and with both
 packages' ``merge_rows``.  Counts of 2^24 + 1 and above 2^32 come back
-exact.  The CUDA kernel itself is held against the plain version on the
+exact.  The index form (``exact_query_batch``: rows read by vertex id)
+equals the reference's ``index_query_batch`` bit for bit on a real
+index, on rows that repeat hubs, at ids 0, n - 1 and n and at ids
+outside [0, n] (a negative id wraps once, then the row is clamped to
+[0, n], as ``jnp`` indexing reads it), and gives empty answers for no
+pairs.  The CUDA kernel itself is held against the plain version on the
 card by ``tests/test_torch_cuda.py``."""
 
 import jax
@@ -22,9 +27,11 @@ from repro.kernels.spc_query.ref import spc_query_ref as jax_spc_query_ref
 from repro_torch.core import query as TQ
 from repro_torch.core.dynamic import DynamicSPC
 from repro_torch.data import random_graph_edges
-from repro_torch.kernels.spc_query import (exact_query_batch, launches,
+from repro_torch.kernels.spc_query import (exact_query_batch, launches, plan,
                                            prep_rows, spc_query,
-                                           spc_query_cuda, spc_query_ref)
+                                           spc_query_cuda,
+                                           spc_query_index_cuda,
+                                           spc_query_ref, wrap_ids)
 
 INF = 1 << 28
 SWEEP = [(4, 8), (130, 16), (256, 32), (17, 128)]
@@ -251,3 +258,113 @@ def test_wrapper_dispatch_never_falls_back():
         spc_query_cuda(*rows)
     d, c = spc_query(*(r[:0] for r in rows))
     assert d.shape == (0,) and c.dtype == torch.int64
+
+
+def _edge_and_outside_ids(n):
+    """(s, t): ids 0, n - 1 and n (the dump row), then ids outside
+    [0, n]: -1, -(n + 1), -(n + 5), n + 3, paired every way."""
+    edge = [0, n - 1, n]
+    outside = [-1, -(n + 1), -(n + 5), n + 3]
+    pairs = [(a, b) for a in edge + outside for b in edge + outside]
+    return (np.asarray([a for a, _ in pairs], np.int64),
+            np.asarray([b for _, b in pairs], np.int64))
+
+
+def test_wrap_ids_follows_the_reference_gather_rule(real_index):
+    """A negative id wraps once, then the row is clamped to [0, n]: what
+    ``jnp`` indexing does (``x[[-1, -6, 9]]`` on 5 rows reads 4, 0, 4)."""
+    tidx, _, _, _ = real_index
+    n = tidx.n
+    ids = np.asarray([-1, -6, 9, -(n + 1), -(n + 5), n + 3, 0, n], np.int64)
+    want = np.asarray(jnp.arange(n + 1)[jnp.asarray(ids)])
+    np.testing.assert_array_equal(host(wrap_ids(tidx, ids)), want)
+    assert np.asarray(jnp.arange(5)[jnp.asarray([-1, -6, 9])]).tolist() == \
+        [4, 0, 4]
+
+
+@pytest.mark.parametrize("ids", ["random", "edge and outside"])
+def test_index_form_plain_version_matches_reference(real_index, ids):
+    """The index form (rows read by vertex id) on the CPU against the
+    reference's ``index_query_batch`` with the Pallas kernel in interpret
+    mode, bit for bit: random pairs, then ids 0, n - 1, n and ids outside
+    [0, n] under the reference's wrap-and-clamp rule."""
+    tidx, jidx, s, t = real_index
+    if ids != "random":
+        s, t = _edge_and_outside_ids(tidx.n)
+    before = launches.count
+    d_t, c_t = exact_query_batch(tidx, s, t)
+    assert launches.count == before          # the CPU: no launch
+    d_j, c_j = index_query_batch(jidx, jnp.asarray(s), jnp.asarray(t),
+                                 interpret=True)
+    eq(d_t, d_j)
+    eq(c_t, c_j)
+    assert (host(d_t) < INF).any()
+
+
+def repeated_hub_index(n=30, l_cap=16, seed=3):
+    """An index whose rows repeat hubs (sorted, drawn with replacement
+    from 12 hubs), pads hub n, dist INF, cnt 0; counts small enough that
+    the reference answers every row with its L x L kernel."""
+    r = np.random.default_rng(seed)
+    hub = np.full((n + 1, l_cap), n, np.int32)
+    dist = np.full((n + 1, l_cap), INF, np.int32)
+    cnt = np.zeros((n + 1, l_cap), np.int64)
+    size = np.zeros(n + 1, np.int32)
+    for v in range(n):
+        k = int(r.integers(1, l_cap + 1))
+        hub[v, :k] = np.sort(r.integers(0, 12, k))
+        dist[v, :k] = r.integers(0, 6, k)
+        cnt[v, :k] = r.integers(1, 4, k)
+        size[v] = k
+    return n, (hub, dist, cnt, size)
+
+
+def test_index_form_counts_every_pair_of_repeated_hubs():
+    from repro_torch.core.labels import index_from_numpy
+    n, arrays = repeated_hub_index()
+    tidx = index_from_numpy(n, *arrays, device="cpu")
+    jidx = JL.SPCIndex(*(jnp.asarray(a) for a in arrays),
+                       cnt_sum=JL.recompute_cnt_sum(jnp.asarray(arrays[2])),
+                       overflow=jnp.int32(0), n=n)
+    r = np.random.default_rng(4)
+    s, t = r.integers(0, n, 64), r.integers(0, n, 64)
+    d_t, c_t = exact_query_batch(tidx, s, t)
+    d_j, c_j = index_query_batch(jidx, jnp.asarray(s), jnp.asarray(t),
+                                 interpret=True)
+    eq(d_t, d_j)
+    eq(c_t, c_j)
+    # a single probe per hub (the merge) misses pairs on these rows
+    _, c_m = TQ.batched_query_merge(tidx, s, t)
+    assert (host(c_m) < host(c_t)).any()
+
+
+def test_index_form_of_no_pairs(real_index):
+    """B = 0 gives empty answers of the right dtypes, as the reference's
+    merge route does; the reference's ``index_query_batch`` raises there
+    (its kernel slices a block of 128 rows out of 0)."""
+    tidx, jidx, _, _ = real_index
+    none = np.zeros(0, np.int64)
+    d, c = exact_query_batch(tidx, none, none)
+    d_j, c_j = JQ.batched_query_merge(jidx, jnp.asarray(none),
+                                      jnp.asarray(none))
+    eq(d, d_j)
+    eq(c, c_j)
+    with pytest.raises(TypeError, match="slice_sizes"):
+        index_query_batch(jidx, jnp.asarray(none), jnp.asarray(none),
+                          interpret=True)
+
+
+def test_index_wrapper_and_plan_on_the_cpu():
+    """The index form's wrapper raises on CPU tensors (the plain version
+    is the ops' business there); the plan stages rows of up to 16384
+    labels in shared memory."""
+    from repro_torch.core.labels import empty_index
+    from repro_torch.kernels.spc_query.kernel import _warp_cuda
+    idx = empty_index(5, 8, device="cpu")
+    ids = torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        spc_query_index_cuda(idx.hub, idx.dist, idx.cnt, ids, ids)
+    with pytest.raises(ValueError, match="CUDA"):
+        _warp_cuda(*as_torch(label_rows(3, 8, seed=2)))
+    assert plan(2048) == "staged" and plan(16384) == "staged"
+    assert plan(16385) == "global"

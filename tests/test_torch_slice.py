@@ -521,3 +521,67 @@ def test_chip_smoke_kernel_name_keeps_template_arguments():
     assert chip_smoke.kernel_name(
         "cudnn::fusion::lean_reduction_kernel<false, false, false>") == \
         "cudnn::fusion::lean_reduction_kernel<false, false, false>"
+
+
+@pytest.mark.parametrize("draw", ["sweep", "repeated hubs", "big counts"])
+def test_chip_smoke_rows_as_index_keeps_the_answers(draw):
+    """chip_smoke's index form of gathered rows (the rows written into an
+    index whose pad hub lies above every real hub, read back by id)
+    answers as the rows do, through the plain version on the CPU."""
+    from repro_torch.kernels.spc_query.ref import spc_query_ref
+    cpu = torch.device("cpu")
+    rows, n = {
+        "sweep": (chip_smoke.sweep_rows(33, 16, 50,
+                                        np.random.default_rng(2), cpu), 50),
+        "repeated hubs": (chip_smoke.repeated_hub_rows(cpu)[0], 10),
+        "big counts": (chip_smoke.big_count_rows(cpu)[0], 3)}[draw]
+    idx, s, t = chip_smoke.rows_as_index(rows, n)
+    assert idx.hub.shape == (idx.n + 1, rows[0].shape[1])
+    assert int(idx.hub.max()) == idx.n and bool((idx.hub <= idx.n).all())
+    for got, want in zip(chip_smoke.index_plain(idx, s, t),
+                         spc_query_ref(*rows)):
+        assert torch.equal(got, want)
+
+
+def test_chip_smoke_index_bound_counts_real_labels_once():
+    """The fused kernel's bound reads each queried row's real hubs once
+    (plus the pad that ends a row short of L), dist and cnt at the
+    common hubs, the ids and the answers."""
+    from repro_torch.kernels.spc_query.ops import prep_rows
+    n = 40
+    svc = DynamicSPC(n, random_graph_edges(n, 90, seed=3), device="cpu")
+    rng = np.random.default_rng(5)
+    s, t = (torch.from_numpy(rng.integers(0, n, 64)) for _ in range(2))
+    rows = prep_rows(svc.index, s, t)
+    hub = host(svc.index.hub)
+    queried = np.unique(np.concatenate([host(s), host(t)]))
+    real = (hub[queried] < n).sum(axis=1)
+    hub_bytes = 4 * int((real + (real < hub.shape[1])).sum())
+    _, ops, common = chip_smoke.spc_query_work(rows)
+    assert chip_smoke.spc_query_index_work(svc.index, s, t, rows) == (
+        16 * 64 + hub_bytes + 24 * common + 12 * 64, ops, common)
+
+
+def test_chip_smoke_sector_bytes_count_the_32_byte_sectors_a_row_spans():
+    """72-byte rows (D 18, float32) span 3 sectors of 32 bytes wherever
+    they start on 8 bytes; 32-byte rows (D 8) one; ids read from the end
+    and past the table land on their rows as the kernel reads them."""
+    table18 = torch.zeros((101, 18))
+    ids = torch.tensor([[0, 1, 2, 3], [-1, -101, 100, 7]], dtype=torch.int32)
+    assert chip_smoke.sector_bytes(ids, table18) == 8 * 3 * 32
+    assert chip_smoke.sector_bytes(ids, torch.zeros((101, 8))) == 8 * 32
+
+
+@pytest.mark.parametrize("n,repeat", [(40, True), (300, True), (300, False)])
+def test_chip_smoke_synthetic_index_keeps_real_hubs_below_n(n, repeat):
+    """chip_smoke's synthetic indexes are indexes: rows sorted by hub, real
+    hubs below the pad hub n (also when hubs repeat and n < 64), pads hub
+    n with dist INF and cnt 0, a tenth or so of the rows full."""
+    idx = chip_smoke.synthetic_index(n, 64, np.random.default_rng(n), "cpu",
+                                     repeat)
+    hub, dist, cnt = host(idx.hub), host(idx.dist), host(idx.cnt)
+    real = np.arange(64)[None, :] < host(idx.size)[:, None]
+    assert (np.diff(hub, axis=1) >= 0).all()
+    assert (hub[real] < n).all() and (hub[~real] == n).all()
+    assert (dist[~real] == 1 << 28).all() and (cnt[~real] == 0).all()
+    assert (host(idx.size)[:n] == 64).any()
