@@ -109,6 +109,45 @@ A2. analytics after the chunk -- refreshes the maintainer (and times a
                 recommendation counts equal those taken from the edge
                 list; the card's re-rank equals the same forward on the
                 CPU (rtol 1e-4, atol 1e-5).
+S1. service  -- ``SPCService(spc=<phase 5's DynamicSPC>, route="auto",
+                replicas=2, queue_size=8, update_batch=8,
+                transport="dir", keep_published=3,
+                async_checkpoint=True)`` over a fresh directory on the
+                temporary or ``build/`` disk (16 GB free or it raises).
+                One session submits 8 events from ``graph_stream`` (two
+                tickets of 4; the configuration's 64-event chunk is cut
+                to 8 for time, in ``reduced``): seconds from submit to
+                applied for each, 64 pinned batches of 1024 pairs timed
+                idle and again while the second ticket's chunk applies,
+                a read_your_writes read of every written pair equal to
+                ``plain_spc_bfs`` after its write, 2 sources x n targets
+                equal to ``plain_spc_bfs``, every batch on the kernel
+                route.
+S2. front door -- ``service.frontdoor()`` with the configuration's
+                knobs (2 dispatchers, batches of 256, 4 live batches, a
+                5 s deadline): 8 caller sessions, closed loop, 512
+                single-pair requests each, every answer equal to a
+                direct reader's at the version it pinned; qps, p50 / p99
+                per request, coalesced batches and their mean fill
+                (must exceed 1); then a writing session inserts one
+                non-edge and reads it back as (1, 1) through
+                read_your_writes.
+S3. fleet    -- a second process on the same card (this script with
+                ``--replica-of``, importing only the port) runs
+                ``SPCService(role="replica", transport="dir",
+                poll_interval_s=0.05)`` on the directory: it pulls the
+                newest version (its load-and-stage seconds) and answers
+                1024 pairs exactly as the updater at that version.
+S4. restart  -- the updater's ``state_dict()`` saved with the port's
+                checkpoint ``save`` and brought back with
+                ``SPCService.from_checkpoint`` on the card:
+                byte-identical, re-attached to the directory without a
+                publish; one more event's version published through it,
+                which the replica process answers at exactly as the
+                restored updater, with no ``skipped_behind``: the
+                staleness from the version's commit (``LATEST``'s
+                mtime) to the replica's first answer at it.  The replica
+                process exits and the directory is removed before L1.
 L1. LM params -- ``init_params`` of qwen2-1.5b (``configs/qwen2_1_5b.py``
                 CONFIG with ``tp = 1``: the published 12 query heads, no
                 mesh padding) in bfloat16, drawn from a CUDA generator
@@ -155,12 +194,16 @@ and fails if a redesigned kernel (``REDESIGNED``: ``flash_decode_mma``,
 
 ``--lm-seeds 0,1,...`` builds the kernels and then only reads L4 and its
 controls for the first 2 requests of each seed (prefilled and decoded
-as 2 requests), prints them and exits.
+as 2 requests), prints them and exits.  ``--replica-of DIR --pairs
+FILE`` is S3's second process.
 
 Launches are counted for each main path on its own: the DSPC path
 (phases 4, 5, 6 and the first call of 6b), the kernels path (K), the
-analytics path (the timed steps of A1 and A2) and the LM path (L2 and
-L3; flash_decode exactly 28 x 64 times).  The launch counters are set
+analytics path (the timed steps of A1 and A2), the LM path (L2 and
+L3; flash_decode exactly 28 x 64 times) and the service path (the
+ingest and serving of S1 and the front-door traffic of S2; the service
+readers, the dispatchers and the updater launch from their own
+threads).  The launch counters are set
 to 0 just before each of these phases and read just after it; the
 oracles, L4 and the kernel checks run outside them
 and count nowhere.  Each path must have launched each of its kernels
@@ -216,7 +259,8 @@ REDESIGNED = ("flash_decode_mma", "block_sums", "spc_query_fused",
 #: The kernels each main path must launch.
 PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
                                                     "segment_matmul"),
-                "analytics": ("embedding_bag",), "lm": ("flash_decode",)}
+                "analytics": ("embedding_bag",), "lm": ("flash_decode",),
+                "service": ("spc_query",)}
 
 #: The segment_matmul sweep of tests/kernels/test_kernels.py (e, n, d),
 #: inputs drawn as that test draws them (ids in [0, n + 5): some dropped).
@@ -273,6 +317,15 @@ MAIN_RTOL, MAIN_ATOL = 1e-2, 1e-3
 #: Rounds in which flash_decode's two routes and SDPA are timed in turn at
 #: the main path's shape.
 FD_REPS = 3
+#: The service phases (S1-S4): events per ingest chunk (the configuration's
+#: update_batch of 64 cut to 8 for time, listed in ``reduced``), serve
+#: batches timed idle and under ingest and their pairs, front-door callers
+#: and their single-pair requests, the bound on every wait, and the free
+#: disk the fleet's directory needs (up to 5 published snapshots of about
+#: 2.15 GB and a state checkpoint of about 2.2 GB).
+SERVICE_CHUNK, SERVICE_BATCHES, SERVICE_PAIRS = 8, 64, 1024
+FD_CALLERS, FD_REQUESTS = 8, 512
+SERVICE_WAIT_S, FLEET_DISK_BYTES = 600.0, 16 * 10 ** 9
 
 
 def log(msg: str) -> None:
@@ -1189,6 +1242,467 @@ def rerank(view, u, recs, pna, table):
     return cand, model.double().cpu().numpy(), len(sub)
 
 
+def fleet_dir() -> str:
+    """A fresh directory for the fleet phases' publication directory and
+    state checkpoint, on whichever of the temporary directory and the
+    checkout's git-ignored ``build/`` has more free disk; raises when
+    even that holds less than FLEET_DISK_BYTES."""
+    import shutil
+    import tempfile
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    free = {d: shutil.disk_usage(d).free
+            for d in (tempfile.gettempdir(), build)}
+    base = max(free, key=free.get)
+    if free[base] < FLEET_DISK_BYTES:
+        raise RuntimeError(
+            f"the fleet phases need {FLEET_DISK_BYTES} B of free disk for "
+            f"up to 5 published snapshots and a state checkpoint; the most "
+            f"free is {free[base]} B under {base}")
+    log(f"fleet: free disk {json.dumps(free)} B; using {base}")
+    return tempfile.mkdtemp(prefix="chip_smoke_fleet_", dir=base)
+
+
+def percentiles_us(seconds) -> dict:
+    us = 1e6 * np.asarray(seconds)
+    return {"p50": float(np.percentile(us, 50)),
+            "p90": float(np.percentile(us, 90)),
+            "p99": float(np.percentile(us, 99)), "n": int(us.size)}
+
+
+def replica_main(pub_dir: str, pairs_path: str, device: str) -> int:
+    """The fleet's second process (S3, S4): ``SPCService(role="replica",
+    transport="dir", publish_dir=pub_dir, poll_interval_s=0.05)`` on the
+    same card, importing only the port.  It pulls the newest version,
+    answers the pairs of ``pairs_path`` and prints one JSON line
+    (version, pull seconds, wall time of the answer, the answers' file,
+    the puller's counts); then for each ``follow V`` line on its input
+    it waits for version V, answers at once and prints the same; it
+    exits on ``exit``."""
+    import torch
+    from repro_torch.serve import SPCService
+    pairs = np.load(pairs_path)
+    s, t = pairs["s"], pairs["t"]
+    t0 = time.monotonic()
+    rep = SPCService(role="replica", transport="dir", publish_dir=pub_dir,
+                     poll_interval_s=0.05, wait_timeout=SERVICE_WAIT_S,
+                     device=device)
+    rep.start()
+    pull_s = time.monotonic() - t0
+    reader = rep.reader("pinned")
+
+    def answer(extra):
+        d, c = reader(s, t)
+        d, c = d.cpu().numpy(), c.cpu().numpy()
+        wall = time.time()
+        out = os.path.join(os.path.dirname(pairs_path),
+                           f"replica_v{reader.last_version}.npz")
+        np.savez(out, dist=d, cnt=c)
+        print(json.dumps({"version": reader.last_version,
+                          "answered_wall": wall, "out": out,
+                          "replica": rep.stats()["replica"],
+                          "routes": dict(reader.engine.stats.snapshot()
+                                         .routes), **extra}), flush=True)
+
+    answer({"pull_s": pull_s, "device": (
+        torch.cuda.get_device_name(0) if device == "cuda" else device)})
+    for line in sys.stdin:
+        cmd = line.split()
+        if cmd and cmd[0] == "exit":
+            break
+        if cmd and cmd[0] == "follow":
+            want = int(cmd[1])
+            deadline = time.monotonic() + SERVICE_WAIT_S
+            while rep.version is None or rep.version < want:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"replica never reached v{want}")
+                time.sleep(0.001)
+            answer({})
+    rep.close()
+    return 0
+
+
+class ReplicaProcess:
+    """``python3 chip_smoke.py --replica-of DIR --pairs FILE`` as a
+    child process (see :func:`replica_main`): JSON replies are read off
+    its output by a thread, so every wait is bounded."""
+
+    def __init__(self, pub_dir: str, pairs_path: str, device: str) -> None:
+        import queue
+        import threading
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--replica-of",
+             pub_dir, "--pairs", pairs_path, "--replica-device", device],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.lines = queue.Queue()
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def reply(self, timeout: float = SERVICE_WAIT_S) -> dict:
+        while True:
+            line = self.lines.get(timeout=timeout)
+            if line is None:
+                raise RuntimeError(f"the replica process exited with "
+                                   f"{self.proc.wait()} before replying")
+            if line.startswith("{"):
+                return json.loads(line)
+            log(f"  replica: {line.rstrip()}")
+
+    def send(self, cmd: str) -> None:
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+
+    def close(self) -> None:
+        self.send("exit")
+        rc = self.proc.wait(timeout=120)
+        if rc != 0:
+            raise RuntimeError(f"the replica process exited with {rc}")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def absent_pair(svc, reader, rng, min_dist: int = 2):
+    """A non-edge (a, b) whose endpoints are at least ``min_dist`` apart
+    (so its insertion provably changes the answer to (1, 1))."""
+    from repro_torch.core.graph import edge_set
+    present = edge_set(svc.graph)
+    while True:
+        a, b = sorted(int(x) for x in rng.integers(0, svc.n, 2))
+        if a != b and (a, b) not in present and \
+                int(reader([a], [b])[0][0]) >= min_dist:
+            return a, b
+
+
+def check_pairs_bfs(svc, reader, pairs, tag) -> None:
+    """``reader``'s answers to ``pairs`` equal ``plain_spc_bfs`` on the
+    updater's current graph."""
+    from repro_torch.core.bfs import plain_spc_bfs
+    s = np.asarray([a for a, _ in pairs])
+    t = np.asarray([b for _, b in pairs])
+    d, c = (x.cpu().numpy() for x in reader(s, t))
+    for k, (a, b) in enumerate(pairs):
+        res = plain_spc_bfs(svc.graph, int(a))
+        want = (int(res.dist[b]), int(res.cnt[b]))
+        if (int(d[k]), int(c[k])) != want:
+            raise AssertionError(f"{tag}: ({a}, {b}) answered "
+                                 f"({int(d[k])}, {int(c[k])}), BFS {want}")
+
+
+def timed_batches(reader, batches):
+    """Host seconds of each batch from the call to its answers on the
+    host (what a caller waits for)."""
+    out = []
+    for s, t in batches:
+        t0 = time.monotonic()
+        d, c = reader(s, t)
+        d.cpu(), c.cpu()
+        out.append(time.monotonic() - t0)
+    return out
+
+
+def service_phases(svc, counts, seed: int, card: str,
+                   device: str = "cuda") -> dict:
+    """S1-S4 (module doc) over phase 5's ``DynamicSPC`` ``svc``: the
+    service, the front door, the fleet's replica process and the
+    restart, with the replica and the restored updater on ``device``
+    (the CPU only in the tests).  Returns their numbers; raises on any
+    failed check."""
+    import shutil
+    import threading
+    import torch
+    from repro_torch.configs.dspc import CONFIG
+    from repro_torch.core.bfs import plain_spc_bfs
+    from repro_torch.core.graph import edge_set
+    from repro_torch.data.pipelines import graph_stream
+    from repro_torch.serve import SPCService
+    from repro_torch.train import checkpoint as C
+    n = svc.n
+    rng = np.random.default_rng(seed + 17)
+    root = fleet_dir()
+    pub_dir = os.path.join(root, "published")
+    latest = os.path.join(pub_dir, "LATEST")
+    out, replica = {}, None
+    knobs = dict(route=CONFIG.route, replicas=CONFIG.replicas,
+                 queue_size=CONFIG.queue_size, update_batch=SERVICE_CHUNK,
+                 transport="dir", publish_dir=pub_dir, keep_published=3,
+                 async_checkpoint=True, wait_timeout=SERVICE_WAIT_S)
+    try:
+        # -- S1. the service ---------------------------------------------
+        t0 = time.monotonic()
+        service = SPCService(spc=svc, **knobs)
+        service.store.wait()
+        out["attach_publish_s"] = time.monotonic() - t0
+        v0 = service.version
+        shown = {k: v for k, v in knobs.items() if k != "publish_dir"}
+        written = sum(os.path.getsize(os.path.join(pub_dir, f"step_{v0:09d}",
+                                                    x))
+                      for x in ("arrays.npz", "manifest.json"))
+        log(f"S1 service: SPCService(spc=<phase 5's DynamicSPC>, "
+            f"{json.dumps(shown)}) published v{v0} through the directory in "
+            f"{out['attach_publish_s']:.3f} s (the index off the card and "
+            f"{written} B written)")
+        service.start()
+        sess = service.session()
+        events = graph_stream(sorted(edge_set(svc.graph)), n, 4, 4,
+                              seed=seed + 7)
+        pinned, rw = service.reader("pinned"), sess.reader()
+        batches = [(rng.integers(0, n, SERVICE_PAIRS),
+                    rng.integers(0, n, SERVICE_PAIRS))
+                   for _ in range(SERVICE_BATCHES)]
+        applied_s, overlap = [], 0
+        with counts.path("service"):
+            t0 = time.monotonic()
+            t1 = sess.submit(events[:4])
+            service.wait_for_ticket(t1)
+            applied_s.append(time.monotonic() - t0)
+            timed_batches(pinned, batches[:2])           # warm-up
+            idle_s = timed_batches(pinned, batches)
+            t0 = time.monotonic()
+            t2 = sess.submit(events[4:])
+            busy_s = []
+            for s, t in batches:
+                busy_s += timed_batches(pinned, [(s, t)])
+                overlap += service.applied < t2
+            service.wait_for_ticket(t2)
+            applied_s.append(time.monotonic() - t0)
+            t0 = time.monotonic()
+            service.drain()
+            out["write_left_after_apply_s"] = time.monotonic() - t0
+            rw([0], [1])
+        if rw.last_version < service.ticket_version(t2):
+            raise AssertionError(f"read_your_writes pinned v{rw.last_version}"
+                                 f" below its ticket's v"
+                                 f"{service.ticket_version(t2)}")
+        check_pairs_bfs(svc, rw, [(a, b) for _, a, b in events],
+                        "S1 read_your_writes")
+        t0 = time.monotonic()
+        targets = np.arange(n)
+        for src in rng.choice(n, size=2, replace=False):
+            res = plain_spc_bfs(svc.graph, int(src))
+            d, c = pinned(np.full(n, src), targets)
+            if not (torch.equal(d, res.dist[:n]) and
+                    torch.equal(c, res.cnt[:n])):
+                raise AssertionError(f"S1: the service's answers from "
+                                     f"{src} differ from plain_spc_bfs")
+        routes = {}
+        for v in service.stats()["serve"]:
+            for r, k in v.routes.items():
+                routes[r] = routes.get(r, 0) + k
+        if set(routes) != {"kernel" if device == "cuda" else "merge"}:
+            raise AssertionError(f"S1: the service's readers took {routes}")
+        out.update({
+            "tickets": [t1, t2], "versions": [service.ticket_version(t1),
+                                              service.ticket_version(t2)],
+            "submit_to_applied_s": applied_s,
+            "serve_idle_us": percentiles_us(idle_s),
+            "serve_under_ingest_us": percentiles_us(busy_s),
+            "batches_during_the_chunk": int(overlap),
+            "reader_routes": routes})
+        log(f"S1 service: tickets {t1}, {t2} (4 events each, chunks of "
+            f"{SERVICE_CHUNK}) applied {applied_s[0]:.3f}, {applied_s[1]:.3f} "
+            f"s after submit (v{out['versions'][0]}, v{out['versions'][1]}); "
+            f"the last directory write settled "
+            f"{out['write_left_after_apply_s']:.3f} s after its apply; "
+            f"serve batches of {SERVICE_PAIRS} pairs, host us "
+            f"to the answers: idle p50 {out['serve_idle_us']['p50']:.1f} p90 "
+            f"{out['serve_idle_us']['p90']:.1f}, under ingest p50 "
+            f"{out['serve_under_ingest_us']['p50']:.1f} p90 "
+            f"{out['serve_under_ingest_us']['p90']:.1f} ({overlap} of "
+            f"{SERVICE_BATCHES} batches ended while the chunk applied); "
+            f"read_your_writes saw its write (v{rw.last_version}); 2 sources "
+            f"x {n} targets equal to plain_spc_bfs "
+            f"({time.monotonic() - t0:.3f} s); routes {routes}; K1 launched "
+            f"{counts.by_path['service']['spc_query']} times on the service "
+            f"path on {card}")
+
+        # -- S2. the front door ------------------------------------------
+        version = service.version
+        direct = service.reader(at_version=version)
+        fd_pairs = [(rng.integers(0, n, FD_REQUESTS),
+                     rng.integers(0, n, FD_REQUESTS))
+                    for _ in range(FD_CALLERS)]
+        got = [[None] * FD_REQUESTS for _ in range(FD_CALLERS)]
+        want = [list(zip(*(x.cpu().tolist() for x in direct(*fd_pairs[i]))))
+                for i in range(FD_CALLERS)]
+        lat = [[] for _ in range(FD_CALLERS)]
+        errors = []
+        a, b = absent_pair(svc, direct, rng)    # the writer's insert
+        door = service.frontdoor(dispatchers=CONFIG.dispatchers,
+                                 max_batch=CONFIG.frontdoor_batch,
+                                 max_live_batches=CONFIG.max_live_batches,
+                                 deadline_s=CONFIG.deadline_s)
+
+        def caller(i):
+            fsess = door.session()
+            try:
+                for k, (a, b) in enumerate(zip(*fd_pairs[i])):
+                    t0 = time.monotonic()
+                    got[i][k] = fsess.query(int(a), int(b))
+                    lat[i].append(time.monotonic() - t0)
+            except BaseException as e:
+                errors.append(e)
+
+        with counts.path("service"):
+            with door:
+                threads = [threading.Thread(target=caller, args=(i,))
+                           for i in range(FD_CALLERS)]
+                t0 = time.monotonic()
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=SERVICE_WAIT_S)
+                wall = time.monotonic() - t0
+                if errors or any(th.is_alive() for th in threads):
+                    raise AssertionError(f"S2: front-door callers failed: "
+                                         f"{errors[:3]}")
+                fd_stats = door.stats()
+                if service.version != version:
+                    raise AssertionError("S2: the version moved under the "
+                                         "read-only traffic")
+                wsess = door.session("read_your_writes")
+                t0 = time.monotonic()
+                ticket = wsess.submit([("+", a, b)])
+                answer = wsess.query(a, b, deadline=SERVICE_WAIT_S)
+                ryw_s = time.monotonic() - t0
+        if service.ticket_version(ticket) is None or answer != (1, 1):
+            raise AssertionError(f"S2: the writing session read ({a}, {b}) "
+                                 f"as {answer} after inserting it")
+        for i in range(FD_CALLERS):
+            if got[i] != want[i]:
+                raise AssertionError(f"S2: caller {i}'s answers differ from "
+                                     f"a direct reader's at v{version}")
+        if fd_stats["mean_fill"] <= 1:
+            raise AssertionError(f"S2: the front door did not coalesce: "
+                                 f"{fd_stats}")
+        service.drain()
+        all_lat = [x for row in lat for x in row]
+        out["frontdoor"] = {
+            "callers": FD_CALLERS, "requests_each": FD_REQUESTS,
+            "qps": FD_CALLERS * FD_REQUESTS / wall, "wall_s": wall,
+            "request_us": percentiles_us(all_lat), **fd_stats,
+            "writer_submit_to_answer_s": ryw_s, "version": version}
+        log(f"S2 front door: {FD_CALLERS} callers x {FD_REQUESTS} single-pair "
+            f"requests in {wall:.3f} s, {out['frontdoor']['qps']:.1f} qps, "
+            f"per request p50 {out['frontdoor']['request_us']['p50']:.1f} us "
+            f"p99 {out['frontdoor']['request_us']['p99']:.1f} us; "
+            f"{fd_stats['batches']} coalesced batches, mean fill "
+            f"{fd_stats['mean_fill']:.2f}, max fill {fd_stats['max_fill']}; "
+            f"every answer equal to a direct reader's at v{version}; the "
+            f"writing session read its insert of ({a}, {b}) as (1, 1) "
+            f"{ryw_s:.3f} s after its submit (v"
+            f"{service.ticket_version(ticket)}); K1 launched "
+            f"{counts.by_path['service']['spc_query']} times on the service "
+            f"path (S1 and S2) on {card}")
+        out["service_launches"] = counts.by_path["service"]["spc_query"]
+
+        # -- S3. the fleet: a replica process on the same card -----------
+        pairs_path = os.path.join(root, "pairs.npz")
+        s3, t3 = (rng.integers(0, n, SERVICE_PAIRS) for _ in range(2))
+        np.savez(pairs_path, s=s3, t=t3)
+        version = service.version
+        committed = os.stat(latest).st_mtime
+        t0 = time.monotonic()
+        replica = ReplicaProcess(pub_dir, pairs_path, device)
+        first = replica.reply()
+        started_s = time.monotonic() - t0
+        d, c = (x.cpu().numpy() for x in
+                service.reader(at_version=version)(s3, t3))
+        check_replica(first, version, d, c, "S3")
+        out["replica_pull"] = {
+            "version": first["version"], "pull_s": first["pull_s"],
+            "process_start_to_answer_s": started_s,
+            "commit_to_first_answer_s": first["answered_wall"] - committed,
+            "routes": first["routes"]}
+        log(f"S3 fleet: a replica process on {first['device']} pulled v"
+            f"{first['version']} (load and stage) in {first['pull_s']:.3f} s "
+            f"and answered {SERVICE_PAIRS} pairs exactly as the updater at "
+            f"that version ({started_s:.3f} s from its start; "
+            f"{out['replica_pull']['commit_to_first_answer_s']:.3f} s after "
+            f"the version's commit, its start included); routes "
+            f"{first['routes']} on {card}")
+
+        # -- S4. restart from a checkpoint --------------------------------
+        service.close()
+        state = service.state_dict()
+        ckpt_dir = os.path.join(root, "state")
+        t0 = time.monotonic()
+        C.save(ckpt_dir, int(state["version"]), state)
+        save_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        restored = SPCService.from_checkpoint(ckpt_dir, n, device=device,
+                                              **knobs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        if restored.store.publishes or C.latest_step(pub_dir) != version:
+            raise AssertionError("S4: the restored service re-published "
+                                 "history")
+        again = restored.state_dict()
+        if sorted(again) != sorted(state) or any(
+                again[k].dtype != state[k].dtype or
+                again[k].tobytes() != state[k].tobytes() for k in state):
+            raise AssertionError("S4: state_dict() after the restore is not "
+                                 "byte-identical to the saved one")
+        del service, state, again
+        want_v = version + 1
+        replica.send(f"follow {want_v}")
+        restored.start()
+        a, b = absent_pair(restored.spc, restored.reader(), rng)
+        t0 = time.monotonic()
+        ticket = restored.submit([("+", a, b)])
+        restored.wait_for_ticket(ticket)
+        apply_s = time.monotonic() - t0
+        restored.drain()
+        committed = os.stat(latest).st_mtime
+        follow = replica.reply()
+        d, c = (x.cpu().numpy() for x in
+                restored.reader(at_version=want_v)(s3, t3))
+        check_replica(follow, want_v, d, c, "S4")
+        rstats = follow["replica"]
+        if rstats["skipped_behind"] or rstats["errors"]:
+            raise AssertionError(f"S4: the replica skipped or failed: "
+                                 f"{rstats}")
+        replica.close()
+        replica = None
+        restored.close()
+        out["restart"] = {
+            "save_s": save_s, "restore_s": restore_s,
+            "submit_to_applied_s": apply_s,
+            "staleness_s": follow["answered_wall"] - committed,
+            "version": want_v, "replica": rstats}
+        log(f"S4 restart: state_dict() saved by the port's checkpoint in "
+            f"{save_s:.3f} s, SPCService.from_checkpoint on {device} in "
+            f"{restore_s:.3f} s, byte-identical; v{want_v} applied "
+            f"{apply_s:.3f} s after its submit, and the replica process "
+            f"answered at it {out['restart']['staleness_s']:.3f} s after its "
+            f"commit (the staleness), exactly as the updater; replica "
+            f"{json.dumps(rstats)} on {card}")
+        del restored
+    finally:
+        if replica is not None:
+            replica.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def check_replica(reply: dict, version: int, d, c, tag: str) -> None:
+    """The replica process answered at ``version`` exactly (d, c)."""
+    if reply["version"] != version:
+        raise AssertionError(f"{tag}: the replica answered at v"
+                             f"{reply['version']}, not v{version}")
+    got = np.load(reply["out"])
+    if not (np.array_equal(got["dist"], d) and np.array_equal(got["cnt"], c)):
+        raise AssertionError(f"{tag}: the replica's answers at v{version} "
+                             f"differ from the updater's")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--halvings", type=int, default=0,
@@ -1198,19 +1712,26 @@ def main(argv=None) -> int:
                     help="comma-separated seeds: build the kernels, then "
                          "only read L4 and its controls for the first "
                          f"{LM_CHECK} requests of each seed and exit")
+    ap.add_argument("--replica-of", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--pairs", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--replica-device", default="cuda",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     start = time.monotonic()
 
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke run needs one",
-              file=sys.stderr)
-        return 1
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"chip_smoke: {SRC}/repro_torch not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    if args.replica_of:       # S3's second process (the CPU in the tests)
+        return replica_main(args.replica_of, args.pairs,
+                            args.replica_device)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one",
+              file=sys.stderr)
+        return 1
     import dataclasses
     import gc
     import torch.nn.functional as F
@@ -1512,8 +2033,10 @@ def main(argv=None) -> int:
 
     # -- 4. main paths: build --------------------------------------------------
     n, m = CONFIG.n >> args.halvings, CONFIG.m >> args.halvings
-    reduced = [f"n {CONFIG.n}->{n}", f"m {CONFIG.m}->{m}"] \
-        if args.halvings else []
+    reduced = ([f"n {CONFIG.n}->{n}", f"m {CONFIG.m}->{m}"]
+               if args.halvings else []) + [
+        f"service update_batch {CONFIG.update_batch}->{SERVICE_CHUNK} (S1-S4 "
+        f"only; phase 5 keeps {CONFIG.update_batch})"]
     t0 = time.monotonic()
     edges = power_law_edges(n, m, args.seed)
     log(f"graph: n={n} m={len(edges)} power-law w~i^-0.8 "
@@ -1994,9 +2517,14 @@ def main(argv=None) -> int:
         f"median {bag_ms:.5f} ms, plain {bag_plain_ms:.5f} ms, bound "
         f"{bag_bound:.7f} ms ({bag_bytes} B) on {card}")
 
-    # -- L. the LM serving path (examples/serve_lm.py at qwen2-1.5b) --------
-    del (svc, store, ana, maint, pinned, view, frozen, served, outs, rows,
+    # -- S1-S4. the service stack over phase 5's DynamicSPC ------------------
+    del (store, ana, maint, pinned, view, frozen, served, outs, rows,
          hub, dist_m, cnt_m, plain, k1_calls, s_dev, t_dev)
+    gc.collect()
+    service_numbers = service_phases(svc, counts, args.seed, card)
+
+    # -- L. the LM serving path (examples/serve_lm.py at qwen2-1.5b) --------
+    del svc
     gc.collect()
     torch.cuda.empty_cache()
     # one card, no mesh: tp = 1 keeps the published 12 query heads (the
@@ -2227,7 +2755,7 @@ def main(argv=None) -> int:
         "plain_merge_ms": merge_ms,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "design": k1_main["design"], "main": k1_main, "serve": serve,
-        "query_batch": big, "microbench": q_row,
+        "query_batch": big, "microbench": q_row, "service": service_numbers,
     }, {
         "name": "segment_matmul", "route": "cuda",
         "path": paths_of("segment_matmul"),

@@ -2,12 +2,15 @@
 
 The port's own copy of the reference table: the names and their order
 are the reference's, so a lock created here ranks exactly where the
-reference's lock of the same name ranks.  The port creates
-``analytics.lock`` (``analytics.betweenness``), ``store.lock``
-(``serve.publish``), ``transport.cond`` (``serve.transport``) and the
-two leaf counter locks (``update_stats.lock`` in ``core.dynamic``,
-``serve_stats.lock`` in ``serve.engine``); the rest of the table waits
-for the serving fleet.
+reference's lock of the same name ranks.  Every name is created by the
+port: ``frontdoor.cond`` (``serve.frontdoor``), ``service.submit_lock``,
+``service.reader_lock`` and ``service.cond`` (``serve.service``),
+``session.lock`` (``serve.service.Session``), ``analytics.lock``
+(``analytics.betweenness``), ``replica.lock`` (``serve.replica``),
+``store.lock`` (``serve.publish``), ``transport.cond``
+(``serve.transport``) and the two leaf counter locks
+(``update_stats.lock`` in ``core.dynamic``, ``serve_stats.lock`` in
+``serve.engine``).
 
 A nested acquisition must move strictly *down* this table; a lock name
 outside it is an error.

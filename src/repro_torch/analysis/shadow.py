@@ -9,7 +9,8 @@ stack of held locks and raise ``LockHierarchyViolation`` on an
 acquisition that does not move strictly down the hierarchy, on
 re-entry of a non-reentrant lock, on wait / notify without the
 condition held, and in :func:`assert_no_locks_held` on a hot read
-path.
+path.  :func:`locks_required` marks functions whose contract is "the
+caller already holds these locks" and checks it when shadowing is on.
 
 The env var is read at each factory call, never at import, so tests can
 flip it without reimporting.
@@ -17,6 +18,7 @@ flip it without reimporting.
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 from typing import List, Tuple
@@ -141,6 +143,13 @@ def make_lock(name: str):
     return threading.Lock()
 
 
+def make_rlock(name: str):
+    """A ``threading.RLock`` (shadow-wrapped when the env gate is on)."""
+    if shadow_enabled():
+        return _ShadowLock(name, threading.RLock(), reentrant=True)
+    return threading.RLock()
+
+
 def make_condition(name: str):
     """A ``threading.Condition`` over an RLock, so re-entry is legal
     (shadow-wrapped when the env gate is on)."""
@@ -160,3 +169,23 @@ def assert_no_locks_held(where: str) -> None:
         raise LockHierarchyViolation(
             f"{where}: device work entered while holding {list(held)}; "
             f"device latency under a lock convoys every other thread")
+
+
+def locks_required(*names: str):
+    """Declare "the caller must already hold these locks": checked at
+    each call when shadowing is on (``repro.analysis.lockorder`` also
+    reads it as the function's held-set seed)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if shadow_enabled():
+                held = set(held_locks())
+                missing = [n for n in names if n not in held]
+                if missing:
+                    raise LockHierarchyViolation(
+                        f"{fn.__qualname__} requires {missing} held "
+                        f"(held: {sorted(held)})")
+            return fn(*args, **kwargs)
+        wrapper.__locks_required__ = tuple(names)
+        return wrapper
+    return deco

@@ -1,6 +1,17 @@
-"""Shortest-cycle counting from the undirected SPC index.
+"""Shortest-cycle counting from the SPC index.
 
-Port of the undirected part of ``repro.analytics.cycles``.  Both
+Port of ``repro.analytics.cycles``.
+
+Directed graphs (the port's ``core/directed.py`` labels, Appendix
+C.1): a shortest path is simple, so a shortest cycle through arc
+``a -> b`` is the arc plus a shortest ``b -> a`` path (one
+``L_out(b) x L_in(a)`` scan), and a shortest cycle through ``v``
+leaves ``v`` by exactly one out-arc, so minimising ``1 + d(w -> v)``
+over out-neighbours ``w`` and summing the minimisers' counts is exact
+(``src/repro/analytics/cycles.py:77-111``).  Pure Python, off the
+device path.
+
+Undirected graphs (the tensor ``SPCIndex``): both
 endpoints of a cycle edge at ``v`` are neighbours of ``v``, hence at
 mutual distance <= 2, so the index resolves the short end of the cycle
 spectrum exactly:
@@ -24,9 +35,6 @@ number of neighbours of ``v`` adjacent to ``x``,
 
 (the masks are symmetric), so the masks are formed in chunks of roots
 and only ``c`` is kept: exact int64, O(k n) instead of O(k^2 n).
-
-The directed functions (which need ``core/directed.py``) belong to a
-later slice of the port.
 """
 
 from __future__ import annotations
@@ -39,6 +47,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import query as Q
+from repro_torch.core.directed import INF as DINF
+from repro_torch.core.directed import (RefDiGraph, RefDiSPCIndex,
+                                       bfs_spc_directed)
 from repro_torch.core.graph import INF
 from repro_torch.core.labels import SPCIndex
 
@@ -60,6 +71,55 @@ class CycleCount:
     horizon: int
     odd_count: int
     even_count: int
+
+
+# --------------------------------------------------------------------------
+# Directed: one L_out x L_in scan per quantity (exact at any length).
+# --------------------------------------------------------------------------
+def cycle_through_edge_directed(idx: RefDiSPCIndex, a: int,
+                                b: int) -> Tuple[int, int]:
+    """(length, count) of shortest cycles through arc ``a -> b``."""
+    d, c = idx.query(b, a)
+    if d >= DINF:
+        return DINF, 0
+    return d + 1, c
+
+
+def cycle_through_vertex_directed(g: RefDiGraph, idx: RefDiSPCIndex,
+                                  v: int) -> Tuple[int, int]:
+    """(length, count) of shortest cycles through vertex ``v``; each
+    such cycle uses exactly one out-arc of ``v``, so counts add."""
+    best, cnt = DINF, 0
+    for w in g.out[v]:
+        d, c = idx.query(w, v)
+        if d >= DINF:
+            continue
+        if d + 1 < best:
+            best, cnt = d + 1, c
+        elif d + 1 == best:
+            cnt += c
+    return best, cnt
+
+
+def cycle_through_edge_directed_oracle(g: RefDiGraph, a: int,
+                                       b: int) -> Tuple[int, int]:
+    """Brute force: BFS from b on the raw digraph (no labels)."""
+    dist, cnt = bfs_spc_directed(g, b, forward=True)
+    if dist[a] >= DINF:
+        return DINF, 0
+    return int(dist[a]) + 1, int(cnt[a])
+
+
+def cycle_through_vertex_directed_oracle(g: RefDiGraph,
+                                         v: int) -> Tuple[int, int]:
+    best, cnt = DINF, 0
+    for w in g.out[v]:
+        d, c = cycle_through_edge_directed_oracle(g, v, w)
+        if d < best:
+            best, cnt = d, c
+        elif d == best and d < DINF:
+            cnt += c
+    return best, cnt
 
 
 def _neighbor_masks(idx: SPCIndex, vs: torch.Tensor) -> torch.Tensor:

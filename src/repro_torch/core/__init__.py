@@ -12,6 +12,7 @@ Layers (bottom-up):
 * ``decremental`` -- DecSPC (Algorithms 4-6) + batched deletion.
 * ``hybrid``      -- mixed insert/delete event chunks.
 * ``dynamic``     -- the host-side driver (capacity, events, state).
+* ``directed``    -- the directed extension (Appendix C.1), pure Python.
 """
 
 from repro_torch.core.bfs import plain_spc_bfs, pruned_spc_bfs

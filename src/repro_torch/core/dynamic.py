@@ -14,11 +14,13 @@ steps it owns:
   directions, plus a monotone update version;
 * snapshot publishing: ``attach_store()`` wires a
   ``repro_torch.serve.SnapshotStore`` that receives every committed
-  index at its version.
+  index at its version;
+* restore from a checkpoint directory (:meth:`DynamicSPC.from_checkpoint`)
+  written by either package.
 
 Every entry point runs on ``device`` (default ``"cuda"``); the CPU is
-used only when asked for.  The reference's ``mesh=`` and
-``from_checkpoint`` belong to later slices of the port.
+used only when asked for.  The reference's ``mesh=`` belongs to the
+distributed slice of the port (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -151,15 +153,19 @@ class DynamicSPC:
         return self._engine
 
     # -- snapshot publishing -------------------------------------------------
-    def attach_store(self, store=None):
-        """Attach (or create) a ``repro_torch.serve.SnapshotStore``:
-        every committed update from here on publishes the new index at
-        its bumped version.  Only committed states publish -- a chunk
-        that overflows and replays never exposes its intermediate index.
-        A store ahead of this index's version raises ``ValueError``."""
+    def attach_store(self, store=None, **store_kwargs):
+        """Attach (or create, with ``store_kwargs`` such as
+        ``transport=`` or ``checkpoint_dir=``) a
+        ``repro_torch.serve.SnapshotStore``: every committed update from
+        here on publishes the new index at its bumped version
+        (``src/repro/core/dynamic.py:201``).  Only committed states
+        publish -- a chunk that overflows and replays never exposes its
+        intermediate index.  A store ahead of this index's version
+        raises ``ValueError``."""
         if store is None:
             from repro_torch.serve.publish import SnapshotStore
-            store = SnapshotStore(self.index, version=self.version)
+            store = SnapshotStore(self.index, version=self.version,
+                                  **store_kwargs)
         elif store.version is not None and store.version > self.version:
             raise ValueError(
                 f"store is at version {store.version}, ahead of this "
@@ -478,3 +484,39 @@ class DynamicSPC:
             device=obj.device)
         return obj
 
+    @classmethod
+    def from_checkpoint(cls, path: str, n: int, step: int | None = None, *,
+                        device="cuda",
+                        construct_batch: int | None = None) -> "DynamicSPC":
+        """Restore from a checkpoint directory of a ``state_dict()``
+        written by either package (``src/repro/core/dynamic.py:611``).
+
+        The restore template comes from the committed manifest, so all
+        three leaf schemas restore: with ``order.vertex_of`` (10
+        leaves), the current one (9) and the legacy one without
+        ``index.cnt_sum`` / ``version`` (7).  The leaves are read to the
+        host and placed on ``device`` by :meth:`from_state_dict`.
+        """
+        from repro_torch.train import checkpoint as C
+        man = C.manifest(path, step)
+        ordered = sorted(("graph.src", "graph.dst", "graph.m2", "index.hub",
+                          "index.dist", "index.cnt", "index.size",
+                          "index.cnt_sum", "order.vertex_of", "version"))
+        new = sorted(k for k in ordered if k != "order.vertex_of")
+        legacy = sorted(k for k in new
+                        if k not in ("index.cnt_sum", "version"))
+        for keys in (ordered, new, legacy):
+            if len(keys) == len(man["shapes"]):
+                break
+        else:
+            raise ValueError(
+                f"checkpoint at {path} has {len(man['shapes'])} leaves; "
+                f"not a DynamicSPC state dict")
+        tree_like = {
+            k: np.empty(shape, dtype=np.dtype(dt))
+            for k, shape, dt in zip(keys, man["shapes"], man["dtypes"])
+        }
+        state, _, _ = C.restore(path, tree_like, step=man["step"],
+                                device="cpu")
+        return cls.from_state_dict(n, state, device=device,
+                                   construct_batch=construct_batch)

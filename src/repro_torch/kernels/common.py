@@ -7,9 +7,9 @@ call that needs it, never at import -- and loaded with ``ctypes``.  The
 library's file name carries a hash of its source, so an edited source
 is rebuilt and a stale library is never loaded.
 
-Every launching wrapper owns a :class:`LaunchCounter` and adds one to it
-where it launches its kernel, and nowhere else, and calls its C entry
-through :func:`launch`.
+Every launching wrapper owns a :class:`LaunchCounter`, adds one to it
+(:meth:`LaunchCounter.add`) where it launches its kernel and nowhere
+else, and calls its C entry through :func:`launch`.
 """
 
 from __future__ import annotations
@@ -42,11 +42,30 @@ build_logs: Dict[str, str] = {}
 
 
 class LaunchCounter:
-    """A plain count of kernel launches by one wrapper."""
+    """The count of kernel launches by one wrapper.  Reader and updater
+    threads launch kernels at once, so the count is read, set and
+    bumped under a lock: ``count += 1`` from two threads could lose an
+    increment.  The wrapper bumps it through :meth:`add`."""
 
     def __init__(self, name: str) -> None:
         self.name = name
-        self.count = 0
+        self._lock = threading.Lock()
+        self._count = 0
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @count.setter
+    def count(self, value: int) -> None:
+        with self._lock:
+            self._count = int(value)
+
+    def add(self, k: int = 1) -> None:
+        """One atomic increment (the only bump a wrapper makes)."""
+        with self._lock:
+            self._count += k
 
 
 def launch(dev: torch.device, fn, *args) -> int:

@@ -121,5 +121,5 @@ def _launch(ids: torch.Tensor, table: torch.Tensor, packed: bool
         err = common.launch(dev, _entry("embedding_bag_launch"), *args)
     if err != 0:
         raise RuntimeError(f"embedding_bag launch failed: cudaError {err}")
-    launches.count += 1
+    launches.add()
     return out

@@ -162,7 +162,7 @@ def _launch(q, k, v, lengths, route=None):
                             _DTYPE_CODES[q.dtype])
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError {err}")
-    launches.count += 1
+    launches.add()
     return out
 
 

@@ -145,7 +145,7 @@ def _vec4(vals: torch.Tensor, out: torch.Tensor) -> int:
 def _launched(err: int) -> None:
     if err != 0:
         raise RuntimeError(f"segment_matmul launch failed: cudaError {err}")
-    launches.count += 1
+    launches.add()
 
 
 def _launch_sorted(vals, dst, num_segments):

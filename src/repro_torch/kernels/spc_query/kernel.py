@@ -104,7 +104,7 @@ def _fused(dev, rows_s, rows_t, ids_s, ids_t, b, n_rows, l_cap, limit):
         int(plan(l_cap) == "staged"))
     if err != 0:
         raise RuntimeError(f"spc_query launch failed: cudaError {err}")
-    launches.count += 1
+    launches.add()
     return d, c
 
 
@@ -162,5 +162,5 @@ def _warp_cuda(hub_s, dist_s, cnt_s, hub_t, dist_t, cnt_t):
                         c.data_ptr(), b, l_cap)
     if err != 0:
         raise RuntimeError(f"spc_query launch failed: cudaError {err}")
-    launches.count += 1
+    launches.add()
     return d, c

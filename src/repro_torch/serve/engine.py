@@ -24,10 +24,16 @@ Port of ``repro.serve.engine`` (single device):
    because its kernel counts in fp32; the CUDA kernel counts in int64,
    so the kernel route takes every row and records plain ``kernel``.
 
+4. **Refresh.**  :meth:`QueryEngine.serve_from` serves from a
+   ``SnapshotStore``: each batch pins one published (version, index)
+   snapshot, and per-version query counts land in ``stats.versions``.
+
 The engine is stateless with respect to the index (pass it per call)
 and stateful only in its route and counters, so one engine can front
-many reader threads.  ``sharded`` and ``serve_from`` belong to later
-slices of the port.
+many reader threads; every thread launches on the current stream of
+the index's device, so a reader never reads a snapshot's rows on
+another stream than the one that wrote them.  ``sharded`` serving
+belongs to the distributed slice of the port (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -105,6 +111,7 @@ class ServeStatsView:
     queries: int
     batches: int
     routes: Mapping[str, int]
+    versions: Mapping[int, int]
 
 
 @dataclasses.dataclass
@@ -112,6 +119,9 @@ class ServeStats:
     queries: int = 0          # real (un-padded) queries answered
     batches: int = 0          # engine dispatches
     routes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: queries answered per pinned snapshot version (``serve_from`` and
+    #: the service's readers)
+    versions: Dict[int, int] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         # one engine may front many reader threads; counters must not
@@ -124,19 +134,26 @@ class ServeStats:
             self.batches += 1
             self.routes[route] = self.routes.get(route, 0) + 1
 
+    def count_version(self, version: int, queries: int) -> None:
+        with self._lock:
+            self.versions[version] = self.versions.get(version, 0) + queries
+
     def snapshot(self) -> ServeStatsView:
         """Lock-guarded frozen copy for cross-thread readers."""
         with self._lock:
             return ServeStatsView(
                 queries=self.queries, batches=self.batches,
-                routes=types.MappingProxyType(dict(self.routes)))
+                routes=types.MappingProxyType(dict(self.routes)),
+                versions=types.MappingProxyType(dict(self.versions)))
 
 
 class QueryEngine:
     """Routed, bucket-padded serving front end over one SPCIndex."""
 
-    def __init__(self, *, route: str | RoutePolicy = "auto") -> None:
-        self.route = RoutePolicy.coerce(route).kind
+    def __init__(self, *, route: str | RoutePolicy = "auto",
+                 buckets=DEFAULT_BUCKETS) -> None:
+        self.route = RoutePolicy.coerce(route).engine_route
+        self.buckets = tuple(buckets)
         self.stats = ServeStats()
 
     @staticmethod
@@ -156,8 +173,8 @@ class QueryEngine:
         t = np.asarray(t).reshape(-1)
         if s.shape != t.shape:
             raise ValueError(f"s/t shape mismatch: {s.shape} vs {t.shape}")
-        route = (RoutePolicy.coerce(route).kind if route is not None
-                 else self.route)
+        route = (RoutePolicy.coerce(route).engine_route
+                 if route is not None else self.route)
         self._validate_ids(idx.n, s, t)
         assert_no_locks_held("QueryEngine.query_batch")
         b = s.shape[0]
@@ -165,7 +182,7 @@ class QueryEngine:
             # no dispatch and no phantom batch of 0 queries in the stats
             return (torch.empty(0, dtype=torch.int32, device=idx.device),
                     torch.empty(0, dtype=torch.int64, device=idx.device))
-        pad = bucket_size(b) - b
+        pad = bucket_size(b, self.buckets) - b
         ids = np.full((2, b + pad), idx.n, dtype=np.int64)  # dump-row pads
         ids[0, :b] = s
         ids[1, :b] = t
@@ -185,3 +202,27 @@ class QueryEngine:
         """Single (s, t) query through the same bucketed batch path."""
         d, c = self.query_batch(idx, [s], [t])
         return int(d[0]), int(c[0])
+
+    def serve_from(self, store, *, mesh=None):
+        """Serving closure over a ``SnapshotStore``
+        (``src/repro/serve/engine.py:363``): each batch pins
+        ``store.current()`` for its whole duration, so a concurrent
+        publish of version k + 1 never touches a batch answering from
+        version k.  Returns ``serve(s, t, route=None) -> (dist[B],
+        cnt[B])``; per-version query counts land in ``stats.versions``.
+        ``mesh=`` (sharded replicas) belongs to the distributed slice
+        of the port (ROADMAP queue 1, item 5)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "serve_from(mesh=...) belongs to the distributed slice of "
+                "the port (ROADMAP queue 1, item 5)")
+
+        def serve(s, t, route=None):
+            snap = store.current()  # pinned for the whole batch
+            d, c = self.query_batch(snap.index, s, t, route=route)
+            b = int(d.shape[0])
+            if b:
+                self.stats.count_version(snap.version, b)
+            return d, c
+
+        return serve

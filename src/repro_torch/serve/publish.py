@@ -5,15 +5,19 @@ snapshot k + 1 outside the store's lock while readers keep their pinned
 snapshot k; :meth:`SnapshotStore.publish` then swaps the front pointer
 under ``store.lock`` and bumps a monotone version.  A non-increasing
 version raises instead of rolling readers back.  Every committed swap is
-forwarded to the transport (default :class:`LocalTransport`).
+forwarded to the transport (default :class:`LocalTransport`); the
+reference's ``checkpoint_dir=`` / ``async_checkpoint=`` / ``keep=``
+kwargs build the equivalent ``DirTransport``
+(``src/repro/serve/publish.py:89-92``).
 
 Producer side: ``DynamicSPC.attach_store()`` publishes after every
-committed mutation or event chunk.  Consumer side: the analytics layer
-(``repro_torch.analytics``) pins ``store.current()``.
+committed mutation or event chunk.  Consumer side: the service's
+readers, ``QueryEngine.serve_from`` and the analytics layer pin
+``store.current()``.
 
-The reference's ``mesh=`` (replicated serving layout) and its
-``checkpoint_dir=`` shim belong to later slices of the port and raise
-``NotImplementedError`` when given.
+The reference's ``mesh=`` (replicated serving layout) belongs to the
+distributed slice of the port (ROADMAP queue 1, item 5) and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,8 +26,8 @@ from typing import Optional
 
 from repro_torch.analysis.shadow import assert_no_locks_held, make_lock
 from repro_torch.core.labels import SPCIndex
-from repro_torch.serve.transport import (LocalTransport, Snapshot,
-                                         SnapshotTransport)
+from repro_torch.serve.transport import (DirTransport, LocalTransport,
+                                         Snapshot, SnapshotTransport)
 
 
 class SnapshotStore:
@@ -31,23 +35,30 @@ class SnapshotStore:
 
     Thread contract: one publisher (the updater), any number of readers.
     Readers pin with :meth:`current` and hold the returned ``Snapshot``
-    for the duration of their work.
+    for the duration of their work.  ``transport=`` plugs the medium
+    every committed swap is forwarded through; ``checkpoint_dir=`` /
+    ``async_checkpoint=`` / ``keep=`` build the equivalent
+    ``DirTransport``.
     """
 
     def __init__(self, index: SPCIndex | None = None, *, version: int = 0,
                  mesh=None, transport: SnapshotTransport | None = None,
-                 checkpoint_dir: str | None = None) -> None:
+                 checkpoint_dir: str | None = None,
+                 async_checkpoint: bool = False, keep: int = 3) -> None:
         if mesh is not None:
             raise NotImplementedError(
                 "SnapshotStore(mesh=...) belongs to the distributed slice "
-                "of the port")
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "the checkpoint_dir= shim needs the checkpoint port; pass "
-                "transport= instead")
+                "of the port (ROADMAP queue 1, item 5)")
+        if transport is not None and checkpoint_dir is not None:
+            raise ValueError(
+                "pass transport= OR the legacy checkpoint_dir= shim, "
+                "not both")
+        if transport is None:
+            transport = (DirTransport(checkpoint_dir, keep=keep,
+                                      async_save=async_checkpoint)
+                         if checkpoint_dir is not None else LocalTransport())
         self._lock = make_lock("store.lock")
-        self._transport = (transport if transport is not None
-                           else LocalTransport())
+        self._transport = transport
         self._front: Optional[Snapshot] = None
         self.publishes = 0  # swap count (excludes the seed snapshot)
         if index is not None:

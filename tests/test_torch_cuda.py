@@ -32,7 +32,12 @@ staged row) and 16400 (searched in device memory), rejects what it does
 not take, and the op and the engine launch it once per batch with no [B, L]
 gather.  embedding_bag's packed design equals its plain version at D 8,
 18, 32 and 130 in float32 and bfloat16 with F1's ids, equals the warp
-design bit for bit, and two launches give the same bits.
+design bit for bit, and two launches give the same bits.  The service
+stack runs on the card: an ``SPCService`` (updater thread, readers of
+every consistency level, a checkpoint restart) and its front door
+(concurrent callers, coalesced into kernel launches) answer as the same
+stack on the CPU, a replica pulling from the card's directory stages
+onto the card, and 8 threads launching K1 at once count every launch.
 """
 
 import dataclasses
@@ -756,3 +761,107 @@ def test_packed_embedding_bag_launches_are_bitwise_equal(card):
         b = EB.embedding_bag_cuda(ids, x)
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+
+
+def _service_pair(tmp_path, device):
+    from repro_torch.configs.dspc import SMOKE
+    from repro_torch.serve import SPCService
+    edges = random_graph_edges(SMOKE.n, SMOKE.m, seed=3)
+    return SPCService.from_config(
+        SMOKE, edges=edges, device=device, transport="dir",
+        publish_dir=str(tmp_path / device), async_checkpoint=True,
+        wait_timeout=60.0)
+
+
+def test_service_on_the_card_equals_the_cpu(card, tmp_path):
+    from repro_torch.core.graph import edge_set
+    from repro_torch.serve import SPCService
+    gpu, cpu = _service_pair(tmp_path, "cuda"), _service_pair(tmp_path, "cpu")
+    events = graph_stream(sorted(edge_set(cpu.spc.graph)), cpu.n, 6, 4,
+                          seed=4)
+    rng = np.random.default_rng(0)
+    with gpu, cpu:
+        sg, sc = gpu.session(), cpu.session()
+        for lo in range(0, len(events), 5):
+            sg.submit(events[lo:lo + 5])
+            sc.submit(events[lo:lo + 5])
+            s, t = rng.integers(0, cpu.n, 300), rng.integers(0, cpu.n, 300)
+            for a, b in zip(sg.reader()(s, t), sc.reader()(s, t)):
+                assert a.device.type == "cuda"
+                assert torch.equal(a.cpu(), b)
+        gpu.drain()
+        cpu.drain()
+        want, got = cpu.state_dict(), gpu.state_dict()
+        assert all(got[k].tobytes() == want[k].tobytes() for k in want)
+        routes = gpu.stats()["serve"][0].routes
+        assert set(routes) == {"kernel"}
+        from repro_torch.train import checkpoint as C
+        C.save(str(tmp_path / "state"), 0, got)
+        restored = SPCService.from_checkpoint(str(tmp_path / "state"),
+                                              gpu.n)
+        assert restored.spc.index.hub.device.type == "cuda"
+        s, t = rng.integers(0, cpu.n, 64), rng.integers(0, cpu.n, 64)
+        for a, b in zip(restored.query_batch(s, t), cpu.query_batch(s, t)):
+            assert torch.equal(a.cpu(), b)
+        replica = SPCService(role="replica",
+                             publish_dir=str(tmp_path / "cuda"),
+                             poll_interval_s=0.01)
+        with replica:
+            idx = replica.store.current().index
+            assert idx.hub.device.type == "cuda"
+            assert replica.version == gpu.version
+            for a, b in zip(replica.query_batch(s, t), cpu.query_batch(s, t)):
+                assert torch.equal(a.cpu(), b)
+
+
+def test_front_door_on_the_card_equals_the_cpu(card, tmp_path):
+    import threading
+    gpu, cpu = _service_pair(tmp_path, "cuda"), _service_pair(tmp_path, "cpu")
+    with gpu, cpu:
+        before = launches.count
+        with gpu.frontdoor(dispatchers=2, max_batch=64) as door:
+            errors, got = [], {}
+
+            def caller(i):
+                rng = np.random.default_rng(i)
+                sess = door.session()
+                try:
+                    for _ in range(64):
+                        a, b = (int(x) for x in rng.integers(0, cpu.n, 2))
+                        got[(i, a, b)] = sess.query(a, b)
+                except BaseException as e:
+                    errors.append(e)
+
+            threads = [threading.Thread(target=caller, args=(i,))
+                       for i in range(8)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=60)
+            assert not errors and not any(th.is_alive() for th in threads)
+            st = door.stats()
+        assert st["mean_fill"] > 1
+        assert launches.count - before == st["batches"]
+        keys = sorted(got)
+        d, c = cpu.query_batch([k[1] for k in keys], [k[2] for k in keys])
+        assert [got[k] for k in keys] == list(zip(d.tolist(), c.tolist()))
+
+
+def test_threaded_launches_count_exactly(card):
+    import threading
+    idx = DynamicSPC(64, random_graph_edges(64, 160, seed=1),
+                     device="cuda").index
+    s = torch.arange(64, device="cuda", dtype=torch.int64)
+    before = launches.count
+
+    def worker():
+        for _ in range(50):
+            spc_query_index_cuda(idx.hub, idx.dist, idx.cnt, s, s.flip(0))
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+    torch.cuda.synchronize()
+    assert launches.count - before == 8 * 50

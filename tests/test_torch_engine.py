@@ -118,8 +118,10 @@ def test_bucket_padding_and_stats(services):
     st = ServeStats()
     st.count("merge", 5)
     st.count("merge", 3)
+    st.count_version(4, 8)
     assert dataclasses.asdict(st) == {"queries": 8, "batches": 2,
-                                      "routes": {"merge": 2}}
+                                      "routes": {"merge": 2},
+                                      "versions": {4: 8}}
 
 
 def test_empty_batch_early_returns(services):
@@ -140,8 +142,8 @@ def test_engine_validation_errors(services):
     _, t = services
     with pytest.raises(ValueError, match="unknown route"):
         QueryEngine(route="bogus")
-    with pytest.raises(ValueError, match="unknown route"):
-        QueryEngine(route="pallas")  # the TPU route has no port
+    # the reference's TPU kernel route names the port's CUDA kernel route
+    assert QueryEngine(route="pallas").route == "kernel"
     eng = QueryEngine()
     with pytest.raises(ValueError, match="shape mismatch"):
         eng.query_batch(t.index, [0, 1], [1])
@@ -156,9 +158,14 @@ def test_route_policy():
     assert RoutePolicy.coerce("kernel").kind == "kernel"
     p = RoutePolicy("merge")
     assert RoutePolicy.coerce(p) is p and hash(p) == hash(RoutePolicy("merge"))
-    for bad in ("sharded", {"kind": "merge"}, 3):
+    assert RoutePolicy.coerce({"kind": "merge"}) == p
+    assert RoutePolicy.coerce("pallas") == RoutePolicy("kernel")
+    assert not p.needs_mesh and p.engine_route == "merge"
+    for bad in ({"kind": "pallas", "block_b": 64}, "bogus", 3):
         with pytest.raises(ValueError):
             RoutePolicy.coerce(bad)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        RoutePolicy.coerce("sharded")
     assert QueryEngine(route=RoutePolicy("table")).route == "table"
 
 

@@ -11,6 +11,8 @@ the updates.  Runs under the runtime shadow lock checker, as
 ``tests/serve`` does."""
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
@@ -76,11 +78,44 @@ def test_snapshot_is_immutable_dataclass(svc):
         snap.version = 4
 
 
-def test_later_slices_options_raise(svc):
-    with pytest.raises(NotImplementedError, match="mesh"):
+def test_later_slices_options_raise(svc, tmp_path):
+    """``mesh=`` stays the distributed slice's; ``checkpoint_dir=``
+    publishes into that directory as the reference's store does: the
+    same committed steps, manifests and bytes, readable by the
+    reference's ``load_snapshot``."""
+    with pytest.raises(NotImplementedError, match="item 5"):
         SnapshotStore(svc.index, mesh=object())
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        SnapshotStore(svc.index, checkpoint_dir="somewhere")
+    with pytest.raises(ValueError, match="not both"):
+        SnapshotStore(svc.index, checkpoint_dir=str(tmp_path / "x"),
+                      transport=LocalTransport())
+    state = svc.state_dict()
+    events = graph_stream(sorted(edge_set(svc.graph)), svc.n, 4, 4, seed=1)
+    from repro.serve.transport import load_snapshot as jax_load
+    # synchronous writes with keep=2 gc step 0 in both packages; async
+    # ones with keep=3 never reach the window, whatever the writes' timing
+    for async_checkpoint, keep, steps in ((False, 2, (1, 2)),
+                                          (True, 3, (0, 1, 2))):
+        ours = tmp_path / f"port-{keep}"
+        theirs = tmp_path / f"ref-{keep}"
+        port = DynamicSPC.from_state_dict(svc.n, state, device="cpu")
+        ref = JaxDSPC.from_state_dict(svc.n, state)
+        for spc, path in ((port, ours), (ref, theirs)):
+            store = spc.attach_store(checkpoint_dir=str(path),
+                                     async_checkpoint=async_checkpoint,
+                                     keep=keep)
+            spc.apply_events(events, batch_size=4)   # two chunks, two steps
+            store.wait()
+        want = ["LATEST"] + [f"step_{k:09d}" for k in steps]
+        assert sorted(os.listdir(ours)) == sorted(os.listdir(theirs)) == want
+        for step in steps:
+            got = jax_load(str(ours), step=step)
+            ref_snap = jax_load(str(theirs), step=step)
+            assert got.version == ref_snap.version == step
+            assert _jax_bytes(got.index) == _jax_bytes(ref_snap.index)
+            with open(ours / f"step_{step:09d}" / "manifest.json") as f:
+                man = json.load(f)
+            with open(theirs / f"step_{step:09d}" / "manifest.json") as f:
+                assert json.load(f) == man
 
 
 def test_local_transport_versions(svc):

@@ -148,10 +148,15 @@ def test_port_and_smoke_script_import_no_jax_or_reference():
     assert {"repro_torch.bench.kernels_bench",
             "repro_torch.kernels.segment_matmul.kernel",
             "repro_torch.kernels.segment_matmul.ops",
-            "repro_torch.kernels.segment_matmul.ref"} <= set(imported)
+            "repro_torch.kernels.segment_matmul.ref",
+            "repro_torch.core.directed", "repro_torch.train.checkpoint",
+            "repro_torch.serve.transport", "repro_torch.serve.replica",
+            "repro_torch.serve.service",
+            "repro_torch.serve.frontdoor"} <= set(imported)
     scanned = {os.path.relpath(f, PORT) for f in files}
-    assert {"bench/kernels_bench.py",
-            "kernels/segment_matmul/ops.py"} <= scanned
+    assert {"bench/kernels_bench.py", "kernels/segment_matmul/ops.py",
+            "core/directed.py", "train/checkpoint.py", "serve/replica.py",
+            "serve/service.py", "serve/frontdoor.py"} <= scanned
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
@@ -313,18 +318,23 @@ def test_chip_smoke_counts_launches_by_path():
     with counts.path("lm"):
         fd.count += 28 * 64
     fd.count += 9                                  # the main-shape check
+    with counts.path("service"):
+        sq.add(40)                                 # readers and dispatchers
+    sq.count += 2                                  # an oracle's launches
     zero = dict.fromkeys(kernels, 0)
     assert counts.by_path == {
         "dspc": dict(zero, spc_query=5),
         "kernels": dict(zero, spc_query=52, segment_matmul=53),
         "analytics": dict(zero, embedding_bag=1),
-        "lm": dict(zero, flash_decode=1792)}
-    assert counts.of("spc_query") == (57, {"dspc": 5, "kernels": 52,
-                                           "analytics": 0, "lm": 0})
-    assert counts.of("segment_matmul") == (53, {"dspc": 0, "kernels": 53,
-                                                "analytics": 0, "lm": 0})
-    assert counts.of("flash_decode") == (1792, {"dspc": 0, "kernels": 0,
-                                                "analytics": 0, "lm": 1792})
+        "lm": dict(zero, flash_decode=1792),
+        "service": dict(zero, spc_query=40)}
+    assert counts.of("spc_query") == (97, {"dspc": 5, "kernels": 52,
+                                           "analytics": 0, "lm": 0,
+                                           "service": 40})
+    assert counts.of("segment_matmul") == (53, {
+        "dspc": 0, "kernels": 53, "analytics": 0, "lm": 0, "service": 0})
+    assert counts.of("flash_decode") == (1792, {
+        "dspc": 0, "kernels": 0, "analytics": 0, "lm": 1792, "service": 0})
     counts.check()
     bare = chip_smoke.PathLaunches(kernels)
     with bare.path("dspc"):
@@ -347,12 +357,50 @@ def test_chip_smoke_counts_launches_by_path():
         no_lm.check()
     no_k2 = chip_smoke.PathLaunches(kernels)
     for path, c in (("dspc", sq), ("kernels", sq), ("analytics", eb),
-                    ("lm", fd)):
+                    ("lm", fd), ("service", sq)):
         with no_k2.path(path):
             c.count += 1
     with pytest.raises(AssertionError, match="segment_matmul never launched "
                                              "on the kernels path"):
         no_k2.check()
+    no_service = chip_smoke.PathLaunches(kernels)
+    for path, c in (("dspc", sq), ("kernels", sq), ("kernels", sm),
+                    ("analytics", eb), ("lm", fd)):
+        with no_service.path(path):
+            c.count += 1
+    with pytest.raises(AssertionError, match="spc_query never launched "
+                                             "on the service path"):
+        no_service.check()
+
+
+def test_launch_counter_counts_every_threaded_increment():
+    """Reader, dispatcher and updater threads launch at once: 8 threads
+    of 1000 increments each count exactly 8000, and setting the count
+    (as the smoke script does before each path) is seen by all."""
+    import threading
+    counter = common.LaunchCounter("spc_query")
+    barrier = threading.Barrier(8)
+
+    def bump():
+        barrier.wait(timeout=30)
+        for _ in range(1000):
+            counter.add()
+
+    threads = [threading.Thread(target=bump) for _ in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)          # switch threads as often as can be
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=30)
+            assert not th.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert counter.count == 8000
+    counter.count = 0
+    counter.add(3)
+    assert counter.count == 3
 
 
 def test_chip_smoke_flash_decode_bound_counts_valid_rows():
