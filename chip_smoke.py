@@ -148,6 +148,27 @@ S4. restart  -- the updater's ``state_dict()`` saved with the port's
                 staleness from the version's commit (``LATEST``'s
                 mtime) to the replica's first answer at it.  The replica
                 process exits and the directory is removed before L1.
+D.  distributed -- one controller over a device mesh: every visible
+                card, or ``DIST_SHARDS`` = 4 entries of the one card (an
+                edge axis ``model`` for the updater, a data axis ``data``
+                for serving); the mesh and whether its devices are
+                distinct on a line of their own.  D1: ``DynamicSPC(...,
+                mesh=)`` builds phase 4's graph with phase 4's knobs
+                (full scale); its ``state_dict()`` must be byte-identical
+                to phase 4's, kept on the host before phase 5.  One chunk
+                of 8 events from ``graph_stream`` through the sharded
+                updater and through ``DynamicSPC.from_state_dict`` of
+                phase 4's state on one device: byte-identical states.
+                Seconds and host syncs of the sharded build beside phase
+                4's, and of each chunk.  D2: ``SnapshotStore(mesh=)`` and
+                ``serve_from(mesh=)``: 64 batches of 1024 uniform pairs
+                (host us per batch to the answers, p50 / p90), each equal
+                to the single-device kernel route's, every one counted as
+                ``sharded[data]:merge``; then
+                ``SPCService.from_state_dict(mesh=, serve_mesh=,
+                route="sharded")``: a ticket of 2 events (an insert and a
+                delete) and a ``read_your_writes`` read equal to
+                ``plain_spc_bfs``.
 L1. LM params -- ``init_params`` of qwen2-1.5b (``configs/qwen2_1_5b.py``
                 CONFIG with ``tp = 1``: the published 12 query heads, no
                 mesh padding) in bfloat16, drawn from a CUDA generator
@@ -200,10 +221,13 @@ FILE`` is S3's second process.
 Launches are counted for each main path on its own: the DSPC path
 (phases 4, 5, 6 and the first call of 6b), the kernels path (K), the
 analytics path (the timed steps of A1 and A2), the LM path (L2 and
-L3; flash_decode exactly 28 x 64 times) and the service path (the
+L3; flash_decode exactly 28 x 64 times), the service path (the
 ingest and serving of S1 and the front-door traffic of S2; the service
 readers, the dispatchers and the updater launch from their own
-threads).  The launch counters are set
+threads) and the distributed path (D's sharded build, chunk and
+serving, which launch no kernel: the sharded relaxation is
+``index_add_`` and the sharded query the merge core, as on the
+reference).  The launch counters are set
 to 0 just before each of these phases and read just after it; the
 oracles, L4 and the kernel checks run outside them
 and count nowhere.  Each path must have launched each of its kernels
@@ -260,7 +284,10 @@ REDESIGNED = ("flash_decode_mma", "block_sums", "spc_query_fused",
 PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
                                                     "segment_matmul"),
                 "analytics": ("embedding_bag",), "lm": ("flash_decode",),
-                "service": ("spc_query",)}
+                "service": ("spc_query",),
+                # the sharded relax is index_add_, the sharded query the
+                # merge core, as on the reference: no kernel of its own
+                "distributed": ()}
 
 #: The segment_matmul sweep of tests/kernels/test_kernels.py (e, n, d),
 #: inputs drawn as that test draws them (ids in [0, n + 5): some dropped).
@@ -326,6 +353,10 @@ FD_REPS = 3
 SERVICE_CHUNK, SERVICE_BATCHES, SERVICE_PAIRS = 8, 64, 1024
 FD_CALLERS, FD_REQUESTS = 8, 512
 SERVICE_WAIT_S, FLEET_DISK_BYTES = 600.0, 16 * 10 ** 9
+#: Phase D: mesh entries on a single card (an edge axis and a data axis
+#: of 4 entries of cuda:0), events in its chunk, serve batches and their
+#: pairs.
+DIST_SHARDS, DIST_EVENTS, DIST_BATCHES, DIST_PAIRS = 4, 8, 64, 1024
 
 
 def log(msg: str) -> None:
@@ -1703,6 +1734,167 @@ def check_replica(reply: dict, version: int, d, c, tag: str) -> None:
                              f"differ from the updater's")
 
 
+def same_state(got: dict, want: dict) -> bool:
+    """Two state dicts hold the same keys, dtypes, shapes and bytes."""
+    return sorted(got) == sorted(want) and all(
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        and np.array_equal(got[k], want[k]) for k in want)
+
+
+def distributed_phase(edges, n: int, state: dict, single_build: dict,
+                      build_kw: dict, counts, seed: int, card: str,
+                      device: str = "cuda") -> dict:
+    """Phase D (module doc): the edge-sharded build of phase 4's graph
+    against phase 4's single-device ``state``, one chunk through both
+    engines, the mesh-staged store served through the sharded route, and
+    ``SPCService`` over both meshes.  ``single_build`` holds phase 4's
+    seconds and host syncs; ``build_kw`` its ``DynamicSPC`` knobs.
+    Returns the numbers; raises on any failed check."""
+    import torch
+    from repro_torch.core import bfs as B
+    from repro_torch.core.dynamic import DynamicSPC
+    from repro_torch.core.graph import edge_set
+    from repro_torch.data.pipelines import graph_stream
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import QueryEngine, SnapshotStore, SPCService
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device] * DIST_SHARDS
+    edge_mesh = make_mesh((len(devices),), ("model",), devices)
+    serve_mesh = make_mesh((len(devices),), ("data",), devices)
+    distinct = edge_mesh.distinct_devices
+
+    def sync():
+        for d in distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    log(f"D mesh: {edge_mesh} for the updater (edge axis 'model'), "
+        f"{serve_mesh} for serving (batch axis 'data'); {len(devices)} "
+        f"entries on {len(distinct)} distinct device(s): "
+        f"{'distinct' if len(distinct) == len(devices) else 'repeated'}")
+    out = {"entries": len(devices), "distinct_devices": len(distinct)}
+    # -- D1. the sharded build, byte-identical to phase 4's ----------------
+    syncs0 = B.frontier_syncs.count
+    sync()
+    t0 = time.monotonic()
+    with counts.path("distributed"):
+        dist = DynamicSPC(n, edges, mesh=edge_mesh, device=device, **build_kw)
+        sync()
+    out["build_s"] = time.monotonic() - t0
+    out["build_syncs"] = B.frontier_syncs.count - syncs0
+    relax = dist._updater.multi_relax_fn
+    if not same_state(dist.state_dict(), state):
+        raise AssertionError("D1: the sharded build's state_dict() differs "
+                             "from the single-device build's")
+    log(f"D1 build: {out['build_s']:.3f} s over {len(devices)} edge shards "
+        f"(phase 4 on one device: {single_build['s']:.3f} s), host syncs "
+        f"{out['build_syncs']} (phase 4: {single_build['syncs']}), "
+        f"{relax.reductions} level reductions, {relax.placements} edge "
+        f"placement(s); state_dict() byte-identical to phase 4's on {card}")
+    # -- D1. one chunk through the sharded and the single-device engine ----
+    single = DynamicSPC.from_state_dict(
+        n, state, device=device,
+        construct_batch=build_kw.get("construct_batch"))
+    events = graph_stream(edges, n, DIST_EVENTS // 2, DIST_EVENTS // 2,
+                          seed=seed + 23)
+    chunk = {}
+    for tag, spc in (("sharded", dist), ("single", single)):
+        syncs0 = B.frontier_syncs.count
+        sync()
+        t0 = time.monotonic()
+        with (counts.path("distributed") if tag == "sharded"
+              else contextlib.nullcontext()):
+            spc.apply_events(events, batch_size=DIST_EVENTS)
+            sync()
+        chunk[tag] = {"s": time.monotonic() - t0,
+                      "syncs": B.frontier_syncs.count - syncs0}
+    if not same_state(dist.state_dict(), single.state_dict()):
+        raise AssertionError("D1: the chunk left the sharded and the "
+                             "single-device states different")
+    out["chunk"] = chunk
+    log(f"D1 chunk of {len(events)} events: sharded "
+        f"{chunk['sharded']['s']:.3f} s ({chunk['sharded']['syncs']} host "
+        f"syncs), single device "
+        f"{chunk['single']['s']:.3f} s ({chunk['single']['syncs']} host "
+        f"syncs); state_dict() byte-identical on {card}")
+    del single
+    # -- D2. the mesh-staged store through the sharded route ---------------
+    store = SnapshotStore(dist.index, version=dist.version, mesh=serve_mesh)
+    eng = QueryEngine()
+    serve = eng.serve_from(store, mesh=serve_mesh)
+    rng = np.random.default_rng(seed + 29)
+    batches = [(rng.integers(0, n, DIST_PAIRS), rng.integers(0, n, DIST_PAIRS))
+               for _ in range(DIST_BATCHES)]
+    secs, outs = [], []
+    with counts.path("distributed"):
+        serve(*batches[0])                                  # warm-up
+        sync()
+        for s, t in batches:
+            t0 = time.monotonic()
+            outs.append(serve(s, t))
+            sync()
+            secs.append(time.monotonic() - t0)
+    routes = dict(eng.stats.snapshot().routes)
+    if routes != {"sharded[data]:merge": DIST_BATCHES + 1}:
+        raise AssertionError(f"D2: the sharded engine counted {routes}")
+    single_route = QueryEngine(route="auto")
+    for (s, t), (d, c) in zip(batches, outs):
+        d0, c0 = single_route.query_batch(dist.index, s, t)
+        if not (torch.equal(d, d0) and torch.equal(c, c0)):
+            raise AssertionError("D2: the sharded route differs from the "
+                                 "single-device route")
+    out["serve_us"] = percentiles_us(secs)
+    out["serve_routes"] = routes
+    out["single_device_routes"] = dict(single_route.stats.snapshot().routes)
+    log(f"D2 serve: {DIST_BATCHES} batches of {DIST_PAIRS} pairs through "
+        f"serve_from(mesh=) over a mesh-staged SnapshotStore, host us per "
+        f"batch p50 {out['serve_us']['p50']:.1f} p90 "
+        f"{out['serve_us']['p90']:.1f}; routes {json.dumps(routes)}; equal "
+        f"to the single-device route "
+        f"{json.dumps(out['single_device_routes'])} on {card}")
+    now = dist.state_dict()
+    del outs, serve, eng, store, dist
+    # -- D2. SPCService over both meshes ------------------------------------
+    t0 = time.monotonic()
+    service = SPCService.from_state_dict(
+        n, now, mesh=edge_mesh, serve_mesh=serve_mesh, route="sharded",
+        device=device, wait_timeout=SERVICE_WAIT_S)
+    restore_s = time.monotonic() - t0
+    del now
+    with service:
+        spc = service.spc
+        reader = service.reader()
+        a, b = absent_pair(spc, reader, rng)
+        present = sorted(edge_set(spc.graph))
+        c_, d_ = present[int(rng.integers(0, len(present)))]
+        sess = service.session()
+        t0 = time.monotonic()
+        sess.submit([("+", a, b), ("-", c_, d_)])
+        ryw = sess.reader("read_your_writes")
+        d, c = ryw([a], [b])
+        apply_s = time.monotonic() - t0
+        if (int(d[0]), int(c[0])) != (1, 1):
+            raise AssertionError(f"D2 service: the written edge ({a}, {b}) "
+                                 f"reads ({int(d[0])}, {int(c[0])})")
+        check_pairs_bfs(spc, ryw, [(a, b), (c_, d_), (a, c_), (b, d_)],
+                        "D2 service")
+        view = ryw.engine.stats.snapshot()
+        out["service"] = {"restore_s": restore_s,
+                          "submit_to_read_s": apply_s,
+                          "version": ryw.last_version,
+                          "routes": dict(view.routes)}
+    if set(out["service"]["routes"]) != {"sharded[data]:merge"}:
+        raise AssertionError(f"D2 service: routes {out['service']['routes']}")
+    log(f"D2 service: SPCService.from_state_dict(mesh=, serve_mesh=, "
+        f"route='sharded') in {restore_s:.3f} s; a ticket of 2 events read "
+        f"back through read_your_writes {apply_s:.3f} s after its submit "
+        f"(v{out['service']['version']}), equal to plain_spc_bfs; routes "
+        f"{json.dumps(out['service']['routes'])} on {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--halvings", type=int, default=0,
@@ -2049,13 +2241,15 @@ def main(argv=None) -> int:
     B.frontier_syncs.count = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    # phase D builds the same graph with the same knobs, edge-sharded
+    build_kw = dict(l_cap=None, construct_batch=CONFIG.construct_batch,
+                    vertex_order=CONFIG.vertex_order)
     t0 = time.monotonic()
     with counts.path("dspc"):
-        svc = DynamicSPC(n, edges, device="cuda", l_cap=None,
-                         construct_batch=CONFIG.construct_batch,
-                         vertex_order=CONFIG.vertex_order)
+        svc = DynamicSPC(n, edges, device="cuda", **build_kw)
         torch.cuda.synchronize()
     build_s = time.monotonic() - t0
+    build_syncs = B.frontier_syncs.count
     log(f"build: {build_s:.3f} s, l_cap {svc.index.l_cap}, "
         f"{svc.index_entries()} label entries "
         f"(max {int(svc.index.size.max())}/row), {svc.index_bytes()} index "
@@ -2065,6 +2259,8 @@ def main(argv=None) -> int:
     engine = QueryEngine(route="auto")
     sources = rng.choice(n, size=8, replace=False)
     oracle(svc, engine, sources, "after build")
+    single_build = {"s": build_s, "syncs": build_syncs}
+    single_state = svc.state_dict()
 
     # -- K. the kernel microbench path, then K2 at the graph's shape -------
     g_src, g_dst = live_edges(svc.graph)
@@ -2522,11 +2718,21 @@ def main(argv=None) -> int:
          hub, dist_m, cnt_m, plain, k1_calls, s_dev, t_dev)
     gc.collect()
     service_numbers = service_phases(svc, counts, args.seed, card)
-
-    # -- L. the LM serving path (examples/serve_lm.py at qwen2-1.5b) --------
     del svc
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- D. distributed: the phase 4 graph over a device mesh ----------------
+    t0 = time.monotonic()
+    dist_numbers = distributed_phase(edges, n, single_state, single_build,
+                                     build_kw, counts, args.seed, card)
+    dist_numbers["phase_s"] = time.monotonic() - t0
+    log(f"distributed: {json.dumps(dist_numbers)} on {card}")
+    del single_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- L. the LM serving path (examples/serve_lm.py at qwen2-1.5b) --------
     # one card, no mesh: tp = 1 keeps the published 12 query heads (the
     # reference's CONFIG pads them to 16 for a 16-way model axis)
     lm_cfg = dataclasses.replace(QWEN_CONFIG, tp=1)

@@ -19,6 +19,9 @@ reference's names:
                                recommendation over a pinned snapshot.
 * ``repro_torch.models``    -- PNA, and the dense GQA LM's ``prefill`` and
                                KV-cache ``decode_step``.
+* ``repro_torch.launch``    -- device meshes that one controller process
+                               drives (edge-sharded updates, replicated
+                               snapshots, batch-sharded serving).
 * ``repro_torch.analysis``  -- lock factories with the canonical names.
 * ``repro_torch.configs`` / ``repro_torch.data`` -- the ported
                                configurations (``dspc``, ``pna``,

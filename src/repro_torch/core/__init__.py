@@ -13,6 +13,10 @@ Layers (bottom-up):
 * ``hybrid``      -- mixed insert/delete event chunks.
 * ``dynamic``     -- the host-side driver (capacity, events, state).
 * ``directed``    -- the directed extension (Appendix C.1), pure Python.
+* ``distributed`` -- one controller over a device mesh: the
+  edge-sharded relaxation bound into the shared build / update bodies
+  (``make_distributed_builder``, ``make_distributed_updater``), index
+  replicas and batch-sharded queries.
 """
 
 from repro_torch.core.bfs import plain_spc_bfs, pruned_spc_bfs

@@ -1,6 +1,6 @@
 """DynamicSPC: the host-side driver of the DSPC index lifecycle.
 
-Port of ``repro.core.dynamic`` (single device).  Beyond the algorithm
+Port of ``repro.core.dynamic``.  Beyond the algorithm
 steps it owns:
 
 * capacity management -- grows the edge arrays and the label matrices
@@ -19,8 +19,14 @@ steps it owns:
   written by either package.
 
 Every entry point runs on ``device`` (default ``"cuda"``); the CPU is
-used only when asked for.  The reference's ``mesh=`` belongs to the
-distributed slice of the port (ROADMAP queue 1, item 5).
+used only when asked for.  ``mesh=`` (a ``repro_torch.launch.mesh.Mesh``)
+runs the build and every update through the edge-sharded engines of
+``repro_torch.core.distributed.make_distributed_updater``: the same
+algorithms with the relaxation split over the mesh's ``edge_axis``,
+driven from this process, while the graph and the labels stay on
+``device`` and the capacity and overflow-retry machinery runs
+unchanged; the edge arrays are re-padded to the shard count after every
+capacity change, so ``state_dict()`` equals the reference's mesh mode.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from repro_torch.core import labels as L
 from repro_torch.core.construct import (build_index, build_index_batched,
                                         provision_l_cap)
 from repro_torch.core.decremental import dec_spc
-from repro_torch.core.graph import resolve_device
+from repro_torch.core.graph import Graph, resolve_device
 from repro_torch.core.hybrid import OP_DELETE, OP_INSERT, hyb_spc_batch
 from repro_torch.core.incremental import inc_spc, inc_spc_batch
 from repro_torch.core.labels import SPCIndex
@@ -45,6 +51,13 @@ from repro_torch.core.order import (identity_ordering, ordering_from_state,
 
 #: Default chunk size for batched event replay.
 DEFAULT_BATCH = 64
+
+#: The single-device build and update engines, by the name of the
+#: ``DistributedUpdater`` member that replaces each on a mesh.
+_ENGINES = {"build_index": build_index,
+            "build_index_batched": build_index_batched,
+            "inc_spc": inc_spc, "inc_spc_batch": inc_spc_batch,
+            "dec_spc": dec_spc, "hyb_spc_batch": hyb_spc_batch}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,12 +109,26 @@ class UpdateStats:
         return self.batched_events / self.batches if self.batches else 0.0
 
 
+def _updater_for(mesh, edge_axis: str):
+    if mesh is None:
+        return None
+    from repro_torch.core.distributed import make_distributed_updater
+    return make_distributed_updater(mesh, edge_axis)
+
+
 class DynamicSPC:
-    """Maintains (graph, SPC-Index) under a stream of topology events."""
+    """Maintains (graph, SPC-Index) under a stream of topology events.
+
+    With ``mesh=`` the build and every update run through the
+    edge-sharded engines (``repro_torch.core.distributed``); queries,
+    events, overflow retry and state dicts are unchanged, and the two
+    modes stay bit-identical.
+    """
 
     def __init__(self, n: int, edges: Sequence[Tuple[int, int]] = (),
                  l_cap: int | None = 32, cap_e: int | None = None, *,
-                 device="cuda", construct_batch: int | None = None,
+                 mesh=None, edge_axis: str = "model", device="cuda",
+                 construct_batch: int | None = None,
                  vertex_order: str = "id") -> None:
         """``construct_batch`` >= 2 builds through the batched PSPC-style
         constructor (same index); ``vertex_order="degree"`` relabels ids
@@ -112,23 +139,37 @@ class DynamicSPC:
         self.stats = UpdateStats()
         self._engine = None
         self._store = None
+        self._updater = _updater_for(mesh, edge_axis)
         self.version = 0  # bumped per committed update
         self._construct_batch = construct_batch
         self.order = vertex_ordering(n, edges, vertex_order)
-        self.graph = G.from_edges(n, self.order.edges_to_internal(edges),
-                                  cap_e, device=self.device)
+        self.graph = self._pad_for_mesh(G.from_edges(
+            n, self.order.edges_to_internal(edges), cap_e,
+            device=self.device))
         self.index = self._build(l_cap)
+
+    def _pad_for_mesh(self, g: Graph) -> Graph:
+        """Keep cap_e divisible over the edge axis (no-op off-mesh)."""
+        return self._updater.pad(g) if self._updater is not None else g
+
+    def _op(self, name: str):
+        """The build / update engine ``name``: the updater's edge-sharded
+        member on a mesh, the single-device function otherwise."""
+        if self._updater is not None:
+            return getattr(self._updater, name)
+        return _ENGINES[name]
 
     # -- construction with overflow-retry ---------------------------------
     def _build(self, l_cap: int | None) -> SPCIndex:
         if self._construct_batch is not None and self._construct_batch >= 2:
-            return build_index_batched(
+            return self._op("build_index_batched")(
                 self.graph, l_cap, hub_batch=self._construct_batch,
                 on_regrow=lambda _cap: self.stats.bump(label_regrows=1))
         if l_cap is None:
             l_cap = provision_l_cap(self.graph)
+        build = self._op("build_index")
         while True:
-            idx = build_index(self.graph, l_cap)
+            idx = build(self.graph, l_cap)
             if int(idx.overflow) == 0:
                 return idx
             l_cap *= 2
@@ -221,8 +262,9 @@ class DynamicSPC:
         a, b = self.order.to_internal(a), self.order.to_internal(b)
         if G.has_edge(self.graph, a, b):
             raise ValueError(f"edge ({a},{b}) already present")
-        self.graph = G.ensure_capacity(self.graph, 2)
-        self._retry(lambda g, idx: inc_spc(g, idx, a, b))
+        self.graph = self._pad_for_mesh(G.ensure_capacity(self.graph, 2))
+        inc = self._op("inc_spc")
+        self._retry(lambda g, idx: inc(g, idx, a, b))
         self.stats.bump(inserts=1)
         self._commit()
 
@@ -239,7 +281,8 @@ class DynamicSPC:
             self.index = L.reset_isolated_row(self.index, hi)
             self.stats.bump(isolated_fast_path=1)
         else:
-            self._retry(lambda g, idx: dec_spc(g, idx, a, b))
+            dec = self._op("dec_spc")
+            self._retry(lambda g, idx: dec(g, idx, a, b))
         self.stats.bump(deletions=1)
         self._commit()
 
@@ -252,8 +295,10 @@ class DynamicSPC:
         for a, b in edges:
             if G.has_edge(self.graph, a, b):
                 raise ValueError(f"edge ({a},{b}) already present")
-        self.graph = G.ensure_capacity(self.graph, 2 * len(edges))
-        self._retry(lambda g, idx: inc_spc_batch(g, idx, edges))
+        self.graph = self._pad_for_mesh(
+            G.ensure_capacity(self.graph, 2 * len(edges)))
+        batch = self._op("inc_spc_batch")
+        self._retry(lambda g, idx: batch(g, idx, edges))
         self.stats.bump(inserts=len(edges))
         self._commit()
 
@@ -355,6 +400,7 @@ class DynamicSPC:
                   for op, a, b in events]
         self._validate_events(events)
         code = {"+": OP_INSERT, "-": OP_DELETE}
+        hyb = self._op("hyb_spc_batch")
         for lo in range(0, len(events), batch_size):
             chunk = events[lo:lo + batch_size]
             arr = np.zeros((batch_size, 3), dtype=np.int32)  # (0,0,0) pads
@@ -362,12 +408,13 @@ class DynamicSPC:
                 arr[i] = (code[op], a, b)
             n_ins = sum(1 for op, _, _ in chunk if op == "+")
             cap_before = self.graph.cap_e
-            self.graph = G.ensure_capacity(self.graph, 2 * n_ins)
+            self.graph = self._pad_for_mesh(
+                G.ensure_capacity(self.graph, 2 * n_ins))
             if self.graph.cap_e != cap_before:
                 self.stats.bump(edge_regrows=1)
             g0, idx0 = self.graph, self.index  # pre-chunk snapshot
             while True:
-                g2, idx2 = hyb_spc_batch(self.graph, self.index, arr)
+                g2, idx2 = hyb(self.graph, self.index, arr)
                 if int(idx2.overflow) == 0:
                     self.graph, self.index = g2, idx2
                     break
@@ -459,25 +506,29 @@ class DynamicSPC:
         return host
 
     @classmethod
-    def from_state_dict(cls, n: int, state: dict, *, device="cuda",
+    def from_state_dict(cls, n: int, state: dict, *, mesh=None,
+                        edge_axis: str = "model", device="cuda",
                         construct_batch: int | None = None) -> "DynamicSPC":
         """Restore from a state dict of host arrays -- this port's or the
         reference's ``state_dict()`` converted with ``np.asarray`` --
         including legacy dicts without ``index.cnt_sum`` / ``version``
-        and the optional ``order.vertex_of`` permutation."""
+        and the optional ``order.vertex_of`` permutation.  ``mesh=``
+        restores into the edge-sharded mode (the edge arrays re-padded
+        to the shard count)."""
         host = cls._validate_state(n, state)
         obj = cls.__new__(cls)
         obj.device = resolve_device(device)
         obj.stats = UpdateStats()
         obj._engine = None
         obj._store = None
+        obj._updater = _updater_for(mesh, edge_axis)
         obj.version = int(host.get("version", 0))
         obj._construct_batch = construct_batch
         obj.order = (ordering_from_state(host["order.vertex_of"])
                      if "order.vertex_of" in host else identity_ordering(n))
-        obj.graph = G.graph_from_numpy(n, host["graph.src"],
-                                       host["graph.dst"], host["graph.m2"],
-                                       device=obj.device)
+        obj.graph = obj._pad_for_mesh(G.graph_from_numpy(
+            n, host["graph.src"], host["graph.dst"], host["graph.m2"],
+            device=obj.device))
         obj.index = L.index_from_numpy(
             n, host["index.hub"], host["index.dist"], host["index.cnt"],
             host["index.size"], host.get("index.cnt_sum"),
@@ -486,7 +537,7 @@ class DynamicSPC:
 
     @classmethod
     def from_checkpoint(cls, path: str, n: int, step: int | None = None, *,
-                        device="cuda",
+                        mesh=None, edge_axis: str = "model", device="cuda",
                         construct_batch: int | None = None) -> "DynamicSPC":
         """Restore from a checkpoint directory of a ``state_dict()``
         written by either package (``src/repro/core/dynamic.py:611``).
@@ -518,5 +569,6 @@ class DynamicSPC:
         }
         state, _, _ = C.restore(path, tree_like, step=man["step"],
                                 device="cpu")
-        return cls.from_state_dict(n, state, device=device,
+        return cls.from_state_dict(n, state, mesh=mesh, edge_axis=edge_axis,
+                                   device=device,
                                    construct_batch=construct_batch)

@@ -1,6 +1,6 @@
 """Query serving: one façade in front of the whole system.
 
-Port of ``repro.serve`` (single device).  **Public API:**
+Port of ``repro.serve``.  **Public API:**
 ``SPCService`` -- the config-driven façade that owns the updater
 (``DynamicSPC``), the versioned ``SnapshotStore`` and its transport,
 and N ``QueryEngine`` replicas behind one lifecycle.  Writes go through
@@ -16,8 +16,10 @@ The layers stay importable for composition and tests: ``QueryEngine``
 transports (``LocalTransport``, ``DirTransport``, ``SocketTransport``,
 ``load_snapshot`` in the reference's npz layout) and ``ReplicaGroup``,
 the puller end of a transport that ``SPCService(role="replica")``
-wraps.  The sharded serving path belongs to the distributed slice
-(ROADMAP queue 1, item 5).
+wraps.  Over a device mesh (``repro_torch.launch.mesh``) the service
+runs its updater edge-sharded (``mesh=``), stages snapshots replicated
+over a serving mesh (``serve_mesh=``) and binds ``sharded`` policies to
+it (``QueryEngine.sharded``), all from one controller process.
 """
 
 from repro_torch.serve.engine import (DEFAULT_BUCKETS, QueryEngine,

@@ -1,6 +1,6 @@
 """Unified SPC query-serving engine (the DSPC read hot path).
 
-Port of ``repro.serve.engine`` (single device):
+Port of ``repro.serve.engine``:
 
 1. **Validate on the host.**  Ids are bounds-checked as numpy arrays
    on their natural dtype before anything reaches the device (a torch
@@ -28,12 +28,17 @@ Port of ``repro.serve.engine`` (single device):
    ``SnapshotStore``: each batch pins one published (version, index)
    snapshot, and per-version query counts land in ``stats.versions``.
 
+5. **Shard.**  :meth:`QueryEngine.sharded` wraps
+   ``repro_torch.core.distributed.make_sharded_query`` (the index
+   replicated once per distinct device of a serving mesh, the batch
+   split over its batch axes, the merge core on each shard) with the
+   same pad-and-slice handling, so mesh replicas serve any batch size.
+
 The engine is stateless with respect to the index (pass it per call)
 and stateful only in its route and counters, so one engine can front
 many reader threads; every thread launches on the current stream of
 the index's device, so a reader never reads a snapshot's rows on
-another stream than the one that wrote them.  ``sharded`` serving
-belongs to the distributed slice of the port (ROADMAP queue 1, item 5).
+another stream than the one that wrote them.
 """
 
 from __future__ import annotations
@@ -157,6 +162,18 @@ class QueryEngine:
         self.stats = ServeStats()
 
     @staticmethod
+    def _single_device_route(route) -> str:
+        """A per-call route for the single-device path; a policy that
+        needs a mesh must bind through :meth:`sharded`."""
+        policy = RoutePolicy.coerce(route)
+        if policy.needs_mesh:
+            raise ValueError(
+                "sharded RoutePolicy cannot be evaluated on the "
+                "single-device query path; bind it through "
+                "QueryEngine.sharded(mesh) or SPCService.reader")
+        return policy.engine_route
+
+    @staticmethod
     def _validate_ids(n: int, s: np.ndarray, t: np.ndarray) -> None:
         """Host-side bounds check of the query ids."""
         for arr in (s, t):
@@ -173,8 +190,8 @@ class QueryEngine:
         t = np.asarray(t).reshape(-1)
         if s.shape != t.shape:
             raise ValueError(f"s/t shape mismatch: {s.shape} vs {t.shape}")
-        route = (RoutePolicy.coerce(route).engine_route
-                 if route is not None else self.route)
+        route = (self._single_device_route(route) if route is not None
+                 else self.route)
         self._validate_ids(idx.n, s, t)
         assert_no_locks_held("QueryEngine.query_batch")
         b = s.shape[0]
@@ -203,23 +220,74 @@ class QueryEngine:
         d, c = self.query_batch(idx, [s], [t])
         return int(d[0]), int(c[0])
 
-    def serve_from(self, store, *, mesh=None):
+    # -- multi-device serving ----------------------------------------------
+    def sharded(self, mesh, batch_axes: Tuple[str, ...] = ("data",)):
+        """Serving closure over replicated-index / batch-sharded replicas
+        (``src/repro/serve/engine.py:308``).
+
+        Returns ``serve(idx, s, t, route=None) -> (dist[B], cnt[B])``;
+        batches are padded with dump-row pairs ``(n, n)`` to a bucket
+        that divides over the mesh axes, so callers keep any batch size.
+        Only the merge core is sharded: a route other than ``auto`` /
+        ``merge`` (per call, or the engine's own) raises.
+        """
+        from repro_torch.core.distributed import make_sharded_query
+
+        fn = make_sharded_query(mesh, batch_axes)
+        shards = 1
+        for ax in batch_axes:
+            shards *= mesh.shape[ax]
+        axes = "x".join(batch_axes)
+
+        def serve(idx: SPCIndex, s, t, route=None):
+            s = np.asarray(s).reshape(-1)
+            t = np.asarray(t).reshape(-1)
+            if s.shape != t.shape:
+                raise ValueError(
+                    f"s/t shape mismatch: {s.shape} vs {t.shape}")
+            route_ = (RoutePolicy.coerce(route).engine_route
+                      if route is not None else self.route)
+            if route_ not in ("auto", "merge"):
+                raise ValueError(
+                    f"route {route_!r} is not available on the sharded "
+                    f"serving path (only the sorted-merge core is "
+                    f"sharded); use route='auto' or 'merge'")
+            self._validate_ids(idx.n, s, t)
+            assert_no_locks_held("QueryEngine.sharded.serve")
+            b = s.shape[0]
+            if b == 0:  # see query_batch: no dispatch, no phantom batch
+                return (torch.empty(0, dtype=torch.int32, device=idx.device),
+                        torch.empty(0, dtype=torch.int64, device=idx.device))
+            bp = bucket_size(b, self.buckets)
+            bp = -(-bp // shards) * shards  # divisible over the mesh axes
+            ids = np.full((2, bp), idx.n, dtype=np.int64)  # dump-row pads
+            ids[0, :b] = s
+            ids[1, :b] = t
+            ids = torch.from_numpy(ids)
+            d, c = fn(idx, ids[0], ids[1])
+            self.stats.count(f"sharded[{axes}]:merge", b)
+            return d[:b], c[:b]
+
+        return serve
+
+    def serve_from(self, store, *, mesh=None,
+                   batch_axes: Tuple[str, ...] = ("data",)):
         """Serving closure over a ``SnapshotStore``
         (``src/repro/serve/engine.py:363``): each batch pins
         ``store.current()`` for its whole duration, so a concurrent
         publish of version k + 1 never touches a batch answering from
         version k.  Returns ``serve(s, t, route=None) -> (dist[B],
         cnt[B])``; per-version query counts land in ``stats.versions``.
-        ``mesh=`` (sharded replicas) belongs to the distributed slice
-        of the port (ROADMAP queue 1, item 5)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "serve_from(mesh=...) belongs to the distributed slice of "
-                "the port (ROADMAP queue 1, item 5)")
+        With ``mesh=`` each batch is answered through :meth:`sharded`
+        replicas over ``batch_axes``."""
+        inner = self.sharded(mesh, batch_axes) if mesh is not None else None
 
         def serve(s, t, route=None):
             snap = store.current()  # pinned for the whole batch
-            d, c = self.query_batch(snap.index, s, t, route=route)
+            if inner is not None:
+                d, c = inner(snap.index, s, t, route=route)
+            else:
+                d, c = self.query_batch(snap.index, s, t, route=route)
             b = int(d.shape[0])
             if b:
                 self.stats.count_version(snap.version, b)

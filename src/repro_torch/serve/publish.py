@@ -1,6 +1,6 @@
 """Versioned snapshot publish: the update -> read coordination layer.
 
-Port of ``repro.serve.publish`` (single device).  The updater stages
+Port of ``repro.serve.publish``.  The updater stages
 snapshot k + 1 outside the store's lock while readers keep their pinned
 snapshot k; :meth:`SnapshotStore.publish` then swaps the front pointer
 under ``store.lock`` and bumps a monotone version.  A non-increasing
@@ -15,9 +15,10 @@ committed mutation or event chunk.  Consumer side: the service's
 readers, ``QueryEngine.serve_from`` and the analytics layer pin
 ``store.current()``.
 
-The reference's ``mesh=`` (replicated serving layout) belongs to the
-distributed slice of the port (ROADMAP queue 1, item 5) and raises
-``NotImplementedError``.
+``mesh=`` (a ``repro_torch.launch.mesh.Mesh``) stages every snapshot
+replicated over the serving mesh before the swap
+(``repro_torch.core.distributed.replicate_index``: one copy per
+distinct device), so sharded readers never copy mid-batch.
 """
 
 from __future__ import annotations
@@ -38,17 +39,14 @@ class SnapshotStore:
     for the duration of their work.  ``transport=`` plugs the medium
     every committed swap is forwarded through; ``checkpoint_dir=`` /
     ``async_checkpoint=`` / ``keep=`` build the equivalent
-    ``DirTransport``.
+    ``DirTransport``; ``mesh=`` places each staged snapshot replicated
+    over the mesh.
     """
 
     def __init__(self, index: SPCIndex | None = None, *, version: int = 0,
                  mesh=None, transport: SnapshotTransport | None = None,
                  checkpoint_dir: str | None = None,
                  async_checkpoint: bool = False, keep: int = 3) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "SnapshotStore(mesh=...) belongs to the distributed slice "
-                "of the port (ROADMAP queue 1, item 5)")
         if transport is not None and checkpoint_dir is not None:
             raise ValueError(
                 "pass transport= OR the legacy checkpoint_dir= shim, "
@@ -58,6 +56,7 @@ class SnapshotStore:
                                       async_save=async_checkpoint)
                          if checkpoint_dir is not None else LocalTransport())
         self._lock = make_lock("store.lock")
+        self._mesh = mesh
         self._transport = transport
         self._front: Optional[Snapshot] = None
         self.publishes = 0  # swap count (excludes the seed snapshot)
@@ -90,10 +89,14 @@ class SnapshotStore:
 
     # -- publisher side -----------------------------------------------------
     def _stage(self, index: SPCIndex) -> SPCIndex:
-        """Write the back buffer, outside the lock.  On one device the
+        """Write the back buffer, outside the lock.  Without a mesh the
         published index is the updater's own (never written in place),
-        so staging places nothing."""
+        so staging places nothing; with one, every distinct device of
+        the mesh gets its copy here, on its current stream."""
         assert_no_locks_held("SnapshotStore._stage")
+        if self._mesh is not None:
+            from repro_torch.core.distributed import replicate_index
+            index = replicate_index(self._mesh, index)
         return index
 
     def publish(self, index: SPCIndex, *, version: int | None = None) -> int:

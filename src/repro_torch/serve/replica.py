@@ -12,9 +12,10 @@ that
    ``cnt_sum`` rows), and the group refuses a snapshot whose vertex
    count differs from what it serves;
 3. **stages onto its device and swaps locally** -- a snapshot pulled
-   onto another device is copied onto the group's ``device`` before it
-   is published into the group's own ``SnapshotStore``, so local
-   readers keep the pin-per-batch contract;
+   onto another device is copied onto the group's ``device`` (with
+   ``mesh=``, replicated over the serving mesh by the local store)
+   before it is published into the group's own ``SnapshotStore``, so
+   local readers keep the pin-per-batch contract;
 4. **keeps serving through puller failures** -- a failed pull is
    recorded and retried, never propagated to readers;
 5. **re-attaches to a restarted updater** -- a remote pointer behind
@@ -48,9 +49,9 @@ class ReplicaGroup:
     puller thread each; the store's monotone version makes several
     sources safe).  ``poll_interval_s`` bounds staleness on polling
     media and is the doorbell wait on subscribing ones.  Pulled
-    snapshots are staged onto ``device`` (default ``"cuda"``).
-    ``mesh=`` belongs to the distributed slice (ROADMAP queue 1, item
-    5).
+    snapshots are staged onto ``device`` (default ``"cuda"``); with
+    ``mesh=`` the local store stages each one replicated over the
+    serving mesh instead (``core.distributed.replicate_index``).
 
     Lifecycle: :meth:`start` blocks (bounded) until the first snapshot
     is pulled, then keeps pulling in the background until
@@ -60,10 +61,6 @@ class ReplicaGroup:
     def __init__(self, *transports: SnapshotTransport,
                  poll_interval_s: float = 0.05, mesh=None,
                  device="cuda") -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "ReplicaGroup(mesh=...) belongs to the distributed slice "
-                "of the port (ROADMAP queue 1, item 5)")
         if not transports:
             raise ValueError("ReplicaGroup needs at least one transport")
         if poll_interval_s <= 0:
@@ -72,7 +69,8 @@ class ReplicaGroup:
         self.device = resolve_device(device)
         self._transports = tuple(transports)
         self.poll_interval_s = float(poll_interval_s)
-        self._store = SnapshotStore()
+        self._mesh = mesh
+        self._store = SnapshotStore(mesh=mesh)
         self._lock = make_lock("replica.lock")
         self._stop = threading.Event()
         self._threads: list = []
@@ -122,9 +120,10 @@ class ReplicaGroup:
 
     def _stage(self, snap: Snapshot) -> Snapshot:
         """The pulled snapshot on this group's device (a copy when the
-        medium delivered it elsewhere)."""
+        medium delivered it elsewhere); over a mesh the local store
+        places it."""
         idx = snap.index
-        if idx.device == self.device:
+        if self._mesh is not None or idx.device == self.device:
             return snap
         moved = dataclasses.replace(idx, **{
             f.name: getattr(idx, f.name).to(self.device)

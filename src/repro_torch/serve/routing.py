@@ -1,6 +1,6 @@
 """Routing policies: the serving route as a validated value object.
 
-Port of ``repro.serve.routing`` for the single-device routes:
+Port of ``repro.serve.routing``:
 
 ========  ==============================================================
 kind      meaning
@@ -10,17 +10,18 @@ merge     plain-torch int64 sorted merge -- exact everywhere
 table     plain-torch L x L comparison table (parity debugging)
 kernel    the hand-written CUDA ``spc_query`` kernel (int64, exact for
           every row); on a CPU index its plain version
+sharded   the index replicated over a serving mesh, the batch split over
+          its ``batch_axes`` (the merge core only, as the reference)
 ========  ==============================================================
 
-An unknown kind raises ``ValueError`` when the policy is built, not
-when the first batch arrives.  Policies are frozen (hashable,
-comparable) so configs can carry them as plain values;
-:meth:`RoutePolicy.coerce` upgrades route strings and ``{"kind": ...}``
-mappings.  The reference's ``"pallas"`` names the TPU kernel route and
-coerces to ``kernel``; its Pallas knobs (``block_b``, ``interpret``)
-have no counterpart, since the CUDA kernel takes none.  Its
-``"sharded"`` route belongs to the distributed slice of the port
-(ROADMAP queue 1, item 5) and raises ``NotImplementedError``.
+An unknown kind, or a ``sharded`` policy without batch axes, raises
+``ValueError`` when the policy is built, not when the first batch
+arrives.  Policies are frozen (hashable, comparable) so configs can
+carry them as plain values; :meth:`RoutePolicy.coerce` upgrades route
+strings and ``{"kind": ..., "batch_axes": ...}`` mappings.  The
+reference's ``"pallas"`` names the TPU kernel route and coerces to
+``kernel``; its Pallas knobs (``block_b``, ``interpret``) have no
+counterpart, since the CUDA kernel takes none.
 
 The reference also reads a per-row 2^24 count bound
 (``core/query.py::cached_count_bound``) to keep its f32 kernel exact;
@@ -31,16 +32,15 @@ port's copies of those helpers have no caller here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, Tuple
 
-#: Kinds a policy may name; each is one engine route.
-KINDS = ("auto", "merge", "table", "kernel")
+#: Kinds a policy may name.  The first four are single-device engine
+#: routes; ``sharded`` selects the multi-device replica path
+#: (``QueryEngine.sharded``) and needs a serving mesh at bind time.
+KINDS = ("auto", "merge", "table", "kernel", "sharded")
 
 #: The reference's kind names that have another name here.
 _ALIASES = {"pallas": "kernel"}
-
-_SHARDED = ("the 'sharded' route belongs to the distributed slice of the "
-            "port (ROADMAP queue 1, item 5)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,15 +48,31 @@ class RoutePolicy:
     """One validated serving-route decision (see module doc)."""
 
     kind: str
+    #: Mesh axes the batch is split over (``sharded`` only).
+    batch_axes: Tuple[str, ...] = ()
 
     def __post_init__(self):
-        if self.kind == "sharded":
-            raise NotImplementedError(_SHARDED)
         if self.kind in _ALIASES:
             object.__setattr__(self, "kind", _ALIASES[self.kind])
         if self.kind not in KINDS:
             raise ValueError(
                 f"unknown route kind {self.kind!r}; want one of {KINDS}")
+        if self.kind == "sharded":
+            axes = tuple(self.batch_axes)
+            if not axes or not all(isinstance(a, str) and a for a in axes):
+                raise ValueError(
+                    f"sharded route needs non-empty mesh axis names, got "
+                    f"batch_axes={self.batch_axes!r}")
+            object.__setattr__(self, "batch_axes", axes)
+        elif self.batch_axes:
+            raise ValueError(
+                f"batch_axes only apply to the 'sharded' route, not "
+                f"{self.kind!r}")
+
+    @classmethod
+    def sharded(cls, batch_axes: Tuple[str, ...] = ("data",)
+                ) -> "RoutePolicy":
+        return cls("sharded", batch_axes=tuple(batch_axes))
 
     @classmethod
     def coerce(cls, route) -> "RoutePolicy":
@@ -67,27 +83,30 @@ class RoutePolicy:
         if isinstance(route, RoutePolicy):
             return route
         if isinstance(route, str):
+            if route == "sharded":
+                return cls.sharded()   # default batch axes
             return cls(route)
         if isinstance(route, Mapping):
             kw = dict(route)
             kind = kw.pop("kind", "auto")
+            axes = tuple(kw.pop("batch_axes", ()))
             if kw:
                 raise ValueError(
                     f"route mapping has unknown keys {sorted(kw)}; the "
-                    f"port's policies carry only 'kind' (the CUDA kernel "
-                    f"takes no knobs)")
-            return cls(kind)
+                    f"port's policies carry only 'kind' and 'batch_axes' "
+                    f"(the CUDA kernel takes no knobs)")
+            return cls(kind, batch_axes=axes)
         raise ValueError(
             f"route must be a RoutePolicy or one of {KINDS}, got "
             f"{type(route).__name__} {route!r}")
 
     @property
     def needs_mesh(self) -> bool:
-        """True when binding this policy requires a serving mesh: never
-        for the port's kinds (``sharded`` raises when built)."""
-        return False
+        """True when binding this policy requires a serving mesh."""
+        return self.kind == "sharded"
 
     @property
     def engine_route(self) -> str:
-        """The engine route evaluating this policy's batches."""
-        return self.kind
+        """The single-device engine route evaluating this policy's
+        batches (the sharded replica path shards the merge core only)."""
+        return "merge" if self.kind == "sharded" else self.kind

@@ -45,9 +45,12 @@ engines and, on a replica, the puller group, behind one lifecycle.
   the one that wrote them, so the caching allocator cannot hand a
   pinned snapshot's memory to the updater.
 
-``mesh=``, ``serve_mesh=`` and sharded policies belong to the
-distributed slice of the port (ROADMAP queue 1, item 5) and raise
-``NotImplementedError``.
+* **Meshes.**  ``mesh=`` (a ``repro_torch.launch.mesh.Mesh``) runs the
+  updater edge-sharded over its ``edge_axis``; ``serve_mesh=`` stages
+  every published snapshot replicated over the serving mesh, and
+  ``sharded`` policies bind to it, splitting each batch over
+  ``batch_axes``.  One controller (this process) drives every device of
+  both meshes, so the threads above keep their contracts unchanged.
 
 Thread contract: any number of submitter and reader threads, one
 internal updater thread (or, on replicas, one puller thread per source
@@ -85,9 +88,6 @@ ROLES = ("updater", "replica")
 #: (real tickets start at 1), a fresh :class:`Session` starts on it, and
 #: every read-your-writes wait keyed on it returns immediately.
 NO_TICKET = 0
-
-_DISTRIBUTED = ("belongs to the distributed slice of the port (ROADMAP "
-                "queue 1, item 5)")
 
 
 class UpdaterError(RuntimeError):
@@ -156,6 +156,10 @@ class SPCService:
 
     Parameters beyond the ``DynamicSPC`` build args:
 
+    ``serve_mesh`` / ``batch_axes``
+        Serving-replica mesh: snapshots are staged replicated over it
+        and ``sharded`` route policies bind to it.  Independent of the
+        updater's ``mesh`` / ``edge_axis`` (edge-sharded updates).
     ``route``
         Default ``RoutePolicy`` (or route string) for readers.
     ``replicas``
@@ -187,8 +191,10 @@ class SPCService:
                  edges: Sequence[Tuple[int, int]] = (), *,
                  spc: DynamicSPC | None = None,
                  l_cap: int | None = 32, cap_e: int | None = None,
-                 mesh=None, construct_batch: int | None = None,
-                 vertex_order: str = "id", serve_mesh=None,
+                 mesh=None, edge_axis: str = "model",
+                 construct_batch: int | None = None,
+                 vertex_order: str = "id",
+                 serve_mesh=None, batch_axes: Tuple[str, ...] = ("data",),
                  route: RoutePolicy | str | None = None,
                  replicas: int = 1, queue_size: int = 8,
                  update_batch: int = DEFAULT_BATCH,
@@ -200,11 +206,6 @@ class SPCService:
                  checkpoint_dir: str | None = None,
                  async_checkpoint: bool = False,
                  wait_timeout: float = 60.0, device="cuda") -> None:
-        if mesh is not None:
-            raise NotImplementedError(f"SPCService(mesh=...) {_DISTRIBUTED}")
-        if serve_mesh is not None:
-            raise NotImplementedError(
-                f"SPCService(serve_mesh=...) {_DISTRIBUTED}")
         if role not in ROLES:
             raise ValueError(f"unknown role {role!r}; want one of {ROLES}")
         if role == "replica":
@@ -220,7 +221,8 @@ class SPCService:
         elif spc is None:
             if n is None:
                 raise ValueError("pass n (+ edges) or a prebuilt spc=")
-            spc = DynamicSPC(n, edges, l_cap, cap_e, device=device,
+            spc = DynamicSPC(n, edges, l_cap, cap_e, mesh=mesh,
+                             edge_axis=edge_axis, device=device,
                              construct_batch=construct_batch,
                              vertex_order=vertex_order)
         if not isinstance(replicas, int) or replicas < 1:
@@ -231,7 +233,13 @@ class SPCService:
             raise ValueError(
                 f"update_batch must be >= 1 (or None for per-event "
                 f"replay), got {update_batch!r}")
-        self._policy = RoutePolicy.coerce(route)
+        self._serve_mesh = serve_mesh
+        self._batch_axes = tuple(batch_axes)
+        self._policy = self._coerce_route(route)
+        if self._policy.needs_mesh and serve_mesh is None:
+            raise ValueError(
+                f"route policy {self._policy} needs a serving mesh; "
+                f"pass serve_mesh=")
         self.role = role
         self._spc = spc  # None on replicas: no updater, no ingest
         self._group: ReplicaGroup | None = None
@@ -246,7 +254,7 @@ class SPCService:
             tr = make_transport(spec, publish_dir=publish_dir,
                                 keep=keep_published, device=device)
             self._group = ReplicaGroup(tr, poll_interval_s=poll_interval_s,
-                                       device=device)
+                                       mesh=serve_mesh, device=device)
             self._store = self._group.store
         else:
             effective_dir = publish_dir
@@ -263,7 +271,7 @@ class SPCService:
                                 keep=keep_published,
                                 async_save=async_checkpoint,
                                 device=spc.device)
-            self._store = spc.attach_store(transport=tr)
+            self._store = spc.attach_store(mesh=serve_mesh, transport=tr)
         self._buckets = tuple(buckets)
         self._engines = [QueryEngine(route=self._policy,
                                      buckets=self._buckets)
@@ -291,6 +299,14 @@ class SPCService:
         #: ticket scope for direct ``service.submit`` calls; explicit
         #: per-caller scopes come from :meth:`session`
         self._default_session = Session(self)
+
+    def _coerce_route(self, route) -> RoutePolicy:
+        """Coerce to a ``RoutePolicy``; the bare string ``"sharded"``
+        picks up the service's ``batch_axes`` (an explicit policy keeps
+        its own)."""
+        if route == "sharded":
+            return RoutePolicy.sharded(self._batch_axes)
+        return RoutePolicy.coerce(route)
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "SPCService":
@@ -601,7 +617,8 @@ class SPCService:
         duration; the consistency level decides *which* versions are
         acceptable to pin.  Read-your-writes waits for the bound
         ``session=``'s last ticket (default: the service's default
-        session).  ``route=`` overrides the service's default policy.
+        session).  ``route=`` overrides the service's default policy; a
+        ``sharded`` policy binds the service's ``serve_mesh`` replicas.
         After each call ``serve.last_version`` holds the version that
         batch pinned.
         """
@@ -615,8 +632,21 @@ class SPCService:
                 "with the default consistency='pinned' only")
         sess = self._default_session if session is None else session
         policy = (self._policy if route is None
-                  else RoutePolicy.coerce(route))
+                  else self._coerce_route(route))
         engine = self._engine_for(policy)
+        sharded = None
+        if policy.needs_mesh:
+            if self._serve_mesh is None:
+                raise ValueError(
+                    f"route policy {policy} needs a serving mesh; build "
+                    f"the service with serve_mesh=")
+            missing = [a for a in policy.batch_axes
+                       if a not in self._serve_mesh.shape]
+            if missing:
+                raise ValueError(
+                    f"batch axes {missing} not on the serving mesh "
+                    f"(axes: {tuple(self._serve_mesh.shape)})")
+            sharded = engine.sharded(self._serve_mesh, policy.batch_axes)
         engine_route = policy.engine_route
 
         # replicas serve id-ordered snapshots: the order leaf does not
@@ -640,7 +670,13 @@ class SPCService:
             elif consistency == "read_your_writes":
                 self.wait_for_ticket(sess.last_ticket, timeout)
             snap = self._store.current()   # pinned for the whole batch
-            d, c = engine.query_batch(snap.index, s, t, route=engine_route)
+            if sharded is not None:
+                # the policy's route, not the engine's default: a shared
+                # replica may default to a route the sharded path refuses
+                d, c = sharded(snap.index, s, t, route=engine_route)
+            else:
+                d, c = engine.query_batch(snap.index, s, t,
+                                          route=engine_route)
             b = int(d.shape[0])
             if b:
                 engine.stats.count_version(snap.version, b)
@@ -745,25 +781,22 @@ class SPCService:
 
     @classmethod
     def from_state_dict(cls, n: int, state: dict, *, mesh=None,
-                        device="cuda", **service_kwargs) -> "SPCService":
-        if mesh is not None:
-            raise NotImplementedError(
-                f"from_state_dict(mesh=...) {_DISTRIBUTED}")
-        return cls(spc=DynamicSPC.from_state_dict(n, state, device=device),
-                   **service_kwargs)
+                        edge_axis: str = "model", device="cuda",
+                        **service_kwargs) -> "SPCService":
+        return cls(spc=DynamicSPC.from_state_dict(
+            n, state, mesh=mesh, edge_axis=edge_axis, device=device),
+            **service_kwargs)
 
     @classmethod
     def from_checkpoint(cls, path: str, n: int, step: int | None = None,
-                        *, mesh=None, device="cuda",
-                        **service_kwargs) -> "SPCService":
+                        *, mesh=None, edge_axis: str = "model",
+                        device="cuda", **service_kwargs) -> "SPCService":
         """Restore the ``DynamicSPC`` from a checkpoint of a ``state_dict()``
-        written by either package, onto ``device``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                f"from_checkpoint(mesh=...) {_DISTRIBUTED}")
-        return cls(spc=DynamicSPC.from_checkpoint(path, n, step,
-                                                  device=device),
-                   **service_kwargs)
+        written by either package, onto ``device`` (edge-sharded over
+        ``mesh`` when given)."""
+        return cls(spc=DynamicSPC.from_checkpoint(
+            path, n, step, mesh=mesh, edge_axis=edge_axis, device=device),
+            **service_kwargs)
 
     @classmethod
     def from_config(cls, config=None, *, mesh=None, serve_mesh=None,
@@ -776,11 +809,10 @@ class SPCService:
         (``repro_torch.data.random_graph_edges(n, m, seed)``) unless
         ``edges=`` overrides it; ``l_cap`` / ``update_batch`` /
         ``queue_size`` / ``replicas`` / ``route`` come from the config
-        (keyword ``overrides`` win).
+        (keyword ``overrides`` win).  ``mesh=`` runs the updater
+        edge-sharded; ``serve_mesh=`` places snapshots for sharded
+        serving replicas.
         """
-        if mesh is not None or serve_mesh is not None:
-            raise NotImplementedError(
-                f"from_config(mesh= / serve_mesh=) {_DISTRIBUTED}")
         if config is None:
             from repro_torch.configs.dspc import CONFIG as config
         kwargs = dict(
@@ -794,7 +826,7 @@ class SPCService:
         kwargs.update(overrides)
         if kwargs["role"] == "replica":
             # a replica builds no graph and no updater: it only pulls
-            return cls(device=device, **kwargs)
+            return cls(serve_mesh=serve_mesh, device=device, **kwargs)
         if edges is None:
             from repro_torch.data import random_graph_edges
             edges = random_graph_edges(config.n, config.m, seed=seed)
@@ -807,4 +839,5 @@ class SPCService:
         ), **{k: v for k, v in overrides.items() if k in (
             "l_cap", "update_batch", "queue_size", "construct_batch",
             "vertex_order")})
-        return cls(config.n, edges, device=device, **kwargs)
+        return cls(config.n, edges, mesh=mesh, serve_mesh=serve_mesh,
+                   device=device, **kwargs)

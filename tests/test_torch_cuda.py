@@ -38,6 +38,13 @@ every consistency level, a checkpoint restart) and its front door
 (concurrent callers, coalesced into kernel launches) answer as the same
 stack on the CPU, a replica pulling from the card's directory stages
 onto the card, and 8 threads launching K1 at once count every launch.
+Distributed DSPC runs on the card: a mesh of four ``cuda:0`` entries
+builds, applies events and serves (a mesh-staged store, the sharded
+route, an ``SPCService`` with both meshes) exactly as the single-device
+engine does; a mesh that mixes the card with the CPU places edge
+shards, index copies and query shards on both devices with the same
+answers; and, on a machine with several cards, a mesh of every card
+does the same through NCCL's reduce and broadcast.
 """
 
 import dataclasses
@@ -865,3 +872,65 @@ def test_threaded_launches_count_exactly(card):
         th.join(timeout=60)
     torch.cuda.synchronize()
     assert launches.count - before == 8 * 50
+
+
+def _card_mesh_case(devices):
+    from repro_torch.launch.mesh import make_mesh
+    n = 96
+    edges = random_graph_edges(n, 300, seed=7)
+    events = graph_stream(edges, n, 8, 8, seed=8)
+    mesh = make_mesh((len(devices),), ("model",), devices)
+    sharded = DynamicSPC(n, edges, l_cap=None, construct_batch=8, mesh=mesh)
+    single = DynamicSPC(n, edges, l_cap=None, construct_batch=8)
+    for tag in ("build", "events"):
+        want, got = single.state_dict(), sharded.state_dict()
+        assert all(got[k].tobytes() == want[k].tobytes() for k in want), tag
+        if tag == "build":
+            sharded.apply_events(events, batch_size=16)
+            single.apply_events(events, batch_size=16)
+    return n, sharded, single
+
+
+@pytest.mark.parametrize("devices", [["cuda:0"] * 4,
+                                     ["cuda:0", "cpu", "cuda:0", "cpu"],
+                                     "every card"])
+def test_sharded_build_and_serve_on_the_card(card, devices):
+    from repro_torch.core.distributed import (make_distributed_updater,
+                                              replicas_of)
+    from repro_torch.core.graph import edge_set
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import SnapshotStore, SPCService
+    if devices == "every card":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two or more cards (NCCL reduce and "
+                        "broadcast across distinct cards)")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    n, sharded, single = _card_mesh_case(devices)
+    relax = make_distributed_updater(sharded._updater.mesh,
+                                     "model").multi_relax_fn
+    assert relax.placements >= 1 and relax.reductions > relax.placements
+    serve_mesh = make_mesh((len(devices),), ("data",), devices)
+    store = SnapshotStore(sharded.index, mesh=serve_mesh)
+    copies = replicas_of(store.current().index)
+    assert sorted(str(d) for d in copies) == sorted(
+        str(d) for d in serve_mesh.distinct_devices)
+    eng = QueryEngine()
+    serve = eng.serve_from(store, mesh=serve_mesh)
+    rng = np.random.default_rng(1)
+    for b in (1, 13, 1024):
+        s, t = rng.integers(0, n, b), rng.integers(0, n, b)
+        d, c = serve(s, t)
+        d0, c0 = QueryEngine().query_batch(single.index, s, t)
+        assert d.is_cuda and torch.equal(d, d0) and torch.equal(c, c0)
+    assert dict(eng.stats.routes) == {"sharded[data]:merge": 3}
+    with SPCService(spc=sharded, serve_mesh=serve_mesh, route="sharded",
+                    wait_timeout=60.0) as svc:
+        sess = svc.session()
+        a, b = next((a, b) for a in range(n) for b in range(a + 1, n)
+                    if (a, b) not in edge_set(sharded.graph))
+        sess.submit([("+", a, b)])
+        d, c = sess.reader()([a], [b])
+        assert (int(d[0]), int(c[0])) == (1, 1)
+        res = plain_spc_bfs(sharded.graph, a)
+        d, c = sess.reader()(np.full(n, a), np.arange(n))
+        assert torch.equal(d, res.dist[:n]) and torch.equal(c, res.cnt[:n])

@@ -164,8 +164,14 @@ def test_route_policy():
     for bad in ({"kind": "pallas", "block_b": 64}, "bogus", 3):
         with pytest.raises(ValueError):
             RoutePolicy.coerce(bad)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        RoutePolicy.coerce("sharded")
+    sh = RoutePolicy.coerce("sharded")
+    assert sh == RoutePolicy.sharded(("data",)) and sh.needs_mesh
+    assert sh.engine_route == "merge"
+    sh = RoutePolicy.coerce({"kind": "sharded", "batch_axes": ["x", "y"]})
+    assert sh.batch_axes == ("x", "y") and sh.needs_mesh
+    for bad in ({"kind": "sharded"}, {"kind": "merge", "batch_axes": ["x"]}):
+        with pytest.raises(ValueError, match="batch_axes|axis names"):
+            RoutePolicy.coerce(bad)
     assert QueryEngine(route=RoutePolicy("table")).route == "table"
 
 

@@ -20,8 +20,10 @@ import pytest
 from repro.core.dynamic import DynamicSPC as JaxDSPC
 from repro.data import graph_stream, random_graph_edges
 from repro_torch.core import graph as G
+from repro_torch.core.distributed import replicas_of
 from repro_torch.core.dynamic import DynamicSPC
 from repro_torch.core.graph import edge_set
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.serve import (LocalTransport, PublisherBehindError,
                                QueryEngine, Snapshot, SnapshotGoneError,
                                SnapshotStore)
@@ -79,12 +81,15 @@ def test_snapshot_is_immutable_dataclass(svc):
 
 
 def test_later_slices_options_raise(svc, tmp_path):
-    """``mesh=`` stays the distributed slice's; ``checkpoint_dir=``
-    publishes into that directory as the reference's store does: the
-    same committed steps, manifests and bytes, readable by the
-    reference's ``load_snapshot``."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        SnapshotStore(svc.index, mesh=object())
+    """``mesh=`` stages the seed snapshot over the mesh (one copy per
+    distinct device: four ``cpu`` entries share the index itself);
+    ``checkpoint_dir=`` publishes into that directory as the reference's
+    store does: the same committed steps, manifests and bytes, readable
+    by the reference's ``load_snapshot``."""
+    mesh = make_mesh((4,), ("data",), ["cpu"] * 4)
+    staged = SnapshotStore(svc.index, mesh=mesh).current().index
+    assert replicas_of(staged) == {staged.device: staged}
+    assert _bytes(staged) == _bytes(svc.index)
     with pytest.raises(ValueError, match="not both"):
         SnapshotStore(svc.index, checkpoint_dir=str(tmp_path / "x"),
                       transport=LocalTransport())

@@ -19,6 +19,7 @@ from repro_torch.configs.dspc import SMOKE
 from repro_torch.core.dynamic import DynamicSPC
 from repro_torch.core.graph import edge_set
 from repro_torch.data import graph_stream, random_graph_edges
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.serve import (DirTransport, LocalTransport,
                                PublisherBehindError, ReplicaGroup,
                                ReplicaReadOnlyError, Snapshot, SnapshotStore,
@@ -115,8 +116,16 @@ def test_group_follows_and_stages_on_its_device():
         assert st["version"] == store.version == 2 and st["errors"] == 0
         assert st["pulls"] >= 1 and st["sources"] == 1
         assert group._stage(store.current()) is store.current()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ReplicaGroup(tr, mesh=object(), device="cpu")
+    # over a mesh the local store stages each pulled version
+    mesh = make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    with ReplicaGroup(tr, poll_interval_s=0.01, mesh=mesh,
+                      device="cpu") as group:
+        assert group.version == store.version
+        assert group._stage(store.current()) is store.current()
+        spc.apply_events(graph_stream(sorted(edge_set(spc.graph)), N, 2, 1,
+                                      seed=6), batch_size=3)
+        group.wait_for_version(store.version, timeout=WAIT)
+        assert _bytes(group.store.current().index) == _bytes(spc.index)
     with pytest.raises(ValueError, match="at least one"):
         ReplicaGroup(device="cpu")
 

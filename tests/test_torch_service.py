@@ -23,6 +23,7 @@ from repro_torch.configs.dspc import SMOKE
 from repro_torch.core.bfs import plain_spc_bfs
 from repro_torch.core.graph import edge_set
 from repro_torch.data import graph_stream, random_graph_edges
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.serve import (CONSISTENCY_LEVELS, NO_TICKET, ROLES,
                                RoutePolicy, ServeStats, SPCService,
                                UpdaterError)
@@ -138,13 +139,31 @@ def test_checkpointed_state_restores_across_packages(writer, tmp_path):
 
 
 def test_distributed_options_name_the_distributed_slice():
-    for kw in ({"mesh": object()}, {"serve_mesh": object()}):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            _service(**kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    """``mesh=`` (the updater edge-sharded) and ``serve_mesh=`` (snapshots
+    staged over the serving mesh) leave the state and the answers of the
+    single-device service; ``route="sharded"`` needs a serving mesh, as
+    the reference's does."""
+    mesh = make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    plain = _service()
+    want = plain.state_dict()
+    s, t = np.arange(N), np.arange(N)[::-1].copy()
+    d0, c0 = plain.query_batch(s, t)
+    for kw in ({"mesh": mesh}, {"serve_mesh": mesh}):
+        svc = _service(**kw)
+        _assert_state_equal(svc.state_dict(), want)
+        d, c = svc.query_batch(s, t)
+        np.testing.assert_array_equal(d.numpy(), d0.numpy())
+        np.testing.assert_array_equal(c.numpy(), c0.numpy())
+    with pytest.raises(ValueError, match="serve_mesh"):
         _service(route="sharded")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        SPCService.from_config(SMOKE, serve_mesh=object(), device="cpu")
+    svc = SPCService.from_config(SMOKE, edges=_edges(), mesh=mesh,
+                                 serve_mesh=mesh, route="sharded",
+                                 device="cpu")
+    _assert_state_equal(svc.state_dict(), want)
+    d, c = svc.query_batch(s, t)
+    np.testing.assert_array_equal(d.numpy(), d0.numpy())
+    np.testing.assert_array_equal(c.numpy(), c0.numpy())
+    assert svc.stats()["serve"][0].routes == {"sharded[data]:merge": 1}
 
 
 # -- consistency contract -----------------------------------------------------
@@ -425,13 +444,16 @@ def test_serve_from_pins_and_counts_versions():
     serve = eng.serve_from(store)
     d, c = serve([0, 1], [2, 3])
     assert dict(eng.stats.snapshot().versions) == {0: 2}
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eng.serve_from(store, mesh=object())
+    sharded = eng.serve_from(store, mesh=make_mesh(
+        (2,), ("data",), ["cpu"] * 2))
+    for a, b in zip(sharded([0, 1], [2, 3]), (d, c)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert dict(eng.stats.snapshot().versions) == {0: 4}
     svc.start()
     svc.submit(_stream(svc, 2, 1, seed=9))
     svc.drain()
     serve([0], [1], route="merge")
-    assert dict(eng.stats.snapshot().versions) == {0: 2, 1: 1}
+    assert dict(eng.stats.snapshot().versions) == {0: 4, 1: 1}
     svc.close()
 
 

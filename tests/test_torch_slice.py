@@ -321,20 +321,26 @@ def test_chip_smoke_counts_launches_by_path():
     with counts.path("service"):
         sq.add(40)                                 # readers and dispatchers
     sq.count += 2                                  # an oracle's launches
+    with counts.path("distributed"):
+        pass                                       # D launches no kernel
+    sq.count += 3                                  # D's comparison route
     zero = dict.fromkeys(kernels, 0)
     assert counts.by_path == {
         "dspc": dict(zero, spc_query=5),
         "kernels": dict(zero, spc_query=52, segment_matmul=53),
         "analytics": dict(zero, embedding_bag=1),
         "lm": dict(zero, flash_decode=1792),
-        "service": dict(zero, spc_query=40)}
+        "service": dict(zero, spc_query=40),
+        "distributed": zero}
     assert counts.of("spc_query") == (97, {"dspc": 5, "kernels": 52,
                                            "analytics": 0, "lm": 0,
-                                           "service": 40})
+                                           "service": 40, "distributed": 0})
     assert counts.of("segment_matmul") == (53, {
-        "dspc": 0, "kernels": 53, "analytics": 0, "lm": 0, "service": 0})
+        "dspc": 0, "kernels": 53, "analytics": 0, "lm": 0, "service": 0,
+        "distributed": 0})
     assert counts.of("flash_decode") == (1792, {
-        "dspc": 0, "kernels": 0, "analytics": 0, "lm": 1792, "service": 0})
+        "dspc": 0, "kernels": 0, "analytics": 0, "lm": 1792, "service": 0,
+        "distributed": 0})
     counts.check()
     bare = chip_smoke.PathLaunches(kernels)
     with bare.path("dspc"):
