@@ -152,15 +152,15 @@ D.  distributed -- one controller over a device mesh: every visible
                 card, or ``DIST_SHARDS`` = 4 entries of the one card (an
                 edge axis ``model`` for the updater, a data axis ``data``
                 for serving); the mesh and whether its devices are
-                distinct on a line of their own.  D1: ``DynamicSPC(...,
-                mesh=)`` builds phase 4's graph with phase 4's knobs
-                (full scale); its ``state_dict()`` must be byte-identical
-                to phase 4's, kept on the host before phase 5.  One chunk
-                of 8 events from ``graph_stream`` through the sharded
-                updater and through ``DynamicSPC.from_state_dict`` of
-                phase 4's state on one device: byte-identical states.
-                Seconds and host syncs of the sharded build beside phase
-                4's, and of each chunk.  D2: ``SnapshotStore(mesh=)`` and
+                distinct on a line of their own.  D1: a power-law graph
+                of its own at two halvings of the dspc CONFIG (n 16384,
+                m 131072, in ``reduced``), built with phase 4's knobs on
+                one device and by ``DynamicSPC(..., mesh=)``: the two
+                ``state_dict()``s must be byte-identical.  One chunk of 8
+                events from ``graph_stream`` through the sharded updater
+                and the single-device engine: byte-identical states.
+                Seconds and host syncs of both builds, and of each
+                chunk.  D2: ``SnapshotStore(mesh=)`` and
                 ``serve_from(mesh=)``: 64 batches of 1024 uniform pairs
                 (host us per batch to the answers, p50 / p90), each equal
                 to the single-device kernel route's, every one counted as
@@ -197,6 +197,49 @@ L4. consistency -- as ``examples/serve_lm.py`` checks it: the first 2
                 (scores and probabilities rounded to bf16) and one span
                 of the kernel at the main path's shape left out (the
                 span comes from the kernel's own ``plan``).
+M.  deepseek-v2-lite-16b -- ``configs/deepseek_v2_lite_16b.py`` CONFIG at
+                full width and depth (27 layers, d_model 2048, 16 MLA
+                heads, kv_lora 512, 64 routed top-6 + 2 shared experts of
+                1408, vocab 102400), random bf16 weights from a CUDA
+                generator (16.21 B parameters, 32.4 GB): ``decode_32k``'s
+                context of 32768 kept, its batch of 128 cut to DS_BATCH
+                (``reduced``), prefilled DS_GROUP at a time (blockwise),
+                then DS_STEPS greedy decode steps (the absorbed MLA
+                decode, the grouped fixed-capacity MoE).  Prefill s,
+                tokens/s and peak memory; the share of routed
+                assignments the capacity dropped in the prefill
+                (:class:`DropCount`); decode step p50 / p90, tokens/s, the
+                step's bound (every weight but the embedding and the
+                cache read once); LM_TRACE_STEPS steps replayed under
+                ``torch.profiler``: busy ms a step, idle share, top ops.
+M-check      -- the same weights' first MCHECK_LAYERS layers in float32
+                at the capacity factor e / k (no assignment can drop, so
+                prefill and decode route alike): MCHECK_STEPS greedy
+                steps after MCHECK_BATCH x MCHECK_PROMPT tokens (blockwise;
+                ragged once the fed tokens are added), the last logits
+                against a prefill of the same tokens, and layer 0's
+                absorbed ``mla_decode`` against ``mla_train`` over the
+                same prefix: both within a relative L2 of MCHECK_REL_TOL;
+                the planted fault (the decode scores without the rope
+                term of the cached positions) must miss it.
+M2. deepseek-v2-236b -- at full width (128 heads with q_lora 1536, 160
+                routed experts of 1536), depth 60 -> 2 (``reduced``):
+                a prefill of 2 x 1024, 8 decode steps, and the same
+                float32 no-drop check.
+M3. dense family -- qwen2-7b and phi3-medium-14b CONFIG at full width and
+                depth, tp 1 (28 / 4 and 40 / 10 heads): prompts of 4 x
+                2048, 16 decode steps each, flash_decode launched
+                exactly n_layers x 16 times on each path and held
+                against its plain version on layer 0's served cache
+                (atol 1e-3 + rtol 1e-2, two launches bitwise equal) at
+                the served lengths and at ragged ones within the decode
+                steps' (``flash_decode_served``).  Then at each
+                one's ``decode_32k`` shape (B 16, S 32768, random bf16
+                cache, every row full) flash_decode against its plain
+                version (atol 1e-3 + rtol 1e-2, two launches bitwise
+                equal) and timed beside SDPA (``enable_gqa``), FD_REPS
+                rounds; and phi3 at the reference's tp 16 (48 padded
+                heads, q padded to 50: a group of 5) held once.
 flash_decode is held against its plain version (the KV heads expanded,
 fp32 softmax) at the TPU sweep shapes and GQA groups in float32 (rtol =
 atol = 2e-5, the TPU test's) and bfloat16 (1e-2 against the plain
@@ -221,7 +264,11 @@ FILE`` is S3's second process.
 Launches are counted for each main path on its own: the DSPC path
 (phases 4, 5, 6 and the first call of 6b), the kernels path (K), the
 analytics path (the timed steps of A1 and A2), the LM path (L2 and
-L3; flash_decode exactly 28 x 64 times), the service path (the
+L3; flash_decode exactly 28 x 64 times), one path for each
+configuration of M, M2 and M3 (prefill and decode; flash_decode on the
+two dense ones, no kernel on the deepseek ones: MLA decode is the
+reference's einsums, the MoE un-dispatch its scatter-add), the
+service path (the
 ingest and serving of S1 and the front-door traffic of S2; the service
 readers, the dispatchers and the updater launch from their own
 threads) and the distributed path (D's sharded build, chunk and
@@ -287,7 +334,14 @@ PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
                 "service": ("spc_query",),
                 # the sharded relax is index_add_, the sharded query the
                 # merge core, as on the reference: no kernel of its own
-                "distributed": ()}
+                "distributed": (),
+                "qwen2-7b": ("flash_decode",),
+                "phi3-medium-14b": ("flash_decode",),
+                # MLA decode is the reference's absorbed einsums (one
+                # latent head, K width 576 != V width 512: outside any
+                # Pallas kernel there too) and the MoE un-dispatch its
+                # own scatter-add: no kernel of the port on these paths
+                "deepseek-v2-lite-16b": (), "deepseek-v2-236b": ()}
 
 #: The segment_matmul sweep of tests/kernels/test_kernels.py (e, n, d),
 #: inputs drawn as that test draws them (ids in [0, n + 5): some dropped).
@@ -355,8 +409,37 @@ FD_CALLERS, FD_REQUESTS = 8, 512
 SERVICE_WAIT_S, FLEET_DISK_BYTES = 600.0, 16 * 10 ** 9
 #: Phase D: mesh entries on a single card (an edge axis and a data axis
 #: of 4 entries of cuda:0), events in its chunk, serve batches and their
-#: pairs.
+#: pairs, and the halvings of the dspc CONFIG's n and m for its own
+#: graph (n 16384, m 131072: its single-device build, which it is held
+#: against, takes about a sixteenth of phase 4's).
 DIST_SHARDS, DIST_EVENTS, DIST_BATCHES, DIST_PAIRS = 4, 8, 64, 1024
+DIST_HALVINGS = 2
+#: Phase M: deepseek-v2-lite-16b CONFIG at full width and depth on
+#: decode_32k's context, its global batch of 128 cut to DS_BATCH
+#: requests (the MLA cache is 31104 B a token: 8.2 GB at 8), prefilled
+#: DS_GROUP at a time (the blockwise float32 scores of a group are the
+#: peak's largest part), DS_STEPS greedy decode steps.
+DS_BATCH, DS_GROUP, DS_STEPS = 8, 2, 64
+#: M-check (and M2's check), in float32 with the no-drop capacity factor
+#: e / k: the layers kept, the requests and their prompt (blockwise, and
+#: ragged against prefill_block_k once the fed tokens are added), the
+#: decode steps, the prefix over which the absorbed decode is held
+#: against mla_train, and the limit on the relative L2 error of both.
+#: Float32 rounding reads about 1e-6 at SMOKE on the CPU and about 3e-6
+#: on the card; whether a bfloat16 run would miss the limit is not
+#: measured (bfloat16 rounds at 2^-8 a value).
+MCHECK_LAYERS, MCHECK_BATCH, MCHECK_PROMPT, MCHECK_STEPS = 2, 2, 8192, 8
+MCHECK_PREFIX, MCHECK_REL_TOL = 1024, 1e-3
+#: Phase M2: deepseek-v2-236b at full width, depth 60 -> MCHECK_LAYERS
+#: (its 239 B parameters need about 479 GB in bfloat16); prompt
+#: M2_BATCH x M2_PROMPT, M2_STEPS decode steps.
+M2_BATCH, M2_PROMPT, M2_STEPS = 2, 1024, 8
+#: Phase M3: qwen2-7b and phi3-medium-14b at full width and depth, tp 1:
+#: prompts, decode steps, and the requests of the random decode_32k cache
+#: K4 is held and timed on; phi3's tp 16 group of 5 is held on the
+#: first FD_GROUP5_ROWS requests of it.
+M3_BATCH, M3_PROMPT, M3_STEPS = 4, 2048, 16
+FD_FAMILY_BATCH, FD_GROUP5_ROWS = 16, 4
 
 
 def log(msg: str) -> None:
@@ -830,6 +913,72 @@ def flash_decode_work(q, k, lengths):
     return nbytes, 4 * valid * h * d
 
 
+def hold_flash_decode(q, k, v, lens, label: str):
+    """flash_decode launched twice through its wrapper on bf16 ``q`` [B,
+    H, D], ``k``, ``v`` [B, S, KVH, D] and ``lens``: bitwise equal, and
+    within MAIN_RTOL / MAIN_ATOL of its plain version on the float32
+    copies.  Returns (the output, the plain output, max |diff|, relative
+    L2)."""
+    import torch
+    from repro_torch.kernels.flash_decode.ops import decode_attention
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    got = decode_attention(q, k, v, lens)
+    if not torch.equal(got, decode_attention(q, k, v, lens)):
+        raise AssertionError(f"flash_decode {label}: two launches differ")
+    want = decode_attention_ref(q.float(), k.float(), v.float(), lens)
+    err = check_close(f"flash_decode {label} (bf16)", got, want, MAIN_RTOL,
+                      MAIN_ATOL)
+    return got, want, err, rel_l2(got, want)
+
+
+def flash_decode_row(q, k, v, lens, label: str, route: str, calls: int,
+                     plain_reps: int, extra=None):
+    """flash_decode at one shape, every row of ``lens`` equal: held as
+    :func:`hold_flash_decode` does, SDPA (``enable_gqa``, the cache cut
+    to the length) held against the same plain output; then the kernel
+    (``route``), the functions of ``extra`` ({name: function}) and SDPA
+    timed in turn, FD_REPS rounds of ``calls`` calls, the plain version
+    over ``plain_reps``, and the bound.  Returns (the row, the plain
+    output)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode.ops import decode_attention
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    _, want, err, rel = hold_flash_decode(q, k, v, lens, label)
+    b, h, d = q.shape
+    kvh, length = k.shape[2], int(lens[0])
+    if lens.tolist() != [length] * b:
+        raise AssertionError(f"flash_decode {label}: unequal lengths "
+                             f"{lens.tolist()}")
+    ks = k[:, :length].transpose(1, 2).contiguous()    # [B, KVH, L, D]
+    vs = v[:, :length].transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[:, :, None], ks, vs,
+                                              enable_gqa=True)
+    check_close(f"F.scaled_dot_product_attention {label}", sdpa()[:, :, 0],
+                want, MAIN_RTOL, MAIN_ATOL)
+    fns = {route: lambda: decode_attention(q, k, v, lens), **(extra or {}),
+           "sdpa": sdpa}
+    reps = {key: [] for key in fns}
+    for _ in range(FD_REPS):
+        for key, fn in fns.items():
+            reps[key].append(cuda_ms(fn, calls))
+    plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, lens),
+                       plain_reps, warmup=1)
+    nbytes, ops = flash_decode_work(q, k, lens)
+    bound, by = bound_ms(nbytes, ops)
+    row = {"shape": {"B": b, "H": h, "KVH": kvh, "S": int(k.shape[1]),
+                     "D": d, "lengths": length, "group": h // kvh,
+                     "dtype": "bfloat16"},
+           "design": route, "max_abs_err": err, "rel_l2": rel,
+           "ms": float(np.median(reps[route])), "ms_rounds": reps[route],
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "bytes": nbytes, "library_ms": float(np.median(reps["sdpa"])),
+           "library_ms_rounds": reps["sdpa"]}
+    row.update({f"{key}_ms": reps[key] for key in extra or {}})
+    return row, want
+
+
 def prefill_in_groups(params, cfg, prompts, s_max: int, group: int):
     """``prefill`` the requests ``group`` at a time and copy each group's
     cache into one batch cache.  Returns (logits [B, Vpad], cache)."""
@@ -840,9 +989,9 @@ def prefill_in_groups(params, cfg, prompts, s_max: int, group: int):
     logits = []
     for lo in range(0, b, group):
         lg, part = tf.prefill(params, prompts[lo:lo + group], cfg, s_max)
-        cache["k"][:, lo:lo + group] = part["k"]
-        cache["v"][:, lo:lo + group] = part["v"]
-        cache["lengths"][lo:lo + group] = part["lengths"]
+        cache["lengths"][lo:lo + group] = part.pop("lengths")
+        for name, c in part.items():                   # [L, b, ...]
+            cache[name][:, lo:lo + group] = c
         logits.append(lg)
         del part
     return torch.cat(logits), cache
@@ -917,23 +1066,57 @@ def drop_span_attention(span: int):
     return attend
 
 
-def replay_decode(params, cfg, cache, fed, start: int, attention=None):
+def replay_decode(params, cfg, cache, fed, start: int, swap=None):
     """Feed ``fed`` [B, steps] through ``decode_step`` from ``cache``
     taken back to length ``start`` (its later positions are written
-    again), with ``attention`` in place of ``decode_attention`` if
-    given.  Returns the last step's logits."""
+    again), with the functions of ``swap`` ({name: function}) in place
+    of those names of ``repro_torch.models.attention`` (a planted
+    fault).  Returns the last step's logits."""
     import torch
     from repro_torch.models import attention as A
     from repro_torch.models import transformer as tf
     cache = dict(cache, lengths=torch.full_like(cache["lengths"], start))
-    saved = A.decode_attention
-    A.decode_attention = attention or saved
+    saved = {name: getattr(A, name) for name in swap or {}}
+    for name, fn in (swap or {}).items():
+        setattr(A, name, fn)
     try:
         for i in range(fed.shape[1]):
             logits, cache = tf.decode_step(params, cache, fed[:, i], cfg)
     finally:
-        A.decode_attention = saved
+        for name, fn in saved.items():
+            setattr(A, name, fn)
     return logits
+
+
+class DropCount:
+    """Routed assignments (``assigned``) and those the capacity dropped
+    (``dropped``, a count kept on the activations' device, so counting
+    waits for nothing), summed over the MoE dispatches made inside
+    :meth:`watch`, which wraps ``repro_torch.models.moe.route`` for the
+    while (as :func:`replay_decode` swaps functions in)."""
+
+    def __init__(self) -> None:
+        self.assigned, self.dropped = 0, 0
+
+    @contextlib.contextmanager
+    def watch(self):
+        from repro_torch.models import moe as M
+        route = M.route
+
+        def counted(*args, **kwargs):
+            r = route(*args, **kwargs)
+            self.assigned += r.keep.numel()
+            self.dropped = self.dropped + (~r.keep).sum()
+            return r
+        M.route = counted
+        try:
+            yield self
+        finally:
+            M.route = route
+
+    def share(self) -> float:
+        """Dropped over assigned (0.0 before any dispatch)."""
+        return int(self.dropped) / self.assigned if self.assigned else 0.0
 
 
 def lm_fault_span(cfg, sms: int) -> int:
@@ -962,8 +1145,8 @@ def lm_consistency(params, cfg, prompts, fed, last_logits, cache,
            "replay": rel_l2(replay_decode(params, cfg, cache, fed, t), want)}
     for name, attend in (("bf16_scores", bf16_score_attention),
                          ("drop_span", drop_span_attention(span))):
-        out[name] = rel_l2(replay_decode(params, cfg, cache, fed, t, attend),
-                           want)
+        out[name] = rel_l2(replay_decode(
+            params, cfg, cache, fed, t, {"decode_attention": attend}), want)
     return out
 
 
@@ -984,10 +1167,7 @@ def check_l4(l4: dict) -> None:
 def lm_prompts(cfg, seed: int, device):
     """The LM path's LM_BATCH prompts of LM_PROMPT token ids from
     ``seed``."""
-    import torch
-    ids = np.random.default_rng(seed + 2).integers(
-        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
-    return torch.from_numpy(ids).to(device)
+    return lm_prompt_ids(LM_BATCH, LM_PROMPT, cfg.vocab, seed + 2, device)
 
 
 def lm_seed_readings(seeds, card: str) -> int:
@@ -1024,6 +1204,428 @@ def lm_seed_readings(seeds, card: str) -> int:
     print(json.dumps({"l4_seeds": readings, "limit": LM_REL_TOL,
                       "drop_span": span, "card": card}), flush=True)
     return 0
+
+
+def zero_rope_decode(decode):
+    """A planted fault for the M-check: ``decode`` (``mla_decode``) with
+    the rope term of every cached position left out of the scores (it
+    reads a zero rope-key cache, into which only the new token's own
+    rope key is written)."""
+    import torch
+
+    def faulty(p, x, cache_ckv, cache_kr, lengths, cfg):
+        return decode(p, x, cache_ckv, torch.zeros_like(cache_kr), lengths,
+                      cfg)
+    return faulty
+
+
+def float32_layers(params, n_layers: int) -> dict:
+    """The first ``n_layers`` layers of ``params`` with the embedding,
+    the final norm and the head, as new float32 tensors (the same
+    weights, widened)."""
+    def widen(tree, layered):
+        if isinstance(tree, dict):
+            return {k: widen(v, layered) for k, v in tree.items()}
+        return (tree[:n_layers] if layered else tree).float()
+    return {k: widen(v, k == "layers") for k, v in params.items()}
+
+
+def no_drop_float32(cfg, n_layers: int):
+    """``cfg`` cut to ``n_layers`` in float32 with the capacity factor
+    e / k, at which no routed assignment drops: prefill and decode then
+    route every token alike, so their logits may differ by rounding
+    only."""
+    import dataclasses
+    import torch
+    from repro_torch.models.moe import no_drop_capacity_factor
+    return dataclasses.replace(
+        cfg, n_layers=n_layers, param_dtype=torch.float32,
+        act_dtype=torch.float32,
+        moe_capacity_factor=no_drop_capacity_factor(cfg))
+
+
+def mla_moe_check(params, cfg, prompts, steps: int) -> dict:
+    """M-check (module doc) for an MLA + MoE configuration, with
+    ``params`` and ``cfg`` in float32 at the no-drop capacity factor
+    (:func:`no_drop_float32`): ``steps`` greedy decode steps after a
+    prefill of ``prompts``, their last logits against a prefill of
+    prompt + fed tokens (``decode``, ``argmax``); the same tokens
+    replayed with the planted fault :func:`zero_rope_decode`
+    (``no_rope``); and layer 0's absorbed ``mla_decode`` of token
+    MCHECK_PREFIX over a cache of the tokens before it against
+    ``mla_train``'s output there (``absorbed``; an earlier token where
+    prompt and fed tokens are fewer), each a relative L2 error.  Raises
+    unless ``decode`` and ``absorbed`` are within MCHECK_REL_TOL and
+    ``no_rope`` beyond it."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models import transformer as tf
+    b, t = prompts.shape
+    s_max = t + steps
+    logits, cache = tf.prefill(params, prompts, cfg, s_max)
+    fed, last, cache, _ = greedy_decode(
+        params, cfg, cache, logits.argmax(dim=-1).to(torch.int32), steps)
+    rel, agree, want = decode_consistency(params, cfg, prompts, fed, last,
+                                          s_max)
+    out = {"decode": rel, "argmax": agree, "no_rope": rel_l2(replay_decode(
+        params, cfg, cache, fed, t,
+        {"mla_decode": zero_rope_decode(A.mla_decode)}), want)}
+    del cache
+    tokens = torch.cat([prompts, fed.to(prompts.dtype)], dim=1)
+    n = min(MCHECK_PREFIX, tokens.shape[1] - 1)
+    attn = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    x = rms_norm(params["layers"]["ln1"][0],
+                 params["embed"][tokens[:, :n + 1]].to(cfg.act_dtype))
+    pos = torch.arange(n + 1, dtype=torch.int32,
+                       device=x.device).expand(b, n + 1)
+    full, (ckv, kr) = A.mla_train(attn, x, cfg, pos)
+    c1, c2 = torch.zeros_like(ckv), torch.zeros_like(kr)
+    c1[:, :n], c2[:, :n] = ckv[:, :n], kr[:, :n]
+    got, _, _ = A.mla_decode(attn, x[:, n:], c1, c2,
+                             torch.full((b,), n, dtype=torch.int32,
+                                        device=x.device), cfg)
+    out["absorbed"] = rel_l2(got[:, 0], full[:, n])
+    for key in ("decode", "absorbed"):
+        if not out[key] <= MCHECK_REL_TOL:
+            raise AssertionError(f"M-check ({cfg.name}): {key} differs by "
+                                 f"{out[key]:.4g} (relative L2), beyond "
+                                 f"{MCHECK_REL_TOL}")
+    if not out["no_rope"] > MCHECK_REL_TOL:
+        raise AssertionError(f"M-check ({cfg.name}): the limit "
+                             f"{MCHECK_REL_TOL} passes the planted fault "
+                             f"no_rope ({out['no_rope']:.4g})")
+    return out
+
+
+def lm_prompt_ids(b: int, t: int, vocab: int, seed: int, device):
+    """int32 [b, t] token ids uniform over the vocabulary, from ``seed``."""
+    import torch
+    ids = np.random.default_rng(seed).integers(0, vocab, (b, t))
+    return torch.from_numpy(ids.astype(np.int32)).to(device)
+
+
+def serve_lm(params, cfg, prompts, steps: int, group: int, counts,
+             path: str) -> dict:
+    """The serving path on the card inside ``counts.path(path)``: prefill
+    ``prompts`` ``group`` at a time, then ``steps`` greedy decode steps,
+    the MoE drops counted over the prefill.  Returns the numbers, the
+    fed tokens, the last logits and the cache."""
+    import torch
+    b, t = prompts.shape
+    cuda = prompts.is_cuda
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak(reset=False):
+        if not cuda:
+            return 0
+        if reset:
+            torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.max_memory_allocated()
+    peak(reset=True)
+    drops = DropCount()
+    with counts.path(path):
+        sync()
+        t0 = time.monotonic()
+        with drops.watch():
+            logits, cache = prefill_in_groups(params, cfg, prompts,
+                                              t + steps, group)
+        sync()
+        prefill_s = time.monotonic() - t0
+        prefill_peak = peak()
+        dropped, assigned = int(drops.dropped), drops.assigned
+        peak(reset=True)
+        t0 = time.monotonic()
+        fed, last, cache, step_ms = greedy_decode(
+            params, cfg, cache, logits.argmax(dim=-1).to(torch.int32), steps)
+        sync()
+        decode_s = time.monotonic() - t0
+    if not (torch.isfinite(logits).all() and torch.isfinite(last).all()):
+        raise AssertionError(f"{path}: non-finite logits")
+    if tuple(last.shape) != (b, cfg.padded_vocab) or \
+            cache["lengths"].tolist() != [t + steps] * b:
+        raise AssertionError(f"{path}: logits {tuple(last.shape)}, lengths "
+                             f"{cache['lengths'].tolist()}")
+    numbers = {
+        "requests": b, "prompt": t, "steps": steps, "prefill_group": group,
+        "prefill_s": prefill_s, "prefill_tokens_per_s": b * t / prefill_s,
+        "prefill_peak_bytes": prefill_peak,
+        "decode_s": decode_s,
+        "decode_step_ms_p50": float(np.percentile(step_ms or [0], 50)),
+        "decode_step_ms_p90": float(np.percentile(step_ms or [0], 90)),
+        "decode_tokens_per_s": b * steps / decode_s,
+        "decode_peak_bytes": peak(),
+        "cache_bytes": sum(c.numel() * c.element_size()
+                           for name, c in cache.items() if name != "lengths")}
+    if assigned:
+        numbers.update(prefill_routed=assigned, prefill_dropped=dropped,
+                       prefill_drop_share=dropped / assigned)
+    return numbers, fed, last, cache
+
+
+def trace_decode(params, cfg, cache, fed, numbers: dict) -> str:
+    """The last LM_TRACE_STEPS of ``fed`` replayed under the profiler
+    (outside every path: the replay counts nowhere), from :func:`serve_lm`'s
+    ``cache`` and ``numbers``, to which it adds the card's busy ms a
+    step, its idle share of the step p50 and the top LM_TOP_KERNELS
+    kernels by device ms a step.  Returns a line that says so."""
+    s_max = numbers["prompt"] + numbers["steps"]
+    busy_ms, span_ms, by_kernel = device_trace(lambda: replay_decode(
+        params, cfg, cache, fed[:, -LM_TRACE_STEPS:],
+        s_max - LM_TRACE_STEPS), LM_TRACE_STEPS)
+    numbers.update(
+        decode_busy_ms_per_step=busy_ms and busy_ms / LM_TRACE_STEPS,
+        decode_idle_share=busy_ms and 1 - busy_ms / LM_TRACE_STEPS / (
+            numbers["decode_step_ms_p50"]),
+        decode_step_ms_by_kernel=dict(sorted(
+            by_kernel.items(), key=lambda kv: -kv[1])[:LM_TOP_KERNELS]))
+    if not busy_ms:
+        return "the profiler saw no device event; busy time not measured"
+    return (f"{LM_TRACE_STEPS} steps replayed under torch.profiler, the "
+            f"card busy {busy_ms:.3f} ms of {span_ms:.3f} ms from its first "
+            f"to its last device event; busy "
+            f"{numbers['decode_busy_ms_per_step']:.3f} ms a step, idle "
+            f"share {numbers['decode_idle_share']:.4f} of the step p50; "
+            f"device ms a step by kernel (the top {LM_TOP_KERNELS}): "
+            f"{json.dumps(numbers['decode_step_ms_by_kernel'])}")
+
+
+def release(device) -> None:
+    """Free what the last phase left (and the card's cached blocks)."""
+    import gc
+    import torch
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def deepseek_phases(counts, card: str, seed: int, device="cuda") -> dict:
+    """Phases M, M-check and M2 (module doc).  Returns their numbers;
+    raises on any failed check."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.configs.deepseek_v2_236b import CONFIG as BIG
+    from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as LITE
+    from repro_torch.models import transformer as tf
+    ctx = LM_SHAPES["decode_32k"].dims
+    out = {}
+    # -- M. deepseek-v2-lite-16b at full width and depth --------------------
+    cfg = LITE
+    reduced = [f"global_batch {ctx['global_batch']}->{DS_BATCH}"]
+    log(f"M reduced: {json.dumps(reduced)} (context {ctx['seq_len']} kept)")
+    t0 = time.monotonic()
+    params = tf.init_params(
+        cfg, generator=torch.Generator(device).manual_seed(seed + 7),
+        device=device)
+    pbytes = tf.param_bytes(params)
+    log(f"M params: {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.padded_heads} MLA heads (kv_lora "
+        f"{cfg.kv_lora}, rope {cfg.qk_rope_dim}), {cfg.moe_experts} routed "
+        f"top-{cfg.moe_top_k} + {cfg.moe_shared} shared experts of "
+        f"{cfg.moe_d_ff}, vocab {cfg.padded_vocab}; {cfg.param_count()} "
+        f"parameters, {pbytes} bytes in {cfg.param_dtype} "
+        f"({time.monotonic() - t0:.2f} s on {card})")
+    prompts = lm_prompt_ids(DS_BATCH, ctx["seq_len"], cfg.vocab, seed + 11,
+                            device)
+    m, fed, last, cache = serve_lm(params, cfg, prompts, DS_STEPS, DS_GROUP,
+                                   counts, "deepseek-v2-lite-16b")
+    trace = trace_decode(params, cfg, cache, fed, m)
+    # a step reads every weight but the embedding once, and the cache
+    step_bytes = pbytes - tf.param_bytes(params["embed"]) + m["cache_bytes"]
+    m.update(param_bytes=pbytes, reduced=reduced,
+             decode_bound_ms=bound_ms(step_bytes, 0)[0])
+    log(f"M prefill: {DS_BATCH} x {ctx['seq_len']} tokens in groups of "
+        f"{DS_GROUP}: {m['prefill_s']:.3f} s "
+        f"({m['prefill_tokens_per_s']:.1f} tokens/s), peak "
+        f"{m['prefill_peak_bytes']} B; capacity dropped "
+        f"{m['prefill_dropped']} of {m['prefill_routed']} routed "
+        f"assignments (share {m['prefill_drop_share']:.5f}) on {card}")
+    log(f"M decode: {DS_STEPS} steps x {DS_BATCH} requests: "
+        f"{m['decode_s']:.3f} s, step p50 {m['decode_step_ms_p50']:.3f} ms "
+        f"p90 {m['decode_step_ms_p90']:.3f} ms, "
+        f"{m['decode_tokens_per_s']:.1f} tokens/s, peak "
+        f"{m['decode_peak_bytes']} B, MLA cache {m['cache_bytes']} B; bound "
+        f"{m['decode_bound_ms']:.3f} ms a step ({step_bytes} B) on {card}")
+    log(f"M trace: {trace} on {card}")
+    out["deepseek-v2-lite-16b"] = m
+    # -- M-check: the same weights, two layers, float32, no drops -----------
+    del cache, fed, last
+    small = float32_layers(params, MCHECK_LAYERS)
+    del params
+    release(device)
+    t0 = time.monotonic()
+    check_cfg = no_drop_float32(cfg, MCHECK_LAYERS)
+    check = mla_moe_check(small, check_cfg,
+                          prompts[:MCHECK_BATCH, :MCHECK_PROMPT],
+                          MCHECK_STEPS)
+    check.update(layers=MCHECK_LAYERS, prompt=MCHECK_PROMPT,
+                 steps=MCHECK_STEPS, limit=MCHECK_REL_TOL,
+                 capacity_factor=check_cfg.moe_capacity_factor)
+    m["check"] = check
+    log(f"M-check: {cfg.name} at full width, {MCHECK_LAYERS} layers, "
+        f"float32, capacity factor e / k = "
+        f"{check_cfg.moe_capacity_factor:.4f}: decode of "
+        f"{MCHECK_STEPS} steps after {MCHECK_BATCH} x {MCHECK_PROMPT} "
+        f"tokens vs a prefill of the same tokens, relative L2 "
+        f"{check['decode']:.4g} (limit {MCHECK_REL_TOL}), argmax "
+        f"{check['argmax']}/{MCHECK_BATCH}; absorbed mla_decode vs "
+        f"mla_train at position {MCHECK_PREFIX}: {check['absorbed']:.4g}; "
+        f"planted fault (rope term left out of the decode scores) "
+        f"{check['no_rope']:.4g} ({time.monotonic() - t0:.3f} s on {card})")
+    del small
+    release(device)
+    # -- M2. deepseek-v2-236b at full width, depth cut ---------------------
+    cfg = dataclasses.replace(BIG, n_layers=MCHECK_LAYERS)
+    reduced = [f"n_layers {BIG.n_layers}->{MCHECK_LAYERS}",
+               f"decode_32k -> {M2_BATCH} x {M2_PROMPT} tokens, "
+               f"{M2_STEPS} steps"]
+    t0 = time.monotonic()
+    params = tf.init_params(
+        cfg, generator=torch.Generator(device).manual_seed(seed + 17),
+        device=device)
+    log(f"M2 params: {cfg.name}: {cfg.n_layers} of {BIG.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.padded_heads} MLA heads (q_lora "
+        f"{cfg.q_lora}), {cfg.moe_experts} routed top-{cfg.moe_top_k} + "
+        f"{cfg.moe_shared} shared experts of {cfg.moe_d_ff}; "
+        f"{tf.param_bytes(params)} bytes ({time.monotonic() - t0:.2f} s on "
+        f"{card}); reduced {json.dumps(reduced)}")
+    prompts = lm_prompt_ids(M2_BATCH, M2_PROMPT, cfg.vocab, seed + 19, device)
+    m2, fed, last, cache = serve_lm(params, cfg, prompts, M2_STEPS, M2_BATCH,
+                                    counts, "deepseek-v2-236b")
+    m2.update(reduced=reduced, param_bytes=tf.param_bytes(params))
+    del cache, fed, last
+    params = float32_layers(params, MCHECK_LAYERS)
+    release(device)
+    t0 = time.monotonic()
+    check = mla_moe_check(params, no_drop_float32(cfg, MCHECK_LAYERS),
+                          prompts, M2_STEPS)
+    check.update(limit=MCHECK_REL_TOL)
+    m2["check"] = check
+    log(f"M2: prefill {M2_BATCH} x {M2_PROMPT} tokens {m2['prefill_s']:.3f} "
+        f"s (drop share {m2['prefill_drop_share']:.5f}), {M2_STEPS} decode "
+        f"steps p50 {m2['decode_step_ms_p50']:.3f} ms; no-drop float32 "
+        f"check: decode vs prefill {check['decode']:.4g}, absorbed vs "
+        f"mla_train {check['absorbed']:.4g} (limit {MCHECK_REL_TOL}), "
+        f"planted fault {check['no_rope']:.4g} "
+        f"({time.monotonic() - t0:.3f} s) on {card}")
+    out["deepseek-v2-236b"] = m2
+    del params
+    release(device)
+    return out
+
+
+def dense_family_phase(counts, card: str, seed: int, sms: int,
+                       device="cuda") -> dict:
+    """Phase M3 (module doc): qwen2-7b and phi3-medium-14b at full width
+    and depth, tp 1, served on the card (flash_decode launched exactly
+    n_layers x steps times on each path) and flash_decode held against
+    its plain version on layer 0's served cache, at the served lengths
+    and at ragged ones within the decode steps'; then held and timed
+    beside SDPA at each configuration's decode_32k shape on a random
+    cache of FD_FAMILY_BATCH requests; and phi3's tp 16 group of 5.
+    Returns {config name: numbers}."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.configs.phi3_medium_14b import CONFIG as PHI3
+    from repro_torch.configs.qwen2_7b import CONFIG as QWEN7
+    from repro_torch.kernels.flash_decode import kernel as FD
+    from repro_torch.models import transformer as tf
+    ctx = LM_SHAPES["decode_32k"].dims["seq_len"]
+    out = {}
+    for path, base in (("qwen2-7b", QWEN7), ("phi3-medium-14b", PHI3)):
+        cfg = dataclasses.replace(base, tp=1)
+        b, h, kvh, d = M3_BATCH, cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
+        t0 = time.monotonic()
+        params = tf.init_params(
+            cfg, generator=torch.Generator(device).manual_seed(seed + 13),
+            device=device)
+        init_s = time.monotonic() - t0
+        prompts = lm_prompt_ids(b, M3_PROMPT, cfg.vocab, seed + 23, device)
+        n, _, _, cache = serve_lm(params, cfg, prompts, M3_STEPS, b, counts,
+                                  path)
+        launched = counts.by_path[path]["flash_decode"]
+        want = cfg.n_layers * M3_STEPS      # (the CPU route launches none)
+        if launched != (want if torch.device(device).type == "cuda" else 0):
+            raise AssertionError(f"{base.name}: flash_decode launched "
+                                 f"{launched} times, want {want}")
+        n.update(param_bytes=tf.param_bytes(params), init_s=init_s,
+                 flash_decode_launches=launched)
+        log(f"M3 {base.name} at tp 1 ({cfg.n_layers} layers, {h} query / "
+            f"{kvh} KV heads, a group of {h // kvh}; {n['param_bytes']} "
+            f"parameter bytes): prefill {b} x {M3_PROMPT} tokens "
+            f"{n['prefill_s']:.3f} s, {M3_STEPS} decode steps p50 "
+            f"{n['decode_step_ms_p50']:.3f} ms, flash_decode launched "
+            f"{launched} times on {card}")
+        del params, prompts
+        # K4 on layer 0's served cache, at the served lengths and at
+        # lengths as ragged as the decode steps' (prompt + 1 .. + steps)
+        gen = torch.Generator(device).manual_seed(seed + 29)
+        k0, v0 = cache["k"][0], cache["v"][0]
+        lens = cache["lengths"].clone()
+        q = torch.randn((b, h, d), generator=gen, device=device).to(
+            torch.bfloat16)
+        served = {}
+        for key, at in (("served", lens), ("ragged", lens - torch.arange(
+                b, dtype=lens.dtype, device=lens.device) * (M3_STEPS // b))):
+            served[key] = hold_flash_decode(
+                q, k0, v0, at, f"on {base.name}'s served cache at lengths "
+                f"{at.tolist()}")[2]
+        served.update(shape=[b, h, kvh, int(k0.shape[1]), d],
+                      route=FD.plan(b, kvh, h, int(k0.shape[1]), d,
+                                    torch.bfloat16, sms).route)
+        n["flash_decode_served"] = served
+        log(f"M3 flash_decode on {base.name}'s served cache (layer 0, "
+            f"{json.dumps(served)}): == plain within rtol {MAIN_RTOL} atol "
+            f"{MAIN_ATOL}, two launches bitwise equal, on {card}")
+        del cache, k0, v0, q, lens
+        release(device)
+        # K4 at decode_32k's shape on a random cache
+        b = FD_FAMILY_BATCH
+        q, k, v = (torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16) for shape in ((b, h, d), (b, ctx, kvh, d),
+                                          (b, ctx, kvh, d)))
+        lens = torch.full((b,), ctx, dtype=torch.int32, device=device)
+        route = FD.plan(b, kvh, h, ctx, d, torch.bfloat16, sms).route
+        row, _ = flash_decode_row(q, k, v, lens,
+                                  f"({route}) at {base.name}'s decode_32k "
+                                  f"shape", route, 50, 3)
+        row.update(launches=launched,
+                   served_max_abs_err=max(served["served"],
+                                          served["ragged"]))
+        if base is PHI3:
+            # the reference's tp = 16: 48 padded q heads over 10 KV heads,
+            # q padded to 10 x 5 = 50 as gqa_decode pads it
+            pad = -(-base.padded_heads // kvh) * kvh
+            r = FD_GROUP5_ROWS
+            q5 = torch.randn((r, pad, d), generator=gen,
+                             device=device).to(torch.bfloat16)
+            row["group5_max_abs_err"] = hold_flash_decode(
+                q5, k[:r], v[:r], lens[:r],
+                f"at phi3's tp 16 group of {pad // kvh}")[2]
+            row["group5_shape"] = [r, pad, kvh, ctx, d]
+        n["flash_decode"] = row
+        log(f"M3 flash_decode at {base.name}'s decode_32k shape "
+            f"{json.dumps(row['shape'])}: {route} "
+            f"{json.dumps(row['ms_rounds'])} ms, SDPA "
+            f"{json.dumps(row['library_ms_rounds'])} ms in {FD_REPS} "
+            f"rounds; median {row['ms']:.5f} ms "
+            f"({row['bytes'] / row['ms'] / 1e6:.1f} GB/s), plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bytes']} B, {row['bound_by']}); == plain within rtol "
+            f"{MAIN_RTOL} atol {MAIN_ATOL} (max |diff| "
+            f"{row['max_abs_err']:.3g}, relative L2 {row['rel_l2']:.3g})"
+            + (f"; tp 16 group of 5 max |diff| "
+               f"{row['group5_max_abs_err']:.3g}" if base is PHI3 else "")
+            + f" on {card}")
+        out[path] = n
+        del q, k, v, lens
+        release(device)
+    return out
 
 
 def l2_rate(device, calls: int = 50):
@@ -1741,15 +2343,14 @@ def same_state(got: dict, want: dict) -> bool:
         and np.array_equal(got[k], want[k]) for k in want)
 
 
-def distributed_phase(edges, n: int, state: dict, single_build: dict,
-                      build_kw: dict, counts, seed: int, card: str,
-                      device: str = "cuda") -> dict:
-    """Phase D (module doc): the edge-sharded build of phase 4's graph
-    against phase 4's single-device ``state``, one chunk through both
-    engines, the mesh-staged store served through the sharded route, and
-    ``SPCService`` over both meshes.  ``single_build`` holds phase 4's
-    seconds and host syncs; ``build_kw`` its ``DynamicSPC`` knobs.
-    Returns the numbers; raises on any failed check."""
+def distributed_phase(edges, n: int, build_kw: dict, counts, seed: int,
+                      card: str, device: str = "cuda") -> dict:
+    """Phase D (module doc) on the graph ``edges`` of its own: the
+    single-device build it is held against (``build_kw`` its
+    ``DynamicSPC`` knobs, outside every path), the edge-sharded build of
+    the same graph, one chunk through both engines, the mesh-staged
+    store served through the sharded route, and ``SPCService`` over both
+    meshes.  Returns the numbers; raises on any failed check."""
     import torch
     from repro_torch.core import bfs as B
     from repro_torch.core.dynamic import DynamicSPC
@@ -1774,8 +2375,18 @@ def distributed_phase(edges, n: int, state: dict, single_build: dict,
         f"{serve_mesh} for serving (batch axis 'data'); {len(devices)} "
         f"entries on {len(distinct)} distinct device(s): "
         f"{'distinct' if len(distinct) == len(devices) else 'repeated'}")
-    out = {"entries": len(devices), "distinct_devices": len(distinct)}
-    # -- D1. the sharded build, byte-identical to phase 4's ----------------
+    out = {"entries": len(devices), "distinct_devices": len(distinct),
+           "n": n, "m": len(edges)}
+    # -- D1. the single-device build, then the sharded one ------------------
+    syncs0 = B.frontier_syncs.count
+    sync()
+    t0 = time.monotonic()
+    single = DynamicSPC(n, edges, device=device, **build_kw)
+    sync()
+    single_build = {"s": time.monotonic() - t0,
+                    "syncs": B.frontier_syncs.count - syncs0}
+    state = single.state_dict()
+    out["single_build"] = single_build
     syncs0 = B.frontier_syncs.count
     sync()
     t0 = time.monotonic()
@@ -1788,15 +2399,14 @@ def distributed_phase(edges, n: int, state: dict, single_build: dict,
     if not same_state(dist.state_dict(), state):
         raise AssertionError("D1: the sharded build's state_dict() differs "
                              "from the single-device build's")
-    log(f"D1 build: {out['build_s']:.3f} s over {len(devices)} edge shards "
-        f"(phase 4 on one device: {single_build['s']:.3f} s), host syncs "
-        f"{out['build_syncs']} (phase 4: {single_build['syncs']}), "
+    log(f"D1 build (n {n}, m {len(edges)}): {out['build_s']:.3f} s over "
+        f"{len(devices)} edge shards (one device: {single_build['s']:.3f} "
+        f"s), host syncs {out['build_syncs']} (one device: "
+        f"{single_build['syncs']}), "
         f"{relax.reductions} level reductions, {relax.placements} edge "
-        f"placement(s); state_dict() byte-identical to phase 4's on {card}")
+        f"placement(s); state_dict() byte-identical on {card}")
     # -- D1. one chunk through the sharded and the single-device engine ----
-    single = DynamicSPC.from_state_dict(
-        n, state, device=device,
-        construct_batch=build_kw.get("construct_batch"))
+    del state
     events = graph_stream(edges, n, DIST_EVENTS // 2, DIST_EVENTS // 2,
                           seed=seed + 23)
     chunk = {}
@@ -2241,7 +2851,8 @@ def main(argv=None) -> int:
     B.frontier_syncs.count = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    # phase D builds the same graph with the same knobs, edge-sharded
+    # phase D builds its own graph with the same knobs, on one device and
+    # edge-sharded
     build_kw = dict(l_cap=None, construct_batch=CONFIG.construct_batch,
                     vertex_order=CONFIG.vertex_order)
     t0 = time.monotonic()
@@ -2249,7 +2860,6 @@ def main(argv=None) -> int:
         svc = DynamicSPC(n, edges, device="cuda", **build_kw)
         torch.cuda.synchronize()
     build_s = time.monotonic() - t0
-    build_syncs = B.frontier_syncs.count
     log(f"build: {build_s:.3f} s, l_cap {svc.index.l_cap}, "
         f"{svc.index_entries()} label entries "
         f"(max {int(svc.index.size.max())}/row), {svc.index_bytes()} index "
@@ -2259,8 +2869,6 @@ def main(argv=None) -> int:
     engine = QueryEngine(route="auto")
     sources = rng.choice(n, size=8, replace=False)
     oracle(svc, engine, sources, "after build")
-    single_build = {"s": build_s, "syncs": build_syncs}
-    single_state = svc.state_dict()
 
     # -- K. the kernel microbench path, then K2 at the graph's shape -------
     g_src, g_dst = live_edges(svc.graph)
@@ -2722,13 +3330,18 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- D. distributed: the phase 4 graph over a device mesh ----------------
+    # -- D. distributed: a graph of its own over a device mesh ---------------
     t0 = time.monotonic()
-    dist_numbers = distributed_phase(edges, n, single_state, single_build,
-                                     build_kw, counts, args.seed, card)
-    dist_numbers["phase_s"] = time.monotonic() - t0
+    dist_halvings = max(args.halvings, DIST_HALVINGS)
+    dist_n, dist_m = CONFIG.n >> dist_halvings, CONFIG.m >> dist_halvings
+    dist_reduced = [f"n {CONFIG.n}->{dist_n}", f"m {CONFIG.m}->{dist_m}"]
+    log(f"D reduced: {json.dumps(dist_reduced)} (a graph of its own, "
+        f"built on one device to hold the sharded build against)")
+    dist_numbers = distributed_phase(
+        power_law_edges(dist_n, dist_m, args.seed + 31), dist_n, build_kw,
+        counts, args.seed, card)
+    dist_numbers.update(phase_s=time.monotonic() - t0, reduced=dist_reduced)
     log(f"distributed: {json.dumps(dist_numbers)} on {card}")
-    del single_state
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2753,76 +3366,26 @@ def main(argv=None) -> int:
         f"({time.monotonic() - t0:.2f} s on {card})")
     s_max = LM_PROMPT + LM_STEPS
     prompts = lm_prompts(lm_cfg, args.seed, dev)
-    torch.cuda.reset_peak_memory_stats()
-    with counts.path("lm"):
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        logits, cache = prefill_in_groups(params, lm_cfg, prompts, s_max,
-                                          LM_GROUP)
-        torch.cuda.synchronize()
-        prefill_s = time.monotonic() - t0
-        prefill_peak = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.monotonic()
-        fed, last, cache, step_ms = greedy_decode(
-            params, lm_cfg, cache, logits.argmax(dim=-1).to(torch.int32),
-            LM_STEPS)
-        torch.cuda.synchronize()
-        decode_s = time.monotonic() - t0
-        decode_peak = torch.cuda.max_memory_allocated()
-    # the last steps again under the profiler: the card's busy time per
-    # step (outside the lm path: the replay counts nowhere)
-    # and its ms per step by kernel
-    busy_ms, span_ms, step_kernels = device_trace(lambda: replay_decode(
-        params, lm_cfg, cache, fed[:, -LM_TRACE_STEPS:],
-        s_max - LM_TRACE_STEPS), LM_TRACE_STEPS)
-    step_kernels = dict(sorted(step_kernels.items(),
-                               key=lambda kv: -kv[1])[:LM_TOP_KERNELS])
+    lm_numbers, fed, last, cache = serve_lm(params, lm_cfg, prompts,
+                                            LM_STEPS, LM_GROUP, counts, "lm")
+    trace = trace_decode(params, lm_cfg, cache, fed, lm_numbers)
+    lm_numbers.update(param_bytes=tf.param_bytes(params), reduced=lm_reduced)
     want_launches = lm_cfg.n_layers * LM_STEPS
     if counts.by_path["lm"]["flash_decode"] != want_launches:
         raise AssertionError(f"flash_decode launched "
                              f"{counts.by_path['lm']['flash_decode']} times "
                              f"on the lm path, want {want_launches}")
-    if not (torch.isfinite(logits).all() and torch.isfinite(last).all()):
-        raise AssertionError("lm: non-finite logits")
-    if tuple(last.shape) != (LM_BATCH, lm_cfg.padded_vocab) or \
-            cache["lengths"].tolist() != [s_max] * LM_BATCH:
-        raise AssertionError(f"lm: logits {tuple(last.shape)}, lengths "
-                             f"{cache['lengths'].tolist()}")
-    lm_numbers = {
-        "requests": LM_BATCH, "prompt": LM_PROMPT, "steps": LM_STEPS,
-        "prefill_group": LM_GROUP, "prefill_s": prefill_s,
-        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
-        "prefill_peak_bytes": prefill_peak,
-        "decode_s": decode_s,
-        "decode_step_ms_p50": float(np.percentile(step_ms, 50)),
-        "decode_step_ms_p90": float(np.percentile(step_ms, 90)),
-        "decode_tokens_per_s": LM_BATCH * LM_STEPS / decode_s,
-        "decode_peak_bytes": decode_peak,
-        "kv_cache_bytes": 2 * cache["k"].numel() * cache["k"].element_size(),
-        "param_bytes": tf.param_bytes(params), "reduced": lm_reduced,
-        "decode_busy_ms_per_step": busy_ms and busy_ms / LM_TRACE_STEPS,
-        "decode_idle_share": busy_ms and 1 - busy_ms / LM_TRACE_STEPS / (
-            float(np.percentile(step_ms, 50))),
-        "decode_step_ms_by_kernel": step_kernels}
     log(f"L2: prefill {LM_BATCH} x {LM_PROMPT} tokens in groups of "
-        f"{LM_GROUP}: {prefill_s:.3f} s, peak {prefill_peak} B on "
-        f"{card}")
+        f"{LM_GROUP}: {lm_numbers['prefill_s']:.3f} s, peak "
+        f"{lm_numbers['prefill_peak_bytes']} B on {card}")
     log(f"L3: {LM_STEPS} decode steps x {LM_BATCH} requests: "
-        f"{decode_s:.3f} s, step p50 {lm_numbers['decode_step_ms_p50']:.3f} "
-        f"ms p90 {lm_numbers['decode_step_ms_p90']:.3f} ms, "
+        f"{lm_numbers['decode_s']:.3f} s, step p50 "
+        f"{lm_numbers['decode_step_ms_p50']:.3f} ms p90 "
+        f"{lm_numbers['decode_step_ms_p90']:.3f} ms, "
         f"{lm_numbers['decode_tokens_per_s']:.1f} tokens/s, peak "
-        f"{decode_peak} B; flash_decode launched {want_launches} times on "
-        f"{card}")
-    log(f"L3 trace by kernel, device ms per step (the top "
-        f"{LM_TOP_KERNELS}): {json.dumps(step_kernels)} on {card}")
-    log("L3 trace: " + (
-        f"{LM_TRACE_STEPS} steps replayed under torch.profiler, the card "
-        f"busy {busy_ms:.3f} ms of {span_ms:.3f} ms from its first to its "
-        f"last device event; busy {busy_ms / LM_TRACE_STEPS:.3f} ms per "
-        f"step, idle share {lm_numbers['decode_idle_share']:.4f} of the "
-        f"step p50" if busy_ms else "the profiler saw no device event; "
-        "busy time not measured") + f" on {card}")
+        f"{lm_numbers['decode_peak_bytes']} B; flash_decode launched "
+        f"{want_launches} times on {card}")
+    log(f"L3 trace: {trace} on {card}")
 
     t0 = time.monotonic()
     check_cache = {"k": cache["k"][:, :LM_CHECK].clone(),
@@ -2844,12 +3407,10 @@ def main(argv=None) -> int:
         f"path's shape, left out) ({time.monotonic() - t0:.3f} "
         f"s on {card})")
     check_l4(l4)
-    del params, logits, prompts
+    del params, prompts
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"launches on the main paths: {json.dumps(counts.by_path)}")
-    counts.check()
 
     # -- flash_decode at the main path's shape, and its times -----------------
     k0, v0, lens = cache["k"][0], cache["v"][0], cache["lengths"].clone()
@@ -2859,22 +3420,17 @@ def main(argv=None) -> int:
     fd_route = FD.plan(LM_BATCH, lm_cfg.n_kv_heads, lm_cfg.padded_heads,
                        int(k0.shape[1]), lm_cfg.d_head, torch.bfloat16,
                        sms).route
-    got = FD.flash_decode_cuda(qm, k0, v0, lens)
-    again = FD.flash_decode_cuda(qm, k0, v0, lens)
+    # the planned route held and timed, the CUDA-core route and SDPA
+    # timed beside it
+    fd_row, want = flash_decode_row(
+        qm, k0, v0, lens, f"({fd_route}) at the main path's shape", fd_route,
+        100, 5, extra={"simt": lambda: FD._simt_cuda(qm, k0, v0, lens)})
     old = FD._simt_cuda(qm, k0, v0, lens)
-    torch.cuda.synchronize()
-    if not torch.equal(got, again):
-        raise AssertionError("flash_decode: two launches at the main path's "
-                             "shape differ")
-    q32, k32, v32 = qm.float(), k0.float(), v0.float()
-    want = decode_attention_ref(q32, k32, v32, lens)
-    main_err = check_close(f"flash_decode ({fd_route}) at the main path's "
-                           f"shape (bf16)", got, want, MAIN_RTOL, MAIN_ATOL)
-    main_rel = rel_l2(got, want)
     simt_err = check_close("flash_decode (simt) at the main path's shape "
                            "(bf16)", old, want, MAIN_RTOL, MAIN_ATOL)
     simt_rel = rel_l2(old, want)
-    del again, old
+    del old
+    q32, k32, v32 = qm.float(), k0.float(), v0.float()
     got32 = FD.flash_decode_cuda(q32, k32, v32, lens)
     torch.cuda.synchronize()
     main_err32 = check_close("flash_decode at the main path's shape (f32)",
@@ -2888,59 +3444,49 @@ def main(argv=None) -> int:
                              f"leaves out a span (max |diff| {lost_err})")
     del q32, k32, v32, got32, lost
     log(f"flash_decode at the main path's shape == plain: bf16 on the "
-        f"{fd_route} route max |diff| {main_err:.3g} (rtol {MAIN_RTOL}, atol "
-        f"{MAIN_ATOL}), relative L2 {main_rel:.3g}, bitwise equal across two "
-        f"launches; on the simt route {simt_err:.3g}, relative L2 "
-        f"{simt_rel:.3g}; output RMS "
-        f"{float(want.norm()) / want.numel() ** 0.5:.3g}; "
+        f"{fd_route} route max |diff| {fd_row['max_abs_err']:.3g} (rtol "
+        f"{MAIN_RTOL}, atol {MAIN_ATOL}), relative L2 "
+        f"{fd_row['rel_l2']:.3g}, bitwise equal across two launches; on "
+        f"the simt route {simt_err:.3g}, relative L2 {simt_rel:.3g}; output "
+        f"RMS {float(want.norm()) / want.numel() ** 0.5:.3g}; "
         f"f32 max |diff| {main_err32:.3g} (2e-5); one span of "
         f"{fault_span} left out differs by {lost_err:.3g} and fails on "
         f"{card}")
-    length = int(lens[0])
-    if lens.tolist() != [length] * LM_BATCH:
-        raise AssertionError(f"unequal lengths {lens.tolist()}")
-    ks = k0[:, :length].transpose(1, 2).contiguous()    # [B, KVH, L, D]
-    vs = v0[:, :length].transpose(1, 2).contiguous()
-    lib = F.scaled_dot_product_attention(qm[:, :, None], ks, vs,
-                                         enable_gqa=True)[:, :, 0]
-    check_close("F.scaled_dot_product_attention", lib, want, MAIN_RTOL,
-                MAIN_ATOL)
     del want
-    # the planned route, the CUDA-core route and SDPA in turn
-    fd_calls = {fd_route: lambda: FD.flash_decode_cuda(qm, k0, v0, lens),
-                "simt": lambda: FD._simt_cuda(qm, k0, v0, lens),
-                "sdpa": lambda: F.scaled_dot_product_attention(
-                    qm[:, :, None], ks, vs, enable_gqa=True)}
-    fd_reps = {k: [] for k in fd_calls}
-    for _ in range(FD_REPS):
-        for k, fn in fd_calls.items():
-            fd_reps[k].append(cuda_ms(fn, 100))
-    fd_ms = float(np.median(fd_reps[fd_route]))
-    fd_lib_ms = float(np.median(fd_reps["sdpa"]))
-    # what the card runs in one call: each kernel's device ms per call
-    # flash_decode's kernels in the decode step's trace (28 calls a step)
-    fd_trace = {k: v / lm_cfg.n_layers for k, v in step_kernels.items()
+    # flash_decode's kernels in the decode step's trace (28 calls a step):
+    # what the card runs in one call, each kernel's device ms per call
+    fd_trace = {k: v / lm_cfg.n_layers
+                for k, v in lm_numbers["decode_step_ms_by_kernel"].items()
                 if k.startswith("flash_decode")}
-    fd_plain_ms = cuda_ms(lambda: decode_attention_ref(qm, k0, v0, lens), 5,
-                          warmup=1)
-    fd_bytes, fd_ops = flash_decode_work(qm, k0, lens)
-    fd_bound, fd_by = bound_ms(fd_bytes, fd_ops)
-    fd_shape = {"B": LM_BATCH, "H": lm_cfg.padded_heads,
-                "KVH": lm_cfg.n_kv_heads, "S": int(k0.shape[1]),
-                "D": lm_cfg.d_head, "lengths": length, "dtype": "bfloat16"}
-    log(f"flash_decode at {json.dumps(fd_shape)}: {fd_route} "
-        f"{json.dumps(fd_reps[fd_route])} ms, simt "
-        f"{json.dumps(fd_reps['simt'])} ms, SDPA {json.dumps(fd_reps['sdpa'])} "
-        f"ms in {FD_REPS} rounds; median {fd_ms:.5f} ms "
-        f"({fd_bytes / fd_ms / 1e6:.1f} GB/s), plain {fd_plain_ms:.4f} ms, "
-        f"SDPA {fd_lib_ms:.5f} ms, bound {fd_bound:.5f} ms ({fd_bytes} B, "
-        f"{fd_by}); {lm_cfg.n_layers} launches take "
-        f"{lm_cfg.n_layers * fd_ms:.3f} ms of a "
+    fd_ms = fd_row["ms"]
+    log(f"flash_decode at {json.dumps(fd_row['shape'])}: {fd_route} "
+        f"{json.dumps(fd_row['ms_rounds'])} ms, simt "
+        f"{json.dumps(fd_row['simt_ms'])} ms, SDPA "
+        f"{json.dumps(fd_row['library_ms_rounds'])} ms in {FD_REPS} rounds; "
+        f"median {fd_ms:.5f} ms ({fd_row['bytes'] / fd_ms / 1e6:.1f} GB/s), "
+        f"plain {fd_row['plain_ms']:.4f} ms, SDPA "
+        f"{fd_row['library_ms']:.5f} ms, bound {fd_row['bound_ms']:.5f} ms "
+        f"({fd_row['bytes']} B, {fd_row['bound_by']}); {lm_cfg.n_layers} "
+        f"launches take {lm_cfg.n_layers * fd_ms:.3f} ms of a "
         f"{lm_numbers['decode_step_ms_p50']:.3f} ms step on {card}")
     log(f"flash_decode in the L3 trace, device ms per call by kernel: "
         f"{json.dumps(fd_trace)} on {card}")
     log(f"lm: {json.dumps(lm_numbers)} on {card}")
-    del cache, k0, v0, ks, vs
+    del cache, k0, v0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- M, M-check, M2, M3. the rest of the LM family -----------------------
+    t0 = time.monotonic()
+    family = deepseek_phases(counts, card, args.seed)
+    family.update(dense_family_phase(counts, card, args.seed, sms))
+    log(f"lm family ({time.monotonic() - t0:.1f} s): {json.dumps(family)} "
+        f"on {card}")
+    fd_family = {name: numbers["flash_decode"]
+                 for name, numbers in family.items()
+                 if "flash_decode" in numbers}
+    log(f"launches on the main paths: {json.dumps(counts.by_path)}")
+    counts.check()
 
     def paths_of(kernel):
         return [p for p, names in PATH_KERNELS.items() if kernel in names]
@@ -2997,23 +3543,30 @@ def main(argv=None) -> int:
     }, {
         "name": "flash_decode", "route": "cuda",
         "path": paths_of("flash_decode"), "ptxas": usage_of("flash_decode"),
-        "design": fd_route, "ms_rounds": fd_reps[fd_route],
-        "trace_ms_per_call": fd_trace,
-        "simt_ms": fd_reps["simt"], "library_ms_rounds": fd_reps["sdpa"],
+        "design": fd_route, "ms_rounds": fd_row["ms_rounds"],
+        "trace_ms_per_call": fd_trace, "simt_ms": fd_row["simt_ms"],
+        "library_ms_rounds": fd_row["library_ms_rounds"],
         "main_simt_max_abs_err": simt_err, "main_simt_rel_l2": simt_rel,
         "fault_span": fault_span,
         "source": KERNEL_SOURCES["flash_decode"][0],
         "replaces": KERNEL_SOURCES["flash_decode"][1],
         "launches": counts.of("flash_decode")[0],
         "launches_by_path": counts.of("flash_decode")[1],
-        "max_abs_err": max(dec_err, dec_err16, main_err, main_err32),
+        "max_abs_err": max(dec_err, dec_err16, fd_row["max_abs_err"],
+                           main_err32,
+                           *(r["max_abs_err"] for r in fd_family.values()),
+                           *(r["served_max_abs_err"]
+                             for r in fd_family.values()),
+                           fd_family["phi3-medium-14b"]["group5_max_abs_err"]),
         "f32_max_abs_err": dec_err,
-        "main_max_abs_err": main_err, "main_rel_l2": main_rel,
+        "main_max_abs_err": fd_row["max_abs_err"],
+        "main_rel_l2": fd_row["rel_l2"],
         "main_f32_max_abs_err": main_err32, "main_tol": [MAIN_RTOL, MAIN_ATOL],
         "main_lost_span_max_abs_err": lost_err,
-        "ms": fd_ms, "plain_ms": fd_plain_ms, "bound_ms": fd_bound,
-        "bound_by": fd_by, "bytes": fd_bytes, "library_ms": fd_lib_ms,
-        "shape": fd_shape,
+        **{key: fd_row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "bytes", "library_ms",
+                                        "shape")},
+        "lm_family": fd_family,
     }]
     log(f"chip_smoke: {time.monotonic() - start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,12 @@
 """Architecture registry of the port: ``get("<arch-id>")`` -> ArchSpec.
 
 The ported architectures: ``dspc`` (the paper's own workload), ``pna``
-(the GNN of the recommendation re-rank) and ``qwen2-1.5b`` (the dense
-GQA LM of the serving path).  Any other id of the reference raises
-``KeyError`` until its slice is ported.
+(the GNN of the recommendation re-rank) and the reference's five LMs:
+the dense GQA ``qwen2-1.5b``, ``qwen2-7b`` and ``phi3-medium-14b``, and
+the MLA + MoE ``deepseek-v2-lite-16b`` and ``deepseek-v2-236b``.  The
+other GNN ids and the recsys id (``egnn``, ``nequip``,
+``equiformer-v2``, ``dien``) raise ``KeyError`` until their slices are
+ported.
 """
 
 from __future__ import annotations
@@ -14,9 +17,13 @@ from repro_torch.configs.common import ArchSpec, ShapeSpec
 from repro_torch.configs.dspc import CONFIG, SMOKE, DSPCArchConfig
 
 _MODULES = {
-    "dspc": "repro_torch.configs.dspc",
-    "pna": "repro_torch.configs.pna",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "pna": "repro_torch.configs.pna",
+    "dspc": "repro_torch.configs.dspc",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,17 +1,21 @@
-"""GQA attention for the LM (port of the GQA half of
-``repro.models.attention``): RoPE, the projections, the plain causal
-path, one-token decode against the KV cache, and blockwise prefill.
+"""Attention for the LM (port of ``repro.models.attention``): RoPE,
+GQA (qwen2, phi3) and MLA (deepseek-v2), each with the plain causal
+path, blockwise prefill and one-token decode against the cache.
 
 On one card there is no mesh: the reference's ``shard_act`` constraints
 have no counterpart, and query heads are padded to a multiple of
 ``cfg.tp`` only as the configuration says (``tp = 1`` keeps the
-published count).  The MLA functions wait for the MLA slice.
+published count).
 
 Two places differ from the reference on purpose, and say so below:
-decode writes the new K and V rows into the cache in place, and the
-blockwise prefill slices the true tail block (the reference clamps the
-last block's start and masks it by the unclamped positions, which is
-wrong when t is not a multiple of ``block_k``).
+decode writes the new cache rows in place (K and V for GQA, the latent
+``ckv`` and the rope key ``kr`` for MLA), and the blockwise prefill
+slices the true tail block (the reference clamps the last block's
+start and masks it by the unclamped positions, which is wrong when t is
+not a multiple of ``block_k``).  GQA decode attention runs on the
+flash_decode kernel; MLA decode is the reference's absorbed einsums
+(one latent head with keys of kv_lora + rope width and values of
+kv_lora width, outside any kernel in the reference too).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 from repro_torch.core.graph import resolve_device
 from repro_torch.kernels.flash_decode.ops import decode_attention
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, init_rms, rms_norm
 
 
 # -------------------------------------------------------------------------
@@ -160,10 +164,11 @@ def gqa_decode(p, x, cache_k, cache_v, lengths, cfg):
 # Blockwise (flash-style) attention for long prefill.
 # -------------------------------------------------------------------------
 def blockwise_attention(q, make_kv_block, t_kv: int, block_k: int,
-                        scale: float, q_positions):
-    """q [b, h, t, dh]; ``make_kv_block(start)`` -> (k, v [b, n, h, dh])
-    for the true block ``[start, min(start + block_k,
-    t_kv))``; causal mask by absolute positions (key ``start + j`` is
+                        scale: float, q_positions, d_v: int | None = None):
+    """q [b, h, t, dh]; ``make_kv_block(start)`` -> (k [b, n, h, dh],
+    v [b, n, h, d_v]; ``d_v`` defaults to dh) for the true block
+    ``[start, min(start + block_k, t_kv))``; causal mask by absolute
+    positions (key ``start + j`` is
     seen by queries with ``q_positions >= start + j``).  ``q_positions``
     must not decrease along t, as prefill's do.
 
@@ -172,12 +177,12 @@ def blockwise_attention(q, make_kv_block, t_kv: int, block_k: int,
     are left out of it: the reference's arithmetic adds exactly 0 to
     them and rescales them by exactly 1, so no number changes, and a
     causal prefill does about half the reference's work.
-    Returns [b, h, t, dh] float32."""
+    Returns [b, h, t, d_v] float32."""
     b, h, t, dh = q.shape
     q32 = q.float()
     m = torch.full((b, h, t), float("-inf"), device=q.device)
     l = torch.zeros((b, h, t), device=q.device)
-    acc = torch.zeros((b, h, t, dh), device=q.device)
+    acc = torch.zeros((b, h, t, d_v or dh), device=q.device)
     last = q_positions.amax(dim=0).contiguous()       # [t], sorted
     for start in range(0, t_kv, block_k):
         lo = int(torch.searchsorted(last, start))
@@ -214,3 +219,147 @@ def gqa_prefill_blockwise(p, x, cfg, positions, block_k: int = 1024):
                               1.0 / math.sqrt(dh), positions)
     ctx = ctx.transpose(1, 2).to(x.dtype).reshape(b, t, hq * dh)
     return ctx @ p["wo"], (k, v)
+
+
+def mla_prefill_blockwise(p, x, cfg, positions, block_k: int = 1024):
+    """MLA prefill with blockwise attention: the rope part rides in
+    extended head dims (q_ext = [q_nope, q_rope], k_ext = [k_nope, k_rope
+    on every head]), and k_nope and v are expanded from the latent cache
+    one block at a time, never at full length.  Returns (out, (ckv,
+    k_rope))."""
+    b, t, _ = x.shape
+    h, dn, dr, dv = (cfg.padded_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)        # [b, t, h, .]
+    ckv, k_rope = _mla_ckv(p, x, cfg, positions)         # [b, t, cl / dr]
+    q_ext = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
+
+    def kv_block(start):
+        ckv_blk = ckv[:, start:start + block_k]
+        n = ckv_blk.shape[1]
+        k_nope = (ckv_blk @ p["wuk"]).reshape(b, n, h, dn)
+        kr = k_rope[:, start:start + block_k, None, :].expand(b, n, h, dr)
+        return (torch.cat([k_nope, kr], dim=-1),
+                (ckv_blk @ p["wuv"]).reshape(b, n, h, dv))
+
+    ctx = blockwise_attention(q_ext, kv_block, t, block_k,
+                              1.0 / math.sqrt(dn + dr), positions, d_v=dv)
+    ctx = ctx.transpose(1, 2).to(x.dtype).reshape(b, t, h * dv)
+    return ctx @ p["wo"], (ckv, k_rope)
+
+
+# -------------------------------------------------------------------------
+# MLA (deepseek-v2)
+# -------------------------------------------------------------------------
+def init_mla(cfg, *, generator: torch.Generator, device="cuda",
+             lead: tuple = ()) -> dict:
+    """The reference's ``init_mla`` tree, each leaf with ``lead`` leading
+    axes: with ``q_lora`` ``wdq [d, ql]``, ``q_norm [ql]``, ``wuq [ql,
+    h (dn + dr)]``, else ``wq [d, h (dn + dr)]``; then ``wdkv [d, cl +
+    dr]``, ``kv_norm [cl]``, ``wuk [cl, h dn]``, ``wuv [cl, h dv]``,
+    ``wo [h dv, d]``."""
+    device = resolve_device(device)
+    d, h = cfg.d_model, cfg.padded_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    cl, ql = cfg.kv_lora, cfg.q_lora
+    kw = dict(generator=generator, dtype=cfg.param_dtype, device=device,
+              lead=lead)
+
+    def norm(width):
+        return init_rms(width, dtype=cfg.param_dtype,
+                        device=device).repeat(*lead, 1)
+
+    p = {}
+    if ql:
+        p["wdq"] = dense_init(d, ql, **kw)
+        p["q_norm"] = norm(ql)
+        p["wuq"] = dense_init(ql, h * (dn + dr), **kw)
+    else:
+        p["wq"] = dense_init(d, h * (dn + dr), **kw)
+    p["wdkv"] = dense_init(d, cl + dr, **kw)
+    p["kv_norm"] = norm(cl)
+    p["wuk"] = dense_init(cl, h * dn, **kw)
+    p["wuv"] = dense_init(cl, h * dv, **kw)
+    p["wo"] = dense_init(h * dv, d, **kw)
+    return p
+
+
+def _mla_q(p, x, cfg, positions):
+    b, t, _ = x.shape
+    h, dn, dr = cfg.padded_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora:
+        q = rms_norm(p["q_norm"], x @ p["wdq"]) @ p["wuq"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(b, t, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos[:, :, None, :], sin[:, :, None, :])
+    return q_nope, q_rope
+
+
+def _mla_ckv(p, x, cfg, positions):
+    dr, cl = cfg.qk_rope_dim, cfg.kv_lora
+    dkv = x @ p["wdkv"]
+    ckv = rms_norm(p["kv_norm"], dkv[..., :cl])
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    return ckv, apply_rope(dkv[..., cl:], cos, sin)
+
+
+def mla_train(p, x, cfg, positions):
+    """Causal MLA over the full sequence (the plain prefill core):
+    k_nope and v expanded from the latent, ``[b, h, t, t]`` scores,
+    fp32 softmax.  Returns (out [b, t, d], (ckv [b, t, cl], k_rope
+    [b, t, dr]))."""
+    b, t, _ = x.shape
+    h, dn, dr, dv = (cfg.padded_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, k_rope = _mla_ckv(p, x, cfg, positions)
+    k_nope = (ckv @ p["wuk"]).reshape(b, t, h, dn)
+    v = (ckv @ p["wuv"]).reshape(b, t, h, dv)
+    scores = (torch.einsum("bthd,bshd->bhts", q_nope, k_nope) +
+              torch.einsum("bthd,bsd->bhts", q_rope, k_rope)) / float(
+                  np.sqrt(dn + dr))
+    mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+    scores = torch.where(mask, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhts,bshd->bthd", probs, v).reshape(b, t, h * dv)
+    return ctx @ p["wo"], (ckv, k_rope)
+
+
+def mla_decode(p, x, cache_ckv, cache_kr, lengths, cfg):
+    """One-token absorbed MLA decode: W_uk folds into the query and W_uv
+    into the output, so scores and context live in the latent space and
+    the cache is ``[S, kv_lora]`` + ``[S, rope]`` a request.  The
+    reference's einsums, in its dtypes (scores in the activations'
+    dtype, softmax in float32).
+
+    x [b, 1, d]; cache_ckv [b, S, cl], cache_kr [b, S, dr]; lengths
+    int32 [b], the valid length before this token.  The new rows are
+    written **in place** at ``lengths`` (clamped to S - 1, as the
+    reference's ``dynamic_update_slice`` clamps), as ``gqa_decode``
+    does.  Returns (out [b, 1, d], cache_ckv, cache_kr)."""
+    b = x.shape[0]
+    h, dn, dr, dv, cl = (cfg.padded_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim, cfg.kv_lora)
+    positions = lengths[:, None]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)      # [b, 1, h, .]
+    ckv_new, kr_new = _mla_ckv(p, x, cfg, positions)   # [b, 1, cl / dr]
+    rows = torch.arange(b, device=x.device)
+    at = lengths.long().clamp(0, cache_ckv.shape[1] - 1)
+    cache_ckv[rows, at] = ckv_new[:, 0]
+    cache_kr[rows, at] = kr_new[:, 0]
+    q_lat = torch.einsum("bhd,chd->bhc", q_nope[:, 0],
+                         p["wuk"].reshape(cl, h, dn))      # absorb W_uk
+    scores = (torch.einsum("bhc,bsc->bhs", q_lat, cache_ckv) +
+              torch.einsum("bhd,bsd->bhs", q_rope[:, 0], cache_kr))
+    scores = scores / float(np.sqrt(dn + dr))
+    valid = torch.arange(cache_ckv.shape[1], device=x.device) <= \
+        lengths[:, None]
+    scores = torch.where(valid[:, None], scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx_lat = torch.einsum("bhs,bsc->bhc", probs, cache_ckv)
+    ctx = torch.einsum("bhc,chd->bhd", ctx_lat,
+                       p["wuv"].reshape(cl, h, dv)).reshape(b, 1, h * dv)
+    return ctx @ p["wo"], cache_ckv, cache_kr

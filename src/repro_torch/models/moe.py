@@ -1,13 +1,32 @@
-"""Feed-forward blocks of the LM (port of the dense part of
-``repro.models.moe``).
+"""Feed-forward blocks of the LM (port of ``repro.models.moe``): the
+dense SwiGLU FFN and the deepseek-v2 mixture of experts (shared + routed
+top-k).
 
-Only the SwiGLU FFN of the dense configurations; ``init_moe`` and
-``moe_ffn`` wait for the MoE slice.  Weights keep the reference's
-[in, out] layout.
+Dispatch is the reference's **sort-based, fixed-capacity** scheme, per
+dispatch group: the ``n_tok = b * t`` tokens are cut into
+``g = min(moe_groups, n_tok)`` groups (halved while g does not divide
+n_tok), each expert takes at most ``cap = ceil(tg * k / e *
+moe_capacity_factor)`` rows of a group of ``tg`` tokens, and the
+overflow is dropped (its weight zeroed).  So ``moe_groups`` and
+``moe_capacity_factor`` decide which tokens drop, on one card as on a
+mesh; only the group axis's sharding over the data axis waits for the
+mesh slice.
+
+Routing keeps the reference's order exactly: a float32 router, softmax,
+the top k with ties to the lower expert id (``lax.top_k``'s order), a
+stable sort by expert and the rank within an expert from
+``searchsorted(..., side="left")``.  The un-dispatch is a scatter-add in
+the activations' dtype, as the reference's ``.at[].add`` is; it is a
+torch scatter-add and no kernel of the port (the reference's is its own
+jnp, not the segment_matmul Pallas kernel).  Weights keep the
+reference's [in, out] layout, experts stacked [E, in, out].
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from repro_torch.core.graph import resolve_device
@@ -27,3 +46,150 @@ def init_dense_ffn(d: int, f: int, *, generator: torch.Generator,
 
 def dense_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
     return swiglu(x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
+
+
+def _expert_stack(e: int, d_in: int, d_out: int, *, generator, dtype, device,
+                  lead: tuple) -> torch.Tensor:
+    """[*lead, e, d_in, d_out] drawn N(0, 1) / sqrt(d_in), one leading
+    index at a time, so the float32 draw never holds more than one
+    layer's experts."""
+    out = torch.empty((*lead, e, d_in, d_out), dtype=dtype, device=device)
+    for idx in np.ndindex(*lead):
+        out[idx] = dense_init(d_in, d_out, generator=generator, dtype=dtype,
+                              device=device, lead=(e,))
+    return out
+
+
+def init_moe(cfg, *, generator: torch.Generator, device="cuda",
+             lead: tuple = ()) -> dict:
+    """The reference's ``init_moe`` tree, each leaf with ``lead`` leading
+    axes: ``router [d, e]`` in float32 whatever ``param_dtype`` is, the
+    routed experts ``w_gate``, ``w_up [e, d, f]`` and ``w_down [e, f,
+    d]``, and the shared experts ``ws_gate``, ``ws_up [d, s * f]``,
+    ``ws_down [s * f, d]``."""
+    dev = resolve_device(device)
+    d, e, f = cfg.d_model, cfg.moe_experts, cfg.moe_d_ff
+    fs = cfg.moe_shared * f
+    kw = dict(generator=generator, dtype=cfg.param_dtype, device=dev,
+              lead=lead)
+    return {
+        "router": dense_init(d, e, generator=generator, dtype=torch.float32,
+                             device=dev, lead=lead),
+        "w_gate": _expert_stack(e, d, f, **kw),
+        "w_up": _expert_stack(e, d, f, **kw),
+        "w_down": _expert_stack(e, f, d, **kw),
+        "ws_gate": dense_init(d, fs, **kw),
+        "ws_up": dense_init(d, fs, **kw),
+        "ws_down": dense_init(fs, d, **kw),
+    }
+
+
+def dispatch_shape(n_tok: int, cfg) -> tuple[int, int, int]:
+    """(groups, tokens per group, capacity per expert and group), by the
+    reference's rule."""
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    g = min(cfg.moe_groups, n_tok) or 1
+    while n_tok % g:
+        g //= 2
+    tg = n_tok // g
+    return g, tg, int(np.ceil(tg * k / e * cfg.moe_capacity_factor))
+
+
+def no_drop_capacity_factor(cfg) -> float:
+    """The capacity factor ``e / k`` at which ``cap >= tg``: an expert
+    takes every token of its group, so no assignment can drop (top-k
+    experts of a token are distinct)."""
+    return cfg.moe_experts / cfg.moe_top_k
+
+
+class Routing(NamedTuple):
+    """The dispatch of one ``moe_ffn`` call, per group ``[g, ...]``:
+    ``top_e`` / ``top_p`` [g, tg, k] (weights after ``moe_norm_topk``),
+    ``probs`` [g, tg, e], then per sorted assignment [g, tg * k] the
+    source token ``st``, the weight ``sp``, ``keep`` and the slot
+    (``slot_e``, ``slot_c``; dropped ones on the dump expert e, row 0)."""
+    top_e: torch.Tensor
+    top_p: torch.Tensor
+    probs: torch.Tensor
+    st: torch.Tensor
+    sp: torch.Tensor
+    keep: torch.Tensor
+    slot_e: torch.Tensor
+    slot_c: torch.Tensor
+    cap: int
+
+
+def route(router: torch.Tensor, tokens: torch.Tensor, cfg) -> Routing:
+    """The reference's routing of ``tokens [g, tg, d]`` (float32 logits,
+    softmax, top k, stable sort by expert, rank within an expert)."""
+    g, tg, _ = tokens.shape
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    cap = dispatch_shape(g * tg, cfg)[2]
+    probs = torch.softmax(tokens.float() @ router, dim=-1)     # [g, tg, e]
+    # lax.top_k's order: value descending, ties to the lower index (a
+    # stable descending sort keeps equal values in index order)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :k], top_e[..., :k]
+    if cfg.moe_norm_topk:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    flat_e = top_e.reshape(g, tg * k)
+    order = torch.sort(flat_e, dim=1, stable=True).indices
+    se = flat_e.gather(1, order)
+    st = torch.div(order, k, rounding_mode="floor")    # token of each slot
+    sp = top_p.reshape(g, tg * k).gather(1, order)
+    first_of_e = torch.searchsorted(se, se, side="left")
+    pos = torch.arange(tg * k, device=tokens.device) - first_of_e
+    keep = pos < cap
+    return Routing(top_e, top_p, probs, st, sp, keep,
+                   torch.where(keep, se, e), torch.where(keep, pos, 0), cap)
+
+
+def aux_loss(r: Routing, e: int) -> torch.Tensor:
+    """Switch-style load balance: e * sum(density * density proxy)."""
+    density = torch.nn.functional.one_hot(r.top_e[..., 0], e).float().mean(
+        dim=(0, 1))
+    return (density * r.probs.mean(dim=(0, 1))).sum() * e
+
+
+def moe_dispatch(p: dict, x: torch.Tensor, cfg):
+    """x [b, t, d] -> (out [b, t, d], its :class:`Routing`), the
+    reference's grouped fixed-capacity dispatch (module doc) without the
+    aux loss: serving reads only ``out``.
+
+    The dispatch buffer is laid out expert-major, ``[e + 1, g * cap,
+    d]`` (the reference's is ``[g, e + 1, cap, d]``), so each expert's
+    rows of every group are one batched product; every output element
+    is the same dot product either way."""
+    b, t, d = x.shape
+    e = cfg.moe_experts
+    g, tg, cap = dispatch_shape(b * t, cfg)
+    tokens = x.reshape(g, tg, d)
+    r = route(p["router"], tokens, cfg)
+    gi = torch.arange(g, device=x.device)[:, None]
+    rows = gi * cap + r.slot_c                                 # [g, tg * k]
+    buf = x.new_zeros((e + 1, g * cap, d))
+    buf[r.slot_e, rows] = tokens[gi, r.st]
+    h = buf[:e]
+    act = swiglu(torch.bmm(h, p["w_gate"]), torch.bmm(h, p["w_up"]))
+    out_e = torch.bmm(act, p["w_down"])
+    # a dropped assignment reads expert e - 1's row at weight 0 where the
+    # reference reads its zero dump row: the same 0 without a copy
+    gathered = out_e[r.slot_e.clamp(max=e - 1), rows] * \
+        (r.sp * r.keep).to(x.dtype)[..., None]
+    routed = x.new_zeros((g, tg, d)).scatter_add_(
+        1, r.st[..., None].expand(-1, -1, d), gathered)
+    shared = swiglu(tokens @ p["ws_gate"], tokens @ p["ws_up"]) @ p["ws_down"]
+    return (routed + shared).reshape(b, t, d), r
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg):
+    """x [b, t, d] -> (out [b, t, d], aux loss scalar), as the
+    reference's ``moe_ffn`` returns them (:func:`moe_dispatch`, then
+    :func:`aux_loss`)."""
+    out, r = moe_dispatch(p, x, cfg)
+    return out, aux_loss(r, cfg.moe_experts)
+
+
+__all__ = ["Routing", "aux_loss", "dense_ffn", "dispatch_shape",
+           "init_dense_ffn", "init_moe", "moe_dispatch", "moe_ffn",
+           "no_drop_capacity_factor", "route"]

@@ -1,15 +1,19 @@
-"""Decoder-only LM serving (port of the dense-GQA part of
-``repro.models.transformer``): parameters, the KV cache, ``prefill``
-and ``decode_step``.
+"""Decoder-only LM serving (port of the serving part of
+``repro.models.transformer``): parameters, the cache, ``prefill`` and
+``decode_step`` for every LM configuration of the reference -- GQA or
+MLA attention, a dense or a mixture-of-experts FFN.
 
 Parameters are a nested dict of tensors in the reference's layout --
-[in, out] weights, the layers stacked on a leading [L] axis -- so
-:func:`load_reference_params` is a plain copy of the reference's tree.
-The layer loop is a Python loop over views of that stack.
+[in, out] weights, the layers stacked on a leading [L] axis, the MoE
+router in float32 -- so :func:`load_reference_params` is a plain copy
+of the reference's tree.  The layer loop is a Python loop over views of
+that stack.  Every layer is of one kind, as in the reference (no
+leading dense layer in the MoE configurations).
 
-Configurations with ``attn="mla"`` or experts raise
-``NotImplementedError``: MLA and MoE wait for their slices, and
-``forward_train`` / ``make_train_loss`` for the training slice.
+Serving drops the MoE aux loss, as the reference's ``prefill`` and
+``decode_step`` do (here it is not computed at all); ``forward_train`` / ``make_train_loss`` wait for the
+training slice, and the sharded decode (``sharded_decode``,
+``seq_parallel``) for the mesh slice.
 """
 
 from __future__ import annotations
@@ -29,10 +33,14 @@ from repro_torch.models.common import dense_init, init_rms, rms_norm
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Every field of the reference's config, so config files read the
-    same; ``param_dtype`` and ``act_dtype`` are torch dtypes.  On one
-    card the mesh-only fields -- ``sharded_decode``, ``seq_parallel``,
-    ``remat``, ``unroll_scans`` and ``moe_groups`` -- have no effect,
-    and ``tp`` only pads the query heads and the vocabulary."""
+    same; ``param_dtype`` and ``act_dtype`` are torch dtypes.
+
+    ``moe_groups`` and ``moe_capacity_factor`` act on one card as on a
+    mesh: the dispatch groups and the capacity of each expert in a group
+    decide which routed assignments drop (``moe.dispatch_shape``).  The
+    mesh-only fields -- ``sharded_decode``, ``seq_parallel``, ``remat``
+    and ``unroll_scans`` -- have no effect until the mesh slice, and
+    ``tp`` only pads the query heads and the vocabulary."""
     name: str
     n_layers: int
     d_model: int
@@ -113,14 +121,6 @@ class TransformerConfig:
         return self.param_count() - l * (ffn_all - ffn_act)
 
 
-def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.attn != "gqa":
-        raise NotImplementedError(f"{cfg.name}: attn={cfg.attn!r} is not "
-                                  f"ported yet (GQA only)")
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported yet")
-
-
 # -------------------------------------------------------------------------
 # Parameters
 # -------------------------------------------------------------------------
@@ -130,16 +130,18 @@ def init_params(cfg: TransformerConfig, *, generator=None,
     ``torch.Generator`` (default: seed 0 on ``device``).  The numbers
     differ from ``jax.random``'s; tests carry the reference's across
     with :func:`load_reference_params`."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
     lead = (cfg.n_layers,)
     kw = dict(generator=generator, dtype=cfg.param_dtype, device=dev)
     d, vp = cfg.d_model, cfg.padded_vocab
+    init_attn = A.init_mla if cfg.attn == "mla" else A.init_gqa
     layers = {
-        "attn": A.init_gqa(cfg, generator=generator, device=dev, lead=lead),
-        "ffn": M.init_dense_ffn(d, cfg.d_ff, lead=lead, **kw),
+        "attn": init_attn(cfg, generator=generator, device=dev, lead=lead),
+        "ffn": (M.init_moe(cfg, generator=generator, device=dev, lead=lead)
+                if cfg.is_moe else M.init_dense_ffn(d, cfg.d_ff, lead=lead,
+                                                    **kw)),
         "ln1": init_rms(d, dtype=cfg.param_dtype, device=dev).repeat(
             cfg.n_layers, 1),
         "ln2": init_rms(d, dtype=cfg.param_dtype, device=dev).repeat(
@@ -184,20 +186,32 @@ def _layer(tree, i: int):
 # -------------------------------------------------------------------------
 # Serving: prefill + decode
 # -------------------------------------------------------------------------
+def cache_names(cfg: TransformerConfig) -> tuple[str, str]:
+    """The two per-layer cache tensors: ``("ckv", "kr")`` for MLA,
+    ``("k", "v")`` for GQA."""
+    return ("ckv", "kr") if cfg.attn == "mla" else ("k", "v")
+
+
 def abstract_cache(cfg: TransformerConfig, batch: int, s_max: int) -> dict:
-    """The cache's shapes and dtypes, as tensors on the meta device."""
-    _check_supported(cfg)
-    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.empty(shape, dtype=cfg.act_dtype, device="meta"),
-            "v": torch.empty(shape, dtype=cfg.act_dtype, device="meta"),
-            "lengths": torch.empty((batch,), dtype=torch.int32,
-                                   device="meta")}
+    """The cache's shapes and dtypes, as tensors on the meta device: for
+    MLA the latent ``ckv [L, b, s_max, kv_lora]`` and the rope key ``kr
+    [L, b, s_max, qk_rope_dim]``, for GQA ``k`` and ``v [L, b, s_max,
+    kv, dh]``; and ``lengths`` int32 [b]."""
+    lead = (cfg.n_layers, batch, s_max)
+    if cfg.attn == "mla":
+        shapes = (lead + (cfg.kv_lora,), lead + (cfg.qk_rope_dim,))
+    else:
+        shapes = (lead + (cfg.n_kv_heads, cfg.d_head),) * 2
+    cache = {name: torch.empty(shape, dtype=cfg.act_dtype, device="meta")
+             for name, shape in zip(cache_names(cfg), shapes)}
+    cache["lengths"] = torch.empty((batch,), dtype=torch.int32, device="meta")
+    return cache
 
 
 def init_cache(cfg: TransformerConfig, batch: int, s_max: int, *,
                device="cuda") -> dict:
-    """A zero cache: k, v [L, batch, s_max, kv, dh] in ``act_dtype`` and
-    lengths int32 [batch]."""
+    """A zero cache of :func:`abstract_cache`'s shapes, in ``act_dtype``
+    (lengths int32)."""
     dev = resolve_device(device)
     return {k: torch.zeros(x.shape, dtype=x.dtype, device=dev)
             for k, x in abstract_cache(cfg, batch, s_max).items()}
@@ -205,52 +219,61 @@ def init_cache(cfg: TransformerConfig, batch: int, s_max: int, *,
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             s_max: int):
-    """Full-sequence forward that also fills the KV cache.
+    """Full-sequence forward that also fills the cache.
 
     tokens int [b, t] on the device the parameters lie on.  Prompts of
     ``t >= cfg.blockwise_prefill_from`` take the blockwise attention.
     Returns (logits [b, Vpad] of the last position, cache) with the
     cache of :func:`init_cache` filled to length t."""
-    _check_supported(cfg)
     b, t = tokens.shape
     x = params["embed"][tokens].to(cfg.act_dtype)
     positions = torch.arange(t, dtype=torch.int32,
                              device=tokens.device).expand(b, t)
+    mla = cfg.attn == "mla"
     if t >= cfg.blockwise_prefill_from:
+        blockwise = (A.mla_prefill_blockwise if mla
+                     else A.gqa_prefill_blockwise)
+
         def attn_fn(p, h, c, pos):
-            return A.gqa_prefill_blockwise(p, h, c, pos,
-                                           block_k=cfg.prefill_block_k)
+            return blockwise(p, h, c, pos, block_k=cfg.prefill_block_k)
     else:
-        attn_fn = A.gqa_train
+        attn_fn = A.mla_train if mla else A.gqa_train
     cache = init_cache(cfg, b, s_max, device=tokens.device)
+    n1, n2 = cache_names(cfg)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h, (k, v) = attn_fn(lp["attn"], rms_norm(lp["ln1"], x), cfg,
-                            positions)
-        cache["k"][i, :, :t] = k
-        cache["v"][i, :, :t] = v
+        h, (c1, c2) = attn_fn(lp["attn"], rms_norm(lp["ln1"], x), cfg,
+                              positions)
+        cache[n1][i, :, :t] = c1
+        cache[n2][i, :, :t] = c2
         x = x + h
-        x = x + M.dense_ffn(lp["ffn"], rms_norm(lp["ln2"], x))
+        x = x + _ffn(lp["ffn"], rms_norm(lp["ln2"], x), cfg)
     logits = rms_norm(params["ln_f"], x[:, -1]) @ params["lm_head"]
     cache["lengths"].fill_(t)
     return logits, cache
+
+
+def _ffn(p: dict, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """The layer's FFN; serving never computes the MoE aux loss."""
+    return M.moe_dispatch(p, x, cfg)[0] if cfg.is_moe else M.dense_ffn(p, x)
 
 
 def decode_step(params: dict, cache: dict, token: torch.Tensor,
                 cfg: TransformerConfig):
     """One decode step: token int [b] -> (logits [b, Vpad], cache).
 
-    Each layer writes its new K and V rows **in place** into
-    ``cache["k"]`` and ``cache["v"]``; the returned cache shares those
-    tensors and carries ``lengths + 1``."""
-    _check_supported(cfg)
+    Each layer writes its new rows **in place** into the cache's two
+    tensors (``k`` / ``v``, or ``ckv`` / ``kr`` for MLA); the returned
+    cache shares them and carries ``lengths + 1``."""
     x = params["embed"][token[:, None]].to(cfg.act_dtype)
     lengths = cache["lengths"]
+    n1, n2 = cache_names(cfg)
+    decode = A.mla_decode if cfg.attn == "mla" else A.gqa_decode
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h, _, _ = A.gqa_decode(lp["attn"], rms_norm(lp["ln1"], x),
-                               cache["k"][i], cache["v"][i], lengths, cfg)
+        h, _, _ = decode(lp["attn"], rms_norm(lp["ln1"], x), cache[n1][i],
+                         cache[n2][i], lengths, cfg)
         x = x + h
-        x = x + M.dense_ffn(lp["ffn"], rms_norm(lp["ln2"], x))
+        x = x + _ffn(lp["ffn"], rms_norm(lp["ln2"], x), cfg)
     logits = rms_norm(params["ln_f"], x[:, 0]) @ params["lm_head"]
-    return logits, {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}
+    return logits, {n1: cache[n1], n2: cache[n2], "lengths": lengths + 1}

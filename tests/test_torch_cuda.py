@@ -24,7 +24,10 @@ main paths run on the card: a small build -> events -> serve answers as
 the counting BFS does through the kernel route, the analytics path
 (store, betweenness, cycles, recommendation -> PNA re-rank) gives the
 CPU's answers, and the LM path at qwen2-1.5b ``SMOKE`` (prefill, then
-decode through the kernel) gives the CPU's logits.  spc_query's fused
+decode through the kernel) gives the CPU's logits, as do the MLA + MoE
+``SMOKE`` configurations (deepseek-v2-lite-16b, deepseek-v2-236b), and
+flash_decode holds at the LM family's groups of 7, 4 and 5 heads.
+spc_query's fused
 kernel reads rows by vertex id: it equals its plain version on a built
 index padded to L = 2048 at B 1, 7, 1024 and 4096 (ids outside [0, n]
 among them), on long rows whose hubs repeat, at L 16000 (64000 bytes of
@@ -335,6 +338,74 @@ def test_lm_path_on_the_card(card):
         assert torch.equal(gpu[1], cpu[1])
         torch.testing.assert_close(gpu[2], cpu[2], rtol=1e-4, atol=1e-4)
         assert cpu[3] == 0 and gpu[3] == cfg.n_layers * 6
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b",
+                                  "deepseek_v2_236b"])
+def test_mla_moe_path_on_the_card(card, arch):
+    """The MLA + MoE ``SMOKE`` configurations in float32: prefill (plain
+    and blockwise at a ragged t) and greedy decode on the card give the
+    CPU's logits and tokens (the MoE routing, its drops at the default
+    capacity factor included), the cache on the card being ``ckv`` and
+    ``kr``; no flash_decode launch (MLA decode is the reference's
+    absorbed einsums)."""
+    import importlib
+    smoke = importlib.import_module(f"repro_torch.configs.{arch}").SMOKE
+    cfg = dataclasses.replace(smoke, param_dtype=torch.float32,
+                              act_dtype=torch.float32,
+                              blockwise_prefill_from=32, prefill_block_k=16)
+    params = tf.init_params(cfg, generator=torch.Generator().manual_seed(2),
+                            device="cpu")
+    prompts = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (3, 40)).astype(np.int32))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        p = tf.load_reference_params(numpy_tree(params), device=dev)
+        assert p["layers"]["ffn"]["router"].dtype == torch.float32
+        for t in (20, 37):                       # plain, then blockwise
+            logits, cache = chip_smoke.prefill_in_groups(
+                p, cfg, prompts[:, :t].to(dev), t + 6, 2)
+            assert set(cache) == {"ckv", "kr", "lengths"}
+            before = FD.launches.count
+            fed, last, cache, _ = chip_smoke.greedy_decode(
+                p, cfg, cache, logits.argmax(-1).to(torch.int32), 6)
+            results[dev, t] = (logits.cpu(), fed.cpu(), last.cpu(),
+                               cache["ckv"].cpu(),
+                               FD.launches.count - before)
+    for t in (20, 37):
+        cpu, gpu = results["cpu", t], results["cuda", t]
+        torch.testing.assert_close(gpu[0], cpu[0], rtol=1e-4, atol=1e-4)
+        assert torch.equal(gpu[1], cpu[1])
+        torch.testing.assert_close(gpu[2], cpu[2], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(gpu[3], cpu[3], rtol=1e-4, atol=1e-4)
+        assert cpu[4] == gpu[4] == 0
+
+
+#: The LM family's decode groups: qwen2-7b (28 q / 4 KV heads, 7),
+#: phi3-medium-14b at tp 1 (40 / 10, 4) and at the reference's tp 16
+#: (48 padded heads, q padded to 10 x 5 = 50 / 10, 5).
+FAMILY_GROUPS = [(4, 28, 4, 1500, 128), (4, 40, 10, 1500, 128),
+                 (4, 50, 10, 1500, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,s,d", FAMILY_GROUPS)
+def test_flash_decode_at_the_lm_family_groups(card, b, h, kvh, s, d, dtype):
+    """Groups of 7, 4 and 5 heads: float32 within 2e-5 of the plain
+    version (the CUDA-core route), bfloat16 within 1e-2 of it on the fp32
+    copies of the same inputs (the tensor-core route), ragged lengths and
+    a row of length 0."""
+    rng = np.random.default_rng(h * kvh)
+    q, k, v, lengths = chip_smoke.decode_inputs(b, h, kvh, s, d, rng, card)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    before = FD.launches.count
+    got = FD.flash_decode_cuda(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert FD.launches.count == before + 1
+    want = FD.decode_attention_ref(q.float(), k.float(), v.float(), lengths)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    assert not got[-1].any()
 
 
 def test_kernel_counts_every_pair_of_repeated_hubs(card):

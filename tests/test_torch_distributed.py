@@ -523,24 +523,22 @@ def test_chip_smoke_distributed_phase_on_the_cpu(shadow_locks):
     """``chip_smoke.py``'s phase D at a small size on the CPU (four
     ``cpu`` entries on each axis): every check of the phase holds, the
     sharded serving counts every batch on ``sharded[data]:merge`` and
-    the phase's counters launch no kernel."""
+    the phase's counters launch no kernel.  The phase builds its graph
+    on one device itself and holds the sharded build against it."""
     import chip_smoke
-    from repro_torch.core import bfs as B
     from repro_torch.kernels import common
     n, m = 48, 150
     edges = chip_smoke.power_law_edges(n, m, 0)
     build_kw = dict(l_cap=None, construct_batch=8, vertex_order="id")
-    syncs0 = B.frontier_syncs.count
-    single = DynamicSPC(n, edges, device="cpu", **build_kw)
     counts = chip_smoke.PathLaunches(
         {k: common.LaunchCounter(k) for k in ("spc_query", "segment_matmul",
                                               "embedding_bag",
                                               "flash_decode")})
-    out = chip_smoke.distributed_phase(
-        edges, n, single.state_dict(),
-        {"s": 0.0, "syncs": B.frontier_syncs.count - syncs0}, build_kw,
-        counts, 0, "the CPU", device="cpu")
+    out = chip_smoke.distributed_phase(edges, n, build_kw, counts, 0,
+                                       "the CPU", device="cpu")
     assert out["entries"] == chip_smoke.DIST_SHARDS
+    assert (out["n"], out["m"]) == (n, len(edges))
+    assert out["build_syncs"] == out["single_build"]["syncs"]
     assert out["distinct_devices"] == 1
     assert out["serve_routes"] == {
         "sharded[data]:merge": chip_smoke.DIST_BATCHES + 1}

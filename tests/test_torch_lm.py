@@ -11,11 +11,21 @@ carried across (``load_reference_params``):
   the reference's plain path, 2e-4 (the reference's own blockwise path
   is wrong there: ROADMAP queue 3);
 * decode with a query-head count that does not divide the KV heads;
-* qwen2-1.5b ``SMOKE`` prefill + decode;
+* the ``SMOKE`` of every LM configuration (qwen2-1.5b, qwen2-7b,
+  phi3-medium-14b, deepseek-v2-lite-16b, deepseek-v2-236b): prefill and
+  several decode steps, logits and caches within 1e-4;
 * in bfloat16 at 28 layers, decode logits within ``chip_smoke.py``'s L4
   limit of a prefill of the same tokens (the reference's are not);
 * RoPE tables in float64, as the reference's (x64 on);
-* the configurations and the registry equal to the reference's.
+* the configurations and the registry equal to the reference's
+  (parameter counts, padded heads and vocabulary included), unported
+  ids raising ``KeyError``;
+* ``chip_smoke.py``'s M-check helpers at ``SMOKE``: with the no-drop
+  capacity factor decode agrees with a prefill of the same tokens far
+  inside the M-check limit, the planted fault (the rope term left out
+  of the decode scores) misses it, the absorbed decode equals
+  ``mla_train`` over the same prefix, and the drop share of a prefill
+  is counted.
 """
 
 import dataclasses
@@ -25,6 +35,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import importlib
 
 from repro.configs import get as jax_get
 from repro.configs.qwen2_1_5b import CONFIG as JAX_CONFIG
@@ -80,7 +92,7 @@ def tokens(shape, vocab, seed):
 
 
 def assert_cache_close(jc, tc, tol=TOL):
-    for name in ("k", "v"):
+    for name in set(tc) - {"lengths"}:
         np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
                                    **tol)
     np.testing.assert_array_equal(tc["lengths"].numpy(),
@@ -248,14 +260,28 @@ def test_nondivisible_heads_decode_matches_reference():
     assert tc["lengths"].tolist() == [5, 5]
 
 
-def test_qwen2_smoke_prefill_and_decode_match_reference():
-    tcfg = dataclasses.replace(SMOKE, param_dtype=torch.float32,
+LM_MODULES = ("qwen2_1_5b", "qwen2_7b", "phi3_medium_14b",
+              "deepseek_v2_lite_16b", "deepseek_v2_236b")
+
+
+def config_modules(name):
+    return (importlib.import_module(f"repro_torch.configs.{name}"),
+            importlib.import_module(f"repro.configs.{name}"))
+
+
+def check_smoke(module):
+    """A configuration's ``SMOKE`` in float32: prefill of 16 tokens,
+    then 4 decode steps, logits and caches within 1e-4 (the MoE ones
+    route at the default capacity factor, which drops)."""
+    mine, _ = config_modules(module)
+    tcfg = dataclasses.replace(mine.SMOKE, param_dtype=torch.float32,
                                act_dtype=torch.float32)
     jcfg = to_jax(tcfg)
     jp, tp = params_pair(jcfg, 5)
-    toks = tokens((3, 20), SMOKE.vocab, 3)
+    toks = tokens((3, 20), tcfg.vocab, 3)
     jl, jc = jtf.prefill(jp, jnp.asarray(toks[:, :16]), jcfg, 24)
     tl, tc = tf.prefill(tp, torch.from_numpy(toks[:, :16]), tcfg, 24)
+    assert set(tc) == set(jc)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert_cache_close(jc, tc)
     for i in range(16, 20):
@@ -263,6 +289,16 @@ def test_qwen2_smoke_prefill_and_decode_match_reference():
         tl, tc = tf.decode_step(tp, tc, torch.from_numpy(toks[:, i]), tcfg)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         assert_cache_close(jc, tc)
+
+
+def test_qwen2_smoke_prefill_and_decode_match_reference():
+    check_smoke("qwen2_1_5b")
+
+
+@pytest.mark.parametrize("module", LM_MODULES[1:])
+def test_smoke_prefill_and_decode_match_reference(module):
+    """The other four LM configurations' ``SMOKE`` (:func:`check_smoke`)."""
+    check_smoke(module)
 
 
 def test_rope_tables_are_float64_like_the_reference():
@@ -307,45 +343,176 @@ def test_blocks_match_reference():
 
 
 def test_configs_and_registry_match_reference():
-    for mine, ref in ((CONFIG, JAX_CONFIG), (SMOKE, JAX_SMOKE)):
-        assert dataclasses.asdict(to_jax(mine)) == dataclasses.asdict(ref)
-        assert mine.param_dtype == torch.bfloat16
-        assert (mine.padded_heads, mine.padded_vocab, mine.param_count()) == \
-            (ref.padded_heads, ref.padded_vocab, ref.param_count())
-    on_card = dataclasses.replace(CONFIG, tp=1)
-    assert on_card.padded_heads == 12 and on_card.padded_vocab == 151936
+    """The five LM configurations (``CONFIG`` and ``SMOKE``) equal the
+    reference's, with its parameter counts, padded heads and vocabulary;
+    the registry serves them with the reference's specs, and the ids
+    not yet ported raise ``KeyError``."""
+    for module in LM_MODULES:
+        mine, ref = config_modules(module)
+        for cfg, rcfg in ((mine.CONFIG, ref.CONFIG),
+                          (mine.SMOKE, ref.SMOKE)):
+            assert dataclasses.asdict(to_jax(cfg)) == \
+                dataclasses.asdict(rcfg)
+            assert cfg.param_dtype == torch.bfloat16
+            assert (cfg.padded_heads, cfg.padded_vocab, cfg.param_count(),
+                    cfg.active_param_count()) == \
+                (rcfg.padded_heads, rcfg.padded_vocab, rcfg.param_count(),
+                 rcfg.active_param_count())
+        spec = mine.SPEC
+        assert (spec.config, spec.smoke) == (mine.CONFIG, mine.SMOKE)
+        assert configs.get(spec.arch_id) is spec
+        on_card = dataclasses.replace(mine.CONFIG, tp=1)
+        assert on_card.padded_heads == mine.CONFIG.n_heads
+        assert on_card.padded_vocab == mine.CONFIG.vocab
     for arch in configs.ARCH_IDS:
-        mine, ref = configs.get(arch), jax_get(arch)
-        assert (mine.arch_id, mine.family, mine.source) == \
-            (ref.arch_id, ref.family, ref.source)
-        assert {k: dataclasses.asdict(s) for k, s in mine.shapes.items()} == \
-            {k: dataclasses.asdict(s) for k, s in ref.shapes.items()}
-    assert set(configs.ARCH_IDS) == {"dspc", "pna", "qwen2-1.5b"}
-    with pytest.raises(KeyError, match="not yet ported"):
-        configs.get("qwen2-7b")
+        mine_spec, ref_spec = configs.get(arch), jax_get(arch)
+        assert (mine_spec.arch_id, mine_spec.family, mine_spec.source) == \
+            (ref_spec.arch_id, ref_spec.family, ref_spec.source)
+        assert {k: dataclasses.asdict(s)
+                for k, s in mine_spec.shapes.items()} == \
+            {k: dataclasses.asdict(s) for k, s in ref_spec.shapes.items()}
+    assert set(configs.ARCH_IDS) == {
+        "dspc", "pna", "qwen2-1.5b", "qwen2-7b", "phi3-medium-14b",
+        "deepseek-v2-lite-16b", "deepseek-v2-236b"}
+    for arch in ("egnn", "nequip", "equiformer-v2", "dien"):
+        jax_get(arch)                       # the reference knows each one
+        with pytest.raises(KeyError, match="not yet ported"):
+            configs.get(arch)
+
+
+def test_published_sizes_of_the_new_configs():
+    """The numbers ``chip_smoke.py`` and PERF.md quote: deepseek-v2-lite
+    16.21 B parameters (32.4 GB in bf16), deepseek-v2 239 B, an MLA
+    cache of 31104 B a token over 27 layers, and phi3's 48 padded heads
+    at the reference's tp = 16 (a decode group of 5 over 10 KV heads)."""
+    lite, big = (config_modules(m)[0].CONFIG
+                 for m in ("deepseek_v2_lite_16b", "deepseek_v2_236b"))
+    assert lite.param_count() == 16_210_309_120
+    assert round(big.param_count() / 1e9) == 239
+    assert lite.n_layers * (lite.kv_lora + lite.qk_rope_dim) * 2 == 31104
+    phi3 = config_modules("phi3_medium_14b")[0].CONFIG
+    assert phi3.padded_heads == 48 and -(-48 // phi3.n_kv_heads) == 5
 
 
 def test_unported_configs_and_missing_card_raise():
+    """GNN and recsys ids still raise ``KeyError``; MLA and MoE
+    configurations now build on the CPU when asked, in the reference's
+    tree (the router in float32) and bytes; without a card every entry
+    point raises."""
+    with pytest.raises(KeyError, match="not yet ported"):
+        configs.get("dien")
     gen = torch.Generator().manual_seed(0)
-    for kw in (dict(attn="mla"), dict(moe_experts=4, moe_top_k=2,
-                                      moe_d_ff=32)):
-        cfg = tf.TransformerConfig(**tiny_kw(**kw))
-        with pytest.raises(NotImplementedError):
-            tf.init_params(cfg, generator=gen, device="cpu")
-        with pytest.raises(NotImplementedError):
-            tf.init_cache(cfg, 1, 8, device="cpu")
-    cfg = tf.TransformerConfig(**tiny_kw())
-    p = tf.init_params(cfg, generator=gen, device="cpu")
-    assert p["layers"]["attn"]["wq"].dtype == torch.bfloat16
-    assert tf.param_bytes(p) == 2 * sum(
-        x.size for x in jax.tree.leaves(jtf.init_params(
-            to_jax(cfg), jax.random.PRNGKey(0))))
+    mine, _ = config_modules("deepseek_v2_236b")
+    for cfg in (tf.TransformerConfig(**tiny_kw()), mine.SMOKE):
+        p = tf.init_params(cfg, generator=gen, device="cpu")
+        ref = jtf.init_params(to_jax(cfg), jax.random.PRNGKey(0))
+        leaves = jax.tree_util.tree_flatten_with_path(ref)[0]
+        for path, leaf in leaves:
+            got = p
+            for key in path:
+                got = got[key.key]
+            assert tuple(got.shape) == leaf.shape
+            assert got.element_size() == leaf.dtype.itemsize, path
+        assert tf.param_bytes(p) == sum(x.nbytes for _, x in leaves)
+        cache = tf.init_cache(cfg, 2, 8, device="cpu")
+        assert {k: tuple(v.shape) for k, v in cache.items()} == {
+            k: v.shape for k, v in jtf.abstract_cache(
+                to_jax(cfg), 2, 8).items()}
+    assert p["layers"]["ffn"]["router"].dtype == torch.float32
+    assert p["layers"]["attn"]["wuq"].dtype == torch.bfloat16
     if not torch.cuda.is_available():
         for call in (lambda: tf.init_params(cfg),
                      lambda: tf.init_cache(cfg, 1, 8),
                      lambda: A.init_gqa(cfg, generator=gen),
+                     lambda: A.init_mla(cfg, generator=gen),
+                     lambda: M.init_moe(cfg, generator=gen),
                      lambda: M.init_dense_ffn(8, 16, generator=gen),
                      lambda: init_rms(8),
                      lambda: tf.load_reference_params({"w": np.zeros(2)})):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 call()
+
+
+def test_chip_smoke_mla_moe_check_helpers_at_smoke():
+    """``chip_smoke.py``'s M-check at deepseek-v2-236b ``SMOKE`` on the
+    CPU: the no-drop factor e / k leaves no assignment dropped, decode
+    agrees with a prefill of the same tokens and the absorbed decode
+    with ``mla_train`` far inside the limit, the planted fault (the rope
+    term left out of the decode scores) misses it; at the default
+    capacity factor a prefill drops and the counter says how many."""
+    import chip_smoke
+    mine, _ = config_modules("deepseek_v2_236b")
+    params = tf.init_params(mine.SMOKE, device="cpu",
+                            generator=torch.Generator().manual_seed(1))
+    prompts = torch.from_numpy(tokens((2, 12), mine.SMOKE.vocab, 7))
+    drops = chip_smoke.DropCount()
+    with drops.watch():
+        tf.prefill(params, prompts, mine.SMOKE, 16)
+    assert drops.share() > 0                  # capacity 1.25 drops here
+    small = chip_smoke.float32_layers(params, 2)
+    assert small["layers"]["ffn"]["w_gate"].dtype == torch.float32
+    cfg = chip_smoke.no_drop_float32(mine.SMOKE, 2)
+    assert cfg.moe_capacity_factor == 4.0 and cfg.n_layers == 2
+    drops = chip_smoke.DropCount()
+    with drops.watch():
+        out = chip_smoke.mla_moe_check(small, cfg, prompts, 4)
+    assert drops.dropped == 0 and drops.assigned > 0
+    assert out["decode"] < 1e-5 and out["absorbed"] < 1e-5
+    assert out["no_rope"] > 100 * chip_smoke.MCHECK_REL_TOL
+    assert out["argmax"] == 2
+
+
+def test_chip_smoke_lm_family_phases_on_the_cpu(monkeypatch):
+    """Phases M, M-check, M2 and M3 of ``chip_smoke.py`` end to end on
+    the CPU, every configuration at its ``SMOKE`` (bfloat16) and every
+    count cut: each check of the phases holds, and the numbers carry
+    the drop share, the M-check readings and K4's rows (the CPU route
+    launches no kernel)."""
+    import chip_smoke
+    from repro_torch.configs import common as C
+    from repro_torch.kernels import common
+    for name in LM_MODULES[1:]:
+        mod = config_modules(name)[0]
+        monkeypatch.setattr(mod, "CONFIG", mod.SMOKE)
+    monkeypatch.setitem(C.LM_SHAPES, "decode_32k", C.ShapeSpec(
+        "decode_32k", "decode", dict(seq_len=24, global_batch=128)))
+    for key, value in dict(DS_BATCH=2, DS_GROUP=1, DS_STEPS=3,
+                           LM_TRACE_STEPS=2, MCHECK_BATCH=2,
+                           MCHECK_PROMPT=12, MCHECK_STEPS=3,
+                           MCHECK_PREFIX=8, M2_BATCH=2, M2_PROMPT=10,
+                           M2_STEPS=3, M3_BATCH=2, M3_PROMPT=10, M3_STEPS=3,
+                           FD_FAMILY_BATCH=2, FD_GROUP5_ROWS=1,
+                           FD_REPS=1).items():
+        monkeypatch.setattr(chip_smoke, key, value)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps, warmup=3:
+                        fn() is None or 1.0)
+    monkeypatch.setattr(chip_smoke, "device_trace",
+                        lambda fn, per=1, expect=None: (None, None, {}))
+    counts = chip_smoke.PathLaunches(
+        {k: common.LaunchCounter(k) for k in ("spc_query", "segment_matmul",
+                                              "embedding_bag",
+                                              "flash_decode")})
+    out = chip_smoke.deepseek_phases(counts, "the CPU", 0, device="cpu")
+    out.update(chip_smoke.dense_family_phase(counts, "the CPU", 0, 132,
+                                             device="cpu"))
+    assert set(out) == {"deepseek-v2-lite-16b", "deepseek-v2-236b",
+                        "qwen2-7b", "phi3-medium-14b"}
+    lite = out["deepseek-v2-lite-16b"]
+    assert lite["requests"] == 2 and lite["prompt"] == 24
+    assert 0 < lite["prefill_drop_share"] < 1
+    assert lite["check"]["decode"] <= chip_smoke.MCHECK_REL_TOL < \
+        lite["check"]["no_rope"]
+    assert out["deepseek-v2-236b"]["check"]["absorbed"] <= \
+        chip_smoke.MCHECK_REL_TOL
+    for name in ("qwen2-7b", "phi3-medium-14b"):
+        row = out[name]["flash_decode"]
+        assert row["launches"] == 0 and row["shape"]["S"] == 24
+        assert set(row) >= {"ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "max_abs_err", "served_max_abs_err"}
+        served = out[name]["flash_decode_served"]
+        assert served["shape"][:2] == [2, row["shape"]["H"]]
+        assert served["shape"][3] == 10 + 3           # prompt + steps
+        assert row["served_max_abs_err"] == max(served["served"],
+                                                served["ragged"]) < 1e-2
+    assert "group5_max_abs_err" in out["phi3-medium-14b"]["flash_decode"]
+    assert not any(counts.of(k)[0] for k in counts.counters)

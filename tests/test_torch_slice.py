@@ -152,11 +152,19 @@ def test_port_and_smoke_script_import_no_jax_or_reference():
             "repro_torch.core.directed", "repro_torch.train.checkpoint",
             "repro_torch.serve.transport", "repro_torch.serve.replica",
             "repro_torch.serve.service",
-            "repro_torch.serve.frontdoor"} <= set(imported)
+            "repro_torch.serve.frontdoor", "repro_torch.models.moe",
+            "repro_torch.models.attention",
+            "repro_torch.configs.qwen2_7b",
+            "repro_torch.configs.phi3_medium_14b",
+            "repro_torch.configs.deepseek_v2_lite_16b",
+            "repro_torch.configs.deepseek_v2_236b"} <= set(imported)
     scanned = {os.path.relpath(f, PORT) for f in files}
     assert {"bench/kernels_bench.py", "kernels/segment_matmul/ops.py",
             "core/directed.py", "train/checkpoint.py", "serve/replica.py",
-            "serve/service.py", "serve/frontdoor.py"} <= scanned
+            "serve/service.py", "serve/frontdoor.py", "models/moe.py",
+            "models/attention.py", "configs/qwen2_7b.py",
+            "configs/phi3_medium_14b.py", "configs/deepseek_v2_lite_16b.py",
+            "configs/deepseek_v2_236b.py"} <= scanned
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
@@ -324,23 +332,31 @@ def test_chip_smoke_counts_launches_by_path():
     with counts.path("distributed"):
         pass                                       # D launches no kernel
     sq.count += 3                                  # D's comparison route
+    with counts.path("qwen2-7b"):
+        fd.count += 28 * 16
+    with counts.path("phi3-medium-14b"):
+        fd.count += 40 * 16
+    fd.count += 3                                  # K4 at their shapes
+    for path in ("deepseek-v2-lite-16b", "deepseek-v2-236b"):
+        with counts.path(path):
+            pass                   # MLA decode and the MoE: no kernel
     zero = dict.fromkeys(kernels, 0)
+    paths = dict.fromkeys(chip_smoke.PATH_KERNELS, 0)
     assert counts.by_path == {
         "dspc": dict(zero, spc_query=5),
         "kernels": dict(zero, spc_query=52, segment_matmul=53),
         "analytics": dict(zero, embedding_bag=1),
         "lm": dict(zero, flash_decode=1792),
         "service": dict(zero, spc_query=40),
-        "distributed": zero}
-    assert counts.of("spc_query") == (97, {"dspc": 5, "kernels": 52,
-                                           "analytics": 0, "lm": 0,
-                                           "service": 40, "distributed": 0})
-    assert counts.of("segment_matmul") == (53, {
-        "dspc": 0, "kernels": 53, "analytics": 0, "lm": 0, "service": 0,
-        "distributed": 0})
-    assert counts.of("flash_decode") == (1792, {
-        "dspc": 0, "kernels": 0, "analytics": 0, "lm": 1792, "service": 0,
-        "distributed": 0})
+        "distributed": zero,
+        "qwen2-7b": dict(zero, flash_decode=448),
+        "phi3-medium-14b": dict(zero, flash_decode=640),
+        "deepseek-v2-lite-16b": zero, "deepseek-v2-236b": zero}
+    assert counts.of("spc_query") == (97, dict(paths, dspc=5, kernels=52,
+                                               service=40))
+    assert counts.of("segment_matmul") == (53, dict(paths, kernels=53))
+    assert counts.of("flash_decode") == (1792 + 448 + 640, dict(
+        paths, lm=1792, **{"qwen2-7b": 448, "phi3-medium-14b": 640}))
     counts.check()
     bare = chip_smoke.PathLaunches(kernels)
     with bare.path("dspc"):
