@@ -225,7 +225,12 @@ M-check      -- the same weights' first MCHECK_LAYERS layers in float32
 M2. deepseek-v2-236b -- at full width (128 heads with q_lora 1536, 160
                 routed experts of 1536), depth 60 -> 2 (``reduced``):
                 a prefill of 2 x 1024, 8 decode steps, and the same
-                float32 no-drop check.
+                float32 no-drop check.  The bf16 prefill is run twice
+                more and layer 0's MoE output must repeat bit for bit
+                (:func:`moe_repeat`); twice more with the earlier
+                ``scatter_add_`` un-dispatch in place of
+                ``moe.undispatch`` as the control, whose reading is
+                printed.
 M3. dense family -- qwen2-7b and phi3-medium-14b CONFIG at full width and
                 depth, tp 1 (28 / 4 and 40 / 10 heads): prompts of 4 x
                 2048, 16 decode steps each, flash_decode launched
@@ -240,6 +245,38 @@ M3. dense family -- qwen2-7b and phi3-medium-14b CONFIG at full width and
                 equal) and timed beside SDPA (``enable_gqa``), FD_REPS
                 rounds; and phi3 at the reference's tp 16 (48 padded
                 heads, q padded to 50: a group of 5) held once.
+G.  GNN family -- EGNN, NequIP and Equiformer-v2 (``configs/{egnn,
+                nequip,equiformer_v2}.py`` CONFIG: 4 x 64; 5 x 32 at
+                l_max 2; 12 x 128 at l_max 6, m_max 2, 8 heads), full
+                width and depth, random float32 weights, forward only
+                (``forward`` at molecule, ``node_forward`` elsewhere), at
+                three ``GNN_SHAPES``: molecule (``molecule_batch(0, 128,
+                30, 64, 16)``: 3840 nodes, 8192 edges, energies [128,
+                1]); full_graph_sm (2708 nodes, 1433 features, 7
+                classes; 10556 uniform pairs less self-loops in 10752
+                edge slots, as ``gnn_host_args`` draws them); minibatch_lg
+                (one ``NeighborSampler(synthetic_csr(232965, 492, 602,
+                41), 1024, (15, 10))`` block: 169984 nodes, 168960 edge
+                slots; the 1024 targets' logits).  As the reference's
+                ``gnn_host_args`` and ``_gnn_adapt`` do, positions are
+                drawn N(0, 1) from ``--seed`` where the graph has none
+                (full_graph_sm, minibatch_lg), and d_in is the shape's
+                feature width, n_out its classes (1 at molecule).  Each
+                forward: GNN_REPS calls after one warm-up (CUDA events;
+                p50), peak device memory, the reference's FLOP reckoning
+                (``_gnn_flops``); at minibatch_lg the host seconds of
+                ``synthetic_csr`` and of one ``sample``; Equiformer-v2's
+                minibatch_lg forward traced (``torch.profiler``: busy ms,
+                busy share of the p50, top ops by device ms).  Checks:
+                EGNN and NequIP at molecule and full_graph_sm equal to the
+                same module on the CPU, and Equiformer-v2's first
+                GNN_CPU_MOLECULES molecules (disjoint graphs) equal to a
+                CPU run on those alone, within rtol 1e-4 / atol 1e-5;
+                every output within a relative L2 of GNN_ROT_TOL = 1e-3 of
+                itself with the positions rotated (a seeded proper
+                rotation), which Equiformer-v2 with its messages rotated
+                back by ``Ds`` in place of their transposes must miss;
+                two launches at molecule within 1e-4 / 1e-5.
 flash_decode is held against its plain version (the KV heads expanded,
 fp32 softmax) at the TPU sweep shapes and GQA groups in float32 (rtol =
 atol = 2e-5, the TPU test's) and bfloat16 (1e-2 against the plain
@@ -267,17 +304,17 @@ analytics path (the timed steps of A1 and A2), the LM path (L2 and
 L3; flash_decode exactly 28 x 64 times), one path for each
 configuration of M, M2 and M3 (prefill and decode; flash_decode on the
 two dense ones, no kernel on the deepseek ones: MLA decode is the
-reference's einsums, the MoE un-dispatch its scatter-add), the
-service path (the
-ingest and serving of S1 and the front-door traffic of S2; the service
-readers, the dispatchers and the updater launch from their own
-threads) and the distributed path (D's sharded build, chunk and
-serving, which launch no kernel: the sharded relaxation is
-``index_add_`` and the sharded query the merge core, as on the
-reference).  The launch counters are set
-to 0 just before each of these phases and read just after it; the
-oracles, L4 and the kernel checks run outside them
-and count nowhere.  Each path must have launched each of its kernels
+reference's einsums, the MoE un-dispatch a gather and adds, where the
+reference scatter-adds), the gnn path (phase G, which launches no
+kernel: the reference's GNNs aggregate with segment sums, not
+segment_matmul), the service path (the ingest and serving of S1 and
+the front-door traffic of S2; the service readers, the dispatchers and
+the updater launch from their own threads) and the distributed path
+(D's sharded build, chunk and serving, which launch no kernel: the
+sharded relaxation is ``index_add_`` and the sharded query the merge
+core, as on the reference).  The launch counters are set to 0 just
+before each of these phases and read just after it; the oracles, L4
+and the kernel checks run outside them and count nowhere.  Each path must have launched each of its kernels
 (``PATH_KERNELS``).  The line before the last is a JSON object with one
 entry per kernel (its time on the card, its plain version's time, its
 bound, one library call's time where there is one, its launches on the
@@ -339,9 +376,14 @@ PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
                 "phi3-medium-14b": ("flash_decode",),
                 # MLA decode is the reference's absorbed einsums (one
                 # latent head, K width 576 != V width 512: outside any
-                # Pallas kernel there too) and the MoE un-dispatch its
-                # own scatter-add: no kernel of the port on these paths
-                "deepseek-v2-lite-16b": (), "deepseek-v2-236b": ()}
+                # Pallas kernel there too) and the MoE un-dispatch a
+                # gather and adds (the reference's is its own scatter-add,
+                # not segment_matmul): no kernel of the port on these paths
+                "deepseek-v2-lite-16b": (), "deepseek-v2-236b": (),
+                # the reference's GNNs aggregate with jax.ops.segment_sum /
+                # segment_max and plain einsums, not segment_matmul: the
+                # port's index_add_ / scatter_reduce_, no kernel
+                "gnn": ()}
 
 #: The segment_matmul sweep of tests/kernels/test_kernels.py (e, n, d),
 #: inputs drawn as that test draws them (ids in [0, n + 5): some dropped).
@@ -440,6 +482,17 @@ M2_BATCH, M2_PROMPT, M2_STEPS = 2, 1024, 8
 #: first FD_GROUP5_ROWS requests of it.
 M3_BATCH, M3_PROMPT, M3_STEPS = 4, 2048, 16
 FD_FAMILY_BATCH, FD_GROUP5_ROWS = 16, 4
+#: Phase G: the equivariant GNN family, each at its CONFIG width and depth
+#: in float32, on three GNN_SHAPES; timed calls after one warm-up; the
+#: tolerance of the card-against-CPU and two-launch checks (phase 7's
+#: re-rank's); the limit on the relative L2 change of the outputs when the
+#: positions are rotated; the molecules of Equiformer-v2's CPU check (a
+#: CPU run of all 128 would take about 1.9 TFLOP); the top ops printed
+#: from its minibatch_lg trace.
+GNN_ARCHS = ("egnn", "nequip", "equiformer-v2")
+GNN_SHAPE_NAMES = ("molecule", "full_graph_sm", "minibatch_lg")
+GNN_REPS, GNN_RTOL, GNN_ATOL, GNN_ROT_TOL = 5, 1e-4, 1e-5, 1e-3
+GNN_CPU_MOLECULES, GNN_TOP_OPS = 8, 8
 
 
 def log(msg: str) -> None:
@@ -1498,6 +1551,20 @@ def deepseek_phases(counts, card: str, seed: int, device="cuda") -> dict:
                                     counts, "deepseek-v2-236b")
     m2.update(reduced=reduced, param_bytes=tf.param_bytes(params))
     del cache, fed, last
+    m2["moe_repeat"] = moe_repeat(params, cfg, prompts, M2_PROMPT + M2_STEPS,
+                                  M2_BATCH)
+    rep = m2["moe_repeat"]
+
+    def said(r):
+        return ("repeats bit for bit" if r["repeats"] else
+                f"does not repeat ({r['differing']} values differ)")
+    log(f"M2 repeat: the prefill twice in one process, layer 0's MoE output "
+        f"({rep['port']['elements']} bf16 values) {said(rep['port'])}; with "
+        f"the scatter_add_ un-dispatch (the control) it "
+        f"{said(rep['scatter_add'])} on {card}")
+    if not rep["port"]["repeats"]:
+        raise AssertionError(f"M2: the MoE prefill does not repeat bit for "
+                             f"bit: {rep['port']}")
     params = float32_layers(params, MCHECK_LAYERS)
     release(device)
     t0 = time.monotonic()
@@ -1515,6 +1582,53 @@ def deepseek_phases(counts, card: str, seed: int, device="cuda") -> dict:
     out["deepseek-v2-236b"] = m2
     del params
     release(device)
+    return out
+
+
+def scatter_undispatch(gathered, st, k: int):
+    """The un-dispatch before ``moe.undispatch``: a ``scatter_add_`` of
+    each sorted assignment's row onto its token (atomics on the card, in
+    no fixed order); :func:`moe_repeat`'s control."""
+    g, n, d = gathered.shape
+    return gathered.new_zeros((g, n // k, d)).scatter_add_(
+        1, st[..., None].expand(-1, -1, d), gathered)
+
+
+def moe_repeat(params, cfg, prompts, s_max: int, group: int) -> dict:
+    """Phase M2's prefill run twice in one process; layer 0's MoE output
+    (the first ``moe_dispatch`` return of each run) compared bit for
+    bit, with the port's un-dispatch (``moe.undispatch``) and, as a
+    control, with :func:`scatter_undispatch` in its place.  Returns
+    {"port": {"repeats", "differing", "elements"}, "scatter_add": ...}."""
+    import torch
+    from repro_torch.models import moe as M
+    dispatch, undispatch = M.moe_dispatch, M.undispatch
+
+    def twice():
+        firsts = []
+        for _ in range(2):
+            seen = []
+
+            def recorded(*args, **kwargs):
+                out = dispatch(*args, **kwargs)
+                if not seen:
+                    seen.append(out[0].clone())
+                return out
+            M.moe_dispatch = recorded
+            try:
+                prefill_in_groups(params, cfg, prompts, s_max, group)
+            finally:
+                M.moe_dispatch = dispatch
+            firsts.append(seen[0])
+        a, b = firsts
+        return {"repeats": bool(torch.equal(a, b)),
+                "differing": int((a != b).sum()), "elements": a.numel()}
+    out = {"port": twice()}
+    M.undispatch = scatter_undispatch
+    try:
+        out["scatter_add"] = twice()
+    finally:
+        M.undispatch = undispatch
     return out
 
 
@@ -1625,6 +1739,349 @@ def dense_family_phase(counts, card: str, seed: int, sms: int,
         out[path] = n
         del q, k, v, lens
         release(device)
+    return out
+
+
+def random_rotation(seed: int) -> np.ndarray:
+    """A proper rotation (det +1), float64 [3, 3], from the QR of a
+    seeded Gaussian matrix."""
+    q, r = np.linalg.qr(np.random.default_rng(seed).standard_normal((3, 3)))
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q
+
+
+def gnn_shape_inputs(shape: str, seed: int, device) -> dict:
+    """One of phase G's graphs (module doc) on ``device``: ``batch``,
+    ``pos`` (numpy [N, 3], rotated for the invariance check),
+    ``arrays`` (``from_numpy``'s arguments, to place the graph again on
+    the CPU; None at minibatch_lg, sampled straight onto the card),
+    ``d_in``, ``n_out``, ``node_level``, ``rows`` (the output rows held:
+    the targets at minibatch_lg), ``host_s`` (host seconds of the
+    sampler)."""
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.data.pipelines import molecule_batch
+    from repro_torch.models.gnn import sampler as SA
+    from repro_torch.models.gnn.graph import from_numpy
+    dims = GNN_SHAPES[shape].dims
+    out = {"host_s": {}}
+    if shape == "molecule":
+        mol = molecule_batch(0, dims["batch"], dims["n_nodes"],
+                             dims["n_edges"], dims["d_feat"], seed=seed)
+        out["arrays"] = {k: mol[k] for k in ("node_feat", "senders",
+                                             "receivers", "pos", "graph_id",
+                                             "n_graph")}
+        out.update(d_in=dims["d_feat"], n_out=1, node_level=False,
+                   rows=dims["batch"])
+    elif shape == "full_graph_sm":
+        # gnn_host_args' draw: uniform pairs, self-loops removed, in an
+        # edge capacity rounded up to a multiple of 512
+        n, e = dims["n_nodes"], dims["n_edges"]
+        rng = np.random.default_rng(seed)
+        s, r = rng.integers(0, n, e), rng.integers(0, n, e)
+        keep = s != r
+        out["arrays"] = dict(
+            node_feat=rng.normal(size=(n, dims["d_feat"])).astype(np.float32),
+            senders=s[keep].astype(np.int32),
+            receivers=r[keep].astype(np.int32),
+            pos=rng.normal(size=(n, 3)).astype(np.float32),
+            e_cap=-(-e // 512) * 512)
+        out.update(d_in=dims["d_feat"], n_out=dims["n_classes"],
+                   node_level=True, rows=n)
+    else:
+        t0 = time.monotonic()
+        csr = SA.synthetic_csr(dims["n_nodes"],
+                               round(dims["n_edges"] / dims["n_nodes"]),
+                               dims["d_feat"], dims["n_classes"], seed=seed)
+        out["host_s"]["synthetic_csr"] = time.monotonic() - t0
+        sampler = SA.NeighborSampler(csr, dims["batch_nodes"],
+                                     dims["fanout"], seed=seed)
+        t0 = time.monotonic()
+        batch, _, _ = sampler.sample(0, device=device)
+        out["host_s"]["sample"] = time.monotonic() - t0
+        out["csr_edges"] = int(csr.indptr[-1])
+        del csr
+        # the sampler emits no positions: N(0, 1) from the seed, as
+        # gnn_host_args draws them
+        out["pos"] = np.random.default_rng(seed).normal(
+            size=(batch.n_node, 3)).astype(np.float32)
+        out.update(arrays=None, batch=with_positions(batch, out["pos"]),
+                   d_in=dims["d_feat"], n_out=dims["n_classes"],
+                   node_level=True, rows=dims["batch_nodes"])
+        return out
+    out["pos"] = out["arrays"]["pos"]
+    out["batch"] = from_numpy(**out["arrays"], device=device)
+    return out
+
+
+def with_positions(batch, pos: np.ndarray):
+    """``batch`` with node positions ``pos`` [N, 3] (the dump row 0)."""
+    import dataclasses
+    import torch
+    p = np.zeros((batch.n_node + 1, 3), np.float32)
+    p[:batch.n_node] = pos
+    return dataclasses.replace(
+        batch, pos=torch.from_numpy(p).to(batch.nodes.device))
+
+
+def gnn_model(arch: str, d_in: int, n_out: int, seed: int, device):
+    """``arch``'s CONFIG (``configs/<arch>.py``) with the shape's input
+    width and outputs (``_gnn_adapt``'s convention), random weights from a
+    CPU generator seeded ``seed``."""
+    import dataclasses
+    import importlib
+    import torch
+    from repro_torch.models.gnn.egnn import EGNN
+    from repro_torch.models.gnn.equiformer_v2 import EquiformerV2
+    from repro_torch.models.gnn.nequip import NequIP
+    mod = importlib.import_module(
+        f"repro_torch.configs.{arch.replace('-', '_')}")
+    cfg = dataclasses.replace(mod.CONFIG, d_in=d_in, n_out=n_out)
+    cls = {"egnn": EGNN, "nequip": NequIP, "equiformer-v2": EquiformerV2}
+    return cls[arch](cfg, generator=torch.Generator().manual_seed(seed),
+                     device=device)
+
+
+def gnn_output(model, batch, inp):
+    """The output phase G holds: graph outputs at molecule, the node
+    logits (of the targets at minibatch_lg) elsewhere."""
+    if inp["node_level"]:
+        return model.node_forward(batch)[:inp["rows"]]
+    return model(batch)[0]
+
+
+def gnn_flops(arch: str, cfg, n_edges: int, n_nodes: int) -> float:
+    """The reference's reckoning of a forward's useful operations
+    (``launch/steps.py::_gnn_flops``: messages and updates)."""
+    if arch == "egnn":
+        per_edge = 2 * (2 * cfg.d_hidden + 1) * cfg.d_hidden * 2
+        per_node = 2 * 2 * cfg.d_hidden * cfg.d_hidden * 2
+    elif arch == "nequip":
+        n_paths = len(cfg.paths)
+        per_edge = (2 * cfg.n_rbf * cfg.radial_hidden
+                    + 2 * cfg.radial_hidden * n_paths * cfg.d_hidden
+                    + n_paths * cfg.d_hidden * 27 * 2)
+        per_node = 2 * (cfg.l_max + 1) * cfg.d_hidden ** 2 * 9
+    else:
+        c, lmax = cfg.d_hidden, cfg.l_max
+        n_m0 = (lmax + 1) * c
+        so2 = 2 * (2 * n_m0 + cfg.n_rbf) * n_m0
+        for m in range(1, cfg.m_max + 1):
+            nm = cfg.n_l(m) * c
+            so2 += 2 * 4 * (2 * nm) * nm
+        wig = sum((2 * l + 1) ** 2 for l in range(lmax + 1)) * c * 2 * 2
+        per_edge = so2 + wig
+        per_node = 2 * (lmax + 1) * c * c * 2
+    return float(cfg.n_layers * (per_edge * n_edges + per_node * n_nodes))
+
+
+def timed_calls(fn, calls: int, cuda: bool):
+    """(last output, ms of each of ``calls`` calls): CUDA events on the
+    card, the host clock elsewhere."""
+    import torch
+    ms = []
+    for _ in range(calls):
+        if cuda:
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    return out, ms
+
+
+@contextlib.contextmanager
+def messages_rotated_back_with_ds():
+    """Phase G's planted fault: Equiformer-v2 rotates its messages back
+    to the global frame with ``Ds`` in place of their transposes."""
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+    inverse = EQ.inverse_wigner
+    EQ.inverse_wigner = lambda Ds: Ds
+    try:
+        yield
+    finally:
+        EQ.inverse_wigner = inverse
+
+
+def gnn_phase(counts, card: str, seed: int, device="cuda") -> dict:
+    """Phase G (module doc): EGNN, NequIP and Equiformer-v2 at their
+    CONFIG widths and depths in float32 at molecule, full_graph_sm and
+    minibatch_lg; inside ``counts.path("gnn")``, which must launch no
+    kernel of the port.  Returns {shape: {arch: numbers}}; raises on any
+    failed check."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    rot = random_rotation(seed + 43)
+    out = {}
+    for shape in GNN_SHAPE_NAMES:
+        inp = gnn_shape_inputs(shape, seed, device)
+        batch = inp["batch"]
+        rot_batch = with_positions(batch, inp["pos"] @ rot.T)
+        host = dict(inp["host_s"])
+        if host:
+            log(f"G {shape}: synthetic_csr ({inp['csr_edges']} edges) "
+                f"{host['synthetic_csr']:.3f} s, one sample "
+                f"{host['sample']:.3f} s on the host")
+        out[shape] = {"n_node": batch.n_node, "n_edge": batch.n_edge,
+                      "live_edges": int(batch.edge_mask.sum()),
+                      "host_s": host}
+        for i, arch in enumerate(GNN_ARCHS):
+            model = gnn_model(arch, inp["d_in"], inp["n_out"], seed + 47 + i,
+                              device)
+            n = {"params": sum(p.numel() for p in model.parameters()),
+                 "flops": gnn_flops(arch, model.cfg, batch.n_edge,
+                                    batch.n_node)}
+
+            def run(b=batch):
+                return gnn_output(model, b, inp)
+            with torch.inference_mode(), counts.path("gnn"):
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    resident = torch.cuda.memory_allocated()
+                first, _ = timed_calls(run, 1, cuda)
+                got, ms = timed_calls(run, GNN_REPS, cuda)
+                if cuda:
+                    n.update(peak_bytes=torch.cuda.max_memory_allocated(),
+                             resident_bytes=resident)
+                rotated = run(rot_batch)
+            rows = (inp["rows"], inp["n_out"])
+            if tuple(got.shape) != rows or not torch.isfinite(got).all():
+                raise AssertionError(f"G {arch} at {shape}: output "
+                                     f"{tuple(got.shape)}, want {rows}, "
+                                     f"finite")
+            n.update(ms=ms, ms_p50=float(np.median(ms)),
+                     rotation_rel_l2=rel_l2(rotated, got))
+            n["tflop_per_s"] = n["flops"] / n["ms_p50"] / 1e9
+            if n["rotation_rel_l2"] > GNN_ROT_TOL:
+                raise AssertionError(
+                    f"G {arch} at {shape}: rotated positions move the "
+                    f"output by {n['rotation_rel_l2']} (limit {GNN_ROT_TOL})")
+            if shape == "molecule":
+                n["two_launches_max_abs_err"] = check_close(
+                    f"G {arch} at {shape}: two launches", got, first,
+                    GNN_RTOL, GNN_ATOL)
+            if arch != "equiformer-v2" and inp["arrays"] is not None:
+                n["cpu"] = gnn_against_cpu(model, inp["arrays"], inp, got,
+                                           f"G {arch} at {shape}")
+            elif shape == "molecule":
+                a = inp["arrays"]
+                k = GNN_CPU_MOLECULES
+                nk = int(np.searchsorted(a["graph_id"], k))
+                ek = int(np.searchsorted(a["graph_id"][a["senders"]], k))
+                few = dict(a, node_feat=a["node_feat"][:nk],
+                           pos=a["pos"][:nk], senders=a["senders"][:ek],
+                           receivers=a["receivers"][:ek],
+                           graph_id=a["graph_id"][:nk], n_graph=k)
+                n["cpu"] = gnn_against_cpu(
+                    model, few, dict(inp, rows=k), got[:k],
+                    f"G {arch} at {shape}, first {k} molecules")
+                with torch.inference_mode(), messages_rotated_back_with_ds():
+                    n["fault_rotation_rel_l2"] = rel_l2(run(rot_batch),
+                                                        run())
+                if n["fault_rotation_rel_l2"] <= GNN_ROT_TOL:
+                    raise AssertionError(
+                        f"G: the planted fault (messages rotated back with "
+                        f"Ds) passes the rotation check: "
+                        f"{n['fault_rotation_rel_l2']}")
+            if arch == "equiformer-v2" and shape == "minibatch_lg":
+                with torch.inference_mode():
+                    busy, span, by = device_trace(run)
+                n.update(trace_busy_ms=busy, trace_span_ms=span,
+                         busy_share=busy and busy / n["ms_p50"],
+                         top_ops_ms=dict(sorted(
+                             by.items(), key=lambda kv: -kv[1])[:GNN_TOP_OPS]))
+            out[shape][arch] = n
+            log(f"G {arch} at {shape} (N {batch.n_node}, E {batch.n_edge}, "
+                f"{n['params']} parameters): forward p50 {n['ms_p50']:.3f} "
+                f"ms of {json.dumps([round(t, 3) for t in ms])}, "
+                f"{n['tflop_per_s']:.2f} TFLOP/s of the reference's "
+                f"{n['flops']:.4g}, peak {n.get('peak_bytes', 0)} B "
+                f"(resident {n.get('resident_bytes', 0)} B); rotation "
+                f"{n['rotation_rel_l2']:.3g} (limit {GNN_ROT_TOL})"
+                + (f", planted fault {n['fault_rotation_rel_l2']:.3g}"
+                   if "fault_rotation_rel_l2" in n else "")
+                + (f"; card vs CPU in {n['cpu']['precision']} max |diff| "
+                   f"{n['cpu']['max_abs_err']:.3g} (float32 "
+                   f"{n['cpu']['f32_max_abs_err']:.3g}; the CPU's float32 "
+                   f"vs float64 {n['cpu']['cpu_f32_vs_f64']:.3g}, outputs "
+                   f"up to {n['cpu']['max_abs_output']:.4g})"
+                   if "cpu" in n else "")
+                + (f"; two launches {n['two_launches_max_abs_err']:.3g}"
+                   if "two_launches_max_abs_err" in n else "")
+                + f" on {card}")
+            if "top_ops_ms" in n:
+                log(f"G trace: equiformer-v2 at {shape}: busy "
+                    f"{n['trace_busy_ms']} ms of a {n['ms_p50']:.3f} ms p50 "
+                    f"(span {n['trace_span_ms']} ms); top ops by device ms: "
+                    f"{json.dumps(n['top_ops_ms'])} on {card}")
+            del model, first, got, rotated, run
+            release(device)
+        del inp, batch, rot_batch
+        release(device)
+    if any(counts.by_path["gnn"].values()):
+        raise AssertionError(f"the gnn path launched a kernel of the port: "
+                             f"{counts.by_path['gnn']}")
+    return out
+
+
+def gnn_cast(model, dtype, device):
+    """A copy of a GNN module with its parameters in ``dtype`` on
+    ``device`` (its CG and index buffers built anew there)."""
+    import dataclasses
+    import torch
+    copy = type(model)(dataclasses.replace(model.cfg, dtype=dtype),
+                       generator=torch.Generator().manual_seed(0),
+                       device=device)
+    copy.load_state_dict(model.state_dict())
+    return copy
+
+
+def gnn_against_cpu(model, arrays: dict, inp: dict, card_out,
+                    tag: str) -> dict:
+    """The card's float32 output ``card_out`` for the graph of
+    ``arrays`` against the same module's on the CPU (its parameters
+    copied), within GNN_RTOL / GNN_ATOL.
+
+    Where float32 does not resolve the output to that tolerance -- the
+    CPU's own float32 output misses it against a float64 run of the
+    same module (EGNN at full_graph_sm: its random-weight coordinate
+    updates grow to ~5e6) -- the card and the CPU are held in float64
+    instead, the float32 readings printed beside.  Returns the readings;
+    raises when the comparison held misses."""
+    import torch
+    from repro_torch.models.gnn.graph import from_numpy
+    wide = dict(arrays, node_feat=arrays["node_feat"].astype(np.float64),
+                pos=arrays["pos"].astype(np.float64))
+    with torch.inference_mode():
+        want = gnn_output(gnn_cast(model, torch.float32, "cpu"),
+                          from_numpy(**arrays, device="cpu"), inp)
+        exact = gnn_output(gnn_cast(model, torch.float64, "cpu"),
+                           from_numpy(**wide, device="cpu"), inp)
+    got = card_out.cpu().double()
+    out = {"f32_max_abs_err": float((got - want.double()).abs().max()),
+           "cpu_f32_vs_f64": float((want.double() - exact).abs().max()),
+           "max_abs_output": float(exact.abs().max())}
+    if torch.allclose(want.double(), exact, rtol=GNN_RTOL, atol=GNN_ATOL):
+        out["precision"] = "float32"
+        out["max_abs_err"] = check_close(f"{tag}: card vs CPU", card_out.cpu(),
+                                         want, GNN_RTOL, GNN_ATOL)
+        return out
+    dev = card_out.device
+    with torch.inference_mode():
+        card64 = gnn_output(gnn_cast(model, torch.float64, dev),
+                            from_numpy(**wide, device=dev), inp)
+    out["precision"] = "float64"
+    out["max_abs_err"] = check_close(
+        f"{tag}: card vs CPU in float64 (float32 resolves the output to "
+        f"{out['cpu_f32_vs_f64']:.3g} only)", card64.cpu(), exact, GNN_RTOL,
+        GNN_ATOL)
     return out
 
 
@@ -3482,6 +3939,11 @@ def main(argv=None) -> int:
     family.update(dense_family_phase(counts, card, args.seed, sms))
     log(f"lm family ({time.monotonic() - t0:.1f} s): {json.dumps(family)} "
         f"on {card}")
+
+    # -- G. the equivariant GNN family ---------------------------------------
+    t0 = time.monotonic()
+    gnn = gnn_phase(counts, card, args.seed)
+    log(f"G ({time.monotonic() - t0:.1f} s): {json.dumps(gnn)} on {card}")
     fd_family = {name: numbers["flash_decode"]
                  for name, numbers in family.items()
                  if "flash_decode" in numbers}

@@ -1,12 +1,12 @@
 """Architecture registry of the port: ``get("<arch-id>")`` -> ArchSpec.
 
-The ported architectures: ``dspc`` (the paper's own workload), ``pna``
-(the GNN of the recommendation re-rank) and the reference's five LMs:
-the dense GQA ``qwen2-1.5b``, ``qwen2-7b`` and ``phi3-medium-14b``, and
-the MLA + MoE ``deepseek-v2-lite-16b`` and ``deepseek-v2-236b``.  The
-other GNN ids and the recsys id (``egnn``, ``nequip``,
-``equiformer-v2``, ``dien``) raise ``KeyError`` until their slices are
-ported.
+The ported architectures: ``dspc`` (the paper's own workload), the
+reference's four GNNs (``pna``, the GNN of the recommendation re-rank,
+and the equivariant ``egnn``, ``nequip`` and ``equiformer-v2``) and its
+five LMs: the dense GQA ``qwen2-1.5b``, ``qwen2-7b`` and
+``phi3-medium-14b``, and the MLA + MoE ``deepseek-v2-lite-16b`` and
+``deepseek-v2-236b``.  The recsys id ``dien`` raises ``KeyError``
+until its slice is ported.
 """
 
 from __future__ import annotations
@@ -22,7 +22,10 @@ _MODULES = {
     "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "egnn": "repro_torch.configs.egnn",
     "pna": "repro_torch.configs.pna",
+    "nequip": "repro_torch.configs.nequip",
+    "equiformer-v2": "repro_torch.configs.equiformer_v2",
     "dspc": "repro_torch.configs.dspc",
 }
 

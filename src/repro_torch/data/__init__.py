@@ -1,5 +1,6 @@
-"""Synthetic, deterministic graph and update-stream generators."""
+"""Synthetic, deterministic graph, update-stream and molecule generators."""
 
-from repro_torch.data.pipelines import graph_stream, random_graph_edges
+from repro_torch.data.pipelines import (graph_stream, molecule_batch,
+                                        random_graph_edges)
 
-__all__ = ["graph_stream", "random_graph_edges"]
+__all__ = ["graph_stream", "molecule_batch", "random_graph_edges"]

@@ -1,9 +1,10 @@
-"""Deterministic synthetic graphs and update streams (host-side numpy).
+"""Deterministic synthetic graphs, update streams and molecules
+(host-side numpy).
 
-The port's own copies of ``random_graph_edges`` and ``graph_stream``
-from ``repro.data.pipelines``: the same seeds give the same edge lists
-and event streams as the reference, so the parity tests feed both
-packages identical inputs.
+The port's own copies of ``random_graph_edges``, ``graph_stream`` and
+``molecule_batch`` from ``repro.data.pipelines``: the same seeds give
+the same edge lists, event streams and molecule batches as the
+reference, so the parity tests feed both packages identical inputs.
 """
 
 from __future__ import annotations
@@ -64,3 +65,48 @@ def graph_stream(edges: Sequence[Tuple[int, int]], n: int,
             present.discard(key)
             events.append(("-", key[0], key[1]))
     return events
+
+
+# -------------------------------------------------------------------------
+# Batched small molecules (GNN ``molecule`` shape)
+# -------------------------------------------------------------------------
+def molecule_batch(step: int, batch: int, n_nodes: int, n_edges: int,
+                   d_feat: int, seed: int = 0):
+    """Random 3D point-cloud molecules with kNN-ish bonded edges.
+
+    Returns dict of numpy arrays ready for ``gnn.graph.from_numpy``
+    (concatenated disjoint union of ``batch`` graphs).
+    """
+    rng = np.random.default_rng((seed, step))
+    feats, poss, snds, rcvs, gids = [], [], [], [], []
+    for g in range(batch):
+        pos = rng.normal(scale=2.0, size=(n_nodes, 3)).astype(np.float32)
+        # connect each node to its nearest neighbours until n_edges reached
+        d2 = ((pos[:, None] - pos[None, :]) ** 2).sum(-1)
+        np.fill_diagonal(d2, np.inf)
+        order = np.argsort(d2, axis=1)
+        s, r = [], []
+        k = 0
+        while len(s) < n_edges:
+            for i in range(n_nodes):
+                if len(s) >= n_edges:
+                    break
+                j = int(order[i, k % (n_nodes - 1)])
+                s.append(i)
+                r.append(j)
+            k += 1
+        base = g * n_nodes
+        feats.append(rng.normal(size=(n_nodes, d_feat)).astype(np.float32))
+        poss.append(pos)
+        snds.extend(base + np.asarray(s[:n_edges]))
+        rcvs.extend(base + np.asarray(r[:n_edges]))
+        gids.extend([g] * n_nodes)
+    return {
+        "node_feat": np.concatenate(feats, 0),
+        "pos": np.concatenate(poss, 0),
+        "senders": np.asarray(snds, np.int32),
+        "receivers": np.asarray(rcvs, np.int32),
+        "graph_id": np.asarray(gids, np.int32),
+        "n_graph": batch,
+        "targets": rng.normal(size=(batch, 1)).astype(np.float32),
+    }

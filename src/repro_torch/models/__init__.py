@@ -1,3 +1,4 @@
-"""Model building blocks of the port (``repro.models``): the PNA graph
-network, the dense GQA decoder LM (``transformer``, ``attention``,
-``moe``'s dense FFN) and the shared blocks of ``common``."""
+"""Model building blocks of the port (``repro.models``): the graph
+networks of ``gnn`` (PNA, EGNN, NequIP, Equiformer-v2, the sampler), the
+decoder LM (``transformer``, ``attention``: GQA and MLA; ``moe``: the
+dense FFN and the routed MoE) and the shared blocks of ``common``."""

@@ -1,8 +1,9 @@
 """Shared model building blocks (port of part of ``repro.models.common``).
 
 The initialiser, RMSNorm, SwiGLU and the ``{"w", "b"}`` linear layer
-the ported models use; ``softmax_cross_entropy`` waits for the training
-slice.  Randomness comes from an explicit ``torch.Generator``; it gives
+the ported models use, and its module form for the GNNs (``Dense``,
+``MLP``: the weight kept in the reference's ``[in, out]`` layout);
+``softmax_cross_entropy`` waits for the training slice.  Randomness comes from an explicit ``torch.Generator``; it gives
 other numbers than ``jax.random`` from the same seed, so tests carry the
 reference's parameters across instead (``PNA.load_reference_params``,
 ``transformer.load_reference_params``).
@@ -12,8 +13,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.core.graph import resolve_device
 
@@ -54,3 +57,59 @@ def init_rms(d: int, *, dtype=torch.float32, device="cuda") -> torch.Tensor:
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+class Dense(nn.Module):
+    """``x @ w + b`` with ``w`` [d_in, d_out] in the reference's layout,
+    drawn by ``dense_init``; the bias starts at zero."""
+
+    def __init__(self, d_in: int, d_out: int, *, generator, dtype,
+                 device) -> None:
+        super().__init__()
+        self.w = nn.Parameter(dense_init(d_in, d_out, generator=generator,
+                                         dtype=dtype, device=device))
+        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.w + self.b
+
+    def load(self, p) -> None:
+        """Copy a reference ``{"w", "b"}`` layer."""
+        copy_param(self.w, p["w"])
+        copy_param(self.b, p["b"])
+
+
+@torch.no_grad()
+def copy_param(dst: torch.Tensor, src) -> None:
+    """Copy a reference array into ``dst``, raising on a shape that does
+    not fit."""
+    src = torch.from_numpy(np.array(src))
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"reference array {tuple(src.shape)} does not "
+                         f"fit {tuple(dst.shape)}")
+    dst.copy_(src)
+
+
+class MLP(nn.Module):
+    """The reference's ``_mlp``: SiLU between layers, and after the last
+    one when ``last_act``."""
+
+    def __init__(self, dims, *, generator, dtype, device) -> None:
+        super().__init__()
+        self.layers = nn.ModuleList(
+            Dense(a, b, generator=generator, dtype=dtype, device=device)
+            for a, b in zip(dims[:-1], dims[1:]))
+
+    def forward(self, x: torch.Tensor, last_act: bool = False):
+        for i, lay in enumerate(self.layers):
+            x = lay(x)
+            if i < len(self.layers) - 1 or last_act:
+                x = F.silu(x)
+        return x
+
+    def load(self, p) -> None:
+        if len(p) != len(self.layers):
+            raise ValueError(f"reference MLP has {len(p)} layers, this one "
+                             f"{len(self.layers)}")
+        for lay, q in zip(self.layers, p):
+            lay.load(q)

@@ -15,10 +15,11 @@ mesh slice.
 Routing keeps the reference's order exactly: a float32 router, softmax,
 the top k with ties to the lower expert id (``lax.top_k``'s order), a
 stable sort by expert and the rank within an expert from
-``searchsorted(..., side="left")``.  The un-dispatch is a scatter-add in
-the activations' dtype, as the reference's ``.at[].add`` is; it is a
-torch scatter-add and no kernel of the port (the reference's is its own
-jnp, not the segment_matmul Pallas kernel).  Weights keep the
+``searchsorted(..., side="left")``.  The un-dispatch sums each token's
+rows in the activations' dtype in the order the reference's ``.at[].add``
+adds them (:func:`undispatch`), a gather and k - 1 adds, and no kernel
+of the port (the reference's is its own jnp, not the segment_matmul
+Pallas kernel).  Weights keep the
 reference's [in, out] layout, experts stacked [E, in, out].
 """
 
@@ -151,6 +152,29 @@ def aux_loss(r: Routing, e: int) -> torch.Tensor:
     return (density * r.probs.mean(dim=(0, 1))).sum() * e
 
 
+def undispatch(gathered: torch.Tensor, st: torch.Tensor,
+               k: int) -> torch.Tensor:
+    """Each token's sum of its k weighted expert rows: ``gathered [g,
+    tg * k, d]`` in sorted-assignment order, ``st [g, tg * k]`` the token
+    of each -> ``[g, tg, d]``.
+
+    The reference scatter-adds the rows (``.at[].add``), rounding after
+    each add in the activations' dtype.  A CUDA ``scatter_add_`` adds
+    with atomics in no fixed order, so in bfloat16 two runs of the same
+    prefill gave other sums (``chip_smoke.py`` phase M2 keeps it as a
+    control).  Here each token's rows are gathered (a stable sort of
+    ``st`` lists them in sorted order, so by ascending expert) and added
+    one at a time in that order: the same bits on every run."""
+    g, n, d = gathered.shape
+    slots = torch.sort(st, dim=1, stable=True).indices          # [g, tg * k]
+    rows = gathered.gather(1, slots[..., None].expand(-1, -1, d)).reshape(
+        g, n // k, k, d)
+    out = rows[:, :, 0]
+    for j in range(1, k):
+        out = out + rows[:, :, j]
+    return out
+
+
 def moe_dispatch(p: dict, x: torch.Tensor, cfg):
     """x [b, t, d] -> (out [b, t, d], its :class:`Routing`), the
     reference's grouped fixed-capacity dispatch (module doc) without the
@@ -176,8 +200,7 @@ def moe_dispatch(p: dict, x: torch.Tensor, cfg):
     # reference reads its zero dump row: the same 0 without a copy
     gathered = out_e[r.slot_e.clamp(max=e - 1), rows] * \
         (r.sp * r.keep).to(x.dtype)[..., None]
-    routed = x.new_zeros((g, tg, d)).scatter_add_(
-        1, r.st[..., None].expand(-1, -1, d), gathered)
+    routed = undispatch(gathered, r.st, cfg.moe_top_k)
     shared = swiglu(tokens @ p["ws_gate"], tokens @ p["ws_up"]) @ p["ws_down"]
     return (routed + shared).reshape(b, t, d), r
 
@@ -192,4 +215,4 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg):
 
 __all__ = ["Routing", "aux_loss", "dense_ffn", "dispatch_shape",
            "init_dense_ffn", "init_moe", "moe_dispatch", "moe_ffn",
-           "no_drop_capacity_factor", "route"]
+           "no_drop_capacity_factor", "route", "undispatch"]

@@ -26,7 +26,9 @@ the counting BFS does through the kernel route, the analytics path
 CPU's answers, and the LM path at qwen2-1.5b ``SMOKE`` (prefill, then
 decode through the kernel) gives the CPU's logits, as do the MLA + MoE
 ``SMOKE`` configurations (deepseek-v2-lite-16b, deepseek-v2-236b), and
-flash_decode holds at the LM family's groups of 7, 4 and 5 heads.
+flash_decode holds at the LM family's groups of 7, 4 and 5 heads; the
+GNN family (EGNN, NequIP, Equiformer-v2 at ``SMOKE``) gives the CPU's
+outputs on a molecule batch and a sampled block, launching no kernel.
 spc_query's fused
 kernel reads rows by vertex id: it equals its plain version on a built
 index padded to L = 2048 at B 1, 7, 1024 and 4096 (ids outside [0, n]
@@ -338,6 +340,48 @@ def test_lm_path_on_the_card(card):
         assert torch.equal(gpu[1], cpu[1])
         torch.testing.assert_close(gpu[2], cpu[2], rtol=1e-4, atol=1e-4)
         assert cpu[3] == 0 and gpu[3] == cfg.n_layers * 6
+
+
+@pytest.mark.parametrize("arch", ["egnn", "nequip", "equiformer-v2"])
+def test_gnn_family_on_the_card_equals_the_cpu(card, arch):
+    """EGNN, NequIP and Equiformer-v2 at ``SMOKE`` width in float32:
+    ``forward`` on a molecule batch and ``node_forward`` on a sampled
+    block (placed on the card by ``NeighborSampler.sample``) give the
+    CPU's outputs within rtol 1e-4 / atol 1e-5, launching no kernel of
+    the port; the block on the card is the CPU's."""
+    import importlib
+    from repro_torch.data import molecule_batch
+    from repro_torch.models.gnn import sampler as SA
+    from repro_torch.models.gnn.graph import from_numpy
+    mod = importlib.import_module(
+        f"repro_torch.configs.{arch.replace('-', '_')}")
+    mol = molecule_batch(0, 6, 10, 20, mod.SMOKE.d_in, seed=1)
+    csr = SA.synthetic_csr(400, 6, mod.SMOKE.d_in, 5, seed=2)
+    sampler = SA.NeighborSampler(csr, 8, (3, 2), seed=3)
+    rng = np.random.default_rng(4)
+    pos = rng.normal(size=(sampler.node_cap, 3)).astype(np.float32)
+    counters = (launches, SM.launches, EB.launches, FD.launches)
+    out, blocks = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = chip_smoke.gnn_model(arch, mod.SMOKE.d_in, 1, 5, dev) if \
+            dev == "cpu" else chip_smoke.gnn_cast(model, torch.float32, dev)
+        batch = from_numpy(mol["node_feat"], mol["senders"], mol["receivers"],
+                           pos=mol["pos"], graph_id=mol["graph_id"],
+                           n_graph=mol["n_graph"], device=dev)
+        block = chip_smoke.with_positions(sampler.sample(0, device=dev)[0],
+                                          pos)
+        before = [c.count for c in counters]
+        with torch.inference_mode():
+            out[dev] = (model(batch)[0].cpu(),
+                        model.node_forward(block)[:8].cpu())
+        assert [c.count for c in counters] == before
+        blocks[dev] = block
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    for name in ("nodes", "senders", "receivers", "pos", "graph_id"):
+        assert torch.equal(getattr(blocks["cuda"], name).cpu(),
+                           getattr(blocks["cpu"], name)), name
 
 
 @pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b",

@@ -18,8 +18,8 @@ carried across (``load_reference_params``):
   limit of a prefill of the same tokens (the reference's are not);
 * RoPE tables in float64, as the reference's (x64 on);
 * the configurations and the registry equal to the reference's
-  (parameter counts, padded heads and vocabulary included), unported
-  ids raising ``KeyError``;
+  (parameter counts, padded heads and vocabulary included), the
+  unported id ``dien`` raising ``KeyError``;
 * ``chip_smoke.py``'s M-check helpers at ``SMOKE``: with the no-drop
   capacity factor decode agrees with a prefill of the same tokens far
   inside the M-check limit, the planted fault (the rope term left out
@@ -345,8 +345,10 @@ def test_blocks_match_reference():
 def test_configs_and_registry_match_reference():
     """The five LM configurations (``CONFIG`` and ``SMOKE``) equal the
     reference's, with its parameter counts, padded heads and vocabulary;
-    the registry serves them with the reference's specs, and the ids
-    not yet ported raise ``KeyError``."""
+    the registry serves them, and every other ported id (the GNNs
+    ``egnn``, ``nequip`` and ``equiformer-v2`` among them), with the
+    reference's specs, and the id not yet ported (``dien``) raises
+    ``KeyError``."""
     for module in LM_MODULES:
         mine, ref = config_modules(module)
         for cfg, rcfg in ((mine.CONFIG, ref.CONFIG),
@@ -372,12 +374,14 @@ def test_configs_and_registry_match_reference():
                 for k, s in mine_spec.shapes.items()} == \
             {k: dataclasses.asdict(s) for k, s in ref_spec.shapes.items()}
     assert set(configs.ARCH_IDS) == {
-        "dspc", "pna", "qwen2-1.5b", "qwen2-7b", "phi3-medium-14b",
-        "deepseek-v2-lite-16b", "deepseek-v2-236b"}
-    for arch in ("egnn", "nequip", "equiformer-v2", "dien"):
-        jax_get(arch)                       # the reference knows each one
-        with pytest.raises(KeyError, match="not yet ported"):
-            configs.get(arch)
+        "dspc", "pna", "egnn", "nequip", "equiformer-v2", "qwen2-1.5b",
+        "qwen2-7b", "phi3-medium-14b", "deepseek-v2-lite-16b",
+        "deepseek-v2-236b"}
+    for arch in ("egnn", "nequip", "equiformer-v2"):
+        assert configs.get(arch).arch_id == jax_get(arch).arch_id == arch
+    jax_get("dien")                         # the reference knows it
+    with pytest.raises(KeyError, match="not yet ported"):
+        configs.get("dien")
 
 
 def test_published_sizes_of_the_new_configs():
@@ -395,7 +399,7 @@ def test_published_sizes_of_the_new_configs():
 
 
 def test_unported_configs_and_missing_card_raise():
-    """GNN and recsys ids still raise ``KeyError``; MLA and MoE
+    """The recsys id still raises ``KeyError``; MLA and MoE
     configurations now build on the CPU when asked, in the reference's
     tree (the router in float32) and bytes; without a card every entry
     point raises."""
@@ -504,6 +508,9 @@ def test_chip_smoke_lm_family_phases_on_the_cpu(monkeypatch):
         lite["check"]["no_rope"]
     assert out["deepseek-v2-236b"]["check"]["absorbed"] <= \
         chip_smoke.MCHECK_REL_TOL
+    rep = out["deepseek-v2-236b"]["moe_repeat"]
+    assert rep["port"]["repeats"] and rep["port"]["differing"] == 0
+    assert set(rep["scatter_add"]) == {"repeats", "differing", "elements"}
     for name in ("qwen2-7b", "phi3-medium-14b"):
         row = out[name]["flash_decode"]
         assert row["launches"] == 0 and row["shape"]["S"] == 24

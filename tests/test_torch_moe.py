@@ -234,3 +234,30 @@ def test_init_moe_tree_matches_the_reference():
     assert not torch.equal(tp["w_gate"][0], tp["w_gate"][1])
     std = float(tp["w_gate"].float().std())
     assert abs(std - 32 ** -0.5) < 0.01
+
+
+def test_undispatch_adds_each_tokens_rows_in_sorted_order():
+    """``moe.undispatch`` sums each token's k rows one add at a time in
+    sorted-assignment order (ascending expert), in the rows' dtype: bit
+    for bit a sequential loop over the sorted assignments, and in
+    float32 the scatter-add it replaced up to rounding."""
+    g, tg, k, d = 2, 5, 3, 8
+    gen = torch.Generator().manual_seed(3)
+    flat_e = torch.stack([torch.randperm(6, generator=gen)[:k]
+                          for _ in range(g * tg)]).reshape(g, tg * k)
+    st = torch.sort(flat_e, dim=1, stable=True).indices // k   # as route's
+    for dtype in (torch.bfloat16, torch.float32):
+        rows = torch.randn((g, tg * k, d), generator=gen).to(dtype)
+        got = M.undispatch(rows, st, k)
+        want = torch.zeros((g, tg, d), dtype=dtype)
+        seen = torch.zeros((g, tg), dtype=torch.bool)
+        for gi in range(g):
+            for i in range(tg * k):               # sorted order
+                t = int(st[gi, i])
+                want[gi, t] = rows[gi, i] if not seen[gi, t] else \
+                    want[gi, t] + rows[gi, i]
+                seen[gi, t] = True
+        assert torch.equal(got, want), dtype
+    scattered = torch.zeros((g, tg, d)).scatter_add_(
+        1, st[..., None].expand(-1, -1, d), rows)
+    torch.testing.assert_close(got, scattered, rtol=1e-6, atol=1e-6)

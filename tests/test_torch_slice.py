@@ -340,6 +340,8 @@ def test_chip_smoke_counts_launches_by_path():
     for path in ("deepseek-v2-lite-16b", "deepseek-v2-236b"):
         with counts.path(path):
             pass                   # MLA decode and the MoE: no kernel
+    with counts.path("gnn"):
+        pass                       # phase G: segment sums, no kernel
     zero = dict.fromkeys(kernels, 0)
     paths = dict.fromkeys(chip_smoke.PATH_KERNELS, 0)
     assert counts.by_path == {
@@ -351,7 +353,8 @@ def test_chip_smoke_counts_launches_by_path():
         "distributed": zero,
         "qwen2-7b": dict(zero, flash_decode=448),
         "phi3-medium-14b": dict(zero, flash_decode=640),
-        "deepseek-v2-lite-16b": zero, "deepseek-v2-236b": zero}
+        "deepseek-v2-lite-16b": zero, "deepseek-v2-236b": zero,
+        "gnn": zero}
     assert counts.of("spc_query") == (97, dict(paths, dspc=5, kernels=52,
                                                service=40))
     assert counts.of("segment_matmul") == (53, dict(paths, kernels=53))
