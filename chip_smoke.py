@@ -277,6 +277,57 @@ G.  GNN family -- EGNN, NequIP and Equiformer-v2 (``configs/{egnn,
                 rotation), which Equiformer-v2 with its messages rotated
                 back by ``Ds`` in place of their transposes must miss;
                 two launches at molecule within 1e-4 / 1e-5.
+R.  recsys   -- DIEN (``configs/dien.py`` CONFIG: 4M-item table, D 18,
+                T 100, GRU 108, MLP 200-80), random float32 weights from
+                a CUDA generator seeded from ``--seed``, batches from
+                ``dien_batch``: ``forward`` at serve_p99 (B 512)
+                R_P99_CALLS times (CUDA events: p50, p99), at serve_bulk
+                (B 262144) R_BULK_CALLS times (seconds a call, examples/s,
+                peak memory), and ``retrieval_scores`` of one user
+                against retrieval_cand's 10^6 (item, cate) pairs drawn as
+                ``dien_host_args`` draws them, R_RETRIEVAL_CALLS times;
+                one forward at each serve shape traced (busy ms, busy
+                share of the p50, top kernels).
+                Checks: the serve_p99 logits and the retrieval scores
+                equal the same module on the CPU (the same weights)
+                within rtol R_RTOL / atol R_ATOL, two launches bitwise
+                equal; two planted faults must miss that tolerance: the
+                AUGRU with its attention replaced by 1 (on the logits),
+                and a GRU that ignores ``hist_mask`` (on the retrieval
+                scores of 8 users whose masks are reversed, padding
+                first, held first without the fault: after
+                ``dien_batch``'s prefix masks such a GRU changes no state
+                the model reads).
+T.  train    -- AdamW (``AdamWConfig()``, as ``steps.py:63``) through
+                ``loop.run``.  DIEN at train_batch (65536): T_DIEN_STEPS
+                steps (s/step, examples/s, peak memory, one loss and
+                gradient traced); the first
+                step's loss and every gradient on its first
+                T_DIEN_CHECK_ROWS rows against the CPU within rtol
+                T_DIEN_RTOL / atol T_DIEN_ATOL, which the loss without
+                its aux term must miss; restart equivalence -- a run
+                that fails after 2 steps (``FailAfter``) and resumes from
+                its checkpoint in a fresh directory (``fleet_dir``) ends
+                on the bits of an uninterrupted run, under
+                ``torch.use_deterministic_algorithms`` (required) and
+                without it (recorded).  qwen2-1.5b CONFIG at full width
+                and depth, tp 1, bf16, ``remat`` on: train_4k's t 4096 at
+                batch T_LM_BATCH (``reduced``: 256 -> T_LM_BATCH),
+                T_LM_STEPS steps (s/step, tokens/s, peak memory, the
+                share of the card's dense bf16 peak under the reference's
+                ``_lm_flops``, one loss and gradient traced), every loss
+                finite and no step skipped;
+                the check: its first T_CHECK_LAYERS layers in float32
+                at T_CHECK_BATCH x T_CHECK_SEQ tokens, loss and every
+                gradient on the card within a relative L2 of
+                T_CHECK_REL_TOL of the CPU's, which the attention
+                without its causal mask must miss, and ``remat`` on and
+                off bitwise equal there.  EGNN, NequIP and
+                Equiformer-v2 CONFIG at molecule: T_GNN_STEPS steps each
+                (s/step), the first step's loss and gradients on the
+                first GNN_CPU_MOLECULES molecules against the CPU at G's
+                tolerances (in float64 where float32 does not resolve
+                the CPU's own gradients to them).
 flash_decode is held against its plain version (the KV heads expanded,
 fp32 softmax) at the TPU sweep shapes and GQA groups in float32 (rtol =
 atol = 2e-5, the TPU test's) and bfloat16 (1e-2 against the plain
@@ -307,7 +358,11 @@ two dense ones, no kernel on the deepseek ones: MLA decode is the
 reference's einsums, the MoE un-dispatch a gather and adds, where the
 reference scatter-adds), the gnn path (phase G, which launches no
 kernel: the reference's GNNs aggregate with segment sums, not
-segment_matmul), the service path (the ingest and serving of S1 and
+segment_matmul), the recsys path (phase R's timed calls, no kernel:
+DIEN's profile bags are gathered and averaged, not summed by
+embedding_bag) and the train path (phase T's runs, no kernel: no
+function of the reference has a custom VJP, so no Pallas kernel has a
+backward), the service path (the ingest and serving of S1 and
 the front-door traffic of S2; the service readers, the dispatchers and
 the updater launch from their own threads) and the distributed path
 (D's sharded build, chunk and serving, which launch no kernel: the
@@ -383,7 +438,12 @@ PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
                 # the reference's GNNs aggregate with jax.ops.segment_sum /
                 # segment_max and plain einsums, not segment_matmul: the
                 # port's index_add_ / scatter_reduce_, no kernel
-                "gnn": ()}
+                "gnn": (),
+                # DIEN takes + means its profile bags (dien.py:136-147),
+                # which embedding_bag (a sum) does not compute; no
+                # function of the reference has a custom VJP, so a
+                # training step runs no Pallas kernel: no kernel
+                "recsys": (), "train": ()}
 
 #: The segment_matmul sweep of tests/kernels/test_kernels.py (e, n, d),
 #: inputs drawn as that test draws them (ids in [0, n + 5): some dropped).
@@ -493,6 +553,24 @@ GNN_ARCHS = ("egnn", "nequip", "equiformer-v2")
 GNN_SHAPE_NAMES = ("molecule", "full_graph_sm", "minibatch_lg")
 GNN_REPS, GNN_RTOL, GNN_ATOL, GNN_ROT_TOL = 5, 1e-4, 1e-5, 1e-3
 GNN_CPU_MOLECULES, GNN_TOP_OPS = 8, 8
+#: Phase R: DIEN's timed calls at serve_p99, serve_bulk and
+#: retrieval_cand, and the tolerance of the card against the CPU.
+R_P99_CALLS, R_BULK_CALLS, R_RETRIEVAL_CALLS = 64, 3, 20
+R_RTOL, R_ATOL = 1e-4, 1e-5
+#: The kernels printed by device ms from R's and T's traces.
+R_TOP_OPS = 6
+#: Phase T: DIEN's steps at train_batch, the rows of its first step held
+#: against the CPU and their tolerance; qwen2-1.5b's batch at train_4k's
+#: t (its global batch of 256 cut to fit one card: logits of [4096,
+#: 151936] take 1.24 GB a sequence in bf16) and steps; the layers, batch
+#: and t of its float32 check and the limit on the relative L2 error of
+#: the loss and of each gradient; the GNNs' steps at molecule.
+T_DIEN_STEPS, T_DIEN_CHECK_ROWS, T_DIEN_RTOL, T_DIEN_ATOL = 4, 1024, 1e-4, 1e-6
+T_LM_BATCH, T_LM_STEPS = 4, 4
+T_CHECK_LAYERS, T_CHECK_BATCH, T_CHECK_SEQ, T_CHECK_REL_TOL = 2, 2, 512, 1e-3
+T_GNN_STEPS = 3
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W).
+BF16_DENSE_OPS_PER_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -2082,6 +2160,657 @@ def gnn_against_cpu(model, arrays: dict, inp: dict, card_out,
         f"{tag}: card vs CPU in float64 (float32 resolves the output to "
         f"{out['cpu_f32_vs_f64']:.3g} only)", card64.cpu(), exact, GNN_RTOL,
         GNN_ATOL)
+    return out
+
+
+# -- R and T: DIEN serving, one-card training ---------------------------------
+def tensors(batch: dict, device) -> dict:
+    """A numpy batch as tensors on ``device``."""
+    import torch
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def dien_inputs(cfg, step: int, b: int, seed: int, device) -> dict:
+    """``dien_batch(step, b, ...)`` of ``cfg`` as tensors on ``device``."""
+    from repro_torch.data.pipelines import dien_batch
+    return tensors(dien_batch(step, b, cfg.seq_len, cfg.n_items, cfg.n_cates,
+                              cfg.n_profile_vocab, cfg.profile_bags,
+                              cfg.bag_size, seed=seed), device)
+
+
+def on_cpu(tree):
+    """A tree of tensors copied to the CPU."""
+    from repro_torch.train.optimizer import tree_map
+    return tree_map(lambda x: x.detach().cpu(), tree)
+
+
+@contextlib.contextmanager
+def augru_attention_one():
+    """Phase R's first planted fault: the AUGRU's attention replaced by
+    1 (the evolution layer a plain GRU)."""
+    import torch
+    from repro_torch.models import dien as D
+    run = D.run_augru
+    D.run_augru = lambda p, xs, att, mask: run(
+        p, xs, torch.ones_like(att), mask)
+    try:
+        yield
+    finally:
+        D.run_augru = run
+
+
+@contextlib.contextmanager
+def gru_ignores_mask():
+    """Phase R's second planted fault: the extractor GRU steps through
+    the padded positions of every history."""
+    import torch
+    from repro_torch.models import dien as D
+    run = D.run_gru
+    D.run_gru = lambda p, xs, mask: run(
+        p, xs, torch.ones_like(mask))
+    try:
+        yield
+    finally:
+        D.run_gru = run
+
+
+def misses(tag, fn, want, rtol, atol) -> float:
+    """max |fn() - want| of a planted fault, which must miss rtol /
+    atol."""
+    import torch
+    got = fn().detach().cpu().double()
+    err = float((got - want.double()).abs().max())
+    if torch.allclose(got, want.double(), rtol=rtol, atol=atol):
+        raise AssertionError(f"{tag}: the planted fault passes the check "
+                             f"(max |diff| {err})")
+    return err
+
+
+def traced(tag: str, fn, ms: float, card: str) -> dict:
+    """One ``fn()`` under ``torch.profiler`` (:func:`device_trace`): the
+    card's busy ms, its busy share of ``ms`` (the call's p50) and the
+    top R_TOP_OPS kernels by device ms, printed and returned."""
+    busy, span, by = device_trace(fn)
+    out = {"trace_busy_ms": busy, "trace_span_ms": span,
+           "busy_share": busy and busy / ms,
+           "top_ops_ms": dict(sorted(by.items(),
+                                     key=lambda kv: -kv[1])[:R_TOP_OPS])}
+    log(f"{tag} trace: busy {busy} ms of a {ms:.3f} ms call (span {span} "
+        f"ms); top kernels by device ms {json.dumps(out['top_ops_ms'])} on "
+        f"{card}")
+    return out
+
+
+def recsys_phase(counts, card: str, seed: int, device="cuda") -> dict:
+    """Phase R (module doc): DIEN's CONFIG serving at serve_p99,
+    serve_bulk and retrieval_cand, inside ``counts.path("recsys")``,
+    which must launch no kernel of the port.  Returns the numbers;
+    raises on any failed check."""
+    import torch
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.configs.dien import CONFIG
+    from repro_torch.models import dien as D
+    from repro_torch.train.checkpoint import flatten
+    cuda = torch.device(device).type == "cuda"
+    cfg = CONFIG
+    gen = torch.Generator(device).manual_seed(seed + 61)
+    params = D.init_params(cfg, generator=gen, device=device)
+    host = on_cpu(params)
+    out = {"params": sum(x.numel() for x in flatten(params)[0])}
+    dims = {k: s.dims for k, s in RECSYS_SHAPES.items()}
+    # serve_p99: p50 / p99 of forward calls, held against the CPU
+    b = dims["serve_p99"]["batch"]
+    batch = dien_inputs(cfg, 0, b, seed, device)
+    with torch.inference_mode(), counts.path("recsys"):
+        first = D.forward(params, batch, cfg)
+        got, ms = timed_calls(lambda: D.forward(params, batch, cfg),
+                              R_P99_CALLS, cuda)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    with torch.inference_mode():
+        want = D.forward(host, cpu_batch, cfg)
+        if not torch.equal(first, got):
+            raise AssertionError("R serve_p99: two launches differ")
+        err = check_close("R serve_p99: card vs CPU", got.cpu(), want,
+                          R_RTOL, R_ATOL)
+        faults = {}
+        with augru_attention_one():
+            faults["augru_attention_one"] = misses(
+                "R: AUGRU attention 1", lambda: D.forward(params, batch, cfg),
+                want, R_RTOL, R_ATOL)
+    out["serve_p99"] = {"batch": b, "ms_p50": float(np.percentile(ms, 50)),
+                        "ms_p99": float(np.percentile(ms, 99)),
+                        "ms_mean": float(np.mean(ms)), "calls": len(ms),
+                        "max_abs_err": err, "max_abs_logit":
+                        float(want.abs().max()), "faults": faults}
+    if cuda:
+        with torch.inference_mode():
+            out["serve_p99"].update(traced(
+                "R serve_p99", lambda: D.forward(params, batch, cfg),
+                out["serve_p99"]["ms_p50"], card))
+    log(f"R serve_p99 (B {b}): forward p50 {out['serve_p99']['ms_p50']:.3f} "
+        f"ms, p99 {out['serve_p99']['ms_p99']:.3f} ms over {len(ms)} calls; "
+        f"card vs CPU max |diff| {err:.3g} (rtol {R_RTOL}, atol {R_ATOL}; "
+        f"logits up to {out['serve_p99']['max_abs_logit']:.3g}), two "
+        f"launches bitwise equal; planted fault {json.dumps(faults)} on "
+        f"{card}")
+    late = {k: v[:8].clone() for k, v in batch.items()}
+    del batch, cpu_batch, first, got, want
+    release(device)
+    # serve_bulk: seconds a call, examples/s, peak memory
+    b = dims["serve_bulk"]["batch"]
+    t0 = time.monotonic()
+    batch = dien_inputs(cfg, 1, b, seed, device)
+    host_s = time.monotonic() - t0
+    with torch.inference_mode(), counts.path("recsys"):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+        bulk, ms = timed_calls(lambda: D.forward(params, batch, cfg),
+                               R_BULK_CALLS, cuda)
+    if tuple(bulk.shape) != (b,) or not torch.isfinite(bulk).all():
+        raise AssertionError(f"R serve_bulk: logits {tuple(bulk.shape)}, "
+                             f"want ({b},), finite")
+    out["serve_bulk"] = {"batch": b, "s_per_call": [t / 1e3 for t in ms],
+                         "examples_per_s": b / (np.median(ms) / 1e3),
+                         "batch_host_s": host_s}
+    if cuda:
+        out["serve_bulk"].update(
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            resident_bytes=resident)
+        with torch.inference_mode():
+            out["serve_bulk"].update(traced(
+                "R serve_bulk", lambda: D.forward(params, batch, cfg),
+                float(np.median(ms)), card))
+    log(f"R serve_bulk (B {b}): {json.dumps(out['serve_bulk'])} on {card}")
+    del batch, bulk
+    release(device)
+    # retrieval_cand: one user against n candidates drawn as
+    # dien_host_args draws them
+    n = dims["retrieval_cand"]["n_candidates"]
+    user = dien_inputs(cfg, 2, dims["retrieval_cand"]["batch"], seed, device)
+    r = np.random.default_rng(seed)
+    cand = tensors({"item": r.integers(0, cfg.n_items, (n,)).astype(np.int32),
+                    "cate": r.integers(0, cfg.n_cates, (n,)).astype(np.int32)},
+                   device)
+    with torch.inference_mode(), counts.path("recsys"):
+        scores, ms = timed_calls(
+            lambda: D.retrieval_scores(params, user, cand, cfg),
+            R_RETRIEVAL_CALLS, cuda)
+    faults = {}
+    with torch.inference_mode():
+        want = D.retrieval_scores(host, {k: v.cpu() for k, v in user.items()},
+                                  {k: v.cpu() for k, v in cand.items()}, cfg)
+        err = check_close("R retrieval_cand: card vs CPU", scores.cpu(),
+                          want, R_RTOL, R_ATOL)
+        # dien_batch's masks are prefixes, after which a GRU that ignores
+        # the mask changes no state the model reads (the attention masks
+        # the padded steps out, the AUGRU's weight there is 0, retrieval
+        # reads the last valid state).  The mask shows where the padding
+        # comes first: 8 serve_p99 users with their masks reversed,
+        # scored against the same candidates, first without the fault.
+        late["hist_mask"] = late["hist_mask"].flip(-1)
+        cpu_late = {k: v.cpu() for k, v in late.items()}
+        cpu_cand = {k: v.cpu() for k, v in cand.items()}
+        want_late = D.retrieval_scores(host, cpu_late, cpu_cand, cfg)
+        err = max(err, check_close(
+            "R retrieval, masks reversed: card vs CPU",
+            D.retrieval_scores(params, late, cand, cfg).cpu(), want_late,
+            R_RTOL, R_ATOL))
+        with gru_ignores_mask():
+            faults["gru_ignores_mask"] = misses(
+                "R: GRU without hist_mask (masks reversed)",
+                lambda: D.retrieval_scores(params, late, cand, cfg),
+                want_late, R_RTOL, R_ATOL)
+    out["retrieval_cand"] = {"n_candidates": n,
+                             "ms_p50": float(np.median(ms)),
+                             "ms": ms, "max_abs_err": err,
+                             "max_abs_score": float(want.abs().max()),
+                             "faults": faults}
+    log(f"R retrieval_cand ({n} candidates): p50 "
+        f"{out['retrieval_cand']['ms_p50']:.3f} ms; card vs CPU max |diff| "
+        f"{err:.3g} (scores up to "
+        f"{out['retrieval_cand']['max_abs_score']:.3g}); planted fault "
+        f"{json.dumps(faults)} on {card}")
+    del params, host, user, cand, scores, want, late
+    release(device)
+    if any(counts.by_path["recsys"].values()):
+        raise AssertionError(f"the recsys path launched a kernel of the "
+                             f"port: {counts.by_path['recsys']}")
+    return out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` (and the cuBLAS
+    workspace setting it asks for) over the enclosed block."""
+    import torch
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+def timed_run(params, loss_fn, data_fn, steps: int, device, **loop_kw):
+    """``loop.run`` for ``steps`` AdamW steps: (params, state, history,
+    seconds of each step, peak device bytes).  A step's seconds run from
+    its ``data_fn`` call to the next step's (the loop reads each step's
+    loss before it goes on), the last to the run's return."""
+    import torch
+    from repro_torch.train import loop as L
+    from repro_torch.train.optimizer import AdamWConfig
+    marks = []
+
+    def data(step):
+        marks.append(time.monotonic())
+        return data_fn(step)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fail = loop_kw.pop("fail_after", None)
+    kw = dict(log_every=1)
+    kw.update(loop_kw)
+    try:
+        p, st, hist = L.run(params, loss_fn, data, AdamWConfig(),
+                            L.LoopConfig(total_steps=steps, **kw),
+                            fail_after=fail)
+    finally:
+        marks.append(time.monotonic())
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    return p, st, hist, list(np.diff(marks)), peak
+
+
+def grads_against(tag, card, cpu, rtol, atol) -> float:
+    """Every gradient leaf of ``card`` within rtol / atol of ``cpu``'s;
+    returns the largest |diff|."""
+    from repro_torch.train.checkpoint import flatten
+    return max(check_close(f"{tag} ({i})", a.detach().cpu(), b, rtol, atol)
+               for i, (a, b) in enumerate(zip(flatten(card)[0],
+                                              flatten(cpu)[0])))
+
+
+def leaf_rel_l2(card, cpu) -> float:
+    """The largest relative L2 error of a leaf of ``card`` against
+    ``cpu`` (0 for a leaf that is zero in both)."""
+    from repro_torch.train.checkpoint import flatten
+    worst = 0.0
+    for a, b in zip(flatten(card)[0], flatten(cpu)[0]):
+        a, b = a.detach().cpu().double(), b.double()
+        d, n = float((a - b).norm()), float(b.norm())
+        worst = max(worst, d / n if n else d)
+    return worst
+
+
+def same_bits(a_tree, b_tree) -> bool:
+    import torch
+    from repro_torch.train.checkpoint import flatten
+    return all(torch.equal(a, b) for a, b in zip(flatten(a_tree)[0],
+                                                 flatten(b_tree)[0]))
+
+
+def max_leaf_diff(a_tree, b_tree) -> float:
+    from repro_torch.train.checkpoint import flatten
+    return max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(flatten(a_tree)[0], flatten(b_tree)[0]))
+
+
+def step_numbers(hist, step_s, peak: int, items: int) -> dict:
+    """s/step (the median after the first), items/s and the history."""
+    steady = step_s[1:] or step_s
+    s = float(np.median(steady))
+    return {"s_per_step": s, "step_s": step_s, "items_per_s": items / s,
+            "peak_bytes": peak, "loss": [h["loss"] for h in hist],
+            "grad_norm": [h["grad_norm"] for h in hist],
+            "skipped": int(sum(h["skipped"] for h in hist))}
+
+
+def dien_train(counts, card: str, seed: int, device) -> dict:
+    """Phase T's DIEN part (module doc)."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.configs.dien import CONFIG
+    from repro_torch.models import dien as D
+    from repro_torch.train import loop as L
+    cfg = CONFIG
+    b = RECSYS_SHAPES["train_batch"].dims["batch"]
+    gen = torch.Generator(device).manual_seed(seed + 67)
+    params = D.init_params(cfg, generator=gen, device=device)
+    loss_fn = D.make_train_loss(cfg)
+    t0 = time.monotonic()
+    batches = [dien_inputs(cfg, s, b, seed, device)
+               for s in range(T_DIEN_STEPS)]
+    host_s = time.monotonic() - t0
+    out = {"batch": b, "batches_host_s": host_s}
+    # the first step on T_DIEN_CHECK_ROWS rows against the CPU
+    rows = {k: v[:T_DIEN_CHECK_ROWS] for k, v in batches[0].items()}
+    host = on_cpu(params)
+    cpu_rows = {k: v.cpu() for k, v in rows.items()}
+    loss, grads = L.value_and_grad(loss_fn, params, rows)
+    want_loss, want = L.value_and_grad(loss_fn, host, cpu_rows)
+    err = max(check_close("T dien first-step loss: card vs CPU", loss.cpu(),
+                          want_loss, T_DIEN_RTOL, T_DIEN_ATOL),
+              grads_against("T dien first-step gradients: card vs CPU",
+                            grads, want, T_DIEN_RTOL, T_DIEN_ATOL))
+    no_aux = D.make_train_loss(dataclasses.replace(cfg, aux_weight=0.0))
+    fault = misses("T dien: the loss without its aux term",
+                   lambda: L.value_and_grad(no_aux, params, rows)[0],
+                   want_loss, T_DIEN_RTOL, T_DIEN_ATOL)
+    out["check"] = {"rows": T_DIEN_CHECK_ROWS, "max_abs_err": err,
+                    "loss": float(want_loss), "fault_no_aux": fault}
+    del grads, want, host, rows, cpu_rows
+    release(device)
+
+    def data(step):
+        return batches[step]
+    with counts.path("train"):
+        p_a, _, hist, step_s, peak = timed_run(params, loss_fn, data,
+                                               T_DIEN_STEPS, device)
+    out.update(step_numbers(hist, step_s, peak, b))
+    if torch.device(device).type == "cuda":      # one loss and gradient
+        out.update(traced("T dien loss and gradient",
+                          lambda: L.value_and_grad(loss_fn, params,
+                                                   batches[0]),
+                          1e3 * out["s_per_step"], card))
+    if not all(np.isfinite(out["loss"])) or out["skipped"]:
+        raise AssertionError(f"T dien: losses {out['loss']}, "
+                             f"{out['skipped']} steps skipped")
+    log(f"T dien (B {b}): {out['s_per_step']:.4f} s/step of "
+        f"{json.dumps([round(t, 4) for t in step_s])}, "
+        f"{out['items_per_s']:.1f} examples/s, peak {peak} B, losses "
+        f"{json.dumps(out['loss'])}; first step on {T_DIEN_CHECK_ROWS} rows "
+        f"card vs CPU max |diff| {err:.3g} (rtol {T_DIEN_RTOL}, atol "
+        f"{T_DIEN_ATOL}), without the aux term {fault:.3g} on {card}")
+    # restart equivalence: FailAfter(2), then a resume from the
+    # checkpoint, against an uninterrupted run
+    restart = {}
+    for mode in ("deterministic", "default"):
+        ctx = deterministic() if mode == "deterministic" else \
+            contextlib.nullcontext()
+        d = fleet_dir()
+        with ctx:
+            t0 = time.monotonic()
+            if mode == "deterministic":
+                whole = p_det = timed_run(params, loss_fn, data,
+                                          T_DIEN_STEPS, device)[0]
+            else:
+                whole = p_a
+            try:
+                timed_run(params, loss_fn, data, T_DIEN_STEPS, device,
+                          ckpt_dir=d, ckpt_every=1,
+                          fail_after=L.FailAfter(2))
+                raise AssertionError("T dien: FailAfter(2) did not fail")
+            except RuntimeError as e:
+                if "injected failure" not in str(e):
+                    raise
+            resumed = timed_run(params, loss_fn, data, T_DIEN_STEPS, device,
+                                ckpt_dir=d, ckpt_every=1)[0]
+        restart[mode] = {"bitwise": same_bits(resumed, whole),
+                         "max_abs_diff": max_leaf_diff(resumed, whole),
+                         "s": time.monotonic() - t0}
+        shutil.rmtree(d, ignore_errors=True)
+        del whole, resumed
+        release(device)
+    # the uninterrupted runs with and without the setting
+    restart["default_run_equals_deterministic_run"] = same_bits(p_a, p_det)
+    restart["default_vs_deterministic_max_abs_diff"] = max_leaf_diff(p_a,
+                                                                     p_det)
+    out["restart"] = restart
+    log(f"T dien restart equivalence (FailAfter(2), resume): "
+        f"{json.dumps(restart)} on {card}")
+    if not restart["deterministic"]["bitwise"]:
+        raise AssertionError(f"T dien: the resumed run differs from the "
+                             f"uninterrupted one under deterministic "
+                             f"algorithms: {restart['deterministic']}")
+    del params, p_a, p_det, batches
+    release(device)
+    return out
+
+
+def gqa_train_without_mask(p, x, cfg, positions):
+    """T's planted fault: ``gqa_train`` attending to every position,
+    later ones included (no causal mask)."""
+    import torch
+    from repro_torch.models import attention as A
+    b, t, _ = x.shape
+    hq, kv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
+    q, k, v = A._proj_qkv_gqa(p, x, cfg, positions)
+    k_full, v_full = A._expand_kv(k, hq, kv), A._expand_kv(v, hq, kv)
+    scores = torch.einsum("bthd,bshd->bhts", q, k_full) / float(np.sqrt(dh))
+    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhts,bshd->bthd", probs, v_full).reshape(b, t, hq * dh)
+    return ctx @ p["wo"], (k, v)
+
+
+@contextlib.contextmanager
+def causal_mask_dropped():
+    """T's planted fault in place of ``attention.gqa_train``."""
+    from repro_torch.models import attention as A
+    train = A.gqa_train
+    A.gqa_train = gqa_train_without_mask
+    try:
+        yield
+    finally:
+        A.gqa_train = train
+
+
+def lm_flops(cfg, tokens: int, seq: int) -> float:
+    """The reference's reckoning of a train step's operations
+    (``launch/steps.py::_lm_flops`` with ``train=True``)."""
+    return float(6 * cfg.active_param_count() * tokens
+                 + 6 * 2 * cfg.n_layers * cfg.n_heads * cfg.d_head * seq
+                 * tokens)
+
+
+def lm_train(counts, card: str, seed: int, device) -> dict:
+    """Phase T's qwen2-1.5b part (module doc)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.configs.qwen2_1_5b import CONFIG
+    from repro_torch.data.pipelines import lm_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import loop as L
+    cfg = dataclasses.replace(CONFIG, tp=1)
+    dims = LM_SHAPES["train_4k"].dims
+    t, b = dims["seq_len"], T_LM_BATCH
+    out = {"reduced": [f"global_batch {dims['global_batch']}->{b}"],
+           "seq": t, "batch": b, "remat": cfg.remat}
+    gen = torch.Generator(device).manual_seed(seed + 71)
+    params = tf.init_params(cfg, generator=gen, device=device)
+    batches = [tensors(lm_batch(s, b, t, cfg.vocab, seed=seed), device)
+               for s in range(T_LM_STEPS)]
+    with counts.path("train"):
+        p_run, _, hist, step_s, peak = timed_run(
+            params, tf.make_train_loss(cfg), lambda s: batches[s],
+            T_LM_STEPS, device)
+    del p_run
+    release(device)
+    out.update(step_numbers(hist, step_s, peak, b * t))
+    if torch.device(device).type == "cuda":      # one loss and gradient
+        out.update(traced("T qwen2-1.5b loss and gradient",
+                          lambda: L.value_and_grad(tf.make_train_loss(cfg),
+                                                   params, batches[0]),
+                          1e3 * out["s_per_step"], card))
+    out["flops_per_step"] = lm_flops(cfg, b * t, t)
+    out["bf16_peak_share"] = (out["flops_per_step"] / out["s_per_step"]
+                              / BF16_DENSE_OPS_PER_S)
+    if not all(np.isfinite(out["loss"])) or out["skipped"]:
+        raise AssertionError(f"T qwen2-1.5b: losses {out['loss']}, "
+                             f"{out['skipped']} steps skipped")
+    log(f"T qwen2-1.5b (CONFIG, tp 1, bf16, remat; {b} x {t}, reduced "
+        f"{json.dumps(out['reduced'])}): {out['s_per_step']:.4f} s/step of "
+        f"{json.dumps([round(x, 4) for x in step_s])}, "
+        f"{out['items_per_s']:.1f} tokens/s, {out['bf16_peak_share']:.4f} "
+        f"of the dense bf16 peak by the reference's reckoning "
+        f"({out['flops_per_step']:.4g} a step), peak {peak} B, losses "
+        f"{json.dumps(out['loss'])} on {card}")
+    # the check: the first layers in float32 against the CPU
+    small = dataclasses.replace(cfg, n_layers=T_CHECK_LAYERS,
+                                param_dtype=torch.float32,
+                                act_dtype=torch.float32)
+    p32 = float32_layers(params, T_CHECK_LAYERS)
+    del params, batches
+    release(device)
+    host = on_cpu(p32)
+    batch = tensors(lm_batch(0, T_CHECK_BATCH, T_CHECK_SEQ, cfg.vocab,
+                             seed=seed + 1), device)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    loss_fn = tf.make_train_loss(small)
+    loss, grads = L.value_and_grad(loss_fn, p32, batch)
+    want_loss, want = L.value_and_grad(loss_fn, host, cpu_batch)
+
+    def reading(l, g):
+        return max(abs(float(l) - float(want_loss)) / abs(float(want_loss)),
+                   leaf_rel_l2(g, want))
+    check = {"rel_l2": reading(loss, grads), "loss": float(want_loss)}
+    with causal_mask_dropped():
+        check["fault_no_causal_mask"] = reading(
+            *L.value_and_grad(loss_fn, p32, batch))
+    with deterministic():
+        on = L.value_and_grad(loss_fn, p32, batch)
+        off = L.value_and_grad(tf.make_train_loss(dataclasses.replace(
+            small, remat=False)), p32, batch)
+    check["remat_bitwise"] = bool(torch.equal(on[0], off[0])
+                                  and same_bits(on[1], off[1]))
+    out["check"] = check
+    log(f"T qwen2-1.5b check ({T_CHECK_LAYERS} layers, float32, "
+        f"{T_CHECK_BATCH} x {T_CHECK_SEQ}): loss and gradients card vs CPU "
+        f"relative L2 {check['rel_l2']:.3g} (limit {T_CHECK_REL_TOL}), "
+        f"without the causal mask {check['fault_no_causal_mask']:.3g}; "
+        f"remat on and off bitwise equal: {check['remat_bitwise']} on {card}")
+    if check["rel_l2"] > T_CHECK_REL_TOL:
+        raise AssertionError(f"T qwen2-1.5b: card vs CPU {check['rel_l2']}")
+    if check["fault_no_causal_mask"] <= T_CHECK_REL_TOL:
+        raise AssertionError("T qwen2-1.5b: the planted fault (no causal "
+                             "mask) passes the check")
+    if not check["remat_bitwise"]:
+        raise AssertionError("T qwen2-1.5b: remat on and off differ")
+    del p32, host, grads, want, on, off
+    release(device)
+    return out
+
+
+def gnn_train(counts, card: str, seed: int, device) -> dict:
+    """Phase T's GNN part (module doc)."""
+    import importlib
+    import torch
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.data.pipelines import molecule_batch
+    from repro_torch.models.gnn.graph import from_numpy
+    from repro_torch.train import loop as L
+    dims = GNN_SHAPES["molecule"].dims
+    mol = molecule_batch(0, dims["batch"], dims["n_nodes"], dims["n_edges"],
+                         dims["d_feat"], seed=seed)
+    keys = ("node_feat", "senders", "receivers", "pos", "graph_id",
+            "n_graph")
+    arrays = {k: mol[k] for k in keys}
+    batch = from_numpy(**arrays, device=device)
+    target = torch.from_numpy(mol["targets"]).to(device)
+    k = GNN_CPU_MOLECULES
+    nk = int(np.searchsorted(arrays["graph_id"], k))
+    ek = int(np.searchsorted(arrays["graph_id"][arrays["senders"]], k))
+    few = dict(arrays, node_feat=arrays["node_feat"][:nk],
+               pos=arrays["pos"][:nk], senders=arrays["senders"][:ek],
+               receivers=arrays["receivers"][:ek],
+               graph_id=arrays["graph_id"][:nk], n_graph=k)
+    out = {}
+    for i, arch in enumerate(GNN_ARCHS):
+        mod = importlib.import_module(
+            f"repro_torch.models.gnn.{arch.replace('-', '_')}")
+        model = gnn_model(arch, dims["d_feat"], 1, seed + 73 + i, device)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        loss_fn = mod.make_loss(model)
+        with counts.path("train"):
+            _, _, hist, step_s, peak = timed_run(
+                params, loss_fn, lambda s: (batch, target), T_GNN_STEPS,
+                device)
+        n = step_numbers(hist, step_s, peak, dims["batch"])
+        # the first step on the first k molecules against the CPU
+        inputs = (from_numpy(**few, device=device), target[:k])
+        first = L.value_and_grad(loss_fn, params, inputs)
+        n["check"] = gnn_grads_against_cpu(model, mod, few, target[:k].cpu(),
+                                           first, f"T {arch}")
+        out[arch] = n
+        log(f"T {arch} (molecule, {dims['batch']} x {dims['n_nodes']}): "
+            f"{n['s_per_step']:.4f} s/step of "
+            f"{json.dumps([round(x, 4) for x in step_s])}, peak {peak} B, "
+            f"losses {json.dumps(n['loss'])}; first step on {k} molecules "
+            f"card vs CPU in {n['check']['precision']} max |diff| "
+            f"{n['check']['max_abs_err']:.3g} (float32 "
+            f"{n['check']['f32_max_abs_err']:.3g}; the CPU's float32 vs "
+            f"float64 {n['check']['cpu_f32_vs_f64']:.3g}) on {card}")
+        if not all(np.isfinite(n["loss"])) or n["skipped"]:
+            raise AssertionError(f"T {arch}: losses {n['loss']}")
+        del model, params, first
+        release(device)
+    return out
+
+
+def gnn_grads_against_cpu(model, mod, arrays, target, card, tag) -> dict:
+    """The card's float32 loss and gradients ``card`` of ``model`` on the
+    graph of ``arrays`` against the same module's on the CPU, at G's
+    tolerances; in float64 on both where the CPU's float32 misses its
+    own float64 (as ``gnn_against_cpu`` holds the forward)."""
+    import torch
+    from repro_torch.models.gnn.graph import from_numpy
+    from repro_torch.train import loop as L
+    from repro_torch.train.checkpoint import flatten
+    wide = dict(arrays, node_feat=arrays["node_feat"].astype(np.float64),
+                pos=arrays["pos"].astype(np.float64))
+
+    def run(dtype, device, arr, tgt):
+        m = gnn_cast(model, dtype, device)
+        params = {n: p.detach() for n, p in m.named_parameters()}
+        return L.value_and_grad(mod.make_loss(m), params,
+                                (from_numpy(**arr, device=device),
+                                 tgt.to(device=device, dtype=dtype)))
+
+    def flat(lg):
+        return torch.cat([lg[0].reshape(1).double().cpu()] +
+                         [g.detach().reshape(-1).double().cpu()
+                          for g in flatten(lg[1])[0]])
+    want = flat(run(torch.float32, "cpu", arrays, target))
+    exact = flat(run(torch.float64, "cpu", wide, target))
+    got = flat(card)
+    out = {"f32_max_abs_err": float((got - want).abs().max()),
+           "cpu_f32_vs_f64": float((want - exact).abs().max()),
+           "max_abs": float(exact.abs().max())}
+    if torch.allclose(want, exact, rtol=GNN_RTOL, atol=GNN_ATOL):
+        out["precision"] = "float32"
+        out["max_abs_err"] = check_close(f"{tag}: card vs CPU", got, want,
+                                         GNN_RTOL, GNN_ATOL)
+        return out
+    card64 = flat(run(torch.float64, card[0].device, wide, target))
+    out["precision"] = "float64"
+    out["max_abs_err"] = check_close(
+        f"{tag}: card vs CPU in float64 (float32 resolves the CPU's "
+        f"gradients to {out['cpu_f32_vs_f64']:.3g} only)", card64, exact,
+        GNN_RTOL, GNN_ATOL)
+    return out
+
+
+def train_phase(counts, card: str, seed: int, device="cuda") -> dict:
+    """Phase T (module doc): DIEN at train_batch, qwen2-1.5b at train_4k
+    (cut), the GNNs at molecule; the train path must launch no kernel of
+    the port."""
+    out = {"dien": dien_train(counts, card, seed, device),
+           "qwen2-1.5b": lm_train(counts, card, seed, device),
+           "gnn": gnn_train(counts, card, seed, device)}
+    if any(counts.by_path["train"].values()):
+        raise AssertionError(f"the train path launched a kernel of the "
+                             f"port: {counts.by_path['train']}")
     return out
 
 
@@ -3944,6 +4673,16 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     gnn = gnn_phase(counts, card, args.seed)
     log(f"G ({time.monotonic() - t0:.1f} s): {json.dumps(gnn)} on {card}")
+
+    # -- R. DIEN serving ------------------------------------------------------
+    t0 = time.monotonic()
+    recsys = recsys_phase(counts, card, args.seed)
+    log(f"R ({time.monotonic() - t0:.1f} s): {json.dumps(recsys)} on {card}")
+
+    # -- T. one-card training -------------------------------------------------
+    t0 = time.monotonic()
+    train = train_phase(counts, card, args.seed)
+    log(f"T ({time.monotonic() - t0:.1f} s): {json.dumps(train)} on {card}")
     fd_family = {name: numbers["flash_decode"]
                  for name, numbers in family.items()
                  if "flash_decode" in numbers}

@@ -5,8 +5,8 @@ reference's four GNNs (``pna``, the GNN of the recommendation re-rank,
 and the equivariant ``egnn``, ``nequip`` and ``equiformer-v2``) and its
 five LMs: the dense GQA ``qwen2-1.5b``, ``qwen2-7b`` and
 ``phi3-medium-14b``, and the MLA + MoE ``deepseek-v2-lite-16b`` and
-``deepseek-v2-236b``.  The recsys id ``dien`` raises ``KeyError``
-until its slice is ported.
+``deepseek-v2-236b``; and the recsys ``dien``.  Every id of the
+reference's registry is ported; any other raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ _MODULES = {
     "pna": "repro_torch.configs.pna",
     "nequip": "repro_torch.configs.nequip",
     "equiformer-v2": "repro_torch.configs.equiformer_v2",
+    "dien": "repro_torch.configs.dien",
     "dspc": "repro_torch.configs.dspc",
 }
 
@@ -34,7 +35,7 @@ ARCH_IDS = tuple(_MODULES)
 
 def get(arch_id: str) -> ArchSpec:
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown or not yet ported arch {arch_id!r}; "
+        raise KeyError(f"unknown arch {arch_id!r}; "
                        f"available: {', '.join(ARCH_IDS)}")
     return importlib.import_module(_MODULES[arch_id]).SPEC
 

@@ -18,14 +18,15 @@ from typing import Any, Dict
 class ShapeSpec:
     name: str
     kind: str          # train | prefill | decode | full_graph | sampled |
-                       # molecule | dspc_*
+                       # molecule | recsys_train | recsys_serve | retrieval |
+                       # dspc_*
     dims: Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str        # lm | gnn | dspc
+    family: str        # lm | gnn | recsys | dspc
     config: Any
     smoke: Any
     shapes: Dict[str, ShapeSpec]
@@ -57,6 +58,16 @@ GNN_SHAPES = {
     "molecule": ShapeSpec(
         "molecule", "molecule",
         dict(n_nodes=30, n_edges=64, batch=128, d_feat=16)),
+}
+
+RECSYS_SHAPES = {
+    "train_batch": ShapeSpec("train_batch", "recsys_train",
+                             dict(batch=65536)),
+    "serve_p99": ShapeSpec("serve_p99", "recsys_serve", dict(batch=512)),
+    "serve_bulk": ShapeSpec("serve_bulk", "recsys_serve",
+                            dict(batch=262144)),
+    "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval",
+                                dict(batch=1, n_candidates=1_000_000)),
 }
 
 # The paper's own workload: a power-law graph at roofline-relevant size.

@@ -1,17 +1,56 @@
-"""Deterministic synthetic graphs, update streams and molecules
-(host-side numpy).
+"""Deterministic synthetic batches, graphs, update streams and molecules
+(host-side numpy, keyed by ``(seed, step)`` where a step has one).
 
-The port's own copies of ``random_graph_edges``, ``graph_stream`` and
-``molecule_batch`` from ``repro.data.pipelines``: the same seeds give
-the same edge lists, event streams and molecule batches as the
+The port's own copies of ``lm_batch``, ``dien_batch``,
+``random_graph_edges``, ``graph_stream`` and ``molecule_batch`` from
+``repro.data.pipelines``: the same seeds give the same token streams,
+recsys batches, edge lists, event streams and molecule batches as the
 reference, so the parity tests feed both packages identical inputs.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
+
+
+# -------------------------------------------------------------------------
+# LM token stream
+# -------------------------------------------------------------------------
+def lm_batch(step: int, batch: int, seq: int, vocab: int,
+             seed: int = 0) -> Dict[str, np.ndarray]:
+    """Zipf(1.3) tokens clipped to the vocabulary, int32 [batch, seq],
+    with the next-token labels."""
+    rng = np.random.default_rng((seed, step))
+    toks = rng.zipf(1.3, size=(batch, seq + 1))
+    toks = np.minimum(toks - 1, vocab - 1).astype(np.int32)
+    return {"tokens": toks[:, :seq], "labels": toks[:, 1:]}
+
+
+# -------------------------------------------------------------------------
+# DIEN batches
+# -------------------------------------------------------------------------
+def dien_batch(step: int, batch: int, seq_len: int, n_items: int,
+               n_cates: int, n_profile_vocab: int, bags: int = 4,
+               bag_size: int = 8, seed: int = 0) -> Dict[str, np.ndarray]:
+    """One DIEN batch: histories of 1..seq_len valid steps (a prefix
+    mask), targets, profile bags, sampled negatives and 0/1 labels."""
+    rng = np.random.default_rng((seed, step))
+    lengths = rng.integers(1, seq_len + 1, size=batch)
+    mask = np.arange(seq_len)[None, :] < lengths[:, None]
+    return {
+        "hist_items": rng.integers(0, n_items, (batch, seq_len)).astype(np.int32),
+        "hist_cates": rng.integers(0, n_cates, (batch, seq_len)).astype(np.int32),
+        "hist_mask": mask,
+        "target_item": rng.integers(0, n_items, (batch,)).astype(np.int32),
+        "target_cate": rng.integers(0, n_cates, (batch,)).astype(np.int32),
+        "profile": rng.integers(0, n_profile_vocab,
+                                (batch, bags, bag_size)).astype(np.int32),
+        "neg_items": rng.integers(0, n_items, (batch, seq_len)).astype(np.int32),
+        "neg_cates": rng.integers(0, n_cates, (batch, seq_len)).astype(np.int32),
+        "label": rng.integers(0, 2, (batch,)).astype(np.int32),
+    }
 
 
 def random_graph_edges(n: int, m: int, seed: int = 0,

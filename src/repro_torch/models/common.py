@@ -1,12 +1,13 @@
 """Shared model building blocks (port of part of ``repro.models.common``).
 
-The initialiser, RMSNorm, SwiGLU and the ``{"w", "b"}`` linear layer
-the ported models use, and its module form for the GNNs (``Dense``,
-``MLP``: the weight kept in the reference's ``[in, out]`` layout);
-``softmax_cross_entropy`` waits for the training slice.  Randomness comes from an explicit ``torch.Generator``; it gives
-other numbers than ``jax.random`` from the same seed, so tests carry the
-reference's parameters across instead (``PNA.load_reference_params``,
-``transformer.load_reference_params``).
+The initialiser, RMSNorm, SwiGLU, ``softmax_cross_entropy`` and the
+``{"w", "b"}`` linear layer the ported models use, and its module form
+for the GNNs (``Dense``, ``MLP``: the weight kept in the reference's
+``[in, out]`` layout).  Randomness comes from an explicit
+``torch.Generator``; it gives other numbers than ``jax.random`` from the
+same seed, so tests carry the reference's parameters across instead
+(``PNA.load_reference_params``, :func:`load_tree` for the trees of the
+LM and DIEN).
 """
 
 from __future__ import annotations
@@ -57,6 +58,41 @@ def init_rms(d: int, *, dtype=torch.float32, device="cuda") -> torch.Tensor:
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over tokens: float32 logsumexp of ``logits [..., V]``
+    minus the label's logit.  The reference selects the label's logit
+    with an iota compare (which keeps a vocab-sharded mesh elementwise);
+    on one card a gather reads the same number."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (logz - ll).mean()
+
+
+def to_tensor(a, device) -> torch.Tensor:
+    """A numpy array (bfloat16 from ml_dtypes too) as a tensor on
+    ``device``, bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # numpy has no bfloat16 of its own
+        t = torch.from_numpy(np.array(a).view(np.uint16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def load_tree(tree, *, device="cuda"):
+    """A reference tree of numpy arrays (dicts, lists, tuples, named
+    tuples) as the same tree of tensors on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: load_tree(v, device=dev) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(load_tree(v, device=dev) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(load_tree(v, device=dev) for v in tree)
+    return to_tensor(tree, dev)
 
 
 class Dense(nn.Module):

@@ -25,7 +25,8 @@ from torch import nn
 
 from repro_torch.core.graph import resolve_device
 from repro_torch.models.common import MLP
-from repro_torch.models.gnn.graph import GraphBatch, agg_sum, graph_readout
+from repro_torch.models.gnn.graph import (GraphBatch, agg_sum, graph_readout,
+                                          mse_loss)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,4 +123,11 @@ class EGNN(nn.Module):
         return self
 
 
-__all__ = ["EGNN", "EGNNConfig", "EGNNLayer"]
+def make_loss(model: EGNN):
+    """The reference's ``make_loss`` (``egnn.py:130``): loss_fn(params,
+    (batch, target)) -> mean squared error of ``model``'s graph outputs;
+    ``params`` by parameter name (``graph.mse_loss``)."""
+    return mse_loss(model)
+
+
+__all__ = ["EGNN", "EGNNConfig", "EGNNLayer", "make_loss"]

@@ -39,7 +39,7 @@ from repro_torch.core.graph import resolve_device
 from repro_torch.models.common import Dense, copy_param, dense_init
 from repro_torch.models.gnn import irreps as IR
 from repro_torch.models.gnn.graph import (GraphBatch, agg_max, agg_sum,
-                                          graph_readout)
+                                          graph_readout, mse_loss)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,7 +357,14 @@ class EquiformerV2(nn.Module):
         return self
 
 
+def make_loss(model: EquiformerV2):
+    """The reference's ``make_loss`` (``equiformer_v2.py:287``): loss_fn(params,
+    (batch, target)) -> mean squared error of ``model``'s graph outputs;
+    ``params`` by parameter name (``graph.mse_loss``)."""
+    return mse_loss(model)
+
+
 __all__ = ["EquiformerV2", "EquiformerV2Config", "EquiformerV2Layer",
            "MIndex", "SO2Linear", "edge_messages", "from_m_rep",
-           "gaussian_rbf", "head_weight", "inverse_wigner", "out_project",
-           "to_m_rep"]
+           "gaussian_rbf", "head_weight", "inverse_wigner", "make_loss",
+           "out_project", "to_m_rep"]

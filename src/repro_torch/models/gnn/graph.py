@@ -21,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.func
 
 from repro_torch.core.graph import resolve_device
 
@@ -133,3 +134,21 @@ def graph_readout(node_vals, graph_id, n_graph, op: str = "sum"):
     else:
         raise ValueError(op)
     return out[:n_graph]
+
+
+def mse_loss(model):
+    """The molecule models' ``make_loss`` (``egnn.py:130``,
+    ``nequip.py:187``, ``equiformer_v2.py:287`` of the reference) for
+    ``model``: loss_fn(params, (batch, target)) -> the mean squared error
+    of the graph outputs [G, n_out] against ``target``.
+
+    The port's GNNs are modules, so ``params`` maps the module's
+    parameter names to tensors (``dict(model.named_parameters())``, the
+    tree the training loop updates); ``torch.func.functional_call`` puts
+    them in the module for the call only (a swap of tensors, not a
+    transform: autograd sees the tensors of ``params``)."""
+    def loss_fn(params, batch_and_target):
+        batch, target = batch_and_target
+        g = torch.func.functional_call(model, params, (batch,))[0]
+        return ((g - target) ** 2).mean()
+    return loss_fn

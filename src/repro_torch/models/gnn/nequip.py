@@ -33,7 +33,8 @@ from torch import nn
 from repro_torch.core.graph import resolve_device
 from repro_torch.models.common import MLP, copy_param, dense_init
 from repro_torch.models.gnn import irreps as IR
-from repro_torch.models.gnn.graph import GraphBatch, agg_sum, graph_readout
+from repro_torch.models.gnn.graph import (GraphBatch, agg_sum, graph_readout,
+                                          mse_loss)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,4 +189,12 @@ class NequIP(nn.Module):
         return self
 
 
-__all__ = ["NequIP", "NequIPConfig", "NequIPLayer", "bessel_rbf"]
+def make_loss(model: NequIP):
+    """The reference's ``make_loss`` (``nequip.py:187``): loss_fn(params,
+    (batch, target)) -> mean squared error of ``model``'s graph outputs;
+    ``params`` by parameter name (``graph.mse_loss``)."""
+    return mse_loss(model)
+
+
+__all__ = ["NequIP", "NequIPConfig", "NequIPLayer", "bessel_rbf",
+           "make_loss"]

@@ -21,11 +21,12 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.func
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.graph import resolve_device
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, softmax_cross_entropy
 from repro_torch.models.gnn.graph import (GraphBatch, agg_max, agg_min,
                                           agg_std, graph_readout)
 
@@ -137,3 +138,14 @@ class PNA(nn.Module):
             put(layer.upd, p["upd"])
         put(self.head, tree["head"])
         return self
+
+
+def make_loss(model: PNA):
+    """The reference's ``make_loss`` (``pna.py:108``): loss_fn(params,
+    (batch, labels)) -> the mean float32 cross-entropy of ``model``'s
+    logits; ``params`` by parameter name (``graph.mse_loss``)."""
+    def loss_fn(params, batch_and_labels):
+        batch, labels = batch_and_labels
+        logits = torch.func.functional_call(model, params, (batch,))
+        return softmax_cross_entropy(logits, labels)
+    return loss_fn

@@ -1,5 +1,5 @@
-"""Decoder-only LM serving (port of the serving part of
-``repro.models.transformer``): parameters, the cache, ``prefill`` and
+"""Decoder-only LM (port of ``repro.models.transformer``): parameters,
+``forward_train`` and ``make_train_loss``, the cache, ``prefill`` and
 ``decode_step`` for every LM configuration of the reference -- GQA or
 MLA attention, a dense or a mixture-of-experts FFN.
 
@@ -10,10 +10,15 @@ of the reference's tree.  The layer loop is a Python loop over views of
 that stack.  Every layer is of one kind, as in the reference (no
 leading dense layer in the MoE configurations).
 
-Serving drops the MoE aux loss, as the reference's ``prefill`` and
-``decode_step`` do (here it is not computed at all); ``forward_train`` / ``make_train_loss`` wait for the
-training slice, and the sharded decode (``sharded_decode``,
-``seq_parallel``) for the mesh slice.
+Training sums the MoE layers' switch aux losses into the loss, as the
+reference does; a dense layer adds none (the reference stacks its
+``0.0`` as float64 under x64, which makes its loss float64; here the
+loss stays float32).  ``cfg.remat`` wraps each layer of
+``forward_train`` in ``torch.utils.checkpoint`` (non-reentrant), which
+recomputes its activations in the backward: the same numbers.  Serving
+drops the aux loss, as the reference's ``prefill`` and ``decode_step``
+do (here it is not computed at all); the sharded decode
+(``sharded_decode``, ``seq_parallel``) waits for the mesh slice.
 """
 
 from __future__ import annotations
@@ -21,13 +26,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.graph import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
-from repro_torch.models.common import dense_init, init_rms, rms_norm
+from repro_torch.models.common import (dense_init, init_rms, load_tree,
+                                      rms_norm, softmax_cross_entropy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,10 +43,11 @@ class TransformerConfig:
 
     ``moe_groups`` and ``moe_capacity_factor`` act on one card as on a
     mesh: the dispatch groups and the capacity of each expert in a group
-    decide which routed assignments drop (``moe.dispatch_shape``).  The
-    mesh-only fields -- ``sharded_decode``, ``seq_parallel``, ``remat``
-    and ``unroll_scans`` -- have no effect until the mesh slice, and
-    ``tp`` only pads the query heads and the vocabulary."""
+    decide which routed assignments drop (``moe.dispatch_shape``).
+    ``remat`` recomputes each layer in ``forward_train``'s backward.  The
+    mesh-only fields -- ``sharded_decode``, ``seq_parallel`` and
+    ``unroll_scans`` -- have no effect until the mesh slice, and ``tp``
+    only pads the query heads and the vocabulary."""
     name: str
     n_layers: int
     d_model: int
@@ -152,22 +159,10 @@ def init_params(cfg: TransformerConfig, *, generator=None,
             "lm_head": dense_init(d, vp, **kw)}
 
 
-def _tensor(a, device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":       # numpy has no bfloat16 of its own
-        t = torch.from_numpy(np.array(a).view(np.uint16))
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.array(a)).to(device)
-
-
 def load_reference_params(tree, *, device="cuda") -> dict:
     """The reference's parameter tree (``transformer.init_params``,
     leaves as numpy arrays) as the same tree of tensors on ``device``."""
-    dev = resolve_device(device)
-    if isinstance(tree, dict):
-        return {k: load_reference_params(v, device=dev)
-                for k, v in tree.items()}
-    return _tensor(tree, dev)
+    return load_tree(tree, device=device)
 
 
 def param_bytes(params: dict) -> int:
@@ -181,6 +176,84 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+# -------------------------------------------------------------------------
+# Training forward and loss
+# -------------------------------------------------------------------------
+def _layer_fwd(layer_p: dict, x: torch.Tensor, cfg: TransformerConfig,
+               positions: torch.Tensor):
+    """One layer of ``forward_train``: (x out, its aux loss or None)."""
+    h, _ = (A.mla_train if cfg.attn == "mla" else A.gqa_train)(
+        layer_p["attn"], rms_norm(layer_p["ln1"], x), cfg, positions)
+    x = x + h
+    if cfg.is_moe:
+        f, aux = M.moe_ffn(layer_p["ffn"], rms_norm(layer_p["ln2"], x), cfg)
+    else:
+        f, aux = M.dense_ffn(layer_p["ffn"], rms_norm(layer_p["ln2"], x)), None
+    return x + f, aux
+
+
+def _train_hidden(params: dict, tokens: torch.Tensor,
+                  cfg: TransformerConfig):
+    """The final-norm hidden states [b, t, d] of ``forward_train`` and
+    the summed aux loss (float32)."""
+    b, t = tokens.shape
+    x = params["embed"][tokens].to(cfg.act_dtype)
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=tokens.device).expand(b, t)
+    auxes = []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        if cfg.remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _layer_fwd, lp, x, cfg, positions, use_reentrant=False)
+        else:
+            x, aux = _layer_fwd(lp, x, cfg, positions)
+        if aux is not None:
+            auxes.append(aux)
+    aux = (torch.stack(auxes).sum() if auxes else
+           torch.zeros((), dtype=torch.float32, device=x.device))
+    return rms_norm(params["ln_f"], x), aux
+
+
+def forward_train(params: dict, tokens: torch.Tensor,
+                  cfg: TransformerConfig):
+    """tokens int [b, t] -> (logits [b, t, Vpad], aux loss float32)."""
+    x, aux = _train_hidden(params, tokens, cfg)
+    return x @ params["lm_head"], aux
+
+
+def _sequence_ce(x: torch.Tensor, head: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """One sequence's mean cross-entropy: ``x [t, d] @ head`` through
+    ``softmax_cross_entropy``."""
+    return softmax_cross_entropy(x @ head, labels)
+
+
+def make_train_loss(cfg: TransformerConfig):
+    """loss_fn(params, batch) -> scalar: next-token cross-entropy of
+    ``batch["tokens"]`` against ``batch["labels"]`` (shifted once more,
+    as the reference shifts them) plus ``aux_loss_weight`` times the
+    summed MoE aux loss.
+
+    The head and the cross-entropy run one sequence at a time, each
+    under ``torch.utils.checkpoint``: only the hidden states are kept for
+    the backward, never the [b, t, V] logits (qwen2-1.5b at 4 x 4096:
+    5 GB in bf16, 10 GB more in float32, and as much again for their
+    gradient).  Every sequence has t - 1 tokens, so the mean of the
+    sequences' means is the reference's mean over all of them, up to
+    float32 summation order."""
+    def loss_fn(params, batch):
+        x, aux = _train_hidden(params, batch["tokens"], cfg)
+        x, labels = x[:, :-1], batch["labels"][:, 1:]
+        total = 0
+        for i in range(x.shape[0]):
+            total = total + torch.utils.checkpoint.checkpoint(
+                _sequence_ce, x[i], params["lm_head"], labels[i],
+                use_reentrant=False)
+        return total / x.shape[0] + cfg.aux_loss_weight * aux
+    return loss_fn
 
 
 # -------------------------------------------------------------------------

@@ -27,10 +27,14 @@ dtype on ``device=`` as a torch tensor (default ``"cuda"``, which needs
 a card); a template leaf without a dtype (a Python scalar) comes back
 as the stored numpy array, as in the reference.
 
-**bfloat16** leaves belong to the port's training slice (ROADMAP queue
-1, item 7); until then :func:`save` and :func:`restore` raise
-``NotImplementedError`` for them rather than write bytes the reference
-cannot read.
+**bfloat16** leaves are written as the reference writes them: an npy
+member whose header says ``'<V2'`` (two raw bytes an element, as numpy
+describes ml_dtypes' bfloat16) over the value's bits, and
+``"bfloat16"`` in the manifest's ``dtypes``.  :func:`restore` views
+such a member's two-byte payload as bfloat16, bit for bit.  (The
+reference's own ``restore`` cannot read these files: its
+``astype(bfloat16)`` of a void array raises ``No cast function
+available``.)
 
 Cross-process contract (the fleet's ``DirTransport`` rides it):
 
@@ -57,9 +61,9 @@ import torch
 
 from repro_torch.core.graph import resolve_device
 
-_BF16_ITEM = ("bfloat16 leaves belong to the port's training slice "
-              "(ROADMAP queue 1, item 7); the checkpoint layer does not "
-              "store them yet")
+#: The npy header's dtype of a bfloat16 leaf, as numpy writes
+#: ml_dtypes' bfloat16 (``dtype.str``); numpy reads it back as void.
+_BF16_DESCR = "<V2"
 
 
 class SnapshotGoneError(FileNotFoundError):
@@ -178,28 +182,73 @@ def unflatten(treedef: TreeDef, leaves) -> Any:
     return out
 
 
-def _to_host(x, *, copy: bool = False) -> np.ndarray:
-    """One leaf as a host numpy array (a tensor leaves its device
-    here, on the calling thread)."""
+class _BF16Host:
+    """A bfloat16 leaf on the host: its bits as uint16 ``bits``."""
+
+    __slots__ = ("bits",)
+    dtype = "bfloat16"
+
+    def __init__(self, bits: np.ndarray) -> None:
+        self.bits = bits
+
+    @property
+    def shape(self):
+        return self.bits.shape
+
+
+def _to_host(x, *, copy: bool = False):
+    """One leaf as a host numpy array, or a :class:`_BF16Host` for a
+    bfloat16 one (a tensor leaves its device here, on the calling
+    thread)."""
+    if isinstance(x, _BF16Host):
+        return x
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
-            raise NotImplementedError(_BF16_ITEM)
+            return _BF16Host(x.detach().cpu().view(torch.int16).numpy()
+                             .view(np.uint16).copy())
         on_host = x.device.type == "cpu"
         arr = x.detach().cpu().numpy()
         return arr.copy() if copy and on_host else arr
     arr = np.asarray(x)
-    if arr.dtype.name == "bfloat16":
-        raise NotImplementedError(_BF16_ITEM)
+    if arr.dtype.name == "bfloat16":     # ml_dtypes' bfloat16
+        return _BF16Host(arr.view(np.uint16).copy())
     return arr
 
 
-def _np_dtype(dtype) -> np.dtype:
-    """The numpy dtype of a template leaf's (torch or numpy) dtype."""
+def _write_npz(path: str, host: list) -> None:
+    """``np.savez(path, "0"=..., "1"=...)`` member for member (stored,
+    zip64 forced), with each bfloat16 leaf written under the reference's
+    ``'<V2'`` header."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for i, a in enumerate(host):
+            with zf.open(f"{i}.npy", "w", force_zip64=True) as fid:
+                if isinstance(a, _BF16Host):
+                    np.lib.format.write_array_header_1_0(fid, {
+                        "descr": _BF16_DESCR, "fortran_order": False,
+                        "shape": a.bits.shape})
+                    fid.write(np.ascontiguousarray(a.bits).tobytes())
+                else:
+                    np.lib.format.write_array(fid, np.asanyarray(a),
+                                              allow_pickle=True)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a template leaf's (torch or numpy) dtype."""
     if isinstance(dtype, torch.dtype):
-        if dtype == torch.bfloat16:
-            raise NotImplementedError(_BF16_ITEM)
-        return torch.empty(0, dtype=dtype).numpy().dtype
-    return np.dtype(dtype)
+        return dtype
+    if np.dtype(dtype).name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def _from_host(arr: np.ndarray, stored: str) -> torch.Tensor:
+    """A stored leaf as a host tensor: a bfloat16 one (``stored`` is the
+    manifest's dtype) from its two-byte payload, bit for bit."""
+    if stored == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 # -- save ---------------------------------------------------------------------
@@ -210,8 +259,7 @@ def save(path: str, step: int, tree: Any, metadata: dict | None = None):
     final = os.path.join(path, f"step_{step:09d}")
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    np.savez(os.path.join(tmp, "arrays.npz"),
-             **{str(i): a for i, a in enumerate(host)})
+    _write_npz(os.path.join(tmp, "arrays.npz"), host)
     manifest = {
         "step": step,
         "treedef": str(treedef),
@@ -344,13 +392,14 @@ def restore(path: str, tree_like: Any, step: int | None = None, *,
         raise ValueError(
             f"checkpoint has {len(leaves)} leaves, expected "
             f"{len(ref_leaves)}")
+    stored = man.get("dtypes", [None] * len(leaves))
     out = []
-    for ref, arr in zip(ref_leaves, leaves):
+    for ref, arr, kind in zip(ref_leaves, leaves, stored):
         if tuple(ref.shape) != tuple(arr.shape):
             raise ValueError(f"shape mismatch {ref.shape} vs {arr.shape}")
         if hasattr(ref, "dtype"):
-            host = arr.astype(_np_dtype(ref.dtype), copy=False)
-            out.append(torch.from_numpy(host).to(dev))
+            out.append(_from_host(arr, kind).to(
+                dtype=_torch_dtype(ref.dtype)).to(dev))
         else:
             out.append(arr)
     return unflatten(treedef, out), step, man["metadata"]

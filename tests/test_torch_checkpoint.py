@@ -183,12 +183,91 @@ def test_typed_errors(tmp_path):
 
 
 def test_bfloat16_leaves_name_the_training_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        C.save(str(tmp_path), 0, {"w": torch.zeros(2, dtype=torch.bfloat16)})
-    C.save(str(tmp_path), 1, {"w": np.zeros(2, np.float32)})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        C.restore(str(tmp_path),
-                  {"w": torch.zeros(2, dtype=torch.bfloat16)}, device="cpu")
+    """bfloat16 leaves (the training slice's) save and restore bit for
+    bit, also into a float32 template (converted as ``.to`` converts)."""
+    w = torch.randn(3, 4).to(torch.bfloat16)
+    C.save(str(tmp_path), 0, {"w": w, "f": torch.ones(2)})
+    got, _, _ = C.restore(str(tmp_path), {"w": torch.zeros(3, 4,
+                                                          dtype=torch.bfloat16),
+                                          "f": torch.zeros(2)}, device="cpu")
+    assert got["w"].dtype == torch.bfloat16 and torch.equal(got["w"], w)
+    as32, _, _ = C.restore(str(tmp_path), {"w": torch.zeros(3, 4),
+                                           "f": torch.zeros(2)}, device="cpu")
+    assert torch.equal(as32["w"], w.float())
+    assert C.manifest(str(tmp_path))["dtypes"] == ["float32", "bfloat16"]
+
+
+def _train_state_pair():
+    """The same (params, OptState) tree in both packages: bfloat16 and
+    float32 parameters, float32 moments, an int32 step."""
+    from repro.train import optimizer as JO
+    from repro_torch.models.common import load_tree
+    from repro_torch.train import optimizer as O
+    rng = np.random.default_rng(3)
+    params = {"emb": jax.numpy.asarray(rng.standard_normal((5, 3)),
+                                       jax.numpy.bfloat16),
+              "layers": [{"w": jax.numpy.asarray(
+                  rng.standard_normal((3, 3)), jax.numpy.float32)}],
+              "ln": jax.numpy.asarray(rng.standard_normal(3) + 1,
+                                      jax.numpy.bfloat16)}
+    cfg = JO.AdamWConfig()
+    grads = jax.tree.map(lambda x: x * 0.5, params)
+    params, state, _ = JO.apply(params, grads, JO.init(params, cfg), cfg)
+    jtree = (params, state)
+    ttree = (load_tree(jax.tree.map(np.asarray, params), device="cpu"),
+             O.load_reference_state(jax.tree.map(np.asarray, state),
+                                    device="cpu"))
+    return jtree, ttree
+
+
+def _members(path, step):
+    import zipfile
+    with zipfile.ZipFile(os.path.join(path, f"step_{step:09d}",
+                                      "arrays.npz")) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+def test_bfloat16_train_state_bytes_match_the_reference(tmp_path):
+    """The port writes a (params, OptState) tree with bfloat16 leaves as
+    the reference does: the same npz members byte for byte (a bfloat16
+    leaf under the npy descr '<V2'), the same manifest."""
+    jtree, ttree = _train_state_pair()
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    JC.save(jdir, 7, jtree, metadata={"k": 1})
+    C.save(tdir, 7, ttree, metadata={"k": 1})
+    want, got = _members(jdir, 7), _members(tdir, 7)
+    assert got == want
+    assert b"'descr': '<V2'" in got["0.npy"]
+    assert C.manifest(tdir) == JC.manifest(jdir)
+    assert C.manifest(tdir)["dtypes"][:3] == ["bfloat16", "float32",
+                                              "bfloat16"]
+    saver = C.AsyncSaver()                     # the async path writes the same
+    saver.save(tdir, 8, ttree, metadata={"k": 1})
+    saver.wait()
+    assert _members(tdir, 8) == want
+
+
+def test_port_restores_a_reference_bfloat16_checkpoint_bitwise(tmp_path):
+    jtree, ttree = _train_state_pair()
+    JC.save(str(tmp_path), 2, jtree)
+    zeros = C.unflatten(C.flatten(ttree)[1], [torch.zeros_like(x) for x in
+                                              C.flatten(ttree)[0]])
+    got, step, _ = C.restore(str(tmp_path), zeros, device="cpu")
+    assert step == 2 and type(got[1]).__name__ == "OptState"
+    for a, b in zip(C.flatten(got)[0], C.flatten(ttree)[0]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_reference_restore_of_its_own_bfloat16_checkpoint_raises(tmp_path):
+    """A fault of the reference the port does not copy: its ``restore``
+    casts the void '<V2' array to bfloat16, which numpy cannot do."""
+    tree = {"w": jax.numpy.arange(4, dtype=jax.numpy.bfloat16)}
+    JC.save(str(tmp_path), 0, tree)
+    with pytest.raises(ValueError, match="No cast function available"):
+        JC.restore(str(tmp_path), tree)
+    got, _, _ = C.restore(str(tmp_path), {"w": torch.zeros(
+        4, dtype=torch.bfloat16)}, device="cpu")
+    assert got["w"].tolist() == [0.0, 1.0, 2.0, 3.0]
 
 
 def test_restore_defaults_to_the_card(tmp_path):

@@ -28,7 +28,9 @@ decode through the kernel) gives the CPU's logits, as do the MLA + MoE
 ``SMOKE`` configurations (deepseek-v2-lite-16b, deepseek-v2-236b), and
 flash_decode holds at the LM family's groups of 7, 4 and 5 heads; the
 GNN family (EGNN, NequIP, Equiformer-v2 at ``SMOKE``) gives the CPU's
-outputs on a molecule batch and a sampled block, launching no kernel.
+outputs on a molecule batch and a sampled block, launching no kernel;
+DIEN at ``SMOKE`` (forward, retrieval, loss and gradients) and a
+qwen2-1.5b ``SMOKE`` AdamW step give the CPU's numbers.
 spc_query's fused
 kernel reads rows by vertex id: it equals its plain version on a built
 index padded to L = 2048 at B 1, 7, 1024 and 4096 (ids outside [0, n]
@@ -1049,3 +1051,60 @@ def test_sharded_build_and_serve_on_the_card(card, devices):
         res = plain_spc_bfs(sharded.graph, a)
         d, c = sess.reader()(np.full(n, a), np.arange(n))
         assert torch.equal(d, res.dist[:n]) and torch.equal(c, res.cnt[:n])
+
+
+def test_dien_and_a_smoke_train_step_on_the_card_equal_the_cpu(card):
+    """DIEN at ``SMOKE``: ``forward`` and ``retrieval_scores`` within
+    rtol 1e-4 / atol 1e-5 of the CPU with the same weights, the train
+    loss and every gradient within 1e-4 / 1e-6; one AdamW step of the
+    qwen2-1.5b ``SMOKE`` configuration in float32 through
+    ``loop.make_train_step`` within rtol 1e-4 / atol 1e-5 of the CPU's
+    (loss, parameters, moments), launching no kernel of the port."""
+    from repro_torch.configs.dien import SMOKE as DIEN_SMOKE
+    from repro_torch.configs.qwen2_1_5b import SMOKE as LM_SMOKE
+    from repro_torch.data.pipelines import lm_batch
+    from repro_torch.models import dien as D
+    from repro_torch.train import loop as L
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.checkpoint import flatten
+    counters = (launches, SM.launches, EB.launches, FD.launches)
+    before = [c.count for c in counters]
+    params = D.init_params(DIEN_SMOKE, device="cpu")
+    batch = chip_smoke.dien_inputs(DIEN_SMOKE, 0, 32, 1, "cpu")
+    cand = {"item": torch.arange(0, 500, 7, dtype=torch.int32),
+            "cate": torch.arange(0, 500, 7, dtype=torch.int32) % 20}
+    got, want = {}, {}
+    for dev, out in (("cpu", want), ("cuda", got)):
+        p = O.tree_map(lambda x: x.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        c = {k: v.to(dev) for k, v in cand.items()}
+        with torch.no_grad():
+            out["forward"] = D.forward(p, b, DIEN_SMOKE).cpu()
+            out["retrieval"] = D.retrieval_scores(p, b, c, DIEN_SMOKE).cpu()
+        loss, grads = L.value_and_grad(D.make_train_loss(DIEN_SMOKE), p, b)
+        out["loss"], out["grads"] = loss.cpu(), chip_smoke.on_cpu(grads)
+    for key in ("forward", "retrieval"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got["loss"], want["loss"], rtol=1e-4,
+                               atol=1e-6)
+    for a, b in zip(flatten(got["grads"])[0], flatten(want["grads"])[0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    cfg = dataclasses.replace(LM_SMOKE, tp=1, param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    lm = tf.init_params(cfg, device="cpu")
+    toks = lm_batch(0, 2, 16, cfg.vocab, seed=3)
+    step = L.make_train_step(tf.make_train_loss(cfg), O.AdamWConfig())
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = O.tree_map(lambda x: x.to(dev), lm)
+        p2, st, stats = step(p, O.init(p, O.AdamWConfig()),
+                             chip_smoke.tensors(toks, dev))
+        res[dev] = (chip_smoke.on_cpu(p2), chip_smoke.on_cpu(st.mu),
+                    float(stats["loss"]), int(stats["skipped"]))
+    assert res["cuda"][3] == res["cpu"][3] == 0
+    assert res["cuda"][2] == pytest.approx(res["cpu"][2], rel=1e-4)
+    for part in (0, 1):
+        for a, b in zip(flatten(res["cuda"][part])[0],
+                        flatten(res["cpu"][part])[0]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert [c.count for c in counters] == before

@@ -18,8 +18,9 @@ carried across (``load_reference_params``):
   limit of a prefill of the same tokens (the reference's are not);
 * RoPE tables in float64, as the reference's (x64 on);
 * the configurations and the registry equal to the reference's
-  (parameter counts, padded heads and vocabulary included), the
-  unported id ``dien`` raising ``KeyError``;
+  (parameter counts, padded heads and vocabulary included), ``dien``
+  resolving to the reference's id and an unknown id raising
+  ``KeyError``;
 * ``chip_smoke.py``'s M-check helpers at ``SMOKE``: with the no-drop
   capacity factor decode agrees with a prefill of the same tokens far
   inside the M-check limit, the planted fault (the rope term left out
@@ -347,8 +348,8 @@ def test_configs_and_registry_match_reference():
     reference's, with its parameter counts, padded heads and vocabulary;
     the registry serves them, and every other ported id (the GNNs
     ``egnn``, ``nequip`` and ``equiformer-v2`` among them), with the
-    reference's specs, and the id not yet ported (``dien``) raises
-    ``KeyError``."""
+    reference's specs; ``dien`` resolves to the reference's id, and
+    every id of the reference's registry is ported."""
     for module in LM_MODULES:
         mine, ref = config_modules(module)
         for cfg, rcfg in ((mine.CONFIG, ref.CONFIG),
@@ -376,12 +377,13 @@ def test_configs_and_registry_match_reference():
     assert set(configs.ARCH_IDS) == {
         "dspc", "pna", "egnn", "nequip", "equiformer-v2", "qwen2-1.5b",
         "qwen2-7b", "phi3-medium-14b", "deepseek-v2-lite-16b",
-        "deepseek-v2-236b"}
+        "deepseek-v2-236b", "dien"}
+    from repro.configs import ARCH_IDS as JAX_IDS
+    assert configs.ARCH_IDS == JAX_IDS
     for arch in ("egnn", "nequip", "equiformer-v2"):
         assert configs.get(arch).arch_id == jax_get(arch).arch_id == arch
-    jax_get("dien")                         # the reference knows it
-    with pytest.raises(KeyError, match="not yet ported"):
-        configs.get("dien")
+    assert configs.get("dien").arch_id == jax_get("dien").arch_id == "dien"
+    assert configs.get("dien").family == "recsys"
 
 
 def test_published_sizes_of_the_new_configs():
@@ -399,12 +401,15 @@ def test_published_sizes_of_the_new_configs():
 
 
 def test_unported_configs_and_missing_card_raise():
-    """The recsys id still raises ``KeyError``; MLA and MoE
-    configurations now build on the CPU when asked, in the reference's
-    tree (the router in float32) and bytes; without a card every entry
-    point raises."""
-    with pytest.raises(KeyError, match="not yet ported"):
-        configs.get("dien")
+    """An id neither package knows raises ``KeyError`` (the recsys
+    ``dien`` resolves now); MLA and MoE configurations build on the CPU
+    when asked, in the reference's tree (the router in float32) and
+    bytes; without a card every entry point raises."""
+    with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
+        configs.get("no-such-arch")
+    with pytest.raises(KeyError):
+        jax_get("no-such-arch")
+    assert configs.get("dien").arch_id == "dien"
     gen = torch.Generator().manual_seed(0)
     mine, _ = config_modules("deepseek_v2_236b")
     for cfg in (tf.TransformerConfig(**tiny_kw()), mine.SMOKE):

@@ -157,14 +157,19 @@ def test_port_and_smoke_script_import_no_jax_or_reference():
             "repro_torch.configs.qwen2_7b",
             "repro_torch.configs.phi3_medium_14b",
             "repro_torch.configs.deepseek_v2_lite_16b",
-            "repro_torch.configs.deepseek_v2_236b"} <= set(imported)
+            "repro_torch.configs.deepseek_v2_236b",
+            "repro_torch.models.dien", "repro_torch.configs.dien",
+            "repro_torch.train.optimizer", "repro_torch.train.loop",
+            "repro_torch.data.pipelines"} <= set(imported)
     scanned = {os.path.relpath(f, PORT) for f in files}
     assert {"bench/kernels_bench.py", "kernels/segment_matmul/ops.py",
             "core/directed.py", "train/checkpoint.py", "serve/replica.py",
             "serve/service.py", "serve/frontdoor.py", "models/moe.py",
             "models/attention.py", "configs/qwen2_7b.py",
             "configs/phi3_medium_14b.py", "configs/deepseek_v2_lite_16b.py",
-            "configs/deepseek_v2_236b.py"} <= scanned
+            "configs/deepseek_v2_236b.py", "models/dien.py", "configs/dien.py",
+            "train/optimizer.py", "train/loop.py",
+            "data/pipelines.py"} <= scanned
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
@@ -342,6 +347,11 @@ def test_chip_smoke_counts_launches_by_path():
             pass                   # MLA decode and the MoE: no kernel
     with counts.path("gnn"):
         pass                       # phase G: segment sums, no kernel
+    with counts.path("recsys"):
+        pass                       # phase R: DIEN's gathers and means
+    eb.count += 2                  # a kernel check between the phases
+    with counts.path("train"):
+        pass                       # phase T: no kernel has a backward
     zero = dict.fromkeys(kernels, 0)
     paths = dict.fromkeys(chip_smoke.PATH_KERNELS, 0)
     assert counts.by_path == {
@@ -354,7 +364,9 @@ def test_chip_smoke_counts_launches_by_path():
         "qwen2-7b": dict(zero, flash_decode=448),
         "phi3-medium-14b": dict(zero, flash_decode=640),
         "deepseek-v2-lite-16b": zero, "deepseek-v2-236b": zero,
-        "gnn": zero}
+        "gnn": zero, "recsys": zero, "train": zero}
+    assert chip_smoke.PATH_KERNELS["recsys"] == () == \
+        chip_smoke.PATH_KERNELS["train"]
     assert counts.of("spc_query") == (97, dict(paths, dspc=5, kernels=52,
                                                service=40))
     assert counts.of("segment_matmul") == (53, dict(paths, kernels=53))
