@@ -171,8 +171,10 @@ D.  distributed -- one controller over a device mesh: every visible
                 ``plain_spc_bfs``.
 L1. LM params -- ``init_params`` of qwen2-1.5b (``configs/qwen2_1_5b.py``
                 CONFIG with ``tp = 1``: the published 12 query heads, no
-                mesh padding) in bfloat16, drawn from a CUDA generator
-                seeded with ``--seed``.
+                mesh padding) at LM_LAYERS = 8 of its 28 layers (a cut
+                for the script's time limit, in ``reduced``) in
+                bfloat16, drawn from a CUDA generator seeded with
+                ``--seed``.
 L2. prefill  -- 16 prompts of 32768 random token ids (the
                 ``decode_32k`` context; its global batch 128 cut to 16
                 to fit one card), ``s_max = 32768 + 64``, prefilled 4 at
@@ -189,7 +191,7 @@ L4. consistency -- as ``examples/serve_lm.py`` checks it: the first 2
                 requests prefilled again with the 64 tokens fed to the
                 decode steps (t = 32832, ragged against the 1024-key
                 blocks); its last logits within a relative L2 error of
-                1.87e-2 of the last decode step's (fp32), argmax agreement
+                LM_REL_TOL of the last decode step's (fp32), argmax agreement
                 printed.  Controls: the fed tokens replayed from these
                 requests' prompt cache on the port's route must pass the
                 same limit, and two planted faults in place of decode
@@ -265,9 +267,9 @@ G.  GNN family -- EGNN, NequIP and Equiformer-v2 (``configs/{egnn,
                 forward: GNN_REPS calls after one warm-up (CUDA events;
                 p50), peak device memory, the reference's FLOP reckoning
                 (``_gnn_flops``); at minibatch_lg the host seconds of
-                ``synthetic_csr`` and of one ``sample``; Equiformer-v2's
-                minibatch_lg forward traced (``torch.profiler``: busy ms,
-                busy share of the p50, top ops by device ms).  Checks:
+                ``synthetic_csr`` and of one ``sample`` (the profiler
+                traces of G, R and T were dropped for the script's time
+                limit; PERF.md keeps their last readings).  Checks:
                 EGNN and NequIP at molecule and full_graph_sm equal to the
                 same module on the CPU, and Equiformer-v2's first
                 GNN_CPU_MOLECULES molecules (disjoint graphs) equal to a
@@ -285,9 +287,7 @@ R.  recsys   -- DIEN (``configs/dien.py`` CONFIG: 4M-item table, D 18,
                 (B 262144) R_BULK_CALLS times (seconds a call, examples/s,
                 peak memory), and ``retrieval_scores`` of one user
                 against retrieval_cand's 10^6 (item, cate) pairs drawn as
-                ``dien_host_args`` draws them, R_RETRIEVAL_CALLS times;
-                one forward at each serve shape traced (busy ms, busy
-                share of the p50, top kernels).
+                ``dien_host_args`` draws them, R_RETRIEVAL_CALLS times.
                 Checks: the serve_p99 logits and the retrieval scores
                 equal the same module on the CPU (the same weights)
                 within rtol R_RTOL / atol R_ATOL, two launches bitwise
@@ -300,8 +300,7 @@ R.  recsys   -- DIEN (``configs/dien.py`` CONFIG: 4M-item table, D 18,
                 the model reads).
 T.  train    -- AdamW (``AdamWConfig()``, as ``steps.py:63``) through
                 ``loop.run``.  DIEN at train_batch (65536): T_DIEN_STEPS
-                steps (s/step, examples/s, peak memory, one loss and
-                gradient traced); the first
+                steps (s/step, examples/s, peak memory); the first
                 step's loss and every gradient on its first
                 T_DIEN_CHECK_ROWS rows against the CPU within rtol
                 T_DIEN_RTOL / atol T_DIEN_ATOL, which the loss without
@@ -315,7 +314,7 @@ T.  train    -- AdamW (``AdamWConfig()``, as ``steps.py:63``) through
                 batch T_LM_BATCH (``reduced``: 256 -> T_LM_BATCH),
                 T_LM_STEPS steps (s/step, tokens/s, peak memory, the
                 share of the card's dense bf16 peak under the reference's
-                ``_lm_flops``, one loss and gradient traced), every loss
+                ``_lm_flops``), every loss
                 finite and no step skipped;
                 the check: its first T_CHECK_LAYERS layers in float32
                 at T_CHECK_BATCH x T_CHECK_SEQ tokens, loss and every
@@ -328,6 +327,42 @@ T.  train    -- AdamW (``AdamWConfig()``, as ``steps.py:63``) through
                 first GNN_CPU_MOLECULES molecules against the CPU at G's
                 tolerances (in float64 where float32 does not resolve
                 the CPU's own gradients to them).
+X.  mesh     -- the mesh models over X_ENTRIES = 4 entries of ``cuda:0``
+                (4 cards where the host has them: checked, not timed).
+                X1: qwen2-7b CONFIG at full width and depth, tp 1, bf16,
+                M3's 4 x 2048 prompts prefilled into a cache laid out
+                over ``("model",)`` = 4 (``transformer.init_cache(...,
+                mesh=)``, ``cache_seq`` -> ``model``: 4 sequence shards
+                of 516 of s_max 2064), then 16 decode steps on the
+                unsharded decode's greedy tokens: one flash_decode
+                launch a layer, step and shard (28 x 16 x 4 = 1792),
+                the shards merged by their log-sum-exps.  Every step's
+                logits within a relative L2 of X_REL_TOL["X1"] of the
+                unsharded decode's, which the planted fault (the shards
+                averaged, no LSE rescale) must miss; a float32 2-layer
+                control within X_F32_TOL; step p50 sharded and
+                unsharded; K4's LSE output held on the first shard on
+                both routes.  X2: deepseek-v2-236b at full width, 2
+                layers, 2 x 1024, 8 steps over the same 4 shards (the
+                absorbed MLA einsums a shard; no kernel), the same
+                checks (its own limit X_REL_TOL["X2"]; its float32
+                control at the no-drop capacity factor).  X3: DIEN
+                CONFIG over ``("data", "model")`` = (2, 2): one AdamW
+                step with the state laid out by ``state_specs`` (ZeRO)
+                against the unplaced step from
+                the same gradients (of X3_GRAD_BATCH examples), within
+                PR 22's AdamW tolerance; the forward at serve_p99 and
+                the retrieval at retrieval_cand on row-sharded tables
+                (``table_rows`` -> ``model``) equal to the whole tables'
+                bit for bit; each table's and moment's bytes a device.
+                X4: Equiformer-v2 CONFIG in float32 through the ring
+                (``models/gnn/ring.py``) over the (2, 2) mesh at
+                full_graph_sm (X4_REPS calls) and minibatch_lg's sampled
+                block (one call): its node outputs against the local
+                forward of the same inputs within G's rtol / atol,
+                ``bucket_edges`` dropping none, and the planted fault
+                (model column 0's partial sums kept, no sum over
+                ``model``) outside them; time and peak memory.
 flash_decode is held against its plain version (the KV heads expanded,
 fp32 softmax) at the TPU sweep shapes and GQA groups in float32 (rtol =
 atol = 2e-5, the TPU test's) and bfloat16 (1e-2 against the plain
@@ -346,13 +381,17 @@ and fails if a redesigned kernel (``REDESIGNED``: ``flash_decode_mma``,
 
 ``--lm-seeds 0,1,...`` builds the kernels and then only reads L4 and its
 controls for the first 2 requests of each seed (prefilled and decoded
-as 2 requests), prints them and exits.  ``--replica-of DIR --pairs
+as 2 requests), and X1's and X2's sharded decode and plain-mean fault
+from each seed, prints them and exits.  ``--replica-of DIR --pairs
 FILE`` is S3's second process.
 
 Launches are counted for each main path on its own: the DSPC path
 (phases 4, 5, 6 and the first call of 6b), the kernels path (K), the
 analytics path (the timed steps of A1 and A2), the LM path (L2 and
-L3; flash_decode exactly 28 x 64 times), one path for each
+L3; flash_decode exactly 8 x 64 times), the mesh path (the sharded
+prefills and decodes, the placed AdamW step, the row-sharded DIEN
+calls and the ring calls of X; flash_decode exactly 28 x 16 x 4 times,
+all in X1), one path for each
 configuration of M, M2 and M3 (prefill and decode; flash_decode on the
 two dense ones, no kernel on the deepseek ones: MLA decode is the
 reference's einsums, the MoE un-dispatch a gather and adds, where the
@@ -443,7 +482,11 @@ PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
                 # which embedding_bag (a sum) does not compute; no
                 # function of the reference has a custom VJP, so a
                 # training step runs no Pallas kernel: no kernel
-                "recsys": (), "train": ()}
+                "recsys": (), "train": (),
+                # phase X: qwen2-7b's sequence-sharded decode, one launch
+                # a shard (MLA's shards, ZeRO, DIEN's tables and the ring
+                # launch none)
+                "mesh": ("flash_decode",)}
 
 #: The segment_matmul sweep of tests/kernels/test_kernels.py (e, n, d),
 #: inputs drawn as that test draws them (ids in [0, n + 5): some dropped).
@@ -485,12 +528,13 @@ DECODE_SWEEP = ((4, 1, 1, 64, 32), (8, 1, 1, 1024, 128), (3, 1, 1, 100, 64),
                 (3, 12, 2, 2000, 128), (2, 12, 1, 700, 64))
 #: The LM path: decode_32k's context, the requests decoded together
 #: (its global batch of 128 cut to fit one card) and prefilled together,
-#: decode steps, the requests L4 prefills again, and its limit on the
-#: relative L2 logit error: midway between the port's largest reading
-#: (0.01744) and the bf16-score fault's smallest (0.02003) on an H100
-#: over seeds 0-3 (``--lm-seeds``) and the main run.
-LM_PROMPT, LM_BATCH, LM_GROUP, LM_STEPS = 32768, 16, 4, 64
-LM_CHECK, LM_REL_TOL = 2, 1.87e-2
+#: decode steps, the layers run (28 cut to 8 for the script's time
+#: limit), the requests L4 prefills again, and its limit on the relative
+#: L2 logit error: midway between the port's largest reading (0.01313)
+#: and the smaller planted fault's smallest (bf16 scores, 0.01617) on an
+#: H100 over seeds 0-3 (``--lm-seeds``) at these 8 layers.
+LM_PROMPT, LM_BATCH, LM_GROUP, LM_STEPS, LM_LAYERS = 32768, 16, 4, 64, 8
+LM_CHECK, LM_REL_TOL = 2, 1.465e-2
 #: Decode steps replayed under the profiler for the device-busy time,
 #: and the kernels of a step reported by device time.
 LM_TRACE_STEPS, LM_TOP_KERNELS = 4, 8
@@ -547,18 +591,15 @@ FD_FAMILY_BATCH, FD_GROUP5_ROWS = 16, 4
 #: tolerance of the card-against-CPU and two-launch checks (phase 7's
 #: re-rank's); the limit on the relative L2 change of the outputs when the
 #: positions are rotated; the molecules of Equiformer-v2's CPU check (a
-#: CPU run of all 128 would take about 1.9 TFLOP); the top ops printed
-#: from its minibatch_lg trace.
+#: CPU run of all 128 would take about 1.9 TFLOP).
 GNN_ARCHS = ("egnn", "nequip", "equiformer-v2")
 GNN_SHAPE_NAMES = ("molecule", "full_graph_sm", "minibatch_lg")
 GNN_REPS, GNN_RTOL, GNN_ATOL, GNN_ROT_TOL = 5, 1e-4, 1e-5, 1e-3
-GNN_CPU_MOLECULES, GNN_TOP_OPS = 8, 8
+GNN_CPU_MOLECULES = 8
 #: Phase R: DIEN's timed calls at serve_p99, serve_bulk and
 #: retrieval_cand, and the tolerance of the card against the CPU.
 R_P99_CALLS, R_BULK_CALLS, R_RETRIEVAL_CALLS = 64, 3, 20
 R_RTOL, R_ATOL = 1e-4, 1e-5
-#: The kernels printed by device ms from R's and T's traces.
-R_TOP_OPS = 6
 #: Phase T: DIEN's steps at train_batch, the rows of its first step held
 #: against the CPU and their tolerance; qwen2-1.5b's batch at train_4k's
 #: t (its global batch of 256 cut to fit one card: logits of [4096,
@@ -569,6 +610,26 @@ T_DIEN_STEPS, T_DIEN_CHECK_ROWS, T_DIEN_RTOL, T_DIEN_ATOL = 4, 1024, 1e-4, 1e-6
 T_LM_BATCH, T_LM_STEPS = 4, 4
 T_CHECK_LAYERS, T_CHECK_BATCH, T_CHECK_SEQ, T_CHECK_REL_TOL = 2, 2, 512, 1e-3
 T_GNN_STEPS = 3
+#: Phase X (the mesh models): the mesh's entries and X3's and X4's
+#: ("data", "model") grid over them; X1 is M3's qwen2-7b workload, X2
+#: M2's deepseek-v2-236b one; the layers and requests of their float32
+#: controls and its limit; each one's limit on the relative L2 error of
+#: the sharded decode's logits against the unsharded decode's: midway
+#: between the port's largest reading and the plain-mean fault's
+#: smallest over seeds 0-3 (``--lm-seeds``) on an H100 (X1: 0.01834 and
+#: 0.1128; X2: 0.08117 and 0.1540, where an expert flips); the
+#: tolerance of K4's LSE output; the sharded decode steps traced; X3's
+#: gradient batch and AdamW tolerance (PR 22's: rtol 1e-6, atol 1e-6
+#: times each leaf's largest magnitude); X4's timed calls at
+#: full_graph_sm (after one untimed call).
+X_ENTRIES, X_GRID = 4, (2, 2)
+X1_BATCH, X1_PROMPT, X1_STEPS = 4, 2048, 16
+X2_BATCH, X2_PROMPT, X2_STEPS = 2, 1024, 8
+X_CHECK_LAYERS, X_CHECK_BATCH, X_F32_TOL = 2, 2, 1e-4
+X_REL_TOL = {"X1": 6.557e-2, "X2": 1.176e-1}
+X_LSE_ATOL, X_TRACE_STEPS = 1e-3, 2
+X3_GRAD_BATCH, X3_ADAMW_RTOL = 4096, 1e-6
+X4_REPS = 3
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W).
 BF16_DENSE_OPS_PER_S = 989e12
 
@@ -1295,6 +1356,15 @@ def check_l4(l4: dict) -> None:
                                  f"planted fault {key} ({l4[key]:.4g})")
 
 
+def lm_config():
+    """The LM path's configuration: qwen2-1.5b's CONFIG at tp 1 (the
+    published 12 query heads; the reference's pads them to 16 for a
+    16-way model axis), LM_LAYERS of its 28 layers."""
+    import dataclasses
+    from repro_torch.configs.qwen2_1_5b import CONFIG as QWEN_CONFIG
+    return dataclasses.replace(QWEN_CONFIG, tp=1, n_layers=LM_LAYERS)
+
+
 def lm_prompts(cfg, seed: int, device):
     """The LM path's LM_BATCH prompts of LM_PROMPT token ids from
     ``seed``."""
@@ -1304,14 +1374,15 @@ def lm_prompts(cfg, seed: int, device):
 def lm_seed_readings(seeds, card: str) -> int:
     """``--lm-seeds``: L4 and its controls for the first LM_CHECK
     requests of each seed, with the parameters and prompts the main run
-    draws from that seed (prefilled and decoded as LM_CHECK requests).
-    Prints one line per seed and a JSON object of all; checks nothing."""
-    import dataclasses
+    draws from that seed (prefilled and decoded as LM_CHECK requests),
+    then X1's and X2's sharded decode and its plain-mean fault, each with
+    the main run's inputs from that seed (untraced, without the float32
+    control).  Prints one line per reading and a JSON object of all;
+    checks nothing."""
     import gc
     import torch
-    from repro_torch.configs.qwen2_1_5b import CONFIG as QWEN_CONFIG
     from repro_torch.models import transformer as tf
-    cfg = dataclasses.replace(QWEN_CONFIG, tp=1)
+    cfg = lm_config()
     s_max = LM_PROMPT + LM_STEPS
     span = lm_fault_span(cfg, torch.cuda.get_device_properties(
         0).multi_processor_count)
@@ -1333,8 +1404,32 @@ def lm_seed_readings(seeds, card: str) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     print(json.dumps({"l4_seeds": readings, "limit": LM_REL_TOL,
-                      "drop_span": span, "card": card}), flush=True)
+                      "drop_span": span, "x_seeds": x_seed_readings(
+                          seeds, card), "x_limit": X_REL_TOL,
+                      "card": card}), flush=True)
     return 0
+
+
+def x_seed_readings(seeds, card: str, device="cuda") -> dict:
+    """X1's and X2's sharded decode and its plain-mean fault from each
+    seed, with the main run's inputs from that seed (untraced, without
+    the float32 control): {tag: {seed: readings}}."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((X_ENTRIES,), ("model",), mesh_devices(device))
+    out = {}
+    for seed in seeds:
+        for tag in ("X1", "X2"):
+            t0 = time.monotonic()
+            _, cfg, params, prompts, steps = x_decode_case(tag, seed, device)
+            n = sharded_decode_check(params, cfg, prompts, steps, mesh,
+                                     PathLaunches({}), trace=False)
+            out.setdefault(tag, {})[seed] = {
+                k: n[k] for k in ("sharded", "fault_plain_mean", "argmax")}
+            log(f"{tag} seed {seed}: {json.dumps(out[tag][seed])} "
+                f"({time.monotonic() - t0:.3f} s on {card})")
+            del params, prompts, n
+            release(device)
+    return out
 
 
 def zero_rope_decode(decode):
@@ -1820,6 +1915,509 @@ def dense_family_phase(counts, card: str, seed: int, sms: int,
     return out
 
 
+def mesh_devices(device) -> list:
+    """Phase X's X_ENTRIES mesh entries: that many cards where the host
+    has them (checked, not timed: the timed run is on one card), else
+    X_ENTRIES entries of ``device``."""
+    import torch
+    if torch.device(device).type == "cuda" and \
+            torch.cuda.device_count() >= X_ENTRIES:
+        return [f"cuda:{i}" for i in range(X_ENTRIES)]
+    return [device] * X_ENTRIES
+
+
+def plain_mean_merge(parts, out_dtype):
+    """X1's and X2's planted fault: the cache shards' partial outputs
+    averaged, without the log-sum-exp rescale."""
+    return (sum(o.float() for o, _ in parts) / len(parts)).to(out_dtype)
+
+
+@contextlib.contextmanager
+def merged_by_plain_mean():
+    from repro_torch.models import attention as A
+    merge = A.merge_by_lse
+    A.merge_by_lse = plain_mean_merge
+    try:
+        yield
+    finally:
+        A.merge_by_lse = merge
+
+
+def decode_steps(params, cfg, cache, token, steps: int, fed=None):
+    """``steps`` decode steps from ``token`` int32 [B]: greedy, or the
+    tokens of ``fed`` [B, steps] when given (the same inputs on two
+    caches).  Returns (fed, every step's logits float32 [steps, B, V],
+    the cache, each step's device ms from CUDA events -- empty off the
+    card)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    cuda = token.is_cuda
+    events = ([torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+              if cuda else [])
+    if events:
+        events[0].record()
+    toks, logits = [], []
+    for i in range(steps):
+        if fed is not None:
+            token = fed[:, i]
+        toks.append(token)
+        lg, cache = tf.decode_step(params, cache, token, cfg)
+        logits.append(lg.float())
+        token = lg.argmax(dim=-1).to(torch.int32)
+        if events:
+            events[i + 1].record()
+    if events:
+        torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return torch.stack(toks, dim=1), torch.stack(logits), cache, ms
+
+
+def sharded_decode_check(params, cfg, prompts, steps: int, mesh, counts,
+                         fault: bool = True, trace: bool = True) -> dict:
+    """X1 / X2 for one configuration: the unsharded prefill and greedy
+    decode (outside every path), then the same prompts prefilled into a
+    cache laid out over ``mesh`` and decoded on the same tokens inside
+    ``counts.path("mesh")``; every step's logits against the unsharded
+    ones as a relative L2 error (``sharded``), and with ``fault`` the
+    planted fault (:func:`merged_by_plain_mean`) replayed the same way
+    outside the path.  Also the prefill's logits (the same forward:
+    equal bit for bit) and the step p50s; with ``trace`` (and ``fault``,
+    on the card) the last sharded steps traced."""
+    import torch
+    from repro_torch.models import transformer as tf
+    b, t = prompts.shape
+    s_max = t + steps
+    first, cache = tf.prefill(params, prompts, cfg, s_max)
+    token = first.argmax(dim=-1).to(torch.int32)
+    fed, want, cache, ms0 = decode_steps(params, cfg, cache, token, steps)
+    del cache
+    with counts.path("mesh"):
+        got_first, placed = tf.prefill(params, prompts, cfg, s_max,
+                                       mesh=mesh)
+        _, got, placed, ms1 = decode_steps(params, cfg, placed, token, steps,
+                                           fed)
+    n1 = tf.cache_names(cfg)[0]
+    out = {"requests": b, "prompt": t, "steps": steps,
+           "shards": len(placed[n1].blocks),
+           "shard_positions": [bd[2][1] - bd[2][0]
+                               for _, bd, _ in placed[n1].blocks],
+           "prefill_equal": bool(torch.equal(got_first, first)),
+           "sharded": rel_l2(got, want),
+           "argmax": int((got[-1].argmax(-1) == want[-1].argmax(-1)).sum()),
+           "step_ms_p50": float(np.percentile(ms1 or [0], 50)),
+           "unsharded_step_ms_p50": float(np.percentile(ms0 or [0], 50))}
+    if not (torch.isfinite(got).all() and out["prefill_equal"]):
+        raise AssertionError(f"X ({cfg.name}): sharded logits not finite, "
+                             f"or its prefill differs from the unsharded one")
+    if fault and trace and prompts.is_cuda:
+        # the last steps replayed under the profiler (outside the path)
+        busy, _, by = device_trace(lambda: replay_decode(
+            params, cfg, placed, fed[:, -X_TRACE_STEPS:],
+            s_max - X_TRACE_STEPS), X_TRACE_STEPS)
+        out.update(busy_ms_per_step=busy and busy / X_TRACE_STEPS,
+                   idle_share=busy and 1 - busy / X_TRACE_STEPS
+                   / out["step_ms_p50"],
+                   step_ms_by_kernel=dict(sorted(
+                       by.items(), key=lambda kv: -kv[1])[:LM_TOP_KERNELS]))
+    del placed, got
+    if fault:
+        _, placed = tf.prefill(params, prompts, cfg, s_max, mesh=mesh)
+        with merged_by_plain_mean():
+            _, bad, placed, _ = decode_steps(params, cfg, placed, token,
+                                             steps, fed)
+        out["fault_plain_mean"] = rel_l2(bad, want)
+        del placed, bad
+    out["cache_placed"] = placed_cache_line(tf, cfg, mesh, b, s_max)
+    return out
+
+
+def placed_cache_line(tf, cfg, mesh, b: int, s_max: int) -> dict:
+    """The cache's layout over ``mesh`` (no tensor made): its spec and
+    each shard's positions."""
+    from repro_torch import sharding as SH
+    from repro_torch.launch.mesh import block_bounds
+    n1 = tf.cache_names(cfg)[0]
+    shape = tuple(tf.abstract_cache(cfg, b, s_max)[n1].shape)
+    sh = SH.resolve(tf.cache_specs(cfg)[n1], SH.FSDP_TP, mesh)
+    parts = sh.parts(len(shape))
+    return {"spec": [list(e) if isinstance(e, tuple) else e
+                     for e in sh.spec],
+            "seq_bounds": [list(block_bounds(shape, parts, (0, 0, i, 0, 0)
+                                             [:len(shape)])[2])
+                           for i in range(parts[2])]}
+
+
+def check_x_decode(tag: str, n: dict) -> None:
+    """X1 / X2: the sharded decode within its X_REL_TOL of the unsharded
+    one, the float32 control within X_F32_TOL, the planted fault beyond
+    that X_REL_TOL."""
+    limit = X_REL_TOL[tag]
+    if not n["sharded"] <= limit:
+        raise AssertionError(f"{tag}: sharded decode logits differ by "
+                             f"{n['sharded']:.4g} (relative L2), beyond "
+                             f"{limit}")
+    if not n["f32"]["sharded"] <= X_F32_TOL:
+        raise AssertionError(f"{tag}: the float32 control differs by "
+                             f"{n['f32']['sharded']:.4g}, beyond {X_F32_TOL}")
+    if not n["fault_plain_mean"] > limit:
+        raise AssertionError(f"{tag}: the limit {limit} passes the "
+                             f"planted fault (a plain mean of the shards: "
+                             f"{n['fault_plain_mean']:.4g})")
+
+
+def hold_lse(placed_k, placed_v, lengths, h: int, seed: int) -> dict:
+    """flash_decode's LSE output on layer 0 of the first shard of a
+    served cache, on both routes, against its plain version on float32
+    copies: outputs within MAIN_RTOL / MAIN_ATOL, LSEs within
+    X_LSE_ATOL, the same outputs as without the LSE (bit for bit)."""
+    import torch
+    from repro_torch.kernels.flash_decode import kernel as FD
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    key, bounds, k0 = placed_k.blocks[0]
+    k0, v0 = k0[0], placed_v.shards[key][0]
+    lo, hi = bounds[2]
+    local = (lengths.to(k0.device) - lo).clamp(0, hi - lo).to(torch.int32)
+    local[-1] = 0                              # a row past the shard
+    b, _, kvh, d = k0.shape
+    q = torch.randn((b, h, d), generator=torch.Generator(
+        k0.device).manual_seed(seed), device=k0.device).to(k0.dtype)
+    want, want_lse = decode_attention_ref(q.float(), k0.float(), v0.float(),
+                                          local, return_lse=True)
+    out = {"shape": [b, h, kvh, hi - lo, d]}
+    for route, fn in (("planned", FD.flash_decode_cuda),
+                      ("simt", FD._simt_cuda)):
+        got, lse = fn(q, k0, v0, local, return_lse=True)
+        plain = fn(q, k0, v0, local)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            raise AssertionError(f"X flash_decode ({route}): the output "
+                                 f"with the LSE differs from the one without")
+        if not torch.equal(torch.isinf(lse), torch.isinf(want_lse)):
+            raise AssertionError(f"X flash_decode ({route}): -inf LSEs at "
+                                 f"other rows than the plain version's")
+        fin = torch.isfinite(want_lse)
+        out[route] = {
+            "max_abs_err": check_close(f"X flash_decode ({route}) output",
+                                       got.float(), want, MAIN_RTOL,
+                                       MAIN_ATOL),
+            "lse_max_abs_err": check_close(
+                f"X flash_decode ({route}) LSE", lse[fin], want_lse[fin],
+                0.0, X_LSE_ATOL)}
+    return out
+
+
+def x_decode_case(tag: str, seed: int, device):
+    """X1's or X2's configuration (the published one, and as run), its
+    parameters and prompts drawn from ``seed``, and its decode steps."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.deepseek_v2_236b import CONFIG as BIG
+    from repro_torch.configs.qwen2_7b import CONFIG as QWEN7
+    from repro_torch.models import transformer as tf
+    base, layers, (b, t, steps), gseed = {
+        "X1": (QWEN7, QWEN7.n_layers, (X1_BATCH, X1_PROMPT, X1_STEPS), 13),
+        "X2": (BIG, MCHECK_LAYERS, (X2_BATCH, X2_PROMPT, X2_STEPS), 17)}[tag]
+    cfg = dataclasses.replace(base, tp=1, n_layers=layers)
+    params = tf.init_params(
+        cfg, generator=torch.Generator(device).manual_seed(seed + gseed),
+        device=device)
+    prompts = lm_prompt_ids(b, t, cfg.vocab, seed + gseed + 6, device)
+    return base, cfg, params, prompts, steps
+
+
+def x_decode_phases(counts, card: str, seed: int, mesh,
+                    device="cuda") -> dict:
+    """X1 and X2 (module doc).  Returns {config name: numbers}."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tf
+    out = {}
+    for tag in ("X1", "X2"):
+        t0 = time.monotonic()
+        base, cfg, params, prompts, steps = x_decode_case(tag, seed, device)
+        b, t = prompts.shape
+        before = counts.by_path["mesh"]["flash_decode"]
+        n = sharded_decode_check(params, cfg, prompts, steps, mesh, counts)
+        n["flash_decode_launches"] = \
+            counts.by_path["mesh"]["flash_decode"] - before
+        if tag == "X1":
+            _, placed = tf.prefill(params, prompts, cfg, t + steps,
+                                   mesh=mesh)
+            n["flash_decode_lse"] = hold_lse(
+                placed["k"], placed["v"], placed["lengths"] + steps,
+                cfg.padded_heads, seed + 31) if prompts.is_cuda else None
+            del placed
+        check_cfg = (dataclasses.replace(cfg, n_layers=X_CHECK_LAYERS,
+                                         param_dtype=torch.float32,
+                                         act_dtype=torch.float32)
+                     if not cfg.is_moe else
+                     no_drop_float32(cfg, X_CHECK_LAYERS))
+        params = float32_layers(params, X_CHECK_LAYERS)
+        release(device)
+        n["f32"] = sharded_decode_check(params, check_cfg,
+                                        prompts[:X_CHECK_BATCH], steps, mesh,
+                                        PathLaunches({}), fault=False)
+        n.update(reduced=[f"n_layers {base.n_layers}->{cfg.n_layers}"]
+                 if cfg.n_layers != base.n_layers else [],
+                 limit=X_REL_TOL[tag], f32_limit=X_F32_TOL,
+                 seconds=time.monotonic() - t0)
+        del params, prompts
+        release(device)
+        # one launch a layer, step and shard of positions on the card;
+        # none for MLA (plain einsums) or on the CPU's plain route
+        want = cfg.n_layers * steps * sum(hi > lo for lo, hi in n[
+            "cache_placed"]["seq_bounds"]) if cfg.attn != "mla" and \
+            torch.device(device).type == "cuda" else 0
+        if n["flash_decode_launches"] != want:
+            raise AssertionError(f"{tag} ({cfg.name}): flash_decode "
+                                 f"launched {n['flash_decode_launches']} "
+                                 f"times on the mesh path, want {want}")
+        log(f"{tag} {cfg.name} ({cfg.n_layers} layers, tp 1, "
+            f"{cfg.act_dtype}): {b} x {t} tokens, {steps} steps, the cache "
+            f"{json.dumps(n['cache_placed'])} over {mesh}; logits vs the "
+            f"unsharded decode of the same tokens: relative L2 "
+            f"{n['sharded']:.4g} (limit {X_REL_TOL[tag]}), argmax "
+            f"{n['argmax']}/{b}; planted fault (a plain mean of the shards) "
+            f"{n['fault_plain_mean']:.4g}; float32 {X_CHECK_LAYERS}-layer "
+            f"control {n['f32']['sharded']:.4g} (limit {X_F32_TOL}); step "
+            f"p50 sharded {n['step_ms_p50']:.3f} ms, unsharded "
+            f"{n['unsharded_step_ms_p50']:.3f} ms; flash_decode launched "
+            f"{n['flash_decode_launches']} times on the mesh path"
+            + (f"; traced: busy {n['busy_ms_per_step']:.3f} ms a sharded "
+               f"step, idle share {n['idle_share']:.4f}, device ms a step "
+               f"by kernel {json.dumps(n['step_ms_by_kernel'])}"
+               if n.get("busy_ms_per_step") else "")
+            + (f"; its LSE output {json.dumps(n['flash_decode_lse'])}"
+               if n.get("flash_decode_lse") else "")
+            + f" ({n['seconds']:.1f} s on {card})")
+        check_x_decode(tag, n)
+        out[cfg.name] = n
+    return out
+
+
+def zero_phase(counts, card: str, seed: int, grid_mesh,
+               device="cuda") -> dict:
+    """X3 (module doc): DIEN's CONFIG; one AdamW step from the same
+    gradients with the state laid out over ``grid_mesh`` (ZeRO) and
+    unplaced; the forward at serve_p99 and the retrieval at
+    retrieval_cand on row-sharded tables against the whole tables."""
+    import torch
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.configs.dien import CONFIG
+    from repro_torch.models import dien as D
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.loop import value_and_grad
+    cfg = CONFIG
+    dims = {k: s.dims for k, s in RECSYS_SHAPES.items()}
+    t0 = time.monotonic()
+    params = D.init_params(cfg, generator=torch.Generator(device).manual_seed(
+        seed + 61), device=device)
+    rows = dien_inputs(cfg, 1, X3_GRAD_BATCH, seed, device)
+    _, grads = value_and_grad(D.make_train_loss(cfg), params, rows)
+    del rows
+    ocfg = O.AdamWConfig()
+    want, _, want_stats = O.apply(params, grads, O.init(params, ocfg), ocfg)
+    specs = O.state_specs(D.param_specs(cfg))
+    state = O.place_state(O.init(params, ocfg), specs, grid_mesh)
+    with counts.path("mesh"):
+        got, state, stats = O.apply(params, grads, state, ocfg)
+    del grads
+    err = 0.0
+    names = [k for k, _ in _leaf_names(params)]
+    for name, a, w in zip(names, flatten(got)[0], flatten(want)[0]):
+        floor = float(w.abs().max())
+        err = max(err, check_close(f"X3 AdamW {name}: placed vs unplaced",
+                                   a, w, X3_ADAMW_RTOL,
+                                   X3_ADAMW_RTOL * floor))
+    out = {"adamw_max_abs_err": err,
+           "grad_norm": [float(want_stats["grad_norm"]),
+                         float(stats["grad_norm"])],
+           "bytes_by_device": {}}
+    for part in ("mu", "nu"):
+        tree = getattr(state, part)
+        for name in D.TABLES:
+            out["bytes_by_device"][f"{part}.{name}"] = {
+                str(k): v for k, v in tree[name].nbytes_by_device().items()}
+    placed = D.place_params(params, grid_mesh)
+    for name in D.TABLES:
+        out["bytes_by_device"][name] = {
+            str(k): v for k, v in placed[name].nbytes_by_device().items()}
+        out["bytes_by_device"][name + "_whole"] = \
+            params[name].numel() * params[name].element_size()
+    del want, got, state
+    b = dims["serve_p99"]["batch"]
+    batch = dien_inputs(cfg, 0, b, seed, device)
+    n = dims["retrieval_cand"]["n_candidates"]
+    user = dien_inputs(cfg, 2, dims["retrieval_cand"]["batch"], seed, device)
+    r = np.random.default_rng(seed)
+    cand = tensors({"item": r.integers(0, cfg.n_items, (n,)).astype(np.int32),
+                    "cate": r.integers(0, cfg.n_cates, (n,)).astype(np.int32)},
+                   device)
+    cuda = torch.device(device).type == "cuda"
+    with torch.inference_mode():
+        logits, ms0 = timed_calls(lambda: D.forward(params, batch, cfg), 3,
+                                  cuda)
+        scores, rms0 = timed_calls(
+            lambda: D.retrieval_scores(params, user, cand, cfg), 3, cuda)
+        with counts.path("mesh"):
+            got_logits, ms1 = timed_calls(
+                lambda: D.forward(placed, batch, cfg), 3, cuda)
+            got_scores, rms1 = timed_calls(
+                lambda: D.retrieval_scores(placed, user, cand, cfg), 3, cuda)
+    out.update(serve_p99_equal=bool(torch.equal(got_logits, logits)),
+               retrieval_equal=bool(torch.equal(got_scores, scores)),
+               serve_p99_ms=[float(np.median(ms1)), float(np.median(ms0))],
+               retrieval_ms=[float(np.median(rms1)), float(np.median(rms0))],
+               seconds=time.monotonic() - t0)
+    log(f"X3 DIEN over {grid_mesh}: one AdamW step with the state laid out "
+        f"(ZeRO) vs unplaced, max |diff| {err:.3g} (rtol {X3_ADAMW_RTOL}, "
+        f"atol {X3_ADAMW_RTOL} x each leaf's largest magnitude), grad norm "
+        f"{json.dumps(out['grad_norm'])}; row-sharded tables: serve_p99 "
+        f"logits equal bit for bit: {out['serve_p99_equal']}, retrieval of "
+        f"{n} candidates: {out['retrieval_equal']}; ms sharded / whole: "
+        f"forward {json.dumps(out['serve_p99_ms'])}, retrieval "
+        f"{json.dumps(out['retrieval_ms'])}; bytes a device "
+        f"{json.dumps(out['bytes_by_device'])} ({out['seconds']:.1f} s on "
+        f"{card})")
+    if not (out["serve_p99_equal"] and out["retrieval_equal"]):
+        raise AssertionError("X3: DIEN on row-sharded tables differs from "
+                             "the whole tables")
+    del params, placed, batch, user, cand
+    release(device)
+    return out
+
+
+def _leaf_names(tree, prefix=""):
+    """(dotted name, leaf) of a tree, in ``flatten``'s order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_names(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, x in enumerate(tree):
+            yield from _leaf_names(x, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+@contextlib.contextmanager
+def ring_column_zero_only():
+    """X4's planted fault: the ring keeps model column 0's partial
+    numerator and denominator instead of summing over ``model``."""
+    from repro_torch.models.gnn import ring as RG
+    psum = RG._psum
+    RG._psum = lambda parts, dev: parts[0].to(dev)
+    try:
+        yield
+    finally:
+        RG._psum = psum
+
+
+def ring_phase(counts, card: str, seed: int, grid_mesh,
+               device="cuda") -> dict:
+    """X4 (module doc): Equiformer-v2's CONFIG in float32 through the ring
+    at full_graph_sm (X4_REPS calls) and minibatch_lg's sampled block (one
+    call), held against the local forward of the same inputs at G's
+    tolerances; the planted fault at full_graph_sm must miss them."""
+    import torch
+    from repro_torch.models.gnn import ring as RG
+    cuda = torch.device(device).type == "cuda"
+    p_data, p_model = (grid_mesh.shape["data"], grid_mesh.shape["model"])
+    out = {}
+    for shape, reps in (("full_graph_sm", X4_REPS), ("minibatch_lg", 1)):
+        inp = gnn_shape_inputs(shape, seed, device)
+        batch = inp["batch"]
+        n_node = batch.n_node
+        model = gnn_model("equiformer-v2", inp["d_in"], inp["n_out"],
+                          seed + 47 + GNN_ARCHS.index("equiformer-v2"),
+                          device)
+        live = batch.edge_mask.cpu().numpy()
+        snd = batch.senders.cpu().numpy()[live]
+        rcv = batch.receivers.cpu().numpy()[live]
+        t0 = time.monotonic()
+        src_b, dst_b, n_loc, dropped = RG.bucket_edges(snd, rcv, n_node,
+                                                       p_data, p_model)
+        bucket_s = time.monotonic() - t0
+        nodes, pos, _ = RG.blocked_layout(
+            batch.nodes[:n_node].cpu().numpy(), inp["pos"], n_node, p_data)
+        nodes, pos = (torch.from_numpy(x).to(device) for x in (nodes, pos))
+        src_b, dst_b = (torch.from_numpy(x).to(device)
+                        for x in (src_b, dst_b))
+
+        def ring():
+            x = RG.forward_ring(model, nodes, pos, src_b, dst_b, grid_mesh)
+            return model.head(RG.unblock(x, n_node, p_data)[..., 0])[
+                :inp["rows"]]
+        with torch.inference_mode():
+            want = gnn_output(model, batch, inp)
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+            if reps > 1:
+                ring()                          # one untimed call first
+            with counts.path("mesh"):
+                got, ms = timed_calls(ring, reps, cuda)
+            peak = torch.cuda.max_memory_allocated() if cuda else 0
+        n = {"n_node": n_node, "live_edges": int(live.sum()),
+             "bucket_cap": int(src_b.shape[-1]), "dropped": int(dropped),
+             "bucket_host_s": bucket_s, "ms": ms,
+             "ms_p50": float(np.median(ms)), "peak_bytes": peak,
+             "resident_bytes": resident if cuda else 0,
+             "rel_l2": rel_l2(got, want),
+             "max_abs_err": check_close(f"X4 ring at {shape} vs the local "
+                                        f"forward", got, want, GNN_RTOL,
+                                        GNN_ATOL)}
+        if dropped:
+            raise AssertionError(f"X4: bucket_edges dropped {dropped} edges "
+                                 f"at {shape}")
+        if shape == "full_graph_sm":
+            with torch.inference_mode(), ring_column_zero_only():
+                bad = ring()
+            n["fault_column_zero_max_abs_err"] = float(
+                (bad.double() - want.double()).abs().max())
+            if torch.allclose(bad.double(), want.double(), rtol=GNN_RTOL,
+                              atol=GNN_ATOL):
+                raise AssertionError("X4: the planted fault (no sum over "
+                                     "model) passes the ring's check")
+        out[shape] = n
+        log(f"X4 Equiformer-v2 ring over {grid_mesh} at {shape} (N "
+            f"{n_node}, {n['live_edges']} live edges in buckets of "
+            f"{n['bucket_cap']}, {dropped} dropped, bucketed in "
+            f"{bucket_s:.3f} s on the host): p50 {n['ms_p50']:.3f} ms of "
+            f"{json.dumps([round(t, 3) for t in ms])}, peak {peak} B "
+            f"(resident {n['resident_bytes']} B); vs the local forward max "
+            f"|diff| {n['max_abs_err']:.3g} (rtol {GNN_RTOL}, atol "
+            f"{GNN_ATOL}), relative L2 {n['rel_l2']:.3g}"
+            + (f"; planted fault (model column 0 only) max |diff| "
+               f"{n['fault_column_zero_max_abs_err']:.3g}"
+               if "fault_column_zero_max_abs_err" in n else "")
+            + f" on {card}")
+        del inp, batch, model, nodes, pos, src_b, dst_b, got, want
+        release(device)
+    return out
+
+
+def mesh_phase(counts, card: str, seed: int, device="cuda") -> dict:
+    """Phase X (module doc): X1-X4 over a mesh of X_ENTRIES entries.
+    Returns the numbers; raises on any failed check."""
+    from repro_torch.launch.mesh import make_mesh
+    devices = mesh_devices(device)
+    seq_mesh = make_mesh((X_ENTRIES,), ("model",), devices)
+    grid_mesh = make_mesh(X_GRID, ("data", "model"), devices)
+    log(f"X meshes: {seq_mesh} (the decode caches' sequence axis), "
+        f"{grid_mesh} (DIEN, AdamW, the ring)")
+    t0 = time.monotonic()
+    out = {"decode": x_decode_phases(counts, card, seed, seq_mesh, device)}
+    t1 = time.monotonic()
+    out["zero"] = zero_phase(counts, card, seed, grid_mesh, device)
+    t2 = time.monotonic()
+    out["ring"] = ring_phase(counts, card, seed, grid_mesh, device)
+    out["seconds"] = {"decode": t1 - t0, "zero": t2 - t1,
+                      "ring": time.monotonic() - t2}
+    return out
+
+
 def random_rotation(seed: int) -> np.ndarray:
     """A proper rotation (det +1), float64 [3, 3], from the QR of a
     seeded Gaussian matrix."""
@@ -2068,13 +2666,6 @@ def gnn_phase(counts, card: str, seed: int, device="cuda") -> dict:
                         f"G: the planted fault (messages rotated back with "
                         f"Ds) passes the rotation check: "
                         f"{n['fault_rotation_rel_l2']}")
-            if arch == "equiformer-v2" and shape == "minibatch_lg":
-                with torch.inference_mode():
-                    busy, span, by = device_trace(run)
-                n.update(trace_busy_ms=busy, trace_span_ms=span,
-                         busy_share=busy and busy / n["ms_p50"],
-                         top_ops_ms=dict(sorted(
-                             by.items(), key=lambda kv: -kv[1])[:GNN_TOP_OPS]))
             out[shape][arch] = n
             log(f"G {arch} at {shape} (N {batch.n_node}, E {batch.n_edge}, "
                 f"{n['params']} parameters): forward p50 {n['ms_p50']:.3f} "
@@ -2094,11 +2685,6 @@ def gnn_phase(counts, card: str, seed: int, device="cuda") -> dict:
                 + (f"; two launches {n['two_launches_max_abs_err']:.3g}"
                    if "two_launches_max_abs_err" in n else "")
                 + f" on {card}")
-            if "top_ops_ms" in n:
-                log(f"G trace: equiformer-v2 at {shape}: busy "
-                    f"{n['trace_busy_ms']} ms of a {n['ms_p50']:.3f} ms p50 "
-                    f"(span {n['trace_span_ms']} ms); top ops by device ms: "
-                    f"{json.dumps(n['top_ops_ms'])} on {card}")
             del model, first, got, rotated, run
             release(device)
         del inp, batch, rot_batch
@@ -2227,21 +2813,6 @@ def misses(tag, fn, want, rtol, atol) -> float:
     return err
 
 
-def traced(tag: str, fn, ms: float, card: str) -> dict:
-    """One ``fn()`` under ``torch.profiler`` (:func:`device_trace`): the
-    card's busy ms, its busy share of ``ms`` (the call's p50) and the
-    top R_TOP_OPS kernels by device ms, printed and returned."""
-    busy, span, by = device_trace(fn)
-    out = {"trace_busy_ms": busy, "trace_span_ms": span,
-           "busy_share": busy and busy / ms,
-           "top_ops_ms": dict(sorted(by.items(),
-                                     key=lambda kv: -kv[1])[:R_TOP_OPS])}
-    log(f"{tag} trace: busy {busy} ms of a {ms:.3f} ms call (span {span} "
-        f"ms); top kernels by device ms {json.dumps(out['top_ops_ms'])} on "
-        f"{card}")
-    return out
-
-
 def recsys_phase(counts, card: str, seed: int, device="cuda") -> dict:
     """Phase R (module doc): DIEN's CONFIG serving at serve_p99,
     serve_bulk and retrieval_cand, inside ``counts.path("recsys")``,
@@ -2283,11 +2854,6 @@ def recsys_phase(counts, card: str, seed: int, device="cuda") -> dict:
                         "ms_mean": float(np.mean(ms)), "calls": len(ms),
                         "max_abs_err": err, "max_abs_logit":
                         float(want.abs().max()), "faults": faults}
-    if cuda:
-        with torch.inference_mode():
-            out["serve_p99"].update(traced(
-                "R serve_p99", lambda: D.forward(params, batch, cfg),
-                out["serve_p99"]["ms_p50"], card))
     log(f"R serve_p99 (B {b}): forward p50 {out['serve_p99']['ms_p50']:.3f} "
         f"ms, p99 {out['serve_p99']['ms_p99']:.3f} ms over {len(ms)} calls; "
         f"card vs CPU max |diff| {err:.3g} (rtol {R_RTOL}, atol {R_ATOL}; "
@@ -2319,10 +2885,6 @@ def recsys_phase(counts, card: str, seed: int, device="cuda") -> dict:
         out["serve_bulk"].update(
             peak_bytes=torch.cuda.max_memory_allocated(),
             resident_bytes=resident)
-        with torch.inference_mode():
-            out["serve_bulk"].update(traced(
-                "R serve_bulk", lambda: D.forward(params, batch, cfg),
-                float(np.median(ms)), card))
     log(f"R serve_bulk (B {b}): {json.dumps(out['serve_bulk'])} on {card}")
     del batch, bulk
     release(device)
@@ -2518,11 +3080,6 @@ def dien_train(counts, card: str, seed: int, device) -> dict:
         p_a, _, hist, step_s, peak = timed_run(params, loss_fn, data,
                                                T_DIEN_STEPS, device)
     out.update(step_numbers(hist, step_s, peak, b))
-    if torch.device(device).type == "cuda":      # one loss and gradient
-        out.update(traced("T dien loss and gradient",
-                          lambda: L.value_and_grad(loss_fn, params,
-                                                   batches[0]),
-                          1e3 * out["s_per_step"], card))
     if not all(np.isfinite(out["loss"])) or out["skipped"]:
         raise AssertionError(f"T dien: losses {out['loss']}, "
                              f"{out['skipped']} steps skipped")
@@ -2638,11 +3195,6 @@ def lm_train(counts, card: str, seed: int, device) -> dict:
     del p_run
     release(device)
     out.update(step_numbers(hist, step_s, peak, b * t))
-    if torch.device(device).type == "cuda":      # one loss and gradient
-        out.update(traced("T qwen2-1.5b loss and gradient",
-                          lambda: L.value_and_grad(tf.make_train_loss(cfg),
-                                                   params, batches[0]),
-                          1e3 * out["s_per_step"], card))
     out["flops_per_step"] = lm_flops(cfg, b * t, t)
     out["bf16_peak_share"] = (out["flops_per_step"] / out["s_per_step"]
                               / BF16_DENSE_OPS_PER_S)
@@ -4532,11 +5084,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- L. the LM serving path (examples/serve_lm.py at qwen2-1.5b) --------
-    # one card, no mesh: tp = 1 keeps the published 12 query heads (the
-    # reference's CONFIG pads them to 16 for a 16-way model axis)
-    lm_cfg = dataclasses.replace(QWEN_CONFIG, tp=1)
+    # one card, no mesh (lm_config)
+    lm_cfg = lm_config()
     decode_32k = LM_SHAPES["decode_32k"].dims
-    lm_reduced = [f"global_batch {decode_32k['global_batch']}->{LM_BATCH}"]
+    lm_reduced = [f"global_batch {decode_32k['global_batch']}->{LM_BATCH}",
+                  f"n_layers {QWEN_CONFIG.n_layers}->{lm_cfg.n_layers}"]
     log(f"lm reduced: {json.dumps(lm_reduced)} (context "
         f"{decode_32k['seq_len']} kept)")
     t0 = time.monotonic()
@@ -4606,11 +5158,13 @@ def main(argv=None) -> int:
     fd_route = FD.plan(LM_BATCH, lm_cfg.n_kv_heads, lm_cfg.padded_heads,
                        int(k0.shape[1]), lm_cfg.d_head, torch.bfloat16,
                        sms).route
-    # the planned route held and timed, the CUDA-core route and SDPA
-    # timed beside it
+    # the planned route held and timed, the CUDA-core route, the planned
+    # route with its LSE output and SDPA timed beside it
     fd_row, want = flash_decode_row(
         qm, k0, v0, lens, f"({fd_route}) at the main path's shape", fd_route,
-        100, 5, extra={"simt": lambda: FD._simt_cuda(qm, k0, v0, lens)})
+        100, 5, extra={"simt": lambda: FD._simt_cuda(qm, k0, v0, lens),
+                       "lse": lambda: FD.flash_decode_cuda(
+                           qm, k0, v0, lens, return_lse=True)})
     old = FD._simt_cuda(qm, k0, v0, lens)
     simt_err = check_close("flash_decode (simt) at the main path's shape "
                            "(bf16)", old, want, MAIN_RTOL, MAIN_ATOL)
@@ -4639,7 +5193,7 @@ def main(argv=None) -> int:
         f"{fault_span} left out differs by {lost_err:.3g} and fails on "
         f"{card}")
     del want
-    # flash_decode's kernels in the decode step's trace (28 calls a step):
+    # flash_decode's kernels in the decode step's trace (a call a layer):
     # what the card runs in one call, each kernel's device ms per call
     fd_trace = {k: v / lm_cfg.n_layers
                 for k, v in lm_numbers["decode_step_ms_by_kernel"].items()
@@ -4647,7 +5201,8 @@ def main(argv=None) -> int:
     fd_ms = fd_row["ms"]
     log(f"flash_decode at {json.dumps(fd_row['shape'])}: {fd_route} "
         f"{json.dumps(fd_row['ms_rounds'])} ms, simt "
-        f"{json.dumps(fd_row['simt_ms'])} ms, SDPA "
+        f"{json.dumps(fd_row['simt_ms'])} ms, with the LSE output "
+        f"{json.dumps(fd_row['lse_ms'])} ms, SDPA "
         f"{json.dumps(fd_row['library_ms_rounds'])} ms in {FD_REPS} rounds; "
         f"median {fd_ms:.5f} ms ({fd_row['bytes'] / fd_ms / 1e6:.1f} GB/s), "
         f"plain {fd_row['plain_ms']:.4f} ms, SDPA "
@@ -4683,9 +5238,15 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     train = train_phase(counts, card, args.seed)
     log(f"T ({time.monotonic() - t0:.1f} s): {json.dumps(train)} on {card}")
+
+    # -- X. the mesh models ----------------------------------------------------
+    t0 = time.monotonic()
+    mesh = mesh_phase(counts, card, args.seed)
+    log(f"X ({time.monotonic() - t0:.1f} s): {json.dumps(mesh)} on {card}")
     fd_family = {name: numbers["flash_decode"]
                  for name, numbers in family.items()
                  if "flash_decode" in numbers}
+    fd_lse = mesh["decode"]["qwen2-7b"]["flash_decode_lse"]
     log(f"launches on the main paths: {json.dumps(counts.by_path)}")
     counts.check()
 
@@ -4746,6 +5307,7 @@ def main(argv=None) -> int:
         "path": paths_of("flash_decode"), "ptxas": usage_of("flash_decode"),
         "design": fd_route, "ms_rounds": fd_row["ms_rounds"],
         "trace_ms_per_call": fd_trace, "simt_ms": fd_row["simt_ms"],
+        "lse_ms": fd_row["lse_ms"],
         "library_ms_rounds": fd_row["library_ms_rounds"],
         "main_simt_max_abs_err": simt_err, "main_simt_rel_l2": simt_rel,
         "fault_span": fault_span,
@@ -4758,7 +5320,9 @@ def main(argv=None) -> int:
                            *(r["max_abs_err"] for r in fd_family.values()),
                            *(r["served_max_abs_err"]
                              for r in fd_family.values()),
-                           fd_family["phi3-medium-14b"]["group5_max_abs_err"]),
+                           fd_family["phi3-medium-14b"]["group5_max_abs_err"],
+                           *(fd_lse[r]["max_abs_err"]
+                             for r in ("planned", "simt"))),
         "f32_max_abs_err": dec_err,
         "main_max_abs_err": fd_row["max_abs_err"],
         "main_rel_l2": fd_row["rel_l2"],
@@ -4767,7 +5331,8 @@ def main(argv=None) -> int:
         **{key: fd_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "bytes", "library_ms",
                                         "shape")},
-        "lm_family": fd_family,
+        "lm_family": fd_family, "mesh_lse": fd_lse,
+        "mesh_launches": mesh["decode"]["qwen2-7b"]["flash_decode_launches"],
     }]
     log(f"chip_smoke: {time.monotonic() - start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,11 @@
 // with G = H / KVH query heads per KV head.  q is [B, H, D]; k and v are
 // read in the cache's own layout [B, S, KVH, D] (never expanded to H
 // heads); fp32 softmax and accumulation, the output in the input's
-// dtype.  A row with length 0 gives zeros.
+// dtype.  A row with length 0 gives zeros.  On request the merge also
+// writes each row's log-sum-exp of its scaled scores (float32 [B, H],
+// -inf at length 0): the sequence-sharded decode merges the outputs of
+// several cache shards by it.  The Pallas kernel returns none (the
+// reference leaves that merge across chips to XLA).
 //
 // The TPU kernel walks a sequential (row block, S block) grid and
 // carries (m, l, acc) in VMEM from one S block to the next.  Blocks on
@@ -82,6 +86,7 @@ constexpr int kThreads = 128;  // four warps
 constexpr int kTile = 64;      // cache positions per tile
 constexpr int kVec = 8;        // elements per lane per row
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Eight consecutive elements of a row, as loaded (16 bytes of bfloat16
 // or 32 bytes of float32).
@@ -307,11 +312,17 @@ __device__ __forceinline__ void wait_for_inputs() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// Pass 2: one CTA per (b, h); splits merged in order.
+// Pass 2: one CTA per (b, h); splits merged in order.  With `lse` (may
+// be null) thread 0 also writes the row's natural log-sum-exp of its
+// scaled scores, ln(den) + m ln 2 (m and the spans' l are in base 2),
+// -inf where every span was empty: what a merge of this row with the
+// rows of other cache shards needs.
 template <typename T>
 __global__ void flash_decode_merge(const float* __restrict__ part_acc,
                                    const float* __restrict__ part_ml,
-                                   T* __restrict__ out, int D, int n_splits) {
+                                   T* __restrict__ out,
+                                   float* __restrict__ lse, int D,
+                                   int n_splits) {
   wait_for_inputs();
   const long long row = blockIdx.x;
   const float* ml = part_ml + row * n_splits * 2;
@@ -328,12 +339,19 @@ __global__ void flash_decode_merge(const float* __restrict__ part_acc,
     }
     store(out + row * D + d, num / fmaxf(den, 1e-30f));
   }
+  if (lse != nullptr && threadIdx.x == 0) {
+    float den = 0.f;
+    if (m != -INFINITY)
+      for (int s = 0; s < n_splits; ++s)
+        den = fmaf(ml[2 * s + 1], exp2f(ml[2 * s] - m), den);
+    lse[row] = m == -INFINITY ? -INFINITY : (m + log2f(den)) * kLn2;
+  }
 }
 
 template <typename T, int D, int KG>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* out, void* part_acc, void* part_ml, int B, int S, int H,
-           int KVH, int split_len, int n_splits, cudaStream_t st) {
+           void* out, void* part_acc, void* part_ml, void* lse, int B, int S,
+           int H, int KVH, int split_len, int n_splits, cudaStream_t st) {
   const int G = H / KVH;
   const int n_chunks = (G + KG - 1) / KG;
   const long long rows = (long long)B * KVH * n_chunks;
@@ -349,24 +367,29 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   if (err != cudaSuccess) return (int)err;
   flash_decode_merge<T><<<(unsigned)((long long)B * H), D < 128 ? D : 128, 0,
                           st>>>((const float*)part_acc,
-                                (const float*)part_ml, (T*)out, D, n_splits);
+                                (const float*)part_ml, (T*)out, (float*)lse, D,
+                                n_splits);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_kg(int kg, const void* q, const void* k, const void* v,
               const void* lengths, void* out, void* part_acc, void* part_ml,
-              int B, int S, int H, int KVH, int split_len, int n_splits,
-              cudaStream_t st) {
+              void* lse, int B, int S, int H, int KVH, int split_len,
+              int n_splits, cudaStream_t st) {
   switch (kg) {
     case 1: return launch<T, D, 1>(q, k, v, lengths, out, part_acc, part_ml,
-                                   B, S, H, KVH, split_len, n_splits, st);
+                                   lse, B, S, H, KVH, split_len, n_splits,
+                                   st);
     case 2: return launch<T, D, 2>(q, k, v, lengths, out, part_acc, part_ml,
-                                   B, S, H, KVH, split_len, n_splits, st);
+                                   lse, B, S, H, KVH, split_len, n_splits,
+                                   st);
     case 4: return launch<T, D, 4>(q, k, v, lengths, out, part_acc, part_ml,
-                                   B, S, H, KVH, split_len, n_splits, st);
+                                   lse, B, S, H, KVH, split_len, n_splits,
+                                   st);
     case 8: return launch<T, D, 8>(q, k, v, lengths, out, part_acc, part_ml,
-                                   B, S, H, KVH, split_len, n_splits, st);
+                                   lse, B, S, H, KVH, split_len, n_splits,
+                                   st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -374,20 +397,20 @@ int launch_kg(int kg, const void* q, const void* k, const void* v,
 template <typename T>
 int launch_d(int D, int kg, const void* q, const void* k, const void* v,
              const void* lengths, void* out, void* part_acc, void* part_ml,
-             int B, int S, int H, int KVH, int split_len, int n_splits,
-             cudaStream_t st) {
+             void* lse, int B, int S, int H, int KVH, int split_len,
+             int n_splits, cudaStream_t st) {
   switch (D) {
     case 16: return launch_kg<T, 16>(kg, q, k, v, lengths, out, part_acc,
-                                     part_ml, B, S, H, KVH, split_len,
+                                     part_ml, lse, B, S, H, KVH, split_len,
                                      n_splits, st);
     case 32: return launch_kg<T, 32>(kg, q, k, v, lengths, out, part_acc,
-                                     part_ml, B, S, H, KVH, split_len,
+                                     part_ml, lse, B, S, H, KVH, split_len,
                                      n_splits, st);
     case 64: return launch_kg<T, 64>(kg, q, k, v, lengths, out, part_acc,
-                                     part_ml, B, S, H, KVH, split_len,
+                                     part_ml, lse, B, S, H, KVH, split_len,
                                      n_splits, st);
     case 128: return launch_kg<T, 128>(kg, q, k, v, lengths, out, part_acc,
-                                       part_ml, B, S, H, KVH, split_len,
+                                       part_ml, lse, B, S, H, KVH, split_len,
                                        n_splits, st);
   }
   return (int)cudaErrorInvalidValue;
@@ -719,8 +742,8 @@ cudaError_t launch_after(void (*kernel)(Params...), dim3 grid,
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v,
                const void* lengths, void* out, void* part_acc, void* part_ml,
-               int B, int S, int H, int KVH, int split_len, int n_splits,
-               cudaStream_t st) {
+               void* lse, int B, int S, int H, int KVH, int split_len,
+               int n_splits, cudaStream_t st) {
   static_assert(mma_smem<D>() >= (size_t)kMmaWarps * kMmaRows * (D + 2) * 4,
                 "the ring must hold the warps' states for the merge");
   const int G = H / KVH;
@@ -747,7 +770,8 @@ int launch_mma(const void* q, const void* k, const void* v,
   err = launch_after(flash_decode_merge<__nv_bfloat16>,
                      dim3((unsigned)((long long)B * H)),
                      dim3(D < 128 ? D : 128), 0, st, (const float*)part_acc,
-                     (const float*)part_ml, (__nv_bfloat16*)out, D, n_splits);
+                     (const float*)part_ml, (__nv_bfloat16*)out, (float*)lse,
+                     D, n_splits);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -759,13 +783,15 @@ int launch_mma(const void* q, const void* k, const void* v,
 // serves; D is 16, 32, 64 or 128; H is a multiple of KVH.  The caller
 // allocates part_acc (float32 [B * H, n_splits, D]) and part_ml
 // (float32 [B * H, n_splits, 2]), and picks split_len (a multiple of 64)
-// and n_splits with n_splits * split_len >= S.  Launches both passes on
-// `stream` and returns cudaGetLastError() (0 on success); never
-// synchronises.
+// and n_splits with n_splits * split_len >= S.  `lse` is null, or float32
+// [B * H] for each row's log-sum-exp (flash_decode_merge).  Launches both
+// passes on `stream` and returns cudaGetLastError() (0 on success);
+// never synchronises.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* lengths,
                                    void* out, void* part_acc, void* part_ml,
-                                   int B, int S, int H, int KVH, int D,
+                                   void* lse, int B, int S, int H, int KVH,
+                                   int D,
                                    int kg, int split_len, int n_splits,
                                    int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 ||
@@ -775,34 +801,35 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_d<float>(D, kg, q, k, v, lengths, out, part_acc, part_ml,
-                           B, S, H, KVH, split_len, n_splits, st);
+                           lse, B, S, H, KVH, split_len, n_splits, st);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(D, kg, q, k, v, lengths, out, part_acc,
-                                   part_ml, B, S, H, KVH, split_len, n_splits,
-                                   st);
+                                   part_ml, lse, B, S, H, KVH, split_len,
+                                   n_splits, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Plain C entry point of the tensor-core route, bound with ctypes: q, k,
-// v bfloat16, D 64 or 128, H a multiple of KVH; part_acc and part_ml as
-// for flash_decode_launch, split_len a multiple of 16.  Launches both
+// v bfloat16, D 64 or 128, H a multiple of KVH; part_acc, part_ml and
+// lse as for flash_decode_launch, split_len a multiple of 16.  Launches both
 // passes on `stream`, with programmatic dependent launch, and returns
 // cudaGetLastError() (0 on success); never synchronises.
 extern "C" int flash_decode_mma_launch(const void* q, const void* k,
                                        const void* v, const void* lengths,
                                        void* out, void* part_acc,
-                                       void* part_ml, int B, int S, int H,
-                                       int KVH, int D, int split_len,
-                                       int n_splits, void* stream) {
+                                       void* part_ml, void* lse, int B,
+                                       int S, int H, int KVH, int D,
+                                       int split_len, int n_splits,
+                                       void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 ||
       split_len <= 0 || n_splits <= 0 || (long long)split_len * n_splits < S)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (D == 64)
-    return launch_mma<64>(q, k, v, lengths, out, part_acc, part_ml, B, S, H,
-                          KVH, split_len, n_splits, st);
+    return launch_mma<64>(q, k, v, lengths, out, part_acc, part_ml, lse, B,
+                          S, H, KVH, split_len, n_splits, st);
   if (D == 128)
-    return launch_mma<128>(q, k, v, lengths, out, part_acc, part_ml, B, S,
-                           H, KVH, split_len, n_splits, st);
+    return launch_mma<128>(q, k, v, lengths, out, part_acc, part_ml, lse, B,
+                           S, H, KVH, split_len, n_splits, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,7 +7,10 @@ the cache k, v [B, S, KVH, D] in its own layout -- query head h reads KV
 head h // (H / KVH), nothing is expanded to H heads -- with lengths
 int32 [B], all float32 or all bfloat16, D in {16, 32, 64, 128}.
 Returns [B, H, D] in q's dtype: the fp32 softmax over positions
-``< lengths[b]`` of the scaled scores, times V (zeros at length 0).
+``< lengths[b]`` of the scaled scores, times V (zeros at length 0); with
+``return_lse`` also each row's log-sum-exp of those scores, float32
+[B, H] (``-inf`` at length 0), which the merge pass writes from the
+final (m, l) it already holds.
 
 :func:`plan` picks the source's route from the dtype and D alone, never
 from a failed build or launch: bfloat16 at D = 64 or 128 (the LM's)
@@ -93,7 +96,7 @@ def _entry(name: str = "flash_decode_launch"):
     fn = getattr(common.load("flash_decode"), name)
     if fn.argtypes is None:
         ints = 9 if name == "flash_decode_launch" else 7
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * ints + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * ints + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -138,12 +141,15 @@ def _check(q, k, v, lengths) -> None:
                          f"{tuple(k.shape)}")
 
 
-def _launch(q, k, v, lengths, route=None):
+def _launch(q, k, v, lengths, route=None, return_lse=False):
     dev = q.device
     (b, h, d), (_, s, kvh, _) = q.shape, k.shape
     out = torch.empty_like(q)
+    lse = torch.empty((b, h), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if b == 0 or h == 0 or s == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(-torch.inf)) if return_lse else out
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     p = plan(b, kvh, h, s, d, q.dtype, sms) if route is None else \
         cut(route, b, kvh, h, s, sms)
@@ -152,7 +158,8 @@ def _launch(q, k, v, lengths, route=None):
     part_ml = torch.empty((b * h, p.n_splits, 2), dtype=torch.float32,
                           device=dev)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr())
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            lse.data_ptr() if return_lse else None)
     if p.route == "mma":
         err = common.launch(dev, _entry("flash_decode_mma_launch"), *ptrs,
                             b, s, h, kvh, d, p.split_len, p.n_splits)
@@ -163,20 +170,21 @@ def _launch(q, k, v, lengths, route=None):
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError {err}")
     launches.add()
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      lengths: torch.Tensor) -> torch.Tensor:
+                      lengths: torch.Tensor, return_lse: bool = False):
     """Launch the route :func:`plan` picks, on CUDA tensors; raises on
-    anything the kernel does not take."""
+    anything the kernel does not take.  Returns the output, or (output,
+    lse) with ``return_lse``."""
     _check(q, k, v, lengths)
-    return _launch(q, k, v, lengths)
+    return _launch(q, k, v, lengths, return_lse=return_lse)
 
 
 def _simt_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               lengths: torch.Tensor) -> torch.Tensor:
+               lengths: torch.Tensor, return_lse: bool = False):
     """The CUDA-core route whatever the plan (to time it beside the
-    tensor cores in bfloat16)."""
+    tensor cores in bfloat16, and to hold its LSE output)."""
     _check(q, k, v, lengths)
-    return _launch(q, k, v, lengths, "simt")
+    return _launch(q, k, v, lengths, "simt", return_lse)

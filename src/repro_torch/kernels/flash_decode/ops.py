@@ -16,8 +16,11 @@ from repro_torch.kernels.flash_decode.ref import decode_attention_ref
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
-    """q [B, H, D]; k, v [B, S, KVH, D]; lengths int [B] -> [B, H, D].
+                     lengths: torch.Tensor, return_lse: bool = False):
+    """q [B, H, D]; k, v [B, S, KVH, D]; lengths int [B] -> [B, H, D],
+    or (that, lse float32 [B, H]) with ``return_lse``: each row's
+    log-sum-exp of its masked scaled scores, ``-inf`` at length 0 (the
+    sequence-sharded decode merges shards by it).
 
     Query head h attends over KV head h // (H / KVH), masked to
     positions ``< lengths[b]``.  On the card the kernel reads the cache
@@ -30,7 +33,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cuda":
         return flash_decode_cuda(q.contiguous(), k.contiguous(),
                                  v.contiguous(),
-                                 lengths.to(torch.int32).contiguous())
+                                 lengths.to(torch.int32).contiguous(),
+                                 return_lse)
     if q.device.type != "cpu":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    return decode_attention_ref(q, k, v, lengths)
+    return decode_attention_ref(q, k, v, lengths, return_lse)

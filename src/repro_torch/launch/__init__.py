@@ -1,8 +1,11 @@
-"""Launch layer of the port: the device mesh one controller drives
-(``repro_torch.launch.mesh``)."""
+"""Launch layer of the port: the device mesh one controller drives and
+the layouts of tensors over it (``repro_torch.launch.mesh``)."""
 
-from repro_torch.launch.mesh import (Mesh, make_host_mesh, make_mesh,
-                                     make_production_mesh, mesh_chips)
+from repro_torch.launch.mesh import (Mesh, NamedSharding, PartitionSpec,
+                                     Placed, gather, make_host_mesh,
+                                     make_mesh, make_production_mesh,
+                                     mesh_chips, place, place_zeros)
 
-__all__ = ["Mesh", "make_mesh", "make_host_mesh", "make_production_mesh",
-           "mesh_chips"]
+__all__ = ["Mesh", "NamedSharding", "PartitionSpec", "Placed", "gather",
+           "make_mesh", "make_host_mesh", "make_production_mesh",
+           "mesh_chips", "place", "place_zeros"]

@@ -13,13 +13,24 @@ entries of ``cuda:0`` give four shards on one card.  Work placed on
 repeated entries runs on that one device; a copy of a replicated
 tensor is made once per *distinct* device.
 
+Tensors are laid out over a mesh as ``jax.sharding`` lays them out:
+:class:`PartitionSpec` names, for each dimension, the mesh axes it is
+split over (``None``: not split), :class:`NamedSharding` pairs it with
+a mesh, and :func:`place` cuts a tensor into a :class:`Placed` -- one
+contiguous shard per distinct (block, device) pair, each on its
+entry's device -- which :func:`gather` puts back together.  A
+dimension split ``p`` ways that ``p`` does not divide gets shards of
+``ceil(n / p)`` rows, the last ones shorter (possibly empty).
+
 The reference's TPU roofline constants have no counterpart here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Iterable, Mapping, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Iterator, Mapping, Sequence, \
+    Tuple
 
 import numpy as np
 import torch
@@ -177,3 +188,184 @@ def make_host_mesh(device="cuda") -> Mesh:
 def mesh_chips(mesh: Mesh) -> int:
     """Entries of the mesh (a repeated device counts each time)."""
     return mesh.size
+
+
+# -------------------------------------------------------------------------
+# Partition specs and placed tensors
+# -------------------------------------------------------------------------
+class PartitionSpec(tuple):
+    """The mesh axes each dimension is split over (the counterpart of
+    ``jax.sharding.PartitionSpec``): an entry is ``None`` (not split),
+    an axis name, or a tuple of axis names (split over their product,
+    row-major).  Trailing dimensions without an entry are not split.
+    Hashable and comparable; ``PartitionSpec()`` replicates."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A :class:`PartitionSpec` on a :class:`Mesh` (the counterpart of
+    ``jax.sharding.NamedSharding``)."""
+    mesh: Mesh
+    spec: PartitionSpec
+
+    def __post_init__(self) -> None:
+        used = [a for e in self.spec for a in _axes_of(e)]
+        bad = [a for a in used if a not in self.mesh.axis_names]
+        if bad or len(set(used)) != len(used):
+            raise ValueError(f"spec {self.spec} does not fit the mesh axes "
+                             f"{self.mesh.axis_names}")
+
+    def parts(self, ndim: int) -> Tuple[int, ...]:
+        """How many ways each of ``ndim`` dimensions is split."""
+        if len(self.spec) > ndim:
+            raise ValueError(f"spec {self.spec} has more entries than the "
+                             f"tensor's {ndim} dimensions")
+        shape = self.mesh.shape
+        return tuple(math.prod(shape[a] for a in _axes_of(e))
+                     for e in self.spec) + (1,) * (ndim - len(self.spec))
+
+    def block_of(self, coords: Mapping[str, int], ndim: int) -> tuple:
+        """The block an entry at mesh ``coords`` holds: per dimension,
+        the row-major index of its coordinates along that dimension's
+        axes."""
+        shape = self.mesh.shape
+        out = []
+        for e in tuple(self.spec) + (None,) * (ndim - len(self.spec)):
+            i = 0
+            for a in _axes_of(e):
+                i = i * shape[a] + coords[a]
+            out.append(i)
+        return tuple(out)
+
+    def entries(self) -> Iterator[Tuple[Dict[str, int], torch.device]]:
+        """Each mesh entry's coordinates and device, in row-major order."""
+        names = self.mesh.axis_names
+        for idx in np.ndindex(*self.mesh.devices.shape):
+            yield dict(zip(names, idx)), self.mesh.devices[idx]
+
+
+def block_bounds(shape: Sequence[int], parts: Sequence[int],
+                 block: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    """Per dimension, the ``[lo, hi)`` rows of ``block``: shards of
+    ``ceil(n / p)`` rows, the last ones shorter (possibly empty)."""
+    out = []
+    for n, p, i in zip(shape, parts, block):
+        step = -(-n // p)
+        out.append((min(i * step, n), min((i + 1) * step, n)))
+    return tuple(out)
+
+
+class Placed:
+    """A tensor laid out over a mesh by a :class:`NamedSharding`.
+
+    ``shards`` maps each distinct (block, device) pair to its own
+    contiguous tensor on that device: entries that hold the same block
+    on one device share one shard (one copy per *distinct* device).
+    ``blocks`` lists each block once, in the mesh order of its first
+    entry, with its bounds and the shard on that entry's device."""
+
+    __slots__ = ("sharding", "shape", "dtype", "shards", "entry_keys")
+
+    def __init__(self, sharding: NamedSharding, shape, dtype,
+                 shards: Dict[tuple, torch.Tensor],
+                 entry_keys: Tuple[tuple, ...]) -> None:
+        self.sharding = sharding
+        self.shape = tuple(shape)
+        self.dtype = dtype
+        self.shards = shards
+        self.entry_keys = entry_keys       # (block, device) per entry
+
+    @property
+    def parts(self) -> Tuple[int, ...]:
+        return self.sharding.parts(len(self.shape))
+
+    def bounds(self, block: tuple) -> Tuple[Tuple[int, int], ...]:
+        return block_bounds(self.shape, self.parts, block)
+
+    @property
+    def blocks(self) -> Tuple[Tuple[tuple, tuple, torch.Tensor], ...]:
+        """((block, device), bounds, shard) once per block, in the mesh
+        order of its first entry, which holds that shard."""
+        seen = {}
+        for block, dev in self.entry_keys:
+            if block not in seen:
+                seen[block] = ((block, dev), self.bounds(block),
+                               self.shards[(block, dev)])
+        return tuple(seen.values())
+
+    def shard(self, entry: int) -> torch.Tensor:
+        """The shard mesh entry ``entry`` (row-major) holds."""
+        return self.shards[self.entry_keys[entry]]
+
+    def nbytes_by_device(self) -> Dict[torch.device, int]:
+        """Bytes of shards held on each device."""
+        out: Dict[torch.device, int] = {}
+        for (_, dev), t in self.shards.items():
+            out[dev] = out.get(dev, 0) + t.numel() * t.element_size()
+        return out
+
+    def __repr__(self) -> str:
+        return (f"Placed(shape={self.shape}, dtype={self.dtype}, "
+                f"spec={self.sharding.spec}, shards={len(self.shards)})")
+
+
+def _layout(shape, dtype, sharding: NamedSharding,
+            make: Callable[[tuple, torch.device], torch.Tensor]) -> Placed:
+    ndim = len(shape)
+    parts = sharding.parts(ndim)
+    shards: Dict[tuple, torch.Tensor] = {}
+    keys = []
+    for coords, dev in sharding.entries():
+        block = sharding.block_of(coords, ndim)
+        key = (block, dev)
+        if key not in shards:
+            shards[key] = make(block_bounds(shape, parts, block), dev)
+        keys.append(key)
+    return Placed(sharding, shape, dtype, shards, tuple(keys))
+
+
+def _slices(bounds) -> tuple:
+    return tuple(slice(lo, hi) for lo, hi in bounds)
+
+
+def place(tensor: torch.Tensor, sharding: NamedSharding) -> Placed:
+    """``tensor`` cut into the blocks ``sharding`` names, each copied
+    once to each distinct device that holds it, as a contiguous tensor
+    of its own (never a view of ``tensor``)."""
+    def make(bounds, dev):
+        part = tensor[_slices(bounds)]
+        return torch.empty(part.shape, dtype=tensor.dtype,
+                           device=dev).copy_(part)
+    return _layout(tuple(tensor.shape), tensor.dtype, sharding, make)
+
+
+def place_zeros(shape, dtype, sharding: NamedSharding) -> Placed:
+    """A zero tensor of ``shape`` laid out as :func:`place` lays it out,
+    made shard by shard (no whole tensor is ever allocated)."""
+    return _layout(tuple(shape), dtype, sharding, lambda bounds, dev:
+                   torch.zeros([hi - lo for lo, hi in bounds],
+                               dtype=dtype, device=dev))
+
+
+def gather(placed: Placed, device=None) -> torch.Tensor:
+    """The whole tensor on ``device`` (default: the first entry's), each
+    block read once."""
+    if device is None:
+        device = placed.entry_keys[0][1]
+    out = torch.empty(placed.shape, dtype=placed.dtype,
+                      device=canonical_device(device))
+    for _, bounds, shard in placed.blocks:
+        out[_slices(bounds)] = shard.to(out.device)
+    return out

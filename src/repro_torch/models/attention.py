@@ -16,6 +16,12 @@ not a multiple of ``block_k``).  GQA decode attention runs on the
 flash_decode kernel; MLA decode is the reference's absorbed einsums
 (one latent head with keys of kv_lora + rope width and values of
 kv_lora width, outside any kernel in the reference too).
+
+Against a cache laid out over a mesh (``transformer.init_cache(...,
+mesh=)``), ``gqa_decode_sharded`` and ``mla_decode_sharded`` attend over
+each sequence shard on its own device and merge the shards by their
+log-sum-exps (``merge_by_lse``): the reference's sequence-sharded decode,
+whose merge XLA derives from ``cache_specs``.
 """
 
 from __future__ import annotations
@@ -89,6 +95,16 @@ def init_gqa(cfg, *, generator: torch.Generator, device="cuda",
     return p
 
 
+def gqa_specs(cfg) -> dict:
+    """The logical specs of :func:`init_gqa`'s tree (the reference's
+    ``init_gqa`` returns them beside the weights)."""
+    s = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+         "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        s["bq"], s["bk"], s["bv"] = ("heads",), ("kv_heads",), ("kv_heads",)
+    return s
+
+
 def _proj_qkv_gqa(p, x, cfg, positions):
     b, t, _ = x.shape
     hq, kv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
@@ -158,6 +174,164 @@ def gqa_decode(p, x, cache_k, cache_v, lengths, cfg):
     ctx = decode_attention(q, cache_k, cache_v, lengths + 1)
     ctx = ctx.reshape(b, 1, hq_pad * dh)[..., :hq * dh]
     return ctx @ p["wo"], cache_k, cache_v
+
+
+# -------------------------------------------------------------------------
+# The sequence-sharded decode: a cache laid out over a mesh
+# -------------------------------------------------------------------------
+def _cache_blocks(cache) -> list:
+    """A placed ``[L, b, S, ...]`` cache's blocks as ``(key, (b0, b1),
+    (s0, s1), shard)``, each block once in mesh order; only the batch
+    and sequence axes may be split (``cache_specs``)."""
+    if any(p != 1 for i, p in enumerate(cache.parts) if i not in (1, 2)):
+        raise ValueError(f"a decode cache splits only its batch and "
+                         f"sequence axes, got {cache.sharding.spec}")
+    return [(key, bounds[1], bounds[2], t)
+            for key, bounds, t in cache.blocks]
+
+
+def cache_fill(cache, layer: int, rows: torch.Tensor) -> None:
+    """Write ``rows`` [b, t, ...] into positions [0, t) of layer
+    ``layer`` of a placed cache: into every shard (every copy) whose
+    range they reach."""
+    t = rows.shape[1]
+    for (block, dev), shard in cache.shards.items():
+        (b0, b1), (s0, s1) = cache.bounds(block)[1:3]
+        hi = min(s1, t)
+        if b1 > b0 and hi > s0:
+            shard[layer, :, :hi - s0] = rows[b0:b1, s0:hi].to(dev)
+
+
+def cache_write(cache, layer: int, new: torch.Tensor,
+                at: torch.Tensor) -> None:
+    """Write ``new`` [b, ...] at positions ``at`` [b] of layer ``layer``
+    of a placed cache, into the shard (each copy of it) whose range
+    holds the position; the other shards keep their rows (each rewrites
+    its own value).  No host sync."""
+    for (block, dev), shard in cache.shards.items():
+        (b0, b1), (s0, s1) = cache.bounds(block)[1:3]
+        if b1 == b0 or s1 == s0:
+            continue
+        a = at[b0:b1].to(dev)
+        hit = ((a >= s0) & (a < s1)).view(-1, *([1] * (new.dim() - 1)))
+        idx = (a - s0).clamp(0, s1 - s0 - 1)
+        rows = torch.arange(b1 - b0, device=dev)
+        part = shard[layer]
+        part[rows, idx] = torch.where(hit, new[b0:b1].to(dev),
+                                      part[rows, idx])
+
+
+def merge_by_lse(parts, out_dtype) -> torch.Tensor:
+    """Partial attention outputs ``[(out_i [b, h, d], lse_i [b, h])]``
+    over disjoint position ranges, merged in list order into the softmax
+    over their union: ``lse = logsumexp_i lse_i``, ``out = sum_i
+    exp(lse_i - lse) out_i`` in float32.  A part whose range held no
+    valid position (``lse_i = -inf``) weighs 0; rows without any give
+    zeros, never NaN."""
+    lse = torch.logsumexp(torch.stack([l for _, l in parts]), dim=0)
+    lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    out = 0
+    for o, l in parts:
+        out = out + torch.exp(l - lse)[..., None] * o.float()
+    return out.to(out_dtype)
+
+
+def _batch_merge(parts_by_rows: dict, b: int, dtype) -> torch.Tensor:
+    """Each batch range's parts merged by :func:`merge_by_lse`, the
+    ranges laid side by side into [b, ...]."""
+    out = None
+    for (b0, b1), parts in parts_by_rows.items():
+        merged = merge_by_lse(parts, dtype)
+        if out is None:
+            out = merged.new_zeros((b,) + tuple(merged.shape[1:]))
+        out[b0:b1] = merged
+    return out
+
+
+def gqa_decode_sharded(p, x, cache_k, cache_v, layer: int, lengths, cfg):
+    """:func:`gqa_decode` against layer ``layer`` of a placed cache
+    (``repro_torch.launch.mesh.Placed`` k and v, ``[L, b, S, kv, dh]``
+    split over the sequence, and the batch where the rules say so).
+
+    The new K and V rows go only into the shard that holds position
+    ``lengths[b]`` (clamped to S - 1, as on one device).  Each shard
+    runs :func:`decode_attention` -- the flash_decode kernel on a card,
+    one launch a shard -- on its own device over its local lengths
+    ``clamp(lengths + 1 - lo, 0, hi - lo)``, returning its output and
+    log-sum-exp; the parts are merged on ``x``'s device in shard order
+    (:func:`merge_by_lse`).  A shard past every row's length launches
+    all the same and weighs 0; a shard of no positions (``s_max`` split
+    unevenly) is skipped.  Returns out [b, 1, d]."""
+    b = x.shape[0]
+    hq, kv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
+    q, k_new, v_new = _proj_qkv_gqa(p, x, cfg, lengths[:, None])
+    at = lengths.long().clamp(0, cache_k.shape[2] - 1)
+    cache_write(cache_k, layer, k_new[:, 0], at)
+    cache_write(cache_v, layer, v_new[:, 0], at)
+    group = -(-hq // kv)
+    hq_pad = kv * group
+    q = q.reshape(b, hq, dh)
+    if hq_pad != hq:
+        q = torch.cat([q, q.new_zeros((b, hq_pad - hq, dh))], dim=1)
+    ends = lengths.to(torch.int64) + 1
+    parts: dict = {}
+    for key, (b0, b1), (s0, s1), kt in _cache_blocks(cache_k):
+        if b1 == b0 or s1 == s0:
+            continue
+        dev = key[1]
+        local = (ends[b0:b1].to(dev) - s0).clamp(0, s1 - s0)
+        o, lse = decode_attention(q[b0:b1].to(dev), kt[layer],
+                                  cache_v.shards[key][layer],
+                                  local.to(torch.int32), return_lse=True)
+        parts.setdefault((b0, b1), []).append((o.to(x.device),
+                                               lse.to(x.device)))
+    ctx = _batch_merge(parts, b, x.dtype)
+    ctx = ctx.reshape(b, 1, hq_pad * dh)[..., :hq * dh]
+    return ctx @ p["wo"]
+
+
+def mla_decode_sharded(p, x, cache_ckv, cache_kr, layer: int, lengths, cfg):
+    """:func:`mla_decode` against layer ``layer`` of a placed latent
+    cache (``ckv [L, b, S, cl]`` and ``kr [L, b, S, dr]``), as
+    :func:`gqa_decode_sharded` does it for GQA: the new rows into the
+    shard that holds ``lengths[b]``, then the absorbed einsums over each
+    shard on its device (plain torch: the reference has no MLA kernel),
+    each giving its latent context under its own softmax and the
+    log-sum-exp of its masked scores, merged on ``x``'s device in shard
+    order.  Returns out [b, 1, d]."""
+    b = x.shape[0]
+    h, dn, dr, dv, cl = (cfg.padded_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim, cfg.kv_lora)
+    positions = lengths[:, None]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv_new, kr_new = _mla_ckv(p, x, cfg, positions)
+    at = lengths.long().clamp(0, cache_ckv.shape[2] - 1)
+    cache_write(cache_ckv, layer, ckv_new[:, 0], at)
+    cache_write(cache_kr, layer, kr_new[:, 0], at)
+    q_lat = torch.einsum("bhd,chd->bhc", q_nope[:, 0],
+                         p["wuk"].reshape(cl, h, dn))
+    scale = float(np.sqrt(dn + dr))
+    parts: dict = {}
+    for key, (b0, b1), (s0, s1), ct in _cache_blocks(cache_ckv):
+        if b1 == b0 or s1 == s0:
+            continue
+        dev = key[1]
+        c, r = ct[layer], cache_kr.shards[key][layer]
+        scores = (torch.einsum("bhc,bsc->bhs", q_lat[b0:b1].to(dev), c) +
+                  torch.einsum("bhd,bsd->bhs", q_rope[b0:b1, 0].to(dev), r))
+        scores = scores / scale
+        valid = s0 + torch.arange(s1 - s0, device=dev) <= \
+            lengths[b0:b1, None].to(dev)
+        scores = torch.where(valid[:, None], scores.float(), -1e30)
+        lse = torch.logsumexp(scores, dim=-1)
+        probs = torch.exp(scores - lse[..., None]).to(x.dtype)
+        ctx = torch.einsum("bhs,bsc->bhc", probs, c)
+        parts.setdefault((b0, b1), []).append((ctx.to(x.device),
+                                               lse.to(x.device)))
+    ctx_lat = _batch_merge(parts, b, x.dtype)
+    ctx = torch.einsum("bhc,chd->bhd", ctx_lat,
+                       p["wuv"].reshape(cl, h, dv)).reshape(b, 1, h * dv)
+    return ctx @ p["wo"]
 
 
 # -------------------------------------------------------------------------
@@ -282,6 +456,21 @@ def init_mla(cfg, *, generator: torch.Generator, device="cuda",
     p["wuv"] = dense_init(cl, h * dv, **kw)
     p["wo"] = dense_init(h * dv, d, **kw)
     return p
+
+
+def mla_specs(cfg) -> dict:
+    """The logical specs of :func:`init_mla`'s tree (the reference's
+    ``init_mla`` returns them beside the weights)."""
+    s = {}
+    if cfg.q_lora:
+        s["wdq"], s["q_norm"], s["wuq"] = ("embed", None), (None,), \
+            (None, "heads")
+    else:
+        s["wq"] = ("embed", "heads")
+    s.update(wdkv=("embed", None), kv_norm=(None,),
+             wuk=("kv_lora", "heads"), wuv=("kv_lora", "heads"),
+             wo=("heads", "embed"))
+    return s
 
 
 def _mla_q(p, x, cfg, positions):

@@ -27,8 +27,14 @@ masked step keeps its state.
 Parameters are a nested dict of tensors in the reference's tree and
 ``[in, out]`` layout (``head`` and ``aux`` lists of ``{"w", "b", "p"}``
 layers), so :func:`load_reference_params` copies the reference's tree.
-``param_specs`` (the mesh's row sharding of the tables) waits for the
-mesh slice; ``unroll_scans`` has no effect here.
+``param_specs`` are the reference's logical specs: the three tables on
+``table_rows`` (-> ``model``), the rest replicated.  ``place_params``
+lays the tables out over a mesh by them, and the embedding reads then
+run shard by shard: each shard takes the ids in its row range on its own
+device and gives zeros for the others, and the shards' rows are summed
+in shard order on the ids' device -- one row plus zeros, so the result
+equals the unsharded gather bit for bit.  ``unroll_scans`` has no
+effect here.
 
 Shapes: ``train_batch`` (65536) runs the train step; ``serve_p99`` /
 ``serve_bulk`` the scoring forward; ``retrieval_cand`` scores one user
@@ -44,7 +50,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.core.graph import resolve_device
+from repro_torch.launch.mesh import Placed, place
 from repro_torch.models.common import dense_init, load_tree
 
 
@@ -118,6 +126,60 @@ def load_reference_params(tree, *, device="cuda") -> dict:
     return load_tree(tree, device=device)
 
 
+#: The embedding tables, and their logical spec: rows over "table_rows".
+TABLES = ("item_table", "cate_table", "profile_table")
+TABLE_SPEC = ("table_rows", None)
+
+
+def param_specs(cfg: DIENConfig) -> dict:
+    """The logical specs of :func:`init_params`' tree (the reference's,
+    ``dien.py:104``): the tables row-sharded, the rest replicated."""
+    return {
+        **dict.fromkeys(TABLES, TABLE_SPEC),
+        "gru": {"wx": (), "wh": (), "b": ()},
+        "augru": {"wx": (), "wh": (), "b": ()},
+        "attn": (),
+        "head": [{"w": (), "b": (), "p": ()}
+                 for _ in range(len(cfg.mlp) + 1)],
+        "aux": [{"w": (), "b": (), "p": ()} for _ in range(2)],
+    }
+
+
+def place_params(params: dict, mesh) -> dict:
+    """``params`` with the tables laid out over ``mesh`` by their
+    :func:`param_specs` through ``FSDP_TP`` (rows over ``model``); the
+    other leaves stay whole where they are."""
+    sharding = SH.resolve(TABLE_SPEC, SH.FSDP_TP, mesh)
+    return dict(params, **{name: place(params[name], sharding)
+                           for name in TABLES})
+
+
+def take_rows(table, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for a whole or a placed table ([V, D]).  Placed:
+    each row shard (the first copy of each block) takes the ids in its
+    range on its device, zeros for the others, and the shards' rows are
+    added in shard order on ``ids``' device; negative ids count from the
+    end, as whole-tensor indexing reads them."""
+    if not isinstance(table, Placed):
+        return table[ids]
+    if any(p != 1 for p in table.parts[1:]):
+        raise ValueError(f"a table splits only its rows, got "
+                         f"{table.sharding.spec}")
+    n = table.shape[0]
+    ids = torch.where(ids < 0, ids + n, ids)
+    out = None
+    for key, bounds, shard in table.blocks:
+        lo, hi = bounds[0]
+        if hi == lo:
+            continue
+        local = ids.to(key[1]) - lo
+        hit = (local >= 0) & (local < hi - lo)
+        rows = torch.where(hit[..., None], shard[local.clamp(0, hi - lo - 1)],
+                           0).to(ids.device)
+        out = rows if out is None else out + rows
+    return out
+
+
 def _prelu_mlp(layers, x: torch.Tensor, last_linear: bool = True):
     for i, lay in enumerate(layers):
         x = x @ lay["w"] + lay["b"]
@@ -131,8 +193,8 @@ def _prelu_mlp(layers, x: torch.Tensor, last_linear: bool = True):
 # -------------------------------------------------------------------------
 def behavior_embed(params, item_ids, cate_ids) -> torch.Tensor:
     """[B, T] ids -> [B, T, 2 * embed_dim]."""
-    return torch.cat([params["item_table"][item_ids],
-                      params["cate_table"][cate_ids]], dim=-1)
+    return torch.cat([take_rows(params["item_table"], item_ids),
+                      take_rows(params["cate_table"], cate_ids)], dim=-1)
 
 
 def profile_embed(params, bag_ids, cfg: DIENConfig) -> torch.Tensor:
@@ -141,7 +203,8 @@ def profile_embed(params, bag_ids, cfg: DIENConfig) -> torch.Tensor:
     reference's code does (its docstring's zero pad row is not enforced:
     the row is drawn at random and the batches draw no pads)."""
     b = bag_ids.shape[0]
-    return params["profile_table"][bag_ids].mean(dim=2).reshape(b, -1)
+    return take_rows(params["profile_table"], bag_ids).mean(dim=2).reshape(
+        b, -1)
 
 
 # -------------------------------------------------------------------------
@@ -267,7 +330,8 @@ def retrieval_scores(params, batch, candidate_ids,
     return user_vec @ cand.T
 
 
-__all__ = ["DIENConfig", "aux_loss", "behavior_embed", "forward",
-           "init_params", "interest_states", "load_reference_params",
-           "make_train_loss", "profile_embed", "retrieval_scores",
-           "run_augru", "run_gru"]
+__all__ = ["DIENConfig", "TABLES", "aux_loss", "behavior_embed",
+           "forward", "init_params", "interest_states",
+           "load_reference_params", "make_train_loss", "param_specs",
+           "place_params", "profile_embed", "retrieval_scores",
+           "run_augru", "run_gru", "take_rows"]

@@ -26,7 +26,7 @@ from torch import nn
 from repro_torch.core.graph import resolve_device
 from repro_torch.models.common import MLP
 from repro_torch.models.gnn.graph import (GraphBatch, agg_sum, graph_readout,
-                                          mse_loss)
+                                          mse_loss, replicated_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +123,13 @@ class EGNN(nn.Module):
         return self
 
 
+def param_specs(cfg: EGNNConfig) -> dict:
+    """Replicated specs of this model's parameter tree
+    (``graph.replicated_specs``), from a module built on the meta
+    device."""
+    return replicated_specs(EGNN(cfg, device="meta"))
+
+
 def make_loss(model: EGNN):
     """The reference's ``make_loss`` (``egnn.py:130``): loss_fn(params,
     (batch, target)) -> mean squared error of ``model``'s graph outputs;
@@ -130,4 +137,4 @@ def make_loss(model: EGNN):
     return mse_loss(model)
 
 
-__all__ = ["EGNN", "EGNNConfig", "EGNNLayer", "make_loss"]
+__all__ = ["EGNN", "EGNNConfig", "EGNNLayer", "make_loss", "param_specs"]

@@ -39,7 +39,8 @@ from repro_torch.core.graph import resolve_device
 from repro_torch.models.common import Dense, copy_param, dense_init
 from repro_torch.models.gnn import irreps as IR
 from repro_torch.models.gnn.graph import (GraphBatch, agg_max, agg_sum,
-                                          graph_readout, mse_loss)
+                                          graph_readout, mse_loss,
+                                          replicated_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,6 +358,13 @@ class EquiformerV2(nn.Module):
         return self
 
 
+def param_specs(cfg: EquiformerV2Config) -> dict:
+    """Replicated specs of this model's parameter tree
+    (``graph.replicated_specs``), from a module built on the meta
+    device."""
+    return replicated_specs(EquiformerV2(cfg, device="meta"))
+
+
 def make_loss(model: EquiformerV2):
     """The reference's ``make_loss`` (``equiformer_v2.py:287``): loss_fn(params,
     (batch, target)) -> mean squared error of ``model``'s graph outputs;
@@ -367,4 +375,4 @@ def make_loss(model: EquiformerV2):
 __all__ = ["EquiformerV2", "EquiformerV2Config", "EquiformerV2Layer",
            "MIndex", "SO2Linear", "edge_messages", "from_m_rep",
            "gaussian_rbf", "head_weight", "inverse_wigner", "make_loss",
-           "out_project", "to_m_rep"]
+           "out_project", "param_specs", "to_m_rep"]

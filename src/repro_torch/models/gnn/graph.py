@@ -136,6 +136,17 @@ def graph_readout(node_vals, graph_id, n_graph, op: str = "sum"):
     return out[:n_graph]
 
 
+def replicated_specs(model) -> dict:
+    """``()`` (replicated) for every leaf of ``model``'s own parameter
+    tree, ``dict(model.named_parameters())`` -- the tree the GNNs'
+    losses and the training loop take.  The reference's GNN
+    ``param_specs`` build theirs from a one-layer tiny config, which
+    matches no parameter tree of more than one layer; its callers
+    replicate the parameters instead (``launch/steps.py``
+    ``_replicated_like``), as these specs do."""
+    return {name: () for name, _ in model.named_parameters()}
+
+
 def mse_loss(model):
     """The molecule models' ``make_loss`` (``egnn.py:130``,
     ``nequip.py:187``, ``equiformer_v2.py:287`` of the reference) for

@@ -34,7 +34,7 @@ from repro_torch.core.graph import resolve_device
 from repro_torch.models.common import MLP, copy_param, dense_init
 from repro_torch.models.gnn import irreps as IR
 from repro_torch.models.gnn.graph import (GraphBatch, agg_sum, graph_readout,
-                                          mse_loss)
+                                          mse_loss, replicated_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,6 +189,13 @@ class NequIP(nn.Module):
         return self
 
 
+def param_specs(cfg: NequIPConfig) -> dict:
+    """Replicated specs of this model's parameter tree
+    (``graph.replicated_specs``), from a module built on the meta
+    device."""
+    return replicated_specs(NequIP(cfg, device="meta"))
+
+
 def make_loss(model: NequIP):
     """The reference's ``make_loss`` (``nequip.py:187``): loss_fn(params,
     (batch, target)) -> mean squared error of ``model``'s graph outputs;
@@ -197,4 +204,4 @@ def make_loss(model: NequIP):
 
 
 __all__ = ["NequIP", "NequIPConfig", "NequIPLayer", "bessel_rbf",
-           "make_loss"]
+           "make_loss", "param_specs"]

@@ -28,7 +28,8 @@ from torch import nn
 from repro_torch.core.graph import resolve_device
 from repro_torch.models.common import dense_init, softmax_cross_entropy
 from repro_torch.models.gnn.graph import (GraphBatch, agg_max, agg_min,
-                                          agg_std, graph_readout)
+                                          agg_std, graph_readout,
+                                          replicated_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +139,13 @@ class PNA(nn.Module):
             put(layer.upd, p["upd"])
         put(self.head, tree["head"])
         return self
+
+
+def param_specs(cfg: PNAConfig) -> dict:
+    """Replicated specs of this model's parameter tree
+    (``graph.replicated_specs``), from a module built on the meta
+    device."""
+    return replicated_specs(PNA(cfg, device="meta"))
 
 
 def make_loss(model: PNA):

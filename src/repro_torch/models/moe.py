@@ -45,6 +45,12 @@ def init_dense_ffn(d: int, f: int, *, generator: torch.Generator,
             "w_down": dense_init(f, d, **kw)}
 
 
+def dense_ffn_specs() -> dict:
+    """The logical specs of :func:`init_dense_ffn`'s tree."""
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
+
+
 def dense_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
     return swiglu(x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
 
@@ -83,6 +89,17 @@ def init_moe(cfg, *, generator: torch.Generator, device="cuda",
         "ws_up": dense_init(d, fs, **kw),
         "ws_down": dense_init(fs, d, **kw),
     }
+
+
+def moe_specs() -> dict:
+    """The logical specs of :func:`init_moe`'s tree: the routed experts
+    on ``experts``, the shared ones as a dense FFN."""
+    return {"router": ("embed", None),
+            "w_gate": ("experts", "expert_embed", "expert_mlp"),
+            "w_up": ("experts", "expert_embed", "expert_mlp"),
+            "w_down": ("experts", "expert_mlp", "expert_embed"),
+            "ws_gate": ("embed", "mlp"), "ws_up": ("embed", "mlp"),
+            "ws_down": ("mlp", "embed")}
 
 
 def dispatch_shape(n_tok: int, cfg) -> tuple[int, int, int]:
@@ -213,6 +230,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg):
     return out, aux_loss(r, cfg.moe_experts)
 
 
-__all__ = ["Routing", "aux_loss", "dense_ffn", "dispatch_shape",
-           "init_dense_ffn", "init_moe", "moe_dispatch", "moe_ffn",
+__all__ = ["Routing", "aux_loss", "dense_ffn", "dense_ffn_specs",
+           "dispatch_shape", "init_dense_ffn", "init_moe", "moe_dispatch",
+           "moe_ffn", "moe_specs",
            "no_drop_capacity_factor", "route", "undispatch"]

@@ -17,8 +17,20 @@ loss stays float32).  ``cfg.remat`` wraps each layer of
 ``forward_train`` in ``torch.utils.checkpoint`` (non-reentrant), which
 recomputes its activations in the backward: the same numbers.  Serving
 drops the aux loss, as the reference's ``prefill`` and ``decode_step``
-do (here it is not computed at all); the sharded decode
-(``sharded_decode``, ``seq_parallel``) waits for the mesh slice.
+do (here it is not computed at all).
+
+The mesh: ``param_specs``, ``act_spec`` and ``cache_specs`` are the
+reference's logical specs (``repro_torch.sharding``).  Of them only the
+cache's act here: ``init_cache`` / ``prefill`` with ``mesh=`` lay the
+cache out over the mesh (``cache_seq`` -> ``model``: each sequence
+shard its own tensor on its entry's device), and ``decode_step`` on such
+a cache runs the sequence-sharded decode (``attention.gqa_decode_sharded``,
+``mla_decode_sharded``): one flash_decode launch a shard for GQA, the
+shards' partial outputs merged by their log-sum-exps.  The weights stay
+whole on the controller's device, so ``seq_parallel`` (a layout hint for
+XLA's partitioner over a tensor-parallel forward) and ``unroll_scans``
+(a cost-analysis mode of XLA) have no effect: the port has no
+tensor-parallel forward yet.
 """
 
 from __future__ import annotations
@@ -29,7 +41,9 @@ from typing import Any
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import sharding as SH
 from repro_torch.core.graph import resolve_device
+from repro_torch.launch.mesh import Placed, place_zeros
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models.common import (dense_init, init_rms, load_tree,
@@ -44,10 +58,11 @@ class TransformerConfig:
     ``moe_groups`` and ``moe_capacity_factor`` act on one card as on a
     mesh: the dispatch groups and the capacity of each expert in a group
     decide which routed assignments drop (``moe.dispatch_shape``).
-    ``remat`` recomputes each layer in ``forward_train``'s backward.  The
-    mesh-only fields -- ``sharded_decode``, ``seq_parallel`` and
-    ``unroll_scans`` -- have no effect until the mesh slice, and ``tp``
-    only pads the query heads and the vocabulary."""
+    ``remat`` recomputes each layer in ``forward_train``'s backward.
+    ``sharded_decode`` sequence-splits a cache laid out over a mesh
+    (``cache_specs``); ``seq_parallel`` only chooses ``act_spec`` and
+    ``unroll_scans`` has no effect (module doc); ``tp`` pads the query
+    heads and the vocabulary."""
     name: str
     n_layers: int
     d_model: int
@@ -163,6 +178,31 @@ def load_reference_params(tree, *, device="cuda") -> dict:
     """The reference's parameter tree (``transformer.init_params``,
     leaves as numpy arrays) as the same tree of tensors on ``device``."""
     return load_tree(tree, device=device)
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The logical specs of :func:`init_params`' tree, the reference's
+    (``transformer.py:161``): every per-layer leaf with the stacked
+    ``"layers"`` axis first."""
+    attn = A.mla_specs(cfg) if cfg.attn == "mla" else A.gqa_specs(cfg)
+    ffn = M.moe_specs() if cfg.is_moe else M.dense_ffn_specs()
+    layer = {"attn": attn, "ffn": ffn, "ln1": (None,), "ln2": (None,)}
+    return {"embed": ("vocab", "embed"),
+            "layers": SH.map_specs(lambda sp: ("layers",) + tuple(sp),
+                                   layer),
+            "ln_f": (None,), "lm_head": ("embed", "vocab")}
+
+
+#: [b, t, d] activations: batch-sharded.
+ACT = ("batch", None, None)
+
+
+def act_spec(cfg: TransformerConfig, t: int):
+    """Residual-stream spec: sequence-parallel when enabled and the
+    sequence divides ``tp`` (decode t = 1 stays batch-only)."""
+    if cfg.seq_parallel and t % cfg.tp == 0:
+        return ("batch", "act_seq", None)
+    return ACT
 
 
 def param_bytes(params: dict) -> int:
@@ -281,23 +321,56 @@ def abstract_cache(cfg: TransformerConfig, batch: int, s_max: int) -> dict:
     return cache
 
 
+def cache_specs(cfg: TransformerConfig) -> dict:
+    """Logical specs of the cache: sequence-sharded (``cache_seq``) when
+    ``sharded_decode`` (the reference's, ``transformer.py:271``)."""
+    seq_ax = "cache_seq" if cfg.sharded_decode else None
+    if cfg.attn == "mla":
+        return {"ckv": ("layers", "batch", seq_ax, None),
+                "kr": ("layers", "batch", seq_ax, None),
+                "lengths": ("batch",)}
+    return {"k": ("layers", "batch", seq_ax, "kv_heads", None),
+            "v": ("layers", "batch", seq_ax, "kv_heads", None),
+            "lengths": ("batch",)}
+
+
 def init_cache(cfg: TransformerConfig, batch: int, s_max: int, *,
-               device="cuda") -> dict:
+               device="cuda", mesh=None) -> dict:
     """A zero cache of :func:`abstract_cache`'s shapes, in ``act_dtype``
-    (lengths int32)."""
+    (lengths int32).
+
+    With ``mesh`` the two cache tensors are laid out over it by
+    :func:`cache_specs` through ``FSDP_TP``: each
+    shard made on its entry's device as a contiguous tensor of its own
+    (``launch.mesh.place_zeros``), so that the flash_decode kernel reads
+    it as it is.  ``lengths`` stays on ``device``, the controller's,
+    whole (the reference replicates it); each step copies it to each
+    distinct device of the shards."""
     dev = resolve_device(device)
-    return {k: torch.zeros(x.shape, dtype=x.dtype, device=dev)
-            for k, x in abstract_cache(cfg, batch, s_max).items()}
+    shapes = abstract_cache(cfg, batch, s_max)
+    cache = {"lengths": torch.zeros((batch,), dtype=torch.int32,
+                                    device=dev)}
+    specs = cache_specs(cfg)
+    for name in cache_names(cfg):
+        x = shapes[name]
+        if mesh is None:
+            cache[name] = torch.zeros(x.shape, dtype=x.dtype, device=dev)
+        else:
+            cache[name] = place_zeros(x.shape, x.dtype, SH.resolve(
+                specs[name], SH.FSDP_TP, mesh))
+    return cache
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            s_max: int):
+            s_max: int, *, mesh=None):
     """Full-sequence forward that also fills the cache.
 
     tokens int [b, t] on the device the parameters lie on.  Prompts of
     ``t >= cfg.blockwise_prefill_from`` take the blockwise attention.
     Returns (logits [b, Vpad] of the last position, cache) with the
-    cache of :func:`init_cache` filled to length t."""
+    cache of :func:`init_cache` (laid out over ``mesh`` when given; each
+    layer's rows written into the shards they reach)
+    filled to length t."""
     b, t = tokens.shape
     x = params["embed"][tokens].to(cfg.act_dtype)
     positions = torch.arange(t, dtype=torch.int32,
@@ -311,14 +384,18 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             return blockwise(p, h, c, pos, block_k=cfg.prefill_block_k)
     else:
         attn_fn = A.mla_train if mla else A.gqa_train
-    cache = init_cache(cfg, b, s_max, device=tokens.device)
+    cache = init_cache(cfg, b, s_max, device=tokens.device, mesh=mesh)
     n1, n2 = cache_names(cfg)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h, (c1, c2) = attn_fn(lp["attn"], rms_norm(lp["ln1"], x), cfg,
                               positions)
-        cache[n1][i, :, :t] = c1
-        cache[n2][i, :, :t] = c2
+        if mesh is None:
+            cache[n1][i, :, :t] = c1
+            cache[n2][i, :, :t] = c2
+        else:
+            A.cache_fill(cache[n1], i, c1)
+            A.cache_fill(cache[n2], i, c2)
         x = x + h
         x = x + _ffn(lp["ffn"], rms_norm(lp["ln2"], x), cfg)
     logits = rms_norm(params["ln_f"], x[:, -1]) @ params["lm_head"]
@@ -337,15 +414,27 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
 
     Each layer writes its new rows **in place** into the cache's two
     tensors (``k`` / ``v``, or ``ckv`` / ``kr`` for MLA); the returned
-    cache shares them and carries ``lengths + 1``."""
+    cache shares them and carries ``lengths + 1``.  A cache laid out
+    over a mesh (``init_cache(..., mesh=)``) takes the sequence-sharded
+    decode (module doc)."""
     x = params["embed"][token[:, None]].to(cfg.act_dtype)
     lengths = cache["lengths"]
     n1, n2 = cache_names(cfg)
-    decode = A.mla_decode if cfg.attn == "mla" else A.gqa_decode
+    mla = cfg.attn == "mla"
+    sharded = isinstance(cache[n1], Placed)
+    if sharded:
+        decode = A.mla_decode_sharded if mla else A.gqa_decode_sharded
+    else:
+        decode = A.mla_decode if mla else A.gqa_decode
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h, _, _ = decode(lp["attn"], rms_norm(lp["ln1"], x), cache[n1][i],
-                         cache[n2][i], lengths, cfg)
+        h_in = rms_norm(lp["ln1"], x)
+        if sharded:
+            h = decode(lp["attn"], h_in, cache[n1], cache[n2], i, lengths,
+                       cfg)
+        else:
+            h, _, _ = decode(lp["attn"], h_in, cache[n1][i], cache[n2][i],
+                             lengths, cfg)
         x = x + h
         x = x + _ffn(lp["ffn"], rms_norm(lp["ln2"], x), cfg)
     logits = rms_norm(params["ln_f"], x[:, 0]) @ params["lm_head"]

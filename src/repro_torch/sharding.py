@@ -1,0 +1,176 @@
+"""Logical-axis sharding rules (port of ``repro.sharding``).
+
+Every parameter, cache and optimizer leaf carries a *logical* spec (a
+tuple of logical axis names, ``()`` for a replicated leaf); ``resolve``
+maps the names onto mesh axes through a rule table.  The two tables are
+the reference's:
+
+* ``FSDP_TP`` -- weights: matrix dims split (fsdp -> "data") x (tensor
+  -> "model"); optimizer state inherits; batch over ("pod", "data").
+* ``TP_ONLY`` -- serving: weights tensor-split only, batch over
+  ("pod", "data").
+
+``resolve`` keeps the reference's rules exactly: a name the table lacks
+replicates, a composite rule drops the axes the mesh lacks (and
+collapses to one name when one is left), and a single axis the mesh
+lacks replicates.
+
+In the reference these specs are hints that XLA's partitioner acts on.
+Here one controller drives every entry of a mesh, so only the paths that
+lay tensors out by hand follow them:
+
+* the sequence-sharded decode cache (``transformer.init_cache(...,
+  mesh=)``, ``cache_specs``: ``cache_seq`` -> ``model``);
+* the ZeRO optimizer state (``optimizer.place_state``, ``state_specs``);
+* DIEN's row-sharded tables (``dien.place_params``: ``table_rows`` ->
+  ``model``);
+* the ring-partitioned Equiformer-v2 (``models.gnn.ring``: its own node
+  blocks and edge buckets over ``("data", "model")``).
+
+Everything else computes on whole tensors, so ``constraint`` and
+``shard_act`` check the spec against the mesh and return their input's
+values unchanged (the reference's ``with_sharding_constraint`` changes
+a layout, never a value).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, Mapping, Sequence
+
+from repro_torch.launch.mesh import Mesh, NamedSharding, PartitionSpec
+
+# Rule tables: logical name -> mesh axis (or tuple, or None = replicate).
+FSDP_TP: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": "data",        # fsdp dimension of weight matrices
+    "act_seq": "model",     # sequence-parallel residual stream
+    "mlp": "model",
+    "heads": "model",
+    "kv_heads": None,
+    "head_dim": None,
+    "vocab": "model",
+    "experts": "model",
+    "expert_mlp": None,
+    "expert_embed": "data",
+    "layers": None,
+    "kv_lora": None,
+    "cache_seq": "model",   # decode caches: sequence-sharded (flash decode)
+    "nodes": None,
+    "edges": ("data", "model"),
+    "channels": "model",
+    "qbatch": ("pod", "data"),
+    "table_rows": "model",  # embedding tables row-sharded
+    "feat": None,
+    "ring_nodes": "data",   # ring-partitioned GNN node blocks
+    "ring_cols": "model",   # ring bucket model columns
+}
+
+TP_ONLY = dict(FSDP_TP, embed=None, expert_embed=None)
+
+
+def drop_pod(rules: Mapping[str, Any]) -> dict[str, Any]:
+    """Single-pod variant: the "pod" axis dropped from composite rules."""
+    out = {}
+    for k, v in rules.items():
+        if isinstance(v, tuple):
+            v = tuple(a for a in v if a != "pod")
+            v = v[0] if len(v) == 1 else (v or None)
+        out[k] = v
+    return out
+
+
+def is_spec(x) -> bool:
+    """A logical spec leaf: ``None`` or a plain tuple of names and
+    ``None`` (``()`` included); a named tuple is a node of the tree."""
+    return x is None or (isinstance(x, tuple) and not hasattr(x, "_fields")
+                         and all(isinstance(e, (str, type(None)))
+                                 for e in x))
+
+
+def map_specs(fn: Callable, specs):
+    """``fn`` over every spec leaf of ``specs`` (dicts, lists, tuples and
+    named tuples), rebuilt in the same structure."""
+    if is_spec(specs):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        return type(specs)(*(map_specs(fn, v) for v in specs))
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(map_specs(fn, v) for v in specs)
+    raise TypeError(f"not a spec tree: {specs!r}")
+
+
+def resolve(spec: Sequence[str | None] | None, rules: Mapping[str, Any],
+            mesh: Mesh) -> NamedSharding:
+    """Logical spec tuple -> :class:`NamedSharding` on ``mesh``."""
+    if spec is None:
+        return NamedSharding(mesh, PartitionSpec())
+    axes = []
+    for name in spec:
+        if name is None:
+            axes.append(None)
+            continue
+        axis = rules.get(name, None)
+        if isinstance(axis, tuple):
+            axis = tuple(a for a in axis if a in mesh.axis_names) or None
+            if axis is not None and len(axis) == 1:
+                axis = axis[0]
+        elif axis is not None and axis not in mesh.axis_names:
+            axis = None
+        axes.append(axis)
+    return NamedSharding(mesh, PartitionSpec(*axes))
+
+
+def resolve_tree(specs, rules: Mapping[str, Any], mesh: Mesh):
+    """A tree of logical specs -> the same tree of NamedShardings."""
+    return map_specs(lambda s: resolve(s, rules, mesh), specs)
+
+
+def constraint(x, spec, rules: Mapping[str, Any], mesh: Mesh):
+    """The reference's ``with_sharding_constraint`` through the table:
+    the spec is resolved (and must fit the mesh); the values are
+    ``x``'s, unchanged (module doc)."""
+    resolve(spec, rules, mesh)
+    return x
+
+
+# -------------------------------------------------------------------------
+# Activation-sharding context: model code may call ``shard_act(x, spec)``
+# unconditionally; the launch layer activates the (rules, mesh) pair for
+# the duration of a call.  Outside the context it is the identity; inside
+# it resolves the spec and returns ``x`` unchanged (module doc).
+# -------------------------------------------------------------------------
+_ACT_CTX: list = []
+
+
+@contextlib.contextmanager
+def activation_sharding(rules: Mapping[str, Any], mesh: Mesh):
+    _ACT_CTX.append((rules, mesh))
+    try:
+        yield
+    finally:
+        _ACT_CTX.pop()
+
+
+def shard_act(x, spec):
+    """Constrain an activation to a logical spec (identity outside the
+    context; the values unchanged inside it)."""
+    if not _ACT_CTX:
+        return x
+    rules, mesh = _ACT_CTX[-1]
+    return constraint(x, spec, rules, mesh)
+
+
+def wrap_with_activation_sharding(fn, rules, mesh):
+    def wrapped(*args, **kwargs):
+        with activation_sharding(rules, mesh):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+__all__ = ["FSDP_TP", "TP_ONLY", "activation_sharding", "constraint",
+           "drop_pod", "is_spec", "map_specs", "resolve", "resolve_tree",
+           "shard_act", "wrap_with_activation_sharding"]

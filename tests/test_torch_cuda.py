@@ -51,7 +51,13 @@ route, an ``SPCService`` with both meshes) exactly as the single-device
 engine does; a mesh that mixes the card with the CPU places edge
 shards, index copies and query shards on both devices with the same
 answers; and, on a machine with several cards, a mesh of every card
-does the same through NCCL's reduce and broadcast.
+does the same through NCCL's reduce and broadcast.  The mesh models
+run on the card: flash_decode's LSE output on both routes is within
+1e-4 of its plain version (``-inf`` at length 0, the outputs bit for bit
+those of the call without it), the sequence-sharded decode over four
+``cuda:0`` entries gives the CPU mesh's logits and cache within 1e-4
+with one K4 launch a layer, step and shard, and the ring-partitioned
+Equiformer-v2 gives the CPU's node irreps within rtol 1e-4 / atol 1e-5.
 """
 
 import dataclasses
@@ -1108,3 +1114,132 @@ def test_dien_and_a_smoke_train_step_on_the_card_equal_the_cpu(card):
                         flatten(res["cpu"][part])[0]):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     assert [c.count for c in counters] == before
+
+
+#: K4's LSE output on both routes: the CUDA-core route in float32 and
+#: bfloat16, the tensor-core route in bfloat16 (D 64, 128), groups of 1,
+#: 6, 7 and 16, ragged lengths with a row of length 0.
+LSE_SHAPES = [(4, 1, 1, 333, 32), (3, 12, 2, 2000, 128), (5, 28, 4, 1030, 128),
+              (4, 16, 1, 700, 64)]
+
+
+@pytest.mark.parametrize("b,h,kvh,s,d", LSE_SHAPES)
+def test_flash_decode_lse_output_on_both_routes(card, b, h, kvh, s, d):
+    """``return_lse``: each row's log-sum-exp of its masked scaled scores
+    within 1e-4 of the plain version (bfloat16: on the float32 copies of
+    the same inputs), ``-inf`` at length 0, and the outputs bit for bit
+    those of the call without it; one launch each."""
+    rng = np.random.default_rng(b * s + h)
+    q, k, v, lengths = chip_smoke.decode_inputs(b, h, kvh, s, d, rng, card)
+    lengths[-1] = 0
+    runs = [("simt", torch.float32, FD.kernel._simt_cuda),
+            ("simt", torch.bfloat16, FD.kernel._simt_cuda)]
+    if d in FD.kernel.MMA_HEAD_DIMS:
+        runs.append(("mma", torch.bfloat16, FD.flash_decode_cuda))
+    for route, dtype, fn in runs:
+        qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+        want, want_lse = FD.decode_attention_ref(
+            qd.float(), kd.float(), vd.float(), lengths, return_lse=True)
+        before = FD.launches.count
+        got, lse = fn(qd, kd, vd, lengths, return_lse=True)
+        plain = fn(qd, kd, vd, lengths)
+        torch.cuda.synchronize()
+        assert FD.launches.count == before + 2
+        assert lse.dtype == torch.float32 and lse.shape == (b, h)
+        assert torch.equal(got, plain), route
+        assert torch.isneginf(lse[-1]).all() and not got[-1].any()
+        torch.testing.assert_close(lse[:-1], want_lse[:-1], rtol=0,
+                                   atol=1e-4)
+        tol = 2e-5 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["gqa", "mla"])
+def test_sharded_decode_on_four_cuda_entries_equals_the_cpu(card, arch):
+    """The sequence-sharded decode over a mesh of four ``cuda:0``
+    entries (s_max 13: shards of 4, 4, 4 and 1 positions) in float32:
+    prefill and 4 steps give the CPU mesh's logits within 1e-4 and the
+    unsharded card decode's; GQA launches K4 once a layer, step and
+    shard, MLA none."""
+    from repro_torch.configs.deepseek_v2_lite_16b import SMOKE as DS
+    from repro_torch.configs.qwen2_1_5b import SMOKE as LM_SMOKE
+    from repro_torch.launch.mesh import gather, make_mesh
+    from repro_torch.train.optimizer import tree_map
+    base = LM_SMOKE if arch == "gqa" else DS
+    cfg = dataclasses.replace(base, tp=1, param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    params = tf.init_params(cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 9)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev), params)
+        mesh = make_mesh((4,), ("model",), [dev] * 4)
+        logits, cache = tf.prefill(p, toks.to(dev), cfg, 13, mesh=mesh)
+        _, plain = tf.prefill(p, toks.to(dev), cfg, 13)
+        tok, got, ref = logits.argmax(-1).to(torch.int32), [], []
+        before = FD.launches.count
+        for _ in range(4):
+            a, cache = tf.decode_step(p, cache, tok, cfg)
+            launched = FD.launches.count
+            b, plain = tf.decode_step(p, plain, tok, cfg)
+            before += FD.launches.count - launched
+            got.append(a.cpu())
+            ref.append(b.cpu())
+            tok = a.argmax(-1).to(torch.int32)
+        n1 = tf.cache_names(cfg)[0]
+        out[dev] = (torch.stack(got), torch.stack(ref),
+                    gather(cache[n1], "cpu"), FD.launches.count - before)
+    for dev in ("cpu", "cuda"):
+        torch.testing.assert_close(out[dev][0], out[dev][1], rtol=1e-4,
+                                   atol=1e-4)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-4,
+                               atol=1e-4)
+    assert out["cpu"][3] == 0
+    assert out["cuda"][3] == (cfg.n_layers * 4 * 4 if arch == "gqa" else 0)
+
+
+def test_ring_on_the_card_equals_the_cpu(card):
+    """The ring-partitioned Equiformer-v2 (a small config) over a (2, 2)
+    mesh of ``cuda:0`` entries gives the CPU mesh's node irreps within
+    rtol 1e-4 / atol 1e-5, and the card's local forward's; no kernel of
+    the port launches."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.gnn import ring as RG
+    from repro_torch.models.gnn.equiformer_v2 import (EquiformerV2,
+                                                      EquiformerV2Config)
+    from repro_torch.models.gnn.graph import from_numpy
+    cfg = EquiformerV2Config(d_in=6, n_layers=2, d_hidden=8, l_max=2,
+                             m_max=1, n_heads=2, n_rbf=8)
+    rng = np.random.default_rng(0)
+    n, e = 30, 90
+    feat = rng.normal(size=(n, 6)).astype(np.float32)
+    pos = rng.normal(size=(n, 3)).astype(np.float32)
+    snd, rcv = rng.integers(0, n, e), rng.integers(0, n, e)
+    keep = snd != rcv
+    snd, rcv = snd[keep].astype(np.int32), rcv[keep].astype(np.int32)
+    src_b, dst_b, _, dropped = RG.bucket_edges(snd, rcv, n, 2, 2)
+    nodes, pblk, _ = RG.blocked_layout(feat, pos, n, 2)
+    assert dropped == 0
+    cpu_model = EquiformerV2(cfg, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = chip_smoke.gnn_cast(cpu_model, torch.float32, dev)
+        mesh = make_mesh((2, 2), ("data", "model"), [dev] * 4)
+        before = [c.count for c in (launches, SM.launches, EB.launches,
+                                    FD.launches)]
+        with torch.no_grad():
+            x = RG.forward_ring(model, torch.from_numpy(nodes).to(dev),
+                                torch.from_numpy(pblk).to(dev), src_b, dst_b,
+                                mesh)
+            local = model(from_numpy(feat, snd, rcv, pos=pos,
+                                     device=dev))[1][:n]
+        assert [c.count for c in (launches, SM.launches, EB.launches,
+                                  FD.launches)] == before
+        out[dev] = (RG.unblock(x, n, 2).cpu(), local.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cuda"][1], rtol=1e-4,
+                               atol=1e-5)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-5)

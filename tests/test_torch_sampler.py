@@ -133,7 +133,7 @@ def test_chip_smoke_gnn_phase_on_the_cpu(monkeypatch):
     assert mol["fault_rotation_rel_l2"] > chip_smoke.GNN_ROT_TOL
     assert all(out["molecule"][a]["two_launches_max_abs_err"] == 0.0
                for a in chip_smoke.GNN_ARCHS)
-    assert "top_ops_ms" in out["minibatch_lg"]["equiformer-v2"]
+    assert "top_ops_ms" not in out["minibatch_lg"]["equiformer-v2"]
     assert not any(counts.by_path["gnn"].values())
     # where float32 does not resolve the output to the tolerance (here a
     # tolerance of 0), the card and the CPU are held in float64

@@ -160,7 +160,8 @@ def test_port_and_smoke_script_import_no_jax_or_reference():
             "repro_torch.configs.deepseek_v2_236b",
             "repro_torch.models.dien", "repro_torch.configs.dien",
             "repro_torch.train.optimizer", "repro_torch.train.loop",
-            "repro_torch.data.pipelines"} <= set(imported)
+            "repro_torch.data.pipelines", "repro_torch.sharding",
+            "repro_torch.models.gnn.ring"} <= set(imported)
     scanned = {os.path.relpath(f, PORT) for f in files}
     assert {"bench/kernels_bench.py", "kernels/segment_matmul/ops.py",
             "core/directed.py", "train/checkpoint.py", "serve/replica.py",
@@ -169,7 +170,8 @@ def test_port_and_smoke_script_import_no_jax_or_reference():
             "configs/phi3_medium_14b.py", "configs/deepseek_v2_lite_16b.py",
             "configs/deepseek_v2_236b.py", "models/dien.py", "configs/dien.py",
             "train/optimizer.py", "train/loop.py",
-            "data/pipelines.py"} <= scanned
+            "data/pipelines.py", "sharding.py",
+            "models/gnn/ring.py"} <= scanned
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
@@ -329,7 +331,7 @@ def test_chip_smoke_counts_launches_by_path():
         sq.count += 2
     eb.count += 7                                  # a kernel check
     with counts.path("lm"):
-        fd.count += 28 * 64
+        fd.count += 8 * 64                         # LM_LAYERS x LM_STEPS
     fd.count += 9                                  # the main-shape check
     with counts.path("service"):
         sq.add(40)                                 # readers and dispatchers
@@ -352,26 +354,32 @@ def test_chip_smoke_counts_launches_by_path():
     eb.count += 2                  # a kernel check between the phases
     with counts.path("train"):
         pass                       # phase T: no kernel has a backward
+    fd.count += 6                  # X's unsharded decode and LSE holds
+    with counts.path("mesh"):
+        fd.count += 28 * 16 * 4    # X1: a launch a layer, step and shard
     zero = dict.fromkeys(kernels, 0)
     paths = dict.fromkeys(chip_smoke.PATH_KERNELS, 0)
     assert counts.by_path == {
         "dspc": dict(zero, spc_query=5),
         "kernels": dict(zero, spc_query=52, segment_matmul=53),
         "analytics": dict(zero, embedding_bag=1),
-        "lm": dict(zero, flash_decode=1792),
+        "lm": dict(zero, flash_decode=512),
         "service": dict(zero, spc_query=40),
         "distributed": zero,
         "qwen2-7b": dict(zero, flash_decode=448),
         "phi3-medium-14b": dict(zero, flash_decode=640),
         "deepseek-v2-lite-16b": zero, "deepseek-v2-236b": zero,
-        "gnn": zero, "recsys": zero, "train": zero}
+        "gnn": zero, "recsys": zero, "train": zero,
+        "mesh": dict(zero, flash_decode=1792)}
     assert chip_smoke.PATH_KERNELS["recsys"] == () == \
         chip_smoke.PATH_KERNELS["train"]
     assert counts.of("spc_query") == (97, dict(paths, dspc=5, kernels=52,
                                                service=40))
     assert counts.of("segment_matmul") == (53, dict(paths, kernels=53))
-    assert counts.of("flash_decode") == (1792 + 448 + 640, dict(
-        paths, lm=1792, **{"qwen2-7b": 448, "phi3-medium-14b": 640}))
+    assert counts.of("flash_decode") == (512 + 448 + 640 + 1792, dict(
+        paths, lm=512, mesh=1792,
+        **{"qwen2-7b": 448, "phi3-medium-14b": 640}))
+    assert chip_smoke.LM_LAYERS * chip_smoke.LM_STEPS == 512
     counts.check()
     bare = chip_smoke.PathLaunches(kernels)
     with bare.path("dspc"):
@@ -408,6 +416,15 @@ def test_chip_smoke_counts_launches_by_path():
     with pytest.raises(AssertionError, match="spc_query never launched "
                                              "on the service path"):
         no_service.check()
+    no_mesh = chip_smoke.PathLaunches(kernels)
+    for path, c in (("dspc", sq), ("kernels", sq), ("kernels", sm),
+                    ("analytics", eb), ("lm", fd), ("service", sq),
+                    ("qwen2-7b", fd), ("phi3-medium-14b", fd)):
+        with no_mesh.path(path):
+            c.count += 1
+    with pytest.raises(AssertionError, match="flash_decode never launched "
+                                             "on the mesh path"):
+        no_mesh.check()
 
 
 def test_launch_counter_counts_every_threaded_increment():
