@@ -153,8 +153,9 @@ D.  distributed -- one controller over a device mesh: every visible
                 edge axis ``model`` for the updater, a data axis ``data``
                 for serving); the mesh and whether its devices are
                 distinct on a line of their own.  D1: a power-law graph
-                of its own at two halvings of the dspc CONFIG (n 16384,
-                m 131072, in ``reduced``), built with phase 4's knobs on
+                of its own at DIST_HALVINGS = 3 halvings of the dspc
+                CONFIG (n 8192, m 65536, in ``reduced``), built with
+                phase 4's knobs on
                 one device and by ``DynamicSPC(..., mesh=)``: the two
                 ``state_dict()``s must be byte-identical.  One chunk of 8
                 events from ``graph_stream`` through the sharded updater
@@ -264,10 +265,12 @@ G.  GNN family -- EGNN, NequIP and Equiformer-v2 (``configs/{egnn,
                 drawn N(0, 1) from ``--seed`` where the graph has none
                 (full_graph_sm, minibatch_lg), and d_in is the shape's
                 feature width, n_out its classes (1 at molecule).  Each
-                forward: GNN_REPS calls after one warm-up (CUDA events;
-                p50), peak device memory, the reference's FLOP reckoning
-                (``_gnn_flops``); at minibatch_lg the host seconds of
-                ``synthetic_csr`` and of one ``sample`` (the profiler
+                forward: GNN_REPS calls (GNN_REPS_LG at minibatch_lg)
+                after one warm-up (CUDA events; p50), peak device
+                memory, the reference's FLOP reckoning
+                (``launch.steps._gnn_flops``); at minibatch_lg the host
+                seconds of ``synthetic_csr`` and of one ``sample`` (the
+                profiler
                 traces of G, R and T were dropped for the script's time
                 limit; PERF.md keeps their last readings).  Checks:
                 EGNN and NequIP at molecule and full_graph_sm equal to the
@@ -314,7 +317,7 @@ T.  train    -- AdamW (``AdamWConfig()``, as ``steps.py:63``) through
                 batch T_LM_BATCH (``reduced``: 256 -> T_LM_BATCH),
                 T_LM_STEPS steps (s/step, tokens/s, peak memory, the
                 share of the card's dense bf16 peak under the reference's
-                ``_lm_flops``), every loss
+                ``launch.steps._lm_flops``), every loss
                 finite and no step skipped;
                 the check: its first T_CHECK_LAYERS layers in float32
                 at T_CHECK_BATCH x T_CHECK_SEQ tokens, loss and every
@@ -358,11 +361,44 @@ X.  mesh     -- the mesh models over X_ENTRIES = 4 entries of ``cuda:0``
                 X4: Equiformer-v2 CONFIG in float32 through the ring
                 (``models/gnn/ring.py``) over the (2, 2) mesh at
                 full_graph_sm (X4_REPS calls) and minibatch_lg's sampled
-                block (one call): its node outputs against the local
+                block (one call, X4_LG_LAYERS of its 12 layers): its node
+                outputs against the local
                 forward of the same inputs within G's rtol / atol,
                 ``bucket_edges`` dropping none, and the planted fault
                 (model column 0's partial sums kept, no sum over
                 ``model``) outside them; time and peak memory.
+B.  launch   -- the launch layer (``repro_torch.launch.steps``).  B1:
+                every one of ``all_cells()``'s 44 cells built at full
+                size on the meta device (nothing allocated), one line a
+                cell: ``model_flops`` and the bytes of its abstract
+                parameters, optimizer state and batch.  B2: a cell of
+                each family through ``make_bundle(...).get_fn()`` on the
+                card at CONFIG width and depth: qwen2-1.5b decode_32k (28
+                layers, tp 16 as the cell has it, random bf16 weights, a
+                zero cache with lengths t // 2, its batch of 128 cut to
+                B2_DECODE_BATCH in ``reduced``), B2_DECODE_STEPS greedy
+                steps, one flash_decode launch a layer and step, the
+                cache's rows written once a step; DIEN train_batch
+                (65536) and EGNN molecule, B2_TRAIN_STEPS AdamW steps
+                each, the arguments of the abstract ones' shapes; and,
+                right after 3b, on the main path's graph and index, the
+                dspc inc_update step of one random vertex pair that is no
+                edge, then the dec_update step of that edge (a uniformly
+                random edge mostly touches a hub, and one such delete
+                took 62-68 s; PERF.md), each event's seconds beside
+                phase 4's build, then B2_DSPC_SOURCES sources (both
+                endpoints among them) against ``plain_spc_bfs``.  B3:
+                ``python -m repro_torch.launch.train --arch dien`` 3
+                steps into a directory, then 5 from it (``resumed from
+                step 2``) beside an uninterrupted 5: the final
+                checkpoints equal bit for bit.
+E.  examples -- the eight ``repro_torch.examples`` at the reference's CI
+                settings (``--fast`` where it has one): seven in this
+                process through ``main(argv)``, each one's own check
+                held; ``fleet_spc`` as its replica and updater processes,
+                in the background beside them and beside B3's processes.
+Each phase's seconds are printed on a line of its own (``phase ...``),
+and all of them together before the JSON lines.
 flash_decode is held against its plain version (the KV heads expanded,
 fp32 softmax) at the TPU sweep shapes and GQA groups in float32 (rtol =
 atol = 2e-5, the TPU test's) and bfloat16 (1e-2 against the plain
@@ -391,7 +427,11 @@ analytics path (the timed steps of A1 and A2), the LM path (L2 and
 L3; flash_decode exactly 8 x 64 times), the mesh path (the sharded
 prefills and decodes, the placed AdamW step, the row-sharded DIEN
 calls and the ring calls of X; flash_decode exactly 28 x 16 x 4 times,
-all in X1), one path for each
+all in X1), the launch path (B2's cells: flash_decode exactly 28 x 16
+times in the decode; the train cells and the dspc events launch none),
+the examples path (E's in-process examples: spc_query in the DSPC
+examples' serving, embedding_bag in analytics_spc's re-rank, flash_decode
+in serve_lm's decode), one path for each
 configuration of M, M2 and M3 (prefill and decode; flash_decode on the
 two dense ones, no kernel on the deepseek ones: MLA decode is the
 reference's einsums, the MoE un-dispatch a gather and adds, where the
@@ -486,7 +526,13 @@ PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
                 # phase X: qwen2-7b's sequence-sharded decode, one launch
                 # a shard (MLA's shards, ZeRO, DIEN's tables and the ring
                 # launch none)
-                "mesh": ("flash_decode",)}
+                "mesh": ("flash_decode",),
+                # phase B2: the decode_32k cell's decode (DIEN's and
+                # EGNN's train steps and the dspc events launch none)
+                "launch": ("flash_decode",),
+                # phase E: the DSPC examples' serving, analytics_spc's
+                # re-rank pooling and serve_lm's decode
+                "examples": ("spc_query", "embedding_bag", "flash_decode")}
 
 #: The segment_matmul sweep of tests/kernels/test_kernels.py (e, n, d),
 #: inputs drawn as that test draws them (ids in [0, n + 5): some dropped).
@@ -556,16 +602,18 @@ SERVICE_WAIT_S, FLEET_DISK_BYTES = 600.0, 16 * 10 ** 9
 #: Phase D: mesh entries on a single card (an edge axis and a data axis
 #: of 4 entries of cuda:0), events in its chunk, serve batches and their
 #: pairs, and the halvings of the dspc CONFIG's n and m for its own
-#: graph (n 16384, m 131072: its single-device build, which it is held
-#: against, takes about a sixteenth of phase 4's).
+#: graph (n 8192, m 65536: its single-device build, which it is held
+#: against, takes a few seconds; two halvings, n 16384, until PR 24, cut
+#: for the script's time limit).
 DIST_SHARDS, DIST_EVENTS, DIST_BATCHES, DIST_PAIRS = 4, 8, 64, 1024
-DIST_HALVINGS = 2
+DIST_HALVINGS = 3
 #: Phase M: deepseek-v2-lite-16b CONFIG at full width and depth on
 #: decode_32k's context, its global batch of 128 cut to DS_BATCH
-#: requests (the MLA cache is 31104 B a token: 8.2 GB at 8), prefilled
+#: requests (the MLA cache is 31104 B a token: 1.0 GB at 1; 8 until
+#: PR 24, cut for the script's time limit), prefilled
 #: DS_GROUP at a time (the blockwise float32 scores of a group are the
 #: peak's largest part), DS_STEPS greedy decode steps.
-DS_BATCH, DS_GROUP, DS_STEPS = 8, 2, 64
+DS_BATCH, DS_GROUP, DS_STEPS = 1, 1, 64
 #: M-check (and M2's check), in float32 with the no-drop capacity factor
 #: e / k: the layers kept, the requests and their prompt (blockwise, and
 #: ragged against prefill_block_k once the fed tokens are added), the
@@ -595,6 +643,8 @@ FD_FAMILY_BATCH, FD_GROUP5_ROWS = 16, 4
 GNN_ARCHS = ("egnn", "nequip", "equiformer-v2")
 GNN_SHAPE_NAMES = ("molecule", "full_graph_sm", "minibatch_lg")
 GNN_REPS, GNN_RTOL, GNN_ATOL, GNN_ROT_TOL = 5, 1e-4, 1e-5, 1e-3
+#: Timed calls at minibatch_lg (5 until PR 24; cut for the time limit).
+GNN_REPS_LG = 1
 GNN_CPU_MOLECULES = 8
 #: Phase R: DIEN's timed calls at serve_p99, serve_bulk and
 #: retrieval_cand, and the tolerance of the card against the CPU.
@@ -630,8 +680,18 @@ X_REL_TOL = {"X1": 6.557e-2, "X2": 1.176e-1}
 X_LSE_ATOL, X_TRACE_STEPS = 1e-3, 2
 X3_GRAD_BATCH, X3_ADAMW_RTOL = 4096, 1e-6
 X4_REPS = 3
+#: X4's layers at minibatch_lg (CONFIG's 12 until PR 24; cut for the
+#: script's time limit: the ring's one call there took 24.6 s).
+X4_LG_LAYERS = 4
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W).
 BF16_DENSE_OPS_PER_S = 989e12
+#: Phase B (the launch layer): B2's decode cell (qwen2-1.5b decode_32k at
+#: 28 layers) cut from its global batch of 128 to B2_DECODE_BATCH (a zero
+#: cache of 128 x 32768 tokens would take about 120 GB), its steps; the
+#: steps of the DIEN and EGNN train cells; the sources checked after each
+#: dspc event.
+B2_DECODE_BATCH, B2_DECODE_STEPS, B2_TRAIN_STEPS = 16, 16, 3
+B2_DSPC_SOURCES = 8
 
 
 def log(msg: str) -> None:
@@ -917,22 +977,7 @@ def check_equal(tag, got, want):
 
 def oracle(svc, engine, sources, tag):
     """plain_spc_bfs from each source == the engine's answers to all v."""
-    import torch
-    from repro_torch.core.bfs import plain_spc_bfs
-    n = svc.n
-    t0 = time.monotonic()
-    targets = np.arange(n)
-    for s in sources:
-        res = plain_spc_bfs(svc.graph, int(s))
-        d, c = engine.query_batch(svc.index, np.full(n, s), targets)
-        if not (torch.equal(d, res.dist[:n]) and torch.equal(c, res.cnt[:n])):
-            bad = int(((d != res.dist[:n]) | (c != res.cnt[:n])).nonzero()[0])
-            raise AssertionError(
-                f"oracle {tag}: source {s} target {bad}: engine "
-                f"({int(d[bad])}, {int(c[bad])}) vs BFS "
-                f"({int(res.dist[bad])}, {int(res.cnt[bad])})")
-    log(f"oracle[{tag}]: {len(sources)} sources x {n} targets equal to "
-        f"plain_spc_bfs ({time.monotonic() - t0:.3f} s)")
+    oracle_on(svc.graph, svc.index, engine, sources, tag)
 
 
 class PathLaunches:
@@ -2317,7 +2362,7 @@ def ring_phase(counts, card: str, seed: int, grid_mesh,
                device="cuda") -> dict:
     """X4 (module doc): Equiformer-v2's CONFIG in float32 through the ring
     at full_graph_sm (X4_REPS calls) and minibatch_lg's sampled block (one
-    call), held against the local forward of the same inputs at G's
+    call, X4_LG_LAYERS layers), held against the local forward of the same inputs at G's
     tolerances; the planted fault at full_graph_sm must miss them."""
     import torch
     from repro_torch.models.gnn import ring as RG
@@ -2330,7 +2375,8 @@ def ring_phase(counts, card: str, seed: int, grid_mesh,
         n_node = batch.n_node
         model = gnn_model("equiformer-v2", inp["d_in"], inp["n_out"],
                           seed + 47 + GNN_ARCHS.index("equiformer-v2"),
-                          device)
+                          device, n_layers=X4_LG_LAYERS
+                          if shape == "minibatch_lg" else None)
         live = batch.edge_mask.cpu().numpy()
         snd = batch.senders.cpu().numpy()[live]
         rcv = batch.receivers.cpu().numpy()[live]
@@ -2501,10 +2547,11 @@ def with_positions(batch, pos: np.ndarray):
         batch, pos=torch.from_numpy(p).to(batch.nodes.device))
 
 
-def gnn_model(arch: str, d_in: int, n_out: int, seed: int, device):
+def gnn_model(arch: str, d_in: int, n_out: int, seed: int, device,
+              n_layers: int | None = None):
     """``arch``'s CONFIG (``configs/<arch>.py``) with the shape's input
     width and outputs (``_gnn_adapt``'s convention), random weights from a
-    CPU generator seeded ``seed``."""
+    CPU generator seeded ``seed``; ``n_layers`` cuts its depth."""
     import dataclasses
     import importlib
     import torch
@@ -2513,7 +2560,9 @@ def gnn_model(arch: str, d_in: int, n_out: int, seed: int, device):
     from repro_torch.models.gnn.nequip import NequIP
     mod = importlib.import_module(
         f"repro_torch.configs.{arch.replace('-', '_')}")
-    cfg = dataclasses.replace(mod.CONFIG, d_in=d_in, n_out=n_out)
+    cfg = dataclasses.replace(mod.CONFIG, d_in=d_in, n_out=n_out,
+                              n_layers=min(n_layers or mod.CONFIG.n_layers,
+                                           mod.CONFIG.n_layers))
     cls = {"egnn": EGNN, "nequip": NequIP, "equiformer-v2": EquiformerV2}
     return cls[arch](cfg, generator=torch.Generator().manual_seed(seed),
                      device=device)
@@ -2525,31 +2574,6 @@ def gnn_output(model, batch, inp):
     if inp["node_level"]:
         return model.node_forward(batch)[:inp["rows"]]
     return model(batch)[0]
-
-
-def gnn_flops(arch: str, cfg, n_edges: int, n_nodes: int) -> float:
-    """The reference's reckoning of a forward's useful operations
-    (``launch/steps.py::_gnn_flops``: messages and updates)."""
-    if arch == "egnn":
-        per_edge = 2 * (2 * cfg.d_hidden + 1) * cfg.d_hidden * 2
-        per_node = 2 * 2 * cfg.d_hidden * cfg.d_hidden * 2
-    elif arch == "nequip":
-        n_paths = len(cfg.paths)
-        per_edge = (2 * cfg.n_rbf * cfg.radial_hidden
-                    + 2 * cfg.radial_hidden * n_paths * cfg.d_hidden
-                    + n_paths * cfg.d_hidden * 27 * 2)
-        per_node = 2 * (cfg.l_max + 1) * cfg.d_hidden ** 2 * 9
-    else:
-        c, lmax = cfg.d_hidden, cfg.l_max
-        n_m0 = (lmax + 1) * c
-        so2 = 2 * (2 * n_m0 + cfg.n_rbf) * n_m0
-        for m in range(1, cfg.m_max + 1):
-            nm = cfg.n_l(m) * c
-            so2 += 2 * 4 * (2 * nm) * nm
-        wig = sum((2 * l + 1) ** 2 for l in range(lmax + 1)) * c * 2 * 2
-        per_edge = so2 + wig
-        per_node = 2 * (lmax + 1) * c * c * 2
-    return float(cfg.n_layers * (per_edge * n_edges + per_node * n_nodes))
 
 
 def timed_calls(fn, calls: int, cuda: bool):
@@ -2592,6 +2616,7 @@ def gnn_phase(counts, card: str, seed: int, device="cuda") -> dict:
     kernel of the port.  Returns {shape: {arch: numbers}}; raises on any
     failed check."""
     import torch
+    from repro_torch.launch.steps import _gnn_flops
     cuda = torch.device(device).type == "cuda"
     rot = random_rotation(seed + 43)
     out = {}
@@ -2611,7 +2636,7 @@ def gnn_phase(counts, card: str, seed: int, device="cuda") -> dict:
             model = gnn_model(arch, inp["d_in"], inp["n_out"], seed + 47 + i,
                               device)
             n = {"params": sum(p.numel() for p in model.parameters()),
-                 "flops": gnn_flops(arch, model.cfg, batch.n_edge,
+                 "flops": _gnn_flops(arch, model.cfg, batch.n_edge,
                                     batch.n_node)}
 
             def run(b=batch):
@@ -2622,7 +2647,8 @@ def gnn_phase(counts, card: str, seed: int, device="cuda") -> dict:
                     torch.cuda.reset_peak_memory_stats()
                     resident = torch.cuda.memory_allocated()
                 first, _ = timed_calls(run, 1, cuda)
-                got, ms = timed_calls(run, GNN_REPS, cuda)
+                got, ms = timed_calls(run, GNN_REPS_LG if shape ==
+                                      "minibatch_lg" else GNN_REPS, cuda)
                 if cuda:
                     n.update(peak_bytes=torch.cuda.max_memory_allocated(),
                              resident_bytes=resident)
@@ -3162,14 +3188,6 @@ def causal_mask_dropped():
         A.gqa_train = train
 
 
-def lm_flops(cfg, tokens: int, seq: int) -> float:
-    """The reference's reckoning of a train step's operations
-    (``launch/steps.py::_lm_flops`` with ``train=True``)."""
-    return float(6 * cfg.active_param_count() * tokens
-                 + 6 * 2 * cfg.n_layers * cfg.n_heads * cfg.d_head * seq
-                 * tokens)
-
-
 def lm_train(counts, card: str, seed: int, device) -> dict:
     """Phase T's qwen2-1.5b part (module doc)."""
     import dataclasses
@@ -3177,6 +3195,7 @@ def lm_train(counts, card: str, seed: int, device) -> dict:
     from repro_torch.configs.common import LM_SHAPES
     from repro_torch.configs.qwen2_1_5b import CONFIG
     from repro_torch.data.pipelines import lm_batch
+    from repro_torch.launch.steps import _lm_flops
     from repro_torch.models import transformer as tf
     from repro_torch.train import loop as L
     cfg = dataclasses.replace(CONFIG, tp=1)
@@ -3195,7 +3214,7 @@ def lm_train(counts, card: str, seed: int, device) -> dict:
     del p_run
     release(device)
     out.update(step_numbers(hist, step_s, peak, b * t))
-    out["flops_per_step"] = lm_flops(cfg, b * t, t)
+    out["flops_per_step"] = _lm_flops(cfg, b * t, t, train=True)
     out["bf16_peak_share"] = (out["flops_per_step"] / out["s_per_step"]
                               / BF16_DENSE_OPS_PER_S)
     if not all(np.isfinite(out["loss"])) or out["skipped"]:
@@ -4243,6 +4262,508 @@ def distributed_phase(edges, n: int, build_kw: dict, counts, seed: int,
     return out
 
 
+# -------------------------------------------------------------------------
+# B. the launch layer; E. the examples
+# -------------------------------------------------------------------------
+class Laps:
+    """Each phase's seconds: :meth:`lap` logs the time since the last lap
+    (or the start) under the phase's name."""
+
+    def __init__(self, start: float) -> None:
+        self.start = self.last = start
+        self.seconds: dict = {}
+
+    def lap(self, name: str) -> float:
+        now = time.monotonic()
+        self.seconds[name] = now - self.last
+        log(f"phase {name}: {now - self.last:.1f} s (at "
+            f"{now - self.start:.1f} s)")
+        self.last = now
+        return self.seconds[name]
+
+
+def tree_tensors(tree):
+    """The tensors of a tree of dicts (in key order), lists, tuples, named
+    tuples and dataclasses (``GraphBatch``, ``Graph``, ``SPCIndex``)."""
+    import dataclasses
+    import torch
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_tensors(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_tensors(v)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from tree_tensors(getattr(tree, f.name))
+
+
+def tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_tensors(tree))
+
+
+def cell_sizes(bundle, family: str, kind: str) -> dict:
+    """The bytes of a bundle's parameters, optimizer state and batch
+    (every other argument: tokens, caches, graphs, indexes, pairs)."""
+    args = bundle.abstract_args
+    if family == "dspc":
+        parts = ((), (), args)
+    elif kind in ("train", "recsys_train", "full_graph", "sampled",
+                  "molecule"):
+        parts = (args[0], args[1], args[2:])
+    else:
+        parts = (args[0], (), args[1:])
+    return dict(zip(("param_bytes", "opt_bytes", "batch_bytes"),
+                    (tree_bytes(p) for p in parts)))
+
+
+def cells_phase() -> list:
+    """B1: every cell of ``launch.steps.all_cells()`` built at full size
+    on the meta device; one line each with its ``model_flops`` and the
+    bytes of its abstract parameters, optimizer state and batch."""
+    from repro_torch.configs import get
+    from repro_torch.launch import steps as S
+    rows = []
+    for arch, shape in S.all_cells():
+        t0 = time.monotonic()
+        bundle = S.make_bundle(arch, shape)
+        spec = get(arch)
+        on = {x.device.type for x in tree_tensors(bundle.abstract_args)}
+        if on != {"meta"}:
+            raise AssertionError(f"B1 {bundle.name}: leaves on {on}")
+        rows.append({"cell": bundle.name, "model_flops": bundle.model_flops,
+                     **cell_sizes(bundle, spec.family,
+                                  spec.shapes[shape].kind),
+                     "notes": bundle.notes, "s": time.monotonic() - t0})
+        log(f"B1 {json.dumps(rows[-1])}")
+    if len(rows) != 44:
+        raise AssertionError(f"B1: {len(rows)} cells, not 44")
+    return rows
+
+
+def same_layout(tag, got, want) -> None:
+    """Concrete arguments of the abstract arguments' shapes and dtypes."""
+    got, want = list(tree_tensors(got)), list(tree_tensors(want))
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} leaves, abstract "
+                             f"{len(want)}")
+    for g, w in zip(got, want):
+        if tuple(g.shape) != tuple(w.shape) or g.dtype != w.dtype:
+            raise AssertionError(f"{tag}: {g.dtype}{tuple(g.shape)} where "
+                                 f"the abstract leaf is "
+                                 f"{w.dtype}{tuple(w.shape)}")
+
+
+def launch_decode(counts, card: str, seed: int, device="cuda",
+                  smoke: bool = False) -> dict:
+    """B2's LM cell: ``make_bundle("qwen2-1.5b", "decode_32k").get_fn()``
+    at CONFIG width and depth (tp 16 as the cell has it), random bf16
+    weights, on a zero cache of the cell's context with ``lengths = t //
+    2`` (``lm_host_args``' convention), its global batch cut to
+    B2_DECODE_BATCH (``reduced``), B2_DECODE_STEPS greedy steps; on the
+    card one flash_decode launch a layer and step."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as tf
+    arch, shape = "qwen2-1.5b", "decode_32k"
+    dev = torch.device(device)
+    bundle = S.make_bundle(arch, shape, smoke=smoke)
+    cfg = get(arch).smoke if smoke else get(arch).config
+    _, cache_a, _ = bundle.abstract_args
+    b_cell, s_max = cache_a["lengths"].shape[0], cache_a["k"].shape[2]
+    b = min(B2_DECODE_BATCH, b_cell)
+    params = tf.init_params(cfg, generator=torch.Generator(dev).manual_seed(
+        seed), device=dev)
+    same_layout(f"B2 {bundle.name} parameters", params,
+                bundle.abstract_args[0])
+    cache = tf.init_cache(cfg, b, s_max, device=dev)
+    start = s_max // 2
+    cache["lengths"].fill_(start)
+    # the cell's cache but for its batch, which is cut
+    same_layout(f"B2 {bundle.name} cache", cache_a,
+                tf.abstract_cache(cfg, b_cell, s_max))
+    same_layout(f"B2 {bundle.name} cache", cache,
+                tf.abstract_cache(cfg, b, s_max))
+    token = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, b).astype(np.int32)).to(dev)
+    decode = bundle.get_fn()
+    cuda = dev.type == "cuda"
+    fd = counts.counters["flash_decode"]
+    ms = []
+    with torch.no_grad(), counts.path("launch"):
+        for _ in range(B2_DECODE_STEPS):
+            if cuda:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            logits, cache = decode(params, cache, token)
+            token = logits.argmax(dim=-1).to(torch.int32)
+            if cuda:
+                ev[1].record()
+                ev[1].synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+        launched = fd.count
+    want = cfg.n_layers * B2_DECODE_STEPS if cuda else 0
+    if launched != want:
+        raise AssertionError(f"B2 {bundle.name}: flash_decode launched "
+                             f"{launched} times, not {want}")
+    end = start + B2_DECODE_STEPS
+    if not (bool(torch.isfinite(logits).all())
+            and tuple(logits.shape) == (b, cfg.padded_vocab)
+            and bool((cache["lengths"] == end).all())):
+        raise AssertionError(f"B2 {bundle.name}: logits {logits.shape} "
+                             f"not finite, or lengths "
+                             f"{cache['lengths'].tolist()} != {end}")
+    # every layer wrote each step's rows, and nothing past them
+    k = cache["k"]
+    written = k[:, :, start:end].abs().amax(dim=(1, 3, 4)) > 0
+    if not bool(written.all()) or bool(k[:, :, end:end + 1].any()):
+        raise AssertionError(f"B2 {bundle.name}: the cache rows "
+                             f"[{start}, {end}) were not all written, or "
+                             f"row {end} was")
+    out = {"cell": bundle.name, "layers": cfg.n_layers,
+           "padded_heads": cfg.padded_heads, "batch": b,
+           "context": s_max, "lengths": [start, end],
+           "steps": B2_DECODE_STEPS, "flash_decode_launches": launched,
+           "model_flops_cell": bundle.model_flops,
+           "reduced": [f"global_batch {b_cell}->{b}"]}
+    if ms:
+        out.update(step_ms_p50=float(np.median(ms)),
+                   step_ms_p90=float(np.percentile(ms, 90)),
+                   tokens_per_s=1e3 * b / float(np.median(ms)),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+    del params, cache, logits
+    release(dev)
+    return out
+
+
+def timed_steps(step, params, state, data_at, steps: int):
+    """``steps`` train steps from ``step``: (params, state, losses,
+    seconds a step, skipped); each batch is drawn before its step's
+    clock starts, and the loss is read after each (one sync)."""
+    losses, secs, skipped = [], [], 0
+    for i in range(steps):
+        batch = data_at(i)
+        t0 = time.monotonic()
+        params, state, stats = step(params, state, batch)
+        losses.append(float(stats["loss"]))
+        secs.append(time.monotonic() - t0)
+        skipped += int(stats["skipped"])
+    return params, state, losses, secs, skipped
+
+
+def launch_train_cells(counts, card: str, seed: int, device="cuda",
+                       smoke: bool = False) -> dict:
+    """B2's train cells through ``make_bundle(...).get_fn()``: DIEN at
+    train_batch (65536) and EGNN at molecule (128 molecules of 30
+    atoms), CONFIG width and depth, random float32 weights, AdamW
+    (``AdamWConfig()``), B2_TRAIN_STEPS steps each on batches drawn
+    anew each step; the concrete arguments of the abstract ones'
+    shapes and dtypes, every loss finite, no step skipped."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.data.pipelines import molecule_batch
+    from repro_torch.launch import steps as S
+    from repro_torch.models import dien
+    from repro_torch.models.gnn.egnn import EGNN
+    from repro_torch.models.gnn.graph import from_numpy
+    from repro_torch.train import optimizer as opt
+    dev = torch.device(device)
+    out = {}
+    with counts.path("launch"):
+        spec = get("dien")
+        bundle = S.make_bundle("dien", "train_batch", smoke=smoke)
+        cfg = spec.smoke if smoke else spec.config
+        b = bundle.abstract_args[2]["label"].shape[0]
+        params = dien.init_params(cfg, generator=torch.Generator(
+            dev).manual_seed(seed), device=dev)
+        state = opt.init(params, opt.AdamWConfig())
+        batch0 = dien_inputs(cfg, 0, b, seed, dev)
+        same_layout(f"B2 {bundle.name}", (params, state, batch0),
+                    bundle.abstract_args)
+        _, state, losses, secs, skipped = timed_steps(
+            bundle.get_fn(), params, state,
+            lambda i: batch0 if i == 0 else dien_inputs(cfg, i, b, seed, dev),
+            B2_TRAIN_STEPS)
+        out[bundle.name] = {"batch": b, "losses": losses, "step_s": secs,
+                            "skipped": skipped, "step": int(state.step),
+                            "model_flops": bundle.model_flops}
+        del params, state, batch0
+        release(dev)
+
+        spec = get("egnn")
+        bundle = S.make_bundle("egnn", "molecule", smoke=smoke)
+        batch_a, labels_a = bundle.abstract_args[2]
+        g = batch_a.n_graph
+        d_feat = batch_a.nodes.shape[1]
+        cfg = dataclasses.replace(spec.smoke if smoke else spec.config,
+                                  d_in=d_feat, n_out=1)
+        model = EGNN(cfg, generator=torch.Generator().manual_seed(seed),
+                     device=dev)
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        state = opt.init(params, opt.AdamWConfig())
+
+        def data_at(i):
+            mol = molecule_batch(i, g, batch_a.n_node // g,
+                                 batch_a.n_edge // g, d_feat, seed=seed)
+            gb = from_numpy(mol["node_feat"], mol["senders"],
+                            mol["receivers"], pos=mol["pos"],
+                            graph_id=mol["graph_id"], n_graph=g,
+                            e_cap=batch_a.n_edge, device=dev)
+            target = np.random.default_rng((seed, i)).normal(
+                size=tuple(labels_a.shape)).astype(np.float32)
+            return gb, torch.from_numpy(target).to(dev)
+
+        same_layout(f"B2 {bundle.name}", (params, state, data_at(0)),
+                    bundle.abstract_args)
+        _, state, losses, secs, skipped = timed_steps(
+            bundle.get_fn(), params, state, data_at, B2_TRAIN_STEPS)
+        out[bundle.name] = {"batch": g, "losses": losses, "step_s": secs,
+                            "skipped": skipped, "step": int(state.step),
+                            "model_flops": bundle.model_flops}
+        del params, state, model
+        release(dev)
+    for name, row in out.items():
+        if not (np.isfinite(row["losses"]).all() and row["skipped"] == 0
+                and row["step"] == B2_TRAIN_STEPS):
+            raise AssertionError(f"B2 {name}: {json.dumps(row)}")
+    return out
+
+
+def oracle_on(graph, index, engine, sources, tag: str) -> None:
+    """plain_spc_bfs from each source == the engine's answers on
+    ``index`` to every vertex of ``graph``."""
+    import torch
+    from repro_torch.core.bfs import plain_spc_bfs
+    n = graph.n
+    t0 = time.monotonic()
+    targets = np.arange(n)
+    for s in sources:
+        res = plain_spc_bfs(graph, int(s))
+        d, c = engine.query_batch(index, np.full(n, s), targets)
+        if not (torch.equal(d, res.dist[:n]) and torch.equal(c, res.cnt[:n])):
+            bad = int(((d != res.dist[:n]) | (c != res.cnt[:n])).nonzero()[0])
+            raise AssertionError(
+                f"oracle {tag}: source {s} target {bad}: engine "
+                f"({int(d[bad])}, {int(c[bad])}) vs BFS "
+                f"({int(res.dist[bad])}, {int(res.cnt[bad])})")
+    log(f"oracle[{tag}]: {len(sources)} sources x {n} targets equal to "
+        f"plain_spc_bfs ({time.monotonic() - t0:.3f} s)")
+
+
+def launch_dspc_events(graph, index, engine, counts, seed: int,
+                       build_s: float) -> dict:
+    """B2's dspc cells on the main path's graph and index: the
+    ``inc_update`` step (``inc_spc``) of one random vertex pair that is
+    not an edge, then the ``dec_update`` step (``dec_spc``) of that edge
+    (the graph is its own again), through ``make_bundle(...).get_fn()``;
+    each event's seconds beside phase 4's rebuild; after each,
+    B2_DSPC_SOURCES sources (both endpoints among them) answered exactly
+    as ``plain_spc_bfs``."""
+    import torch
+    from repro_torch.core import graph as G
+    from repro_torch.launch import steps as S
+    dev = graph.device
+    rng = np.random.default_rng(seed + 41)
+    present = G.edge_set(graph)
+    while True:
+        a, b = (int(x) for x in rng.integers(0, graph.n, 2))
+        if a != b and (min(a, b), max(a, b)) not in present:
+            break
+    g0 = G.ensure_capacity(graph, 2)
+    out, states, state = {}, [], (g0, index)
+    with counts.path("launch"):
+        for shape in ("inc_update", "dec_update"):
+            edge = (a, b)
+            bundle = S.make_bundle("dspc", shape)
+            step = bundle.get_fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state = step(*state, *(torch.tensor(x, dtype=torch.int32)
+                                   for x in edge))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            states.append((bundle, edge, state))
+            out[bundle.name] = {"edge": list(edge), "s": secs,
+                                "rebuild_over_event": build_s / secs,
+                                "entries": state[1].total_entries(),
+                                "model_flops": bundle.model_flops}
+    # the checks, outside the path: their queries count nowhere
+    for bundle, (u, v), (g1, idx1) in states:
+        if int(idx1.overflow):
+            raise AssertionError(f"B2 {bundle.name}: {int(idx1.overflow)} "
+                                 f"label writes lost (l_cap {idx1.l_cap})")
+        has = G.has_edge(g1, u, v)
+        if has != bundle.name.endswith("inc_update"):
+            raise AssertionError(f"B2 {bundle.name}: edge ({u}, {v}) "
+                                 f"present {has}")
+        others = rng.choice(graph.n, size=B2_DSPC_SOURCES - 2, replace=False)
+        oracle_on(g1, idx1, engine, [u, v, *others.tolist()],
+                  f"B2 {bundle.name} ({u}, {v})")
+    return out
+
+
+def train_cli_phase(device="cuda") -> dict:
+    """B3: ``python -m repro_torch.launch.train --arch dien`` (one device:
+    the SMOKE fallback): 3 steps into a checkpoint directory, then 5
+    steps from it (``resumed from step 2``), beside an uninterrupted
+    5-step run; the two final checkpoints equal bit for bit, and the step
+    lines' losses too."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
+
+    def start(steps, d):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "dien", "--steps", str(steps), "--ckpt-dir",
+             os.path.join(tmp, d), "--device", str(device)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT)
+
+    def finish(proc, what):
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"B3 {what}: exit {proc.returncode}: "
+                                 f"{err[-2000:]}")
+        return out.splitlines()
+
+    def losses(lines):
+        return [ln.split("(")[0] for ln in lines if " loss " in ln]
+
+    def final(d):
+        from repro_torch.train import checkpoint as ckpt
+        path = os.path.join(tmp, d)
+        step = ckpt.latest_step(path)
+        with np.load(os.path.join(path, f"step_{step:09d}",
+                                  "arrays.npz")) as z:
+            return step, [z[k] for k in sorted(z.files, key=int)]
+
+    t0 = time.monotonic()
+    try:
+        first, whole = start(3, "resumed"), start(5, "whole")
+        lines = {"first": finish(first, "3 steps"),
+                 "whole": finish(whole, "5 steps")}
+        lines["second"] = finish(start(5, "resumed"), "resume to 5")
+        (sa, xa), (sb, xb) = final("resumed"), final("whole")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if "[train] resumed from step 2" not in lines["second"]:
+        raise AssertionError(f"B3: no resume line in {lines['second']}")
+    if not all(any("falling back to --smoke" in ln for ln in v)
+               for v in lines.values()):
+        raise AssertionError("B3: a run did not fall back to --smoke")
+    if losses(lines["first"]) + losses(lines["second"]) != \
+            losses(lines["whole"]):
+        raise AssertionError(f"B3: losses {lines}")
+    if not (sa == sb == 4 and len(xa) == len(xb) and all(
+            x.dtype == y.dtype and x.tobytes() == y.tobytes()
+            for x, y in zip(xa, xb))):
+        raise AssertionError("B3: the resumed run's final state differs "
+                             "from the uninterrupted run's")
+    return {"s": time.monotonic() - t0, "leaves": len(xa),
+            "losses": losses(lines["whole"]), "bitwise": True}
+
+
+def in_background(fn, *args):
+    """Start ``fn(*args)`` on a thread; returns ``join()``, which waits
+    for it and returns its result or raises its exception."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as e:       # re-raised by join()
+            box["err"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def join():
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+    return join
+
+
+#: E: the in-process examples at the reference's CI settings, and the
+#: check each one's output (or result) must pass.
+EXAMPLES = (
+    ("quickstart", (), lambda r, out: r is True and "MISMATCH" not in out),
+    ("dynamic_stream", ("--fast",),
+     lambda r, out: "restored replica answers identically: OK" in out),
+    ("serve_spc", ("--fast",),
+     lambda r, out: "read its own write" in out and "coalesced" in out),
+    ("analytics_spc", ("--fast",), lambda r, out: "model re-rank" in out),
+    ("gnn_molecule", (), lambda r, out: out.rstrip().endswith("done.")),
+    ("serve_lm", (), lambda r, out: r[0] == r[1]),
+    ("train_lm", (), lambda r, out: r[1] < r[0]),
+)
+
+
+def examples_phase(counts, device="cuda") -> dict:
+    """E: the eight examples (``repro_torch.examples``) on ``device``:
+    seven in this process through ``main(argv)``, their launches counted
+    on the examples path, and ``fleet_spc`` as its own replica and
+    updater processes (started first, in the background)."""
+    import contextlib
+    import importlib
+    import io
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
+    out = {}
+    t_fleet = time.monotonic()
+    fleet = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.examples.fleet_spc", "--fast",
+         "--device", str(device), "--dir", os.path.join(tmp, "fleet")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT)
+    try:
+        with counts.path("examples"):
+            for name, argv, check in EXAMPLES:
+                mod = importlib.import_module(f"repro_torch.examples.{name}")
+                argv = list(argv) + ["--device", str(device)]
+                if name == "train_lm":
+                    argv += ["--ckpt-dir", os.path.join(tmp, "lm")]
+                buf = io.StringIO()
+                t0 = time.monotonic()
+                with contextlib.redirect_stdout(buf):
+                    result = mod.main(argv)
+                secs = time.monotonic() - t0
+                text = buf.getvalue()
+                if not check(result, text):
+                    raise AssertionError(f"E {name}: its check failed:\n"
+                                         f"{text[-3000:]}")
+                out[name] = {"s": secs, "last": text.splitlines()[-1]}
+                log(f"E {name}: {secs:.2f} s; {out[name]['last']}")
+        text, _ = fleet.communicate(timeout=600)
+        if fleet.returncode or "fleet demo OK" not in text:
+            raise AssertionError(f"E fleet_spc: exit {fleet.returncode}:\n"
+                                 f"{text[-3000:]}")
+        out["fleet_spc"] = {"s": time.monotonic() - t_fleet,
+                            "last": text.splitlines()[-1]}
+        log(f"E fleet_spc: {out['fleet_spc']['s']:.2f} s (background); "
+            f"{out['fleet_spc']['last']}")
+    finally:
+        if fleet.poll() is None:
+            fleet.kill()
+            fleet.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--halvings", type=int, default=0,
@@ -4258,6 +4779,7 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     start = time.monotonic()
+    laps = Laps(start)
 
     import torch
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -4343,6 +4865,8 @@ def main(argv=None) -> int:
     if args.lm_seeds:
         return lm_seed_readings([int(x) for x in args.lm_seeds.split(",")],
                                 card)
+
+    laps.lap("2 kernel build")
 
     # -- 3a. kernels vs plain on synthetic inputs -------------------------
     # spc_query exactly: each input in the gathered form (the fused kernel
@@ -4571,12 +5095,22 @@ def main(argv=None) -> int:
         f"routes; rows of length 0 give zeros; two launches bitwise equal) "
         f"on {card}")
 
+    laps.lap("3a kernel checks")
+
     # -- 4. main paths: build --------------------------------------------------
     n, m = CONFIG.n >> args.halvings, CONFIG.m >> args.halvings
     reduced = ([f"n {CONFIG.n}->{n}", f"m {CONFIG.m}->{m}"]
                if args.halvings else []) + [
         f"service update_batch {CONFIG.update_batch}->{SERVICE_CHUNK} (S1-S4 "
-        f"only; phase 5 keeps {CONFIG.update_batch})"]
+        f"only; phase 5 keeps {CONFIG.update_batch})",
+        # the script's time limit (PR 24 added phases B and E)
+        f"M deepseek-v2-lite-16b global_batch 128->{DS_BATCH} (8 until "
+        f"PR 24)",
+        f"G minibatch_lg timed calls {GNN_REPS}->{GNN_REPS_LG}",
+        f"D n {CONFIG.n >> 2}->{CONFIG.n >> DIST_HALVINGS} (2 halvings "
+        f"until PR 24)",
+        f"X4 minibatch_lg n_layers 12->{X4_LG_LAYERS}",
+        f"B2 qwen2-1.5b decode_32k global_batch 128->{B2_DECODE_BATCH}"]
     t0 = time.monotonic()
     edges = power_law_edges(n, m, args.seed)
     log(f"graph: n={n} m={len(edges)} power-law w~i^-0.8 "
@@ -4607,6 +5141,8 @@ def main(argv=None) -> int:
     engine = QueryEngine(route="auto")
     sources = rng.choice(n, size=8, replace=False)
     oracle(svc, engine, sources, "after build")
+
+    laps.lap("4 build")
 
     # -- K. the kernel microbench path, then K2 at the graph's shape -------
     g_src, g_dst = live_edges(svc.graph)
@@ -4725,6 +5261,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    laps.lap("K kernels path")
+
     # -- A1. analytics pinned before the chunk ----------------------------------
     store = svc.attach_store()
     ana = AnalyticsEngine.from_config(store, CONFIG)
@@ -4748,6 +5286,8 @@ def main(argv=None) -> int:
         f"endpoints (max |diff| {bc_err:.3g}; "
         f"{time.monotonic() - t0:.3f} s)")
 
+    laps.lap("A1 analytics")
+
     # -- 5. maintain --------------------------------------------------------
     half = CONFIG.update_batch // 2
     events = graph_stream(edges, n, half, half, seed=args.seed)
@@ -4765,6 +5305,8 @@ def main(argv=None) -> int:
         f"regrows {st.edge_regrows}, host syncs {B.frontier_syncs.count - syncs0}, "
         f"l_cap {svc.index.l_cap}, store v{store.version}")
     oracle(svc, engine, sources, "after events")
+
+    laps.lap("5 maintain")
 
     # -- 6. serve -----------------------------------------------------------
     batches = [(rng.integers(0, n, 1024), rng.integers(0, n, 1024))
@@ -4829,6 +5371,8 @@ def main(argv=None) -> int:
         if serve_busy else "the profiler saw no device event; busy time "
         "not measured") + f" on {card}")
 
+    laps.lap("6 serve")
+
     # -- 6b. one batch of the configuration's query_batch pairs -------------
     qb = CONFIG.query_batch
     big_s, big_t = rng.integers(0, n, qb), rng.integers(0, n, qb)
@@ -4883,6 +5427,8 @@ def main(argv=None) -> int:
         f"{QUERY_SLICE} (exact); {big['connected']} pairs connected on "
         f"{card}")
     del d_big, c_big, d0, c0, big_s, big_t
+
+    laps.lap("6b query_batch")
 
     # -- A2. analytics after the chunk --------------------------------------
     cfg = dataclasses.replace(PNA_CONFIG, d_in=4)
@@ -4972,6 +5518,8 @@ def main(argv=None) -> int:
         f"{[(int(cand[i]), round(float(model[i]), 4)) for i in order]}; "
         f"equal to the CPU forward (max |diff| {rerank_err:.3g})")
 
+    laps.lap("A2 analytics")
+
     # -- 3b. kernels vs plain at the main paths' shapes, and their times -----
     s_dev, t_dev = (torch.from_numpy(x).to(dev) for x in batches[0])
     rows = tuple(r.contiguous() for r in prep_rows(svc.index, s_dev, t_dev))
@@ -5059,6 +5607,15 @@ def main(argv=None) -> int:
         f"median {bag_ms:.5f} ms, plain {bag_plain_ms:.5f} ms, bound "
         f"{bag_bound:.7f} ms ({bag_bytes} B) on {card}")
 
+    laps.lap("3b main-shape kernels")
+
+    # -- B2 (dspc). one insert and one delete through the dspc cells ---------
+    dspc_events = launch_dspc_events(svc.graph, svc.index, engine, counts,
+                                     args.seed, build_s)
+    log(f"B2 dspc: {json.dumps(dspc_events)} (phase 4's build "
+        f"{build_s:.3f} s) on {card}")
+    laps.lap("B2 dspc events")
+
     # -- S1-S4. the service stack over phase 5's DynamicSPC ------------------
     del (store, ana, maint, pinned, view, frozen, served, outs, rows,
          hub, dist_m, cnt_m, plain, k1_calls, s_dev, t_dev)
@@ -5067,6 +5624,8 @@ def main(argv=None) -> int:
     del svc
     gc.collect()
     torch.cuda.empty_cache()
+
+    laps.lap("S1-S4 service")
 
     # -- D. distributed: a graph of its own over a device mesh ---------------
     t0 = time.monotonic()
@@ -5082,6 +5641,8 @@ def main(argv=None) -> int:
     log(f"distributed: {json.dumps(dist_numbers)} on {card}")
     gc.collect()
     torch.cuda.empty_cache()
+
+    laps.lap("D distributed")
 
     # -- L. the LM serving path (examples/serve_lm.py at qwen2-1.5b) --------
     # one card, no mesh (lm_config)
@@ -5150,6 +5711,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
 
+    laps.lap("L lm path")
+
     # -- flash_decode at the main path's shape, and its times -----------------
     k0, v0, lens = cache["k"][0], cache["v"][0], cache["lengths"].clone()
     qm = torch.randn((LM_BATCH, lm_cfg.padded_heads, lm_cfg.d_head),
@@ -5217,6 +5780,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    laps.lap("L flash_decode at the main shape")
+
     # -- M, M-check, M2, M3. the rest of the LM family -----------------------
     t0 = time.monotonic()
     family = deepseek_phases(counts, card, args.seed)
@@ -5224,25 +5789,54 @@ def main(argv=None) -> int:
     log(f"lm family ({time.monotonic() - t0:.1f} s): {json.dumps(family)} "
         f"on {card}")
 
+    laps.lap("M-M3 lm family")
+
     # -- G. the equivariant GNN family ---------------------------------------
     t0 = time.monotonic()
     gnn = gnn_phase(counts, card, args.seed)
     log(f"G ({time.monotonic() - t0:.1f} s): {json.dumps(gnn)} on {card}")
+
+    laps.lap("G gnn")
 
     # -- R. DIEN serving ------------------------------------------------------
     t0 = time.monotonic()
     recsys = recsys_phase(counts, card, args.seed)
     log(f"R ({time.monotonic() - t0:.1f} s): {json.dumps(recsys)} on {card}")
 
+    laps.lap("R recsys")
+
     # -- T. one-card training -------------------------------------------------
     t0 = time.monotonic()
     train = train_phase(counts, card, args.seed)
     log(f"T ({time.monotonic() - t0:.1f} s): {json.dumps(train)} on {card}")
 
+    laps.lap("T train")
+
     # -- X. the mesh models ----------------------------------------------------
     t0 = time.monotonic()
     mesh = mesh_phase(counts, card, args.seed)
     log(f"X ({time.monotonic() - t0:.1f} s): {json.dumps(mesh)} on {card}")
+    laps.lap("X mesh")
+
+    # -- B. the launch layer: every cell abstract, one cell a family run ------
+    cells = cells_phase()
+    laps.lap("B1 cells")
+    launch = {"decode": launch_decode(counts, card, args.seed)}
+    log(f"B2 decode: {json.dumps(launch['decode'])} on {card}")
+    launch["train"] = launch_train_cells(counts, card, args.seed)
+    log(f"B2 train: {json.dumps(launch['train'])} on {card}")
+    launch.update(dspc=dspc_events, cells=len(cells))
+    laps.lap("B2 cells on the card")
+
+    # -- B3 and E. the train CLI's processes beside the eight examples -------
+    # (B3 and fleet_spc are mostly processes starting: they overlap)
+    train_cli = in_background(train_cli_phase)
+    examples = examples_phase(counts)
+    log(f"E: {json.dumps(examples)} on {card}")
+    launch["train_cli"] = train_cli()
+    log(f"B3 train CLI: {json.dumps(launch['train_cli'])} on {card}")
+    laps.lap("B3 train CLI and E examples")
+    log(f"phases (s): {json.dumps(laps.seconds)}")
     fd_family = {name: numbers["flash_decode"]
                  for name, numbers in family.items()
                  if "flash_decode" in numbers}

@@ -7,6 +7,8 @@ five LMs: the dense GQA ``qwen2-1.5b``, ``qwen2-7b`` and
 ``phi3-medium-14b``, and the MLA + MoE ``deepseek-v2-lite-16b`` and
 ``deepseek-v2-236b``; and the recsys ``dien``.  Every id of the
 reference's registry is ported; any other raises ``KeyError``.
+``ASSIGNED_ARCH_IDS`` are the ten model architectures (every id but
+``dspc``), and ``all_specs()`` maps each id to its ``ArchSpec``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ _MODULES = {
 }
 
 ARCH_IDS = tuple(_MODULES)
+ASSIGNED_ARCH_IDS = tuple(a for a in ARCH_IDS if a != "dspc")
 
 
 def get(arch_id: str) -> ArchSpec:
@@ -40,5 +43,9 @@ def get(arch_id: str) -> ArchSpec:
     return importlib.import_module(_MODULES[arch_id]).SPEC
 
 
-__all__ = ["ARCH_IDS", "ArchSpec", "CONFIG", "SMOKE", "DSPCArchConfig",
-           "ShapeSpec", "get"]
+def all_specs() -> dict:
+    return {a: get(a) for a in ARCH_IDS}
+
+
+__all__ = ["ARCH_IDS", "ASSIGNED_ARCH_IDS", "ArchSpec", "CONFIG", "SMOKE",
+           "DSPCArchConfig", "ShapeSpec", "all_specs", "get"]

@@ -1,6 +1,6 @@
 """Config registry plumbing (port of part of ``repro.configs.common``):
 ``ArchSpec``, ``ShapeSpec`` and the shape tables of the ported families,
-values verbatim.
+values verbatim, by family in ``FAMILY_SHAPES``.
 
 Every ported architecture has one module defining ``CONFIG`` (the
 published hyperparameters), ``SMOKE`` (a reduced same-family config for
@@ -81,4 +81,11 @@ DSPC_SHAPES = {
     "query_batch": ShapeSpec("query_batch", "dspc_query",
                              dict(n=65536, m=524288, l_cap=64,
                                   batch=1_048_576)),
+}
+
+FAMILY_SHAPES = {
+    "lm": LM_SHAPES,
+    "gnn": GNN_SHAPES,
+    "recsys": RECSYS_SHAPES,
+    "dspc": DSPC_SHAPES,
 }

@@ -192,3 +192,15 @@ def edge_set(g: Graph) -> set:
     dst = g.dst[:g.m2].cpu().numpy()
     live = (src != g.n) & (src < dst)
     return set(zip(src[live].tolist(), dst[live].tolist()))
+
+
+def to_ref(g: Graph):
+    """The paper-faithful reference graph of ``g`` (``core.refimpl``;
+    the reference's ``core/graph.py:175``): every live edge once."""
+    from repro_torch.core.refimpl import RefGraph
+
+    ref = RefGraph(g.n)
+    for a, b in zip(g.src.cpu().tolist(), g.dst.cpu().tolist()):
+        if a != g.n and a < b:
+            ref.add_edge(a, b)
+    return ref

@@ -336,3 +336,43 @@ def index_to_numpy(idx: SPCIndex) -> dict:
     return {"hub": idx.hub.cpu().numpy(), "dist": idx.dist.cpu().numpy(),
             "cnt": idx.cnt.cpu().numpy(), "size": idx.size.cpu().numpy(),
             "cnt_sum": idx.cnt_sum.cpu().numpy()}
+
+
+# --------------------------------------------------------------------------
+# Conversions to and from the paper-faithful index (host side, for the
+# oracle of tests and examples; the reference's ``core/labels.py:314-330``).
+# --------------------------------------------------------------------------
+def to_ref(idx: SPCIndex):
+    """``idx`` as a ``core.refimpl.RefSPCIndex``: each row's first
+    ``size`` labels.  Those are real labels, never the pads, so neither
+    package's INF crosses over."""
+    from repro_torch.core.refimpl import RefSPCIndex
+
+    ref = RefSPCIndex(idx.n)
+    hub, dist, cnt = (x.cpu().numpy() for x in (idx.hub, idx.dist, idx.cnt))
+    size = idx.size.cpu().numpy()
+    for v in range(idx.n):
+        ref.labels[v] = [(int(hub[v, j]), int(dist[v, j]), int(cnt[v, j]))
+                         for j in range(size[v])]
+    return ref
+
+
+def from_ref(ref, l_cap: int | None = None, *, device="cuda") -> SPCIndex:
+    """A ``RefSPCIndex`` as an ``SPCIndex`` on ``device`` with the port's
+    pads (hub ``n``, dist ``INF`` = 1 << 28, cnt 0; row ``n`` the dump
+    row); ``l_cap`` defaults to the longest row, at least 4."""
+    n = len(ref.labels)
+    max_len = max((len(r) for r in ref.labels), default=1)
+    if l_cap is None:
+        l_cap = max(4, max_len)
+    if max_len > l_cap:
+        raise ValueError(f"l_cap={l_cap} < max label size {max_len}")
+    hub = np.full((n + 1, l_cap), n, dtype=np.int32)
+    dist = np.full((n + 1, l_cap), INF, dtype=np.int32)
+    cnt = np.zeros((n + 1, l_cap), dtype=np.int64)
+    size = np.zeros(n + 1, dtype=np.int32)
+    for v, row in enumerate(ref.labels):
+        for j, (h, d, c) in enumerate(row):
+            hub[v, j], dist[v, j], cnt[v, j] = h, d, c
+        size[v] = len(row)
+    return index_from_numpy(n, hub, dist, cnt, size, device=device)

@@ -27,8 +27,11 @@ def dense_init(d_in: int, d_out: int, *, generator: torch.Generator,
                scale: float | None = None, lead: tuple = ()) -> torch.Tensor:
     """[*lead, d_in, d_out] weights drawn N(0, 1) * ``scale`` (default
     1 / sqrt(d_in)), in the reference's [in, out] layout; ``lead`` adds
-    leading axes (the LM's stacked layers)."""
+    leading axes (the LM's stacked layers).  On the meta device only
+    the shape and dtype are made: nothing is drawn."""
     device = resolve_device(device)
+    if device.type == "meta":
+        return torch.empty((*lead, d_in, d_out), dtype=dtype, device=device)
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((*lead, d_in, d_out), generator=generator,
                     dtype=torch.float32, device=generator.device)

@@ -103,7 +103,9 @@ def init_params(cfg: DIENConfig, *, generator=None, device="cuda") -> dict:
     :func:`load_reference_params`."""
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(dev).manual_seed(0)
+        # torch.Generator takes no meta device; nothing is drawn there
+        generator = torch.Generator(
+            "cpu" if dev.type == "meta" else dev).manual_seed(0)
     kw = dict(generator=generator, dtype=cfg.dtype, device=dev)
     d, h, e = cfg.beh_dim, cfg.gru_dim, cfg.embed_dim
     head_in = h + d + cfg.profile_bags * e

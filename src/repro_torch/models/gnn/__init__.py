@@ -9,6 +9,6 @@
 * ``sampler``       -- k-hop neighbour sampler for ``minibatch_lg``.
 """
 
-from repro_torch.models.gnn.graph import GraphBatch, from_numpy
+from repro_torch.models.gnn.graph import GraphBatch, batch_spec, from_numpy
 
-__all__ = ["GraphBatch", "from_numpy"]
+__all__ = ["GraphBatch", "batch_spec", "from_numpy"]

@@ -50,6 +50,24 @@ class GraphBatch:
         return self.senders != self.n_node
 
 
+def batch_spec(n_node: int, n_edge: int, d_feat: int, *, with_pos: bool,
+               n_graph: int = 1, dtype=torch.float32) -> GraphBatch:
+    """The abstract ``GraphBatch`` of ``src/repro/models/gnn/graph.py:47``:
+    its leaves are tensors on the meta device, of the shapes the
+    reference's are; the index leaves are int64 where the reference's
+    are int32 (the port's segment ops index with int64, as
+    :func:`from_numpy` makes them)."""
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    return GraphBatch(
+        nodes=meta((n_node + 1, d_feat), dtype),
+        senders=meta((n_edge,), torch.int64),
+        receivers=meta((n_edge,), torch.int64),
+        pos=meta((n_node + 1, 3), dtype) if with_pos else None,
+        graph_id=meta((n_node + 1,), torch.int64),
+        n_node=n_node, n_graph=n_graph)
+
+
 def from_numpy(node_feat: np.ndarray, senders: np.ndarray,
                receivers: np.ndarray, *, pos: np.ndarray | None = None,
                graph_id: np.ndarray | None = None, n_graph: int = 1,

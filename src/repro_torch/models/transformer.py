@@ -154,7 +154,9 @@ def init_params(cfg: TransformerConfig, *, generator=None,
     with :func:`load_reference_params`."""
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(dev).manual_seed(0)
+        # torch.Generator takes no meta device; nothing is drawn there
+        generator = torch.Generator(
+            "cpu" if dev.type == "meta" else dev).manual_seed(0)
     lead = (cfg.n_layers,)
     kw = dict(generator=generator, dtype=cfg.param_dtype, device=dev)
     d, vp = cfg.d_model, cfg.padded_vocab

@@ -111,6 +111,7 @@ def test_chip_smoke_gnn_phase_on_the_cpu(monkeypatch):
         monkeypatch.setitem(C.GNN_SHAPES, shape, C.ShapeSpec(
             shape, C.GNN_SHAPES[shape].kind, dims))
     monkeypatch.setattr(chip_smoke, "GNN_REPS", 2)
+    monkeypatch.setattr(chip_smoke, "GNN_REPS_LG", 2)
     monkeypatch.setattr(chip_smoke, "device_trace",
                         lambda fn, per=1, expect=None: (None, None, {}))
     counts = chip_smoke.PathLaunches(

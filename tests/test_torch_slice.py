@@ -161,7 +161,12 @@ def test_port_and_smoke_script_import_no_jax_or_reference():
             "repro_torch.models.dien", "repro_torch.configs.dien",
             "repro_torch.train.optimizer", "repro_torch.train.loop",
             "repro_torch.data.pipelines", "repro_torch.sharding",
-            "repro_torch.models.gnn.ring"} <= set(imported)
+            "repro_torch.models.gnn.ring", "repro_torch.core.refimpl",
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            *(f"repro_torch.examples.{name}" for name in (
+                "quickstart", "dynamic_stream", "serve_spc", "fleet_spc",
+                "analytics_spc", "gnn_molecule", "serve_lm",
+                "train_lm"))} <= set(imported)
     scanned = {os.path.relpath(f, PORT) for f in files}
     assert {"bench/kernels_bench.py", "kernels/segment_matmul/ops.py",
             "core/directed.py", "train/checkpoint.py", "serve/replica.py",
@@ -171,7 +176,9 @@ def test_port_and_smoke_script_import_no_jax_or_reference():
             "configs/deepseek_v2_236b.py", "models/dien.py", "configs/dien.py",
             "train/optimizer.py", "train/loop.py",
             "data/pipelines.py", "sharding.py",
-            "models/gnn/ring.py"} <= scanned
+            "models/gnn/ring.py", "core/refimpl.py", "launch/steps.py",
+            "launch/train.py", "examples/quickstart.py",
+            "examples/fleet_spc.py", "examples/serve_lm.py"} <= scanned
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
@@ -357,6 +364,12 @@ def test_chip_smoke_counts_launches_by_path():
     fd.count += 6                  # X's unsharded decode and LSE holds
     with counts.path("mesh"):
         fd.count += 28 * 16 * 4    # X1: a launch a layer, step and shard
+    with counts.path("launch"):
+        fd.count += 28 * 16        # B2: the decode_32k cell's decode
+    with counts.path("examples"):
+        sq.count += 30             # E: the DSPC examples' serving
+        eb.count += 1              # analytics_spc's re-rank pooling
+        fd.count += 2 * 11         # serve_lm's decode steps
     zero = dict.fromkeys(kernels, 0)
     paths = dict.fromkeys(chip_smoke.PATH_KERNELS, 0)
     assert counts.by_path == {
@@ -370,15 +383,19 @@ def test_chip_smoke_counts_launches_by_path():
         "phi3-medium-14b": dict(zero, flash_decode=640),
         "deepseek-v2-lite-16b": zero, "deepseek-v2-236b": zero,
         "gnn": zero, "recsys": zero, "train": zero,
-        "mesh": dict(zero, flash_decode=1792)}
+        "mesh": dict(zero, flash_decode=1792),
+        "launch": dict(zero, flash_decode=448),
+        "examples": dict(zero, spc_query=30, embedding_bag=1,
+                         flash_decode=22)}
     assert chip_smoke.PATH_KERNELS["recsys"] == () == \
         chip_smoke.PATH_KERNELS["train"]
-    assert counts.of("spc_query") == (97, dict(paths, dspc=5, kernels=52,
-                                               service=40))
+    assert counts.of("spc_query") == (127, dict(paths, dspc=5, kernels=52,
+                                                service=40, examples=30))
     assert counts.of("segment_matmul") == (53, dict(paths, kernels=53))
-    assert counts.of("flash_decode") == (512 + 448 + 640 + 1792, dict(
-        paths, lm=512, mesh=1792,
-        **{"qwen2-7b": 448, "phi3-medium-14b": 640}))
+    assert counts.of("flash_decode") == (
+        512 + 448 + 640 + 1792 + 448 + 22, dict(
+            paths, lm=512, mesh=1792, launch=448, examples=22,
+            **{"qwen2-7b": 448, "phi3-medium-14b": 640}))
     assert chip_smoke.LM_LAYERS * chip_smoke.LM_STEPS == 512
     counts.check()
     bare = chip_smoke.PathLaunches(kernels)
@@ -425,6 +442,16 @@ def test_chip_smoke_counts_launches_by_path():
     with pytest.raises(AssertionError, match="flash_decode never launched "
                                              "on the mesh path"):
         no_mesh.check()
+    no_launch = chip_smoke.PathLaunches(kernels)
+    for path, c in (("dspc", sq), ("kernels", sq), ("kernels", sm),
+                    ("analytics", eb), ("lm", fd), ("service", sq),
+                    ("qwen2-7b", fd), ("phi3-medium-14b", fd), ("mesh", fd),
+                    ("examples", sq), ("examples", eb), ("examples", fd)):
+        with no_launch.path(path):
+            c.count += 1
+    with pytest.raises(AssertionError, match="flash_decode never launched "
+                                             "on the launch path"):
+        no_launch.check()
 
 
 def test_launch_counter_counts_every_threaded_increment():
