@@ -153,8 +153,8 @@ D.  distributed -- one controller over a device mesh: every visible
                 edge axis ``model`` for the updater, a data axis ``data``
                 for serving); the mesh and whether its devices are
                 distinct on a line of their own.  D1: a power-law graph
-                of its own at DIST_HALVINGS = 3 halvings of the dspc
-                CONFIG (n 8192, m 65536, in ``reduced``), built with
+                of its own at DIST_HALVINGS = 2 halvings of the dspc
+                CONFIG (n 16384, m 131072, in ``reduced``), built with
                 phase 4's knobs on
                 one device and by ``DynamicSPC(..., mesh=)``: the two
                 ``state_dict()``s must be byte-identical.  One chunk of 8
@@ -383,11 +383,12 @@ B.  launch   -- the launch layer (``repro_torch.launch.steps``).  B1:
                 each, the arguments of the abstract ones' shapes; and,
                 right after 3b, on the main path's graph and index, the
                 dspc inc_update step of one random vertex pair that is no
-                edge, then the dec_update step of that edge (a uniformly
-                random edge mostly touches a hub, and one such delete
-                took 62-68 s; PERF.md), each event's seconds beside
-                phase 4's build, then B2_DSPC_SOURCES sources (both
-                endpoints among them) against ``plain_spc_bfs``.  B3:
+                edge, then the dec_update step of the edge the cell's own
+                host arguments delete (``edges[len(edges) // 2]`` of the
+                main path's edge list; the next one still present if
+                phase 5 deleted it), each event's seconds beside phase
+                4's build, then B2_DSPC_SOURCES sources (both endpoints
+                among them) against ``plain_spc_bfs``.  B3:
                 ``python -m repro_torch.launch.train --arch dien`` 3
                 steps into a directory, then 5 from it (``resumed from
                 step 2``) beside an uninterrupted 5: the final
@@ -602,18 +603,17 @@ SERVICE_WAIT_S, FLEET_DISK_BYTES = 600.0, 16 * 10 ** 9
 #: Phase D: mesh entries on a single card (an edge axis and a data axis
 #: of 4 entries of cuda:0), events in its chunk, serve batches and their
 #: pairs, and the halvings of the dspc CONFIG's n and m for its own
-#: graph (n 8192, m 65536: its single-device build, which it is held
-#: against, takes a few seconds; two halvings, n 16384, until PR 24, cut
-#: for the script's time limit).
+#: graph (n 16384, m 131072: its single-device build, which it is held
+#: against, takes a few seconds).
 DIST_SHARDS, DIST_EVENTS, DIST_BATCHES, DIST_PAIRS = 4, 8, 64, 1024
-DIST_HALVINGS = 3
+DIST_HALVINGS = 2
 #: Phase M: deepseek-v2-lite-16b CONFIG at full width and depth on
 #: decode_32k's context, its global batch of 128 cut to DS_BATCH
-#: requests (the MLA cache is 31104 B a token: 1.0 GB at 1; 8 until
+#: requests (the MLA cache is 31104 B a token: 4.1 GB at 4; 8 until
 #: PR 24, cut for the script's time limit), prefilled
 #: DS_GROUP at a time (the blockwise float32 scores of a group are the
 #: peak's largest part), DS_STEPS greedy decode steps.
-DS_BATCH, DS_GROUP, DS_STEPS = 1, 1, 64
+DS_BATCH, DS_GROUP, DS_STEPS = 4, 2, 64
 #: M-check (and M2's check), in float32 with the no-drop capacity factor
 #: e / k: the layers kept, the requests and their prompt (blockwise, and
 #: ragged against prefill_block_k once the fed tokens are added), the
@@ -644,7 +644,7 @@ GNN_ARCHS = ("egnn", "nequip", "equiformer-v2")
 GNN_SHAPE_NAMES = ("molecule", "full_graph_sm", "minibatch_lg")
 GNN_REPS, GNN_RTOL, GNN_ATOL, GNN_ROT_TOL = 5, 1e-4, 1e-5, 1e-3
 #: Timed calls at minibatch_lg (5 until PR 24; cut for the time limit).
-GNN_REPS_LG = 1
+GNN_REPS_LG = 3
 GNN_CPU_MOLECULES = 8
 #: Phase R: DIEN's timed calls at serve_p99, serve_bulk and
 #: retrieval_cand, and the tolerance of the card against the CPU.
@@ -681,7 +681,8 @@ X_LSE_ATOL, X_TRACE_STEPS = 1e-3, 2
 X3_GRAD_BATCH, X3_ADAMW_RTOL = 4096, 1e-6
 X4_REPS = 3
 #: X4's layers at minibatch_lg (CONFIG's 12 until PR 24; cut for the
-#: script's time limit: the ring's one call there took 24.6 s).
+#: script's time limit: the ring's one call there took 24.6 s at 12
+#: layers, 8.2 s at 4, on an H100).
 X4_LG_LAYERS = 4
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W).
 BF16_DENSE_OPS_PER_S = 989e12
@@ -4554,15 +4555,16 @@ def oracle_on(graph, index, engine, sources, tag: str) -> None:
         f"plain_spc_bfs ({time.monotonic() - t0:.3f} s)")
 
 
-def launch_dspc_events(graph, index, engine, counts, seed: int,
+def launch_dspc_events(graph, index, engine, counts, edges, seed: int,
                        build_s: float) -> dict:
     """B2's dspc cells on the main path's graph and index: the
     ``inc_update`` step (``inc_spc``) of one random vertex pair that is
-    not an edge, then the ``dec_update`` step (``dec_spc``) of that edge
-    (the graph is its own again), through ``make_bundle(...).get_fn()``;
-    each event's seconds beside phase 4's rebuild; after each,
-    B2_DSPC_SOURCES sources (both endpoints among them) answered exactly
-    as ``plain_spc_bfs``."""
+    not an edge, then the ``dec_update`` step (``dec_spc``) of the edge
+    that the cell's host arguments delete, ``edges[len(edges) // 2]`` of
+    the graph's edge list (or the next one still in ``graph``), through
+    ``make_bundle(...).get_fn()``; each event's seconds beside phase 4's
+    rebuild; after each, B2_DSPC_SOURCES sources (both endpoints among
+    them) answered exactly as ``plain_spc_bfs``."""
     import torch
     from repro_torch.core import graph as G
     from repro_torch.launch import steps as S
@@ -4573,11 +4575,14 @@ def launch_dspc_events(graph, index, engine, counts, seed: int,
         a, b = (int(x) for x in rng.integers(0, graph.n, 2))
         if a != b and (min(a, b), max(a, b)) not in present:
             break
+    i = len(edges) // 2
+    while (min(map(int, edges[i])), max(map(int, edges[i]))) not in present:
+        i += 1
     g0 = G.ensure_capacity(graph, 2)
     out, states, state = {}, [], (g0, index)
     with counts.path("launch"):
-        for shape in ("inc_update", "dec_update"):
-            edge = (a, b)
+        for shape, edge in (("inc_update", (a, b)),
+                            ("dec_update", tuple(map(int, edges[i])))):
             bundle = S.make_bundle("dspc", shape)
             step = bundle.get_fn()
             if dev.type == "cuda":
@@ -5107,9 +5112,10 @@ def main(argv=None) -> int:
         f"M deepseek-v2-lite-16b global_batch 128->{DS_BATCH} (8 until "
         f"PR 24)",
         f"G minibatch_lg timed calls {GNN_REPS}->{GNN_REPS_LG}",
-        f"D n {CONFIG.n >> 2}->{CONFIG.n >> DIST_HALVINGS} (2 halvings "
-        f"until PR 24)",
         f"X4 minibatch_lg n_layers 12->{X4_LG_LAYERS}",
+        "B2 dspc/dec_update deletes the cell's edge, edges[m // 2], not a "
+        "uniformly random one (whose delete runs from ~1 s to over 60 s "
+        "with its affected hubs)",
         f"B2 qwen2-1.5b decode_32k global_batch 128->{B2_DECODE_BATCH}"]
     t0 = time.monotonic()
     edges = power_law_edges(n, m, args.seed)
@@ -5611,7 +5617,7 @@ def main(argv=None) -> int:
 
     # -- B2 (dspc). one insert and one delete through the dspc cells ---------
     dspc_events = launch_dspc_events(svc.graph, svc.index, engine, counts,
-                                     args.seed, build_s)
+                                     edges, args.seed, build_s)
     log(f"B2 dspc: {json.dumps(dspc_events)} (phase 4's build "
         f"{build_s:.3f} s) on {card}")
     laps.lap("B2 dspc events")
@@ -5628,7 +5634,6 @@ def main(argv=None) -> int:
     laps.lap("S1-S4 service")
 
     # -- D. distributed: a graph of its own over a device mesh ---------------
-    t0 = time.monotonic()
     dist_halvings = max(args.halvings, DIST_HALVINGS)
     dist_n, dist_m = CONFIG.n >> dist_halvings, CONFIG.m >> dist_halvings
     dist_reduced = [f"n {CONFIG.n}->{dist_n}", f"m {CONFIG.m}->{dist_m}"]
@@ -5637,12 +5642,11 @@ def main(argv=None) -> int:
     dist_numbers = distributed_phase(
         power_law_edges(dist_n, dist_m, args.seed + 31), dist_n, build_kw,
         counts, args.seed, card)
-    dist_numbers.update(phase_s=time.monotonic() - t0, reduced=dist_reduced)
-    log(f"distributed: {json.dumps(dist_numbers)} on {card}")
     gc.collect()
     torch.cuda.empty_cache()
-
-    laps.lap("D distributed")
+    dist_numbers.update(phase_s=laps.lap("D distributed"),
+                        reduced=dist_reduced)
+    log(f"distributed: {json.dumps(dist_numbers)} on {card}")
 
     # -- L. the LM serving path (examples/serve_lm.py at qwen2-1.5b) --------
     # one card, no mesh (lm_config)
@@ -5709,7 +5713,6 @@ def main(argv=None) -> int:
     del params, prompts
     gc.collect()
     torch.cuda.empty_cache()
-
 
     laps.lap("L lm path")
 
@@ -5783,39 +5786,29 @@ def main(argv=None) -> int:
     laps.lap("L flash_decode at the main shape")
 
     # -- M, M-check, M2, M3. the rest of the LM family -----------------------
-    t0 = time.monotonic()
     family = deepseek_phases(counts, card, args.seed)
     family.update(dense_family_phase(counts, card, args.seed, sms))
-    log(f"lm family ({time.monotonic() - t0:.1f} s): {json.dumps(family)} "
-        f"on {card}")
-
+    log(f"lm family: {json.dumps(family)} on {card}")
     laps.lap("M-M3 lm family")
 
     # -- G. the equivariant GNN family ---------------------------------------
-    t0 = time.monotonic()
     gnn = gnn_phase(counts, card, args.seed)
-    log(f"G ({time.monotonic() - t0:.1f} s): {json.dumps(gnn)} on {card}")
-
+    log(f"G: {json.dumps(gnn)} on {card}")
     laps.lap("G gnn")
 
     # -- R. DIEN serving ------------------------------------------------------
-    t0 = time.monotonic()
     recsys = recsys_phase(counts, card, args.seed)
-    log(f"R ({time.monotonic() - t0:.1f} s): {json.dumps(recsys)} on {card}")
-
+    log(f"R: {json.dumps(recsys)} on {card}")
     laps.lap("R recsys")
 
     # -- T. one-card training -------------------------------------------------
-    t0 = time.monotonic()
     train = train_phase(counts, card, args.seed)
-    log(f"T ({time.monotonic() - t0:.1f} s): {json.dumps(train)} on {card}")
-
+    log(f"T: {json.dumps(train)} on {card}")
     laps.lap("T train")
 
     # -- X. the mesh models ----------------------------------------------------
-    t0 = time.monotonic()
     mesh = mesh_phase(counts, card, args.seed)
-    log(f"X ({time.monotonic() - t0:.1f} s): {json.dumps(mesh)} on {card}")
+    log(f"X: {json.dumps(mesh)} on {card}")
     laps.lap("X mesh")
 
     # -- B. the launch layer: every cell abstract, one cell a family run ------

@@ -72,7 +72,6 @@ class StepBundle:
     abstract_args: tuple              # trees of tensors on the meta device
     arg_specs: tuple                  # logical sharding spec trees
     model_flops: float
-    static_kwargs: dict = dataclasses.field(default_factory=dict)
     notes: str = ""
 
     def get_fn(self, mesh=None, rules=None):
@@ -810,10 +809,9 @@ _HOST_ARGS = {"lm": lm_host_args, "gnn": gnn_host_args,
 
 
 def make_bundle(arch_id: str, shape_name: str, *, smoke: bool = False,
-                unroll: bool = False, variant: str = "") -> StepBundle:
-    """The cell's bundle.  ``unroll`` sets the LM and DIEN configs'
-    ``unroll_scans``, a cost-analysis mode of XLA that changes nothing
-    here (kept for the reference's signature)."""
+                variant: str = "") -> StepBundle:
+    """The cell's bundle: ``smoke`` at the SMOKE config, ``variant="ring"``
+    for Equiformer-v2's ring-partitioned full-graph step."""
     spec = get_arch(arch_id)
     shape = spec.shapes[shape_name]
     if variant == "ring":
@@ -823,11 +821,6 @@ def make_bundle(arch_id: str, shape_name: str, *, smoke: bool = False,
         return equiformer_ring_bundle(spec, shape)
     if variant:
         raise ValueError(f"unknown variant {variant!r}")
-    if unroll and spec.family in ("lm", "recsys"):
-        spec = dataclasses.replace(
-            spec,
-            config=dataclasses.replace(spec.config, unroll_scans=True),
-            smoke=dataclasses.replace(spec.smoke, unroll_scans=True))
     return _BUNDLERS[spec.family](spec, shape, smoke)
 
 

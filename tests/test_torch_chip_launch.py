@@ -68,10 +68,14 @@ def test_b2_cells_and_dspc_events_on_the_cpu(monkeypatch):
     for row in train.values():
         assert row["step"] == 2 and row["skipped"] == 0
     n = 60
-    svc = DynamicSPC(n, random_graph_edges(n, 150, seed=0), device="cpu")
+    edges = random_graph_edges(n, 150, seed=0)
+    svc = DynamicSPC(n, edges, device="cpu")
     events = chip_smoke.launch_dspc_events(svc.graph, svc.index,
-                                           QueryEngine(), counts, 0, 1.0)
+                                           QueryEngine(), counts, edges, 0,
+                                           1.0)
     assert set(events) == {"dspc/inc_update", "dspc/dec_update"}
+    # the delete is the cell's own: edges[m // 2], as dspc_host_args picks
+    assert events["dspc/dec_update"]["edge"] == list(edges[len(edges) // 2])
     assert counts.by_path["launch"] == dict.fromkeys(counts.counters, 0)
 
 
@@ -80,12 +84,13 @@ def test_b2_dspc_event_check_catches_a_wrong_update(monkeypatch):
     from repro_torch.core import graph as G
     from repro_torch.core import incremental
     n = 60
-    svc = DynamicSPC(n, random_graph_edges(n, 150, seed=0), device="cpu")
+    edges = random_graph_edges(n, 150, seed=0)
+    svc = DynamicSPC(n, edges, device="cpu")
     monkeypatch.setattr(incremental, "inc_spc",
                         lambda g, idx, a, b: (G.insert_edge(g, a, b), idx))
     with pytest.raises(AssertionError, match="oracle B2 dspc/inc_update"):
         chip_smoke.launch_dspc_events(svc.graph, svc.index, QueryEngine(),
-                                      counters(), 0, 1.0)
+                                      counters(), edges, 0, 1.0)
 
 
 def test_b3_train_cli_resumes_bitwise():

@@ -171,6 +171,10 @@ def zero_router(args):
     return (params, *args[1:])
 
 
+#: The zero-start leaves whose gradient is rounding noise (module doc):
+#: qwen2's key bias and the zeroed router.
+NOISE_GRAD_LEAVES = ("bk", "router")
+
 LM_SMOKE = [(a, s) for a, s in cells_of("lm")]
 
 
@@ -192,8 +196,10 @@ def test_lm_smoke_cell_matches_reference(arch, shape):
         if path in exact:
             np.testing.assert_array_equal(g, w, err_msg=path)
         elif kind == "train" and path.startswith("/0/") and \
+                path.rsplit("/", 1)[-1] in NOISE_GRAD_LEAVES and \
                 not host(old[path[2:]]).any():
-            # a parameter that starts at zero is all update (module doc)
+            # a zero-start leaf whose gradient is rounding noise (module
+            # doc): all update, of arbitrary sign
             for x in (g, w):
                 assert np.abs(x).max() <= lr * 1.01, path
         else:
