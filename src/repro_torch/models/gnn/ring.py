@@ -210,6 +210,8 @@ def ring_attention(layer, h: torch.Tensor, pos: torch.Tensor, src_b, dst_b,
     dst_b = torch.as_tensor(np.asarray(dst_b) if not torch.is_tensor(dst_b)
                             else dst_b)
     pos = pos.to(h.dtype)
+    # the reference's float32 accumulators, wider for a float64 forward
+    acc = torch.promote_types(h.dtype, torch.float32)
     messages = {dev: _messages_on(layer, dev) for dev in mesh.distinct_devices}
 
     def block(x, d, dev):
@@ -226,8 +228,8 @@ def ring_attention(layer, h: torch.Tensor, pos: torch.Tensor, src_b, dst_b,
             for m in range(p_model):
                 dev = devs[d, m]
                 x_in, p_in = block(h, d, dev), block(pos, d, dev)
-                mx = torch.full((n1, cfg.n_heads), -1e30,
-                                dtype=torch.float32, device=dev)
+                mx = torch.full((n1, cfg.n_heads), -1e30, dtype=acc,
+                                device=dev)
                 for s in range(p_data):
                     sd = _source_block(d, s, p_data)
                     x_blk, p_blk = block(h, sd, dev), block(pos, sd, dev)
@@ -237,7 +239,7 @@ def ring_attention(layer, h: torch.Tensor, pos: torch.Tensor, src_b, dst_b,
                     alpha = torch.where((src < n1 - 1)[:, None], alpha, -1e30)
                     blk_max = agg_max(alpha, dst, n1)
                     mx = torch.maximum(mx, torch.nan_to_num(
-                        blk_max, neginf=-1e30).to(torch.float32))
+                        blk_max, neginf=-1e30).to(acc))
                 maxima[d, m] = mx
     shift = {}
     for d in range(p_data):
@@ -254,7 +256,7 @@ def ring_attention(layer, h: torch.Tensor, pos: torch.Tensor, src_b, dst_b,
         # mask before exp: exp(garbage - (-1e30)) = inf would poison the
         # gradient of a later select (inf * 0 = NaN)
         w = torch.exp(torch.where(live, alpha - mx[dst], -1e30))
-        msg = head_weight(w, msg.to(torch.float32), cfg)
+        msg = head_weight(w, msg.to(acc), cfg)
         return agg_sum(msg, dst, n1), agg_sum(w, dst, n1)
 
     out = []
@@ -264,10 +266,9 @@ def ring_attention(layer, h: torch.Tensor, pos: torch.Tensor, src_b, dst_b,
         for m in range(p_model):
             dev = devs[d, m]
             x_in, p_in = block(h, d, dev), block(pos, d, dev)
-            num = torch.zeros((n1, cfg.d_hidden, cfg.comps),
-                              dtype=torch.float32, device=dev)
-            den = torch.zeros((n1, cfg.n_heads), dtype=torch.float32,
+            num = torch.zeros((n1, cfg.d_hidden, cfg.comps), dtype=acc,
                               device=dev)
+            den = torch.zeros((n1, cfg.n_heads), dtype=acc, device=dev)
             for s in range(p_data):
                 sd = _source_block(d, s, p_data)
                 src, dst = buckets(d, m, s, dev)

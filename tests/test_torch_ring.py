@@ -10,7 +10,11 @@ against the reference's (``repro.models.gnn.ring``) on the CPU:
   ``tests/launch/ring_check.py`` holds the reference's ring to its local
   path;
 * the gradient of a scalar loss through the ring equals the port's
-  local gradient within rtol 1e-4 / atol 1e-5, for every parameter.
+  local gradient within rtol 1e-4 / atol 1e-5, for every parameter;
+* a float64 module runs the ring with float64 accumulators: its node
+  irreps equal the port's float64 local forward within 1e-7 relative,
+  far inside what float32 resolves (the local softmax's ``+ 1e-9`` on
+  its denominator is the one term the two do not share).
 """
 
 import jax
@@ -24,7 +28,7 @@ from repro.models.gnn.graph import from_numpy as jax_from_numpy
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.gnn import equiformer_v2 as T2
 from repro_torch.models.gnn import ring as RG
-from repro_torch.models.gnn.graph import from_numpy
+from repro_torch.models.gnn.graph import GraphBatch, from_numpy
 
 KW = dict(d_in=6, n_layers=2, d_hidden=8, l_max=2, m_max=1, n_heads=2,
           n_rbf=8)
@@ -138,3 +142,30 @@ def test_ring_needs_a_data_model_mesh():
         RG.forward_ring(model, torch.from_numpy(nodes),
                         torch.from_numpy(pblk), src_b, dst_b,
                         make_mesh((4,), ("model",), ["cpu"] * 4))
+
+
+@pytest.mark.parametrize("p_data,p_model", [(2, 2), (3, 1)])
+def test_forward_ring_in_float64_matches_the_local_float64_forward(
+        p_data, p_model):
+    _, _, model = models()
+    wide = T2.EquiformerV2(T2.EquiformerV2Config(**KW, dtype=torch.float64),
+                           device="cpu")
+    wide.load_state_dict(model.state_dict())
+    feat, pos, snd, rcv = graph(3)
+    n = feat.shape[0]
+    batch = from_numpy(feat.astype(np.float64), snd, rcv,
+                       pos=pos.astype(np.float64), device="cpu")
+    assert isinstance(batch, GraphBatch) and batch.nodes.dtype == \
+        torch.float64
+    src_b, dst_b, _, _ = RG.bucket_edges(snd, rcv, n, p_data, p_model)
+    nodes, pblk, _ = RG.blocked_layout(feat.astype(np.float64),
+                                       pos.astype(np.float64), n, p_data)
+    mesh = make_mesh((p_data, p_model), ("data", "model"),
+                     ["cpu"] * (p_data * p_model))
+    with torch.no_grad():
+        x = RG.forward_ring(wide, torch.from_numpy(nodes),
+                            torch.from_numpy(pblk), src_b, dst_b, mesh)
+        _, want = wide(batch)
+    got = RG.unblock(x, n, p_data)
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(got, want[:n], rtol=1e-7, atol=1e-7)

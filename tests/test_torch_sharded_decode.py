@@ -238,8 +238,11 @@ def test_chip_smoke_mesh_phase_on_the_cpu(monkeypatch):
     for shape in ("full_graph_sm", "minibatch_lg"):
         ring = out["ring"][shape]
         assert ring["dropped"] == 0 and ring["max_abs_err"] < 1e-5
-    assert out["ring"]["full_graph_sm"]["fault_column_zero_max_abs_err"] > \
-        chip_smoke.GNN_ATOL
+        assert ring["precision"] == "float64"
+        assert ring["rel_l2"] <= chip_smoke.X_F32_TOL
+    fault = out["ring"]["full_graph_sm"]
+    assert fault["fault_column_zero_max_abs_err"] > chip_smoke.GNN_ATOL
+    assert fault["fault_column_zero_rel_l2"] > chip_smoke.X_F32_TOL
     assert not any(counts.by_path["mesh"].values())
 
 
