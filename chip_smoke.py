@@ -358,8 +358,29 @@ X.  mesh     -- the mesh models over X_ENTRIES = 4 entries of ``cuda:0``
                 the retrieval at retrieval_cand on row-sharded tables
                 (``table_rows`` -> ``model``) equal to the whole tables'
                 bit for bit; each table's and moment's bytes a device.
+                X5: X1's qwen2-7b at tp 4 (28 heads, none padded) on
+                the tensor-parallel serve path: the weights placed by a
+                prefill and a decode cell's ``arg_specs`` through
+                ``TP_ONLY`` (``heads``, ``mlp``, ``vocab`` and
+                ``experts`` -> ``model``), X1's prompts prefilled and
+                its 16 fed tokens decoded through the cells'
+                ``get_fn(mesh, TP_ONLY)`` on the sequence-sharded cache
+                (one flash_decode launch a layer, step and cache shard:
+                28 x 16 x 4); every step's logits within a relative L2
+                of X_REL_TOL["X5"] of X1's unsharded decode (no
+                unsharded run repeats), which the planted fault (each
+                attention's partial outputs cut to entry 0's) must miss;
+                the float32 control against X1's; each entry's weight
+                bytes against the shard shapes of ``resolve_tree``; the
+                prefill's seconds and the step p50.  X6: the same for
+                X2's deepseek-v2-236b (2 layers, 40 of its 160 experts
+                an entry, its own limit), and the prefill run twice more:
+                layer 0's MoE output bit for bit, its routing equal to
+                ``route`` with the whole router bit for bit.
                 X4: Equiformer-v2 CONFIG in float32 through the ring
-                (``models/gnn/ring.py``) over the (2, 2) mesh at
+                (``models/gnn/ring.py``: the node state in blocks over
+                ``data``, every node-wise layer run block by block on
+                the blocks' devices) over the (2, 2) mesh at
                 full_graph_sm (X4_REPS calls) and minibatch_lg's sampled
                 block (one call, X4_LG_LAYERS of its 12 layers): its node
                 outputs against the local forward of the same inputs
@@ -373,7 +394,10 @@ B.  launch   -- the launch layer (``repro_torch.launch.steps``).  B1:
                 every one of ``all_cells()``'s 44 cells built at full
                 size on the meta device (nothing allocated), one line a
                 cell: ``model_flops`` and the bytes of its abstract
-                parameters, optimizer state and batch.  B2: a cell of
+                parameters, optimizer state and batch; then Equiformer-v2's
+                ring bundle at ogb_products laid out over meta meshes of
+                RING_GRIDS by its ``arg_specs``: the node state's, the
+                node inputs' and the buckets' bytes a device.  B2: a cell of
                 each family through ``make_bundle(...).get_fn()`` on the
                 card at CONFIG width and depth: qwen2-1.5b decode_32k (28
                 layers, tp 16 as the cell has it, random bf16 weights, a
@@ -420,8 +444,9 @@ and fails if a redesigned kernel (``REDESIGNED``: ``flash_decode_mma``,
 
 ``--lm-seeds 0,1,...`` builds the kernels and then only reads L4 and its
 controls for the first 2 requests of each seed (prefilled and decoded
-as 2 requests), and X1's and X2's sharded decode and plain-mean fault
-from each seed, prints them and exits.  ``--replica-of DIR --pairs
+as 2 requests), X1's and X2's sharded decode and plain-mean fault and
+X5's and X6's tensor-parallel decode and entry-0 fault from each seed,
+prints them and exits.  ``--replica-of DIR --pairs
 FILE`` is S3's second process.
 
 Launches are counted for each main path on its own: the DSPC path
@@ -430,7 +455,8 @@ analytics path (the timed steps of A1 and A2), the LM path (L2 and
 L3; flash_decode exactly 8 x 64 times), the mesh path (the sharded
 prefills and decodes, the placed AdamW step, the row-sharded DIEN
 calls and the ring calls of X; flash_decode exactly 28 x 16 x 4 times,
-all in X1), the launch path (B2's cells: flash_decode exactly 28 x 16
+all in X1), the tp path (X5's and X6's tensor-parallel prefills and
+decodes; flash_decode exactly 28 x 16 x 4 times, all in X5), the launch path (B2's cells: flash_decode exactly 28 x 16
 times in the decode; the train cells and the dspc events launch none),
 the examples path (E's in-process examples: spc_query in the DSPC
 examples' serving, embedding_bag in analytics_spc's re-rank, flash_decode
@@ -530,6 +556,10 @@ PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
                 # a shard (MLA's shards, ZeRO, DIEN's tables and the ring
                 # launch none)
                 "mesh": ("flash_decode",),
+                # phase X5 / X6: the tensor-parallel serve path (qwen2-7b's
+                # decode on the sequence-sharded cache, one launch a
+                # shard; deepseek-v2-236b's MLA and MoE launch none)
+                "tp": ("flash_decode",),
                 # phase B2: the decode_32k cell's decode (DIEN's and
                 # EGNN's train steps and the dspc events launch none)
                 "launch": ("flash_decode",),
@@ -669,7 +699,10 @@ T_GNN_STEPS = 3
 #: the sharded decode's logits against the unsharded decode's: midway
 #: between the port's largest reading and the plain-mean fault's
 #: smallest over seeds 0-3 (``--lm-seeds``) on an H100 (X1: 0.01834 and
-#: 0.1128; X2: 0.08117 and 0.1540, where an expert flips); the
+#: 0.1128; X2: 0.08117 and 0.1540, where an expert flips); X5's and X6's
+#: likewise for the tensor-parallel decode against the same unsharded
+#: one and its entry-0 fault (X5: 0.01980 and 1.392; X6: 0.08879 and
+#: 1.267); the
 #: tolerance of K4's LSE output; the sharded decode steps traced; X3's
 #: gradient batch and AdamW tolerance (PR 22's: rtol 1e-6, atol 1e-6
 #: times each leaf's largest magnitude); X4's timed calls at
@@ -678,7 +711,8 @@ X_ENTRIES, X_GRID = 4, (2, 2)
 X1_BATCH, X1_PROMPT, X1_STEPS = 4, 2048, 16
 X2_BATCH, X2_PROMPT, X2_STEPS = 2, 1024, 8
 X_CHECK_LAYERS, X_CHECK_BATCH, X_F32_TOL = 2, 2, 1e-4
-X_REL_TOL = {"X1": 6.557e-2, "X2": 1.176e-1}
+X_REL_TOL = {"X1": 6.557e-2, "X2": 1.176e-1, "X5": 7.058e-1,
+             "X6": 6.779e-1}
 X_LSE_ATOL, X_TRACE_STEPS = 1e-3, 2
 X3_GRAD_BATCH, X3_ADAMW_RTOL = 4096, 1e-6
 X4_REPS = 3
@@ -686,6 +720,8 @@ X4_REPS = 3
 #: script's time limit: the ring's one call there took 24.6 s at 12
 #: layers, 8.2 s at 4, on an H100).
 X4_LG_LAYERS = 4
+#: B1's ("data", "model") grids for Equiformer-v2's ring at ogb_products.
+RING_GRIDS = ((4, 1), (2, 2))
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W).
 BF16_DENSE_OPS_PER_S = 989e12
 #: Phase B (the launch layer): B2's decode cell (qwen2-1.5b decode_32k at
@@ -1459,9 +1495,11 @@ def lm_seed_readings(seeds, card: str) -> int:
 
 
 def x_seed_readings(seeds, card: str, device="cuda") -> dict:
-    """X1's and X2's sharded decode and its plain-mean fault from each
+    """X1's and X2's sharded decode and its plain-mean fault, then X5's
+    and X6's tensor-parallel decode and its entry-0 fault, from each
     seed, with the main run's inputs from that seed (untraced, without
-    the float32 control): {tag: {seed: readings}}."""
+    the float32 controls): {tag: {seed: readings}}."""
+    import dataclasses
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh((X_ENTRIES,), ("model",), mesh_devices(device))
     out = {}
@@ -1469,13 +1507,21 @@ def x_seed_readings(seeds, card: str, device="cuda") -> dict:
         for tag in ("X1", "X2"):
             t0 = time.monotonic()
             _, cfg, params, prompts, steps = x_decode_case(tag, seed, device)
+            ref = {}
             n = sharded_decode_check(params, cfg, prompts, steps, mesh,
-                                     PathLaunches({}), trace=False)
+                                     PathLaunches({}), trace=False, keep=ref)
             out.setdefault(tag, {})[seed] = {
                 k: n[k] for k in ("sharded", "fault_plain_mean", "argmax")}
-            log(f"{tag} seed {seed}: {json.dumps(out[tag][seed])} "
+            tp = tp_check(params, dataclasses.replace(
+                cfg, tp=mesh.shape["model"]), prompts, steps, mesh, ref,
+                PathLaunches({}))
+            out.setdefault(TP_TAG[tag], {})[seed] = {
+                k: tp[k] for k in ("rel_l2", "fault_entry0", "argmax")}
+            log(f"{tag} and {TP_TAG[tag]} seed {seed}: "
+                f"{json.dumps(out[tag][seed])}, "
+                f"{json.dumps(out[TP_TAG[tag]][seed])} "
                 f"({time.monotonic() - t0:.3f} s on {card})")
-            del params, prompts, n
+            del params, prompts, n, ref, tp
             release(device)
     return out
 
@@ -1991,12 +2037,14 @@ def merged_by_plain_mean():
         A.merge_by_lse = merge
 
 
-def decode_steps(params, cfg, cache, token, steps: int, fed=None):
+def decode_steps(params, cfg, cache, token, steps: int, fed=None,
+                 step=None):
     """``steps`` decode steps from ``token`` int32 [B]: greedy, or the
     tokens of ``fed`` [B, steps] when given (the same inputs on two
-    caches).  Returns (fed, every step's logits float32 [steps, B, V],
-    the cache, each step's device ms from CUDA events -- empty off the
-    card)."""
+    caches), each through ``step(params, cache, token)`` (default:
+    ``transformer.decode_step``).  Returns (fed, every step's logits
+    float32 [steps, B, V], the cache, each step's device ms from CUDA
+    events -- empty off the card)."""
     import torch
     from repro_torch.models import transformer as tf
     cuda = token.is_cuda
@@ -2009,7 +2057,8 @@ def decode_steps(params, cfg, cache, token, steps: int, fed=None):
         if fed is not None:
             token = fed[:, i]
         toks.append(token)
-        lg, cache = tf.decode_step(params, cache, token, cfg)
+        lg, cache = (step(params, cache, token) if step else
+                     tf.decode_step(params, cache, token, cfg))
         logits.append(lg.float())
         token = lg.argmax(dim=-1).to(torch.int32)
         if events:
@@ -2021,7 +2070,8 @@ def decode_steps(params, cfg, cache, token, steps: int, fed=None):
 
 
 def sharded_decode_check(params, cfg, prompts, steps: int, mesh, counts,
-                         fault: bool = True, trace: bool = True) -> dict:
+                         fault: bool = True, trace: bool = True,
+                         keep: dict | None = None) -> dict:
     """X1 / X2 for one configuration: the unsharded prefill and greedy
     decode (outside every path), then the same prompts prefilled into a
     cache laid out over ``mesh`` and decoded on the same tokens inside
@@ -2030,7 +2080,9 @@ def sharded_decode_check(params, cfg, prompts, steps: int, mesh, counts,
     planted fault (:func:`merged_by_plain_mean`) replayed the same way
     outside the path.  Also the prefill's logits (the same forward:
     equal bit for bit) and the step p50s; with ``trace`` (and ``fault``,
-    on the card) the last sharded steps traced."""
+    on the card) the last sharded steps traced.  ``keep`` receives the
+    unsharded run (``first`` logits, ``token``, ``fed``, ``want``), the
+    reference X5 and X6 are held to."""
     import torch
     from repro_torch.models import transformer as tf
     b, t = prompts.shape
@@ -2039,6 +2091,8 @@ def sharded_decode_check(params, cfg, prompts, steps: int, mesh, counts,
     token = first.argmax(dim=-1).to(torch.int32)
     fed, want, cache, ms0 = decode_steps(params, cfg, cache, token, steps)
     del cache
+    if keep is not None:
+        keep.update(first=first, token=token, fed=fed, want=want)
     with counts.path("mesh"):
         got_first, placed = tf.prefill(params, prompts, cfg, s_max,
                                        mesh=mesh)
@@ -2093,6 +2147,203 @@ def placed_cache_line(tf, cfg, mesh, b: int, s_max: int) -> dict:
             "seq_bounds": [list(block_bounds(shape, parts, (0, 0, i, 0, 0)
                                              [:len(shape)])[2])
                            for i in range(parts[2])]}
+
+
+@contextlib.contextmanager
+def entry0_partial_only():
+    """X5's and X6's planted fault: each attention's partial outputs
+    reduced to entry 0's (its heads through its ``wo`` rows), the other
+    entries' dropped."""
+    from repro_torch.models import attention as A
+    psum = A.psum
+    A.psum = lambda parts, device: parts[0].to(device)
+    try:
+        yield
+    finally:
+        A.psum = psum
+
+
+def tp_cells(cfg, b: int, s_max: int):
+    """X5's and X6's prefill and decode cells (``launch.steps.lm_bundle``)
+    of ``cfg``'s architecture at ``cfg`` (its ``tp`` the mesh's model
+    size), their prefill_32k and decode_32k shapes cut to ``b`` requests
+    and a context of ``s_max``."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.launch import steps as S
+    spec = dataclasses.replace(get(cfg.name.removesuffix("-smoke")),
+                               config=cfg)
+    dims = dict(global_batch=b, seq_len=s_max)
+    return (S.lm_bundle(spec, ShapeSpec("prefill_32k", "prefill", dims),
+                        False),
+            S.lm_bundle(spec, ShapeSpec("decode_32k", "decode", dims), False))
+
+
+def entry_weight_bytes(placed, cfg, mesh) -> dict:
+    """The weight bytes each mesh entry holds of a placed tree, against
+    the shard shapes ``resolve_tree(param_specs, TP_ONLY)`` gives the
+    abstract parameters; raises where they differ."""
+    import math
+    from repro_torch import sharding as SH
+    from repro_torch.launch.mesh import local_tree
+    from repro_torch.models import transformer as tf
+    shardings = SH.resolve_tree(tf.param_specs(cfg), SH.TP_ONLY, mesh)
+    abstract = tf.init_params(cfg, device="meta")
+
+    def want(tree, sh):
+        if isinstance(tree, dict):
+            return sum(want(tree[k], sh[k]) for k in tree)
+        parts = sh.parts(tree.dim())
+        return math.prod(n // p for n, p in zip(tree.shape, parts)) * \
+            tree.element_size()
+    got = [tree_bytes(local_tree(placed, e)) for e in range(mesh.size)]
+    expected = want(abstract, shardings)
+    if got != [expected] * mesh.size:
+        raise AssertionError(f"X TP ({cfg.name}): entries hold {got} weight "
+                             f"bytes, the shard shapes {expected} each")
+    return {"by_entry": got, "whole": tree_bytes(abstract)}
+
+
+def tp_moe_checks(prefill, placed, toks, router0) -> dict:
+    """X6: the tensor-parallel prefill run twice; layer 0's MoE output
+    (the first ``moe_dispatch_tp`` return of each run) compared bit for
+    bit (as :func:`moe_repeat`), and its routing (the first ``route``
+    call) against ``route`` with layer 0's whole router on the same
+    tokens, every field bit for bit."""
+    import torch
+    from repro_torch.models import moe as M
+    dispatch, route = M.moe_dispatch_tp, M.route
+    firsts, routes = [], []
+    for _ in range(2):
+        outs, seen = [], []
+
+        def recorded(*args):
+            out = dispatch(*args)
+            if not outs:
+                outs.append(out.clone())
+            return out
+
+        def routed(router, tokens, cfg):
+            r = route(router, tokens, cfg)
+            if not seen:
+                seen.append((tokens.clone(), r, cfg))
+            return r
+        M.moe_dispatch_tp, M.route = recorded, routed
+        try:
+            prefill(placed, toks)
+        finally:
+            M.moe_dispatch_tp, M.route = dispatch, route
+        firsts.append(outs[0])
+        routes.append(seen[0])
+    a, b = firsts
+    tokens, r, cfg = routes[0]
+    want = route(router0.to(tokens.device), tokens, cfg)
+    return {"repeats": bool(torch.equal(a, b)),
+            "differing": int((a != b).sum()), "elements": a.numel(),
+            "route_equal": all(x == y if f == "cap" else
+                               bool(torch.equal(x, y))
+                               for f, x, y in zip(r._fields, r, want))}
+
+
+def place_consuming(tree: dict, shardings: dict, specs: dict) -> dict:
+    """``launch.mesh.place_tree`` leaf by leaf, each whole leaf dropped
+    from ``tree`` once placed: the card holds one leaf twice at a time,
+    not the tree (deepseek-v2-236b's two float32 layers take 35 GB)."""
+    from repro_torch.launch.mesh import place_tree
+    out = {}
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            out[k] = place_consuming(tree[k], shardings[k], specs[k])
+        else:
+            out[k] = place_tree(tree.pop(k), shardings[k], specs[k])
+    return out
+
+
+def tp_check(params, cfg, prompts, steps: int, mesh, ref: dict, counts,
+             fault: bool = True, moe_checks: bool = False,
+             consume: bool = False) -> dict:
+    """X5 / X6 for one configuration: ``params`` (the unsharded run's;
+    ``cfg`` at ``tp`` = the mesh's model size) placed by a prefill cell's
+    ``arg_specs`` through ``TP_ONLY`` (:func:`tp_cells`), then the
+    prefill and the decode steps on ``ref``'s tokens through the cells'
+    ``get_fn(mesh, TP_ONLY)`` inside ``counts.path("tp")``: every step's
+    logits against ``ref``'s (:func:`sharded_decode_check`'s unsharded
+    run) as a relative L2 error (``tp``), the prefill's seconds, the
+    step p50, each entry's weight bytes; with ``fault`` the planted
+    fault (:func:`entry0_partial_only`) replayed outside the path; with
+    ``moe_checks`` :func:`tp_moe_checks`; with ``consume`` the weights
+    are placed by :func:`place_consuming`, which empties ``params``."""
+    import torch
+    from repro_torch import sharding as SH
+    b, t = prompts.shape
+    pre, dec = tp_cells(cfg, b, t + steps)
+    router0 = params["layers"]["ffn"]["router"][0] if moe_checks else None
+    t0 = time.monotonic()
+    if consume:
+        spec = pre.arg_specs[0]
+        placed = place_consuming(params, SH.resolve_tree(
+            spec, SH.TP_ONLY, mesh), spec)
+        toks = pre.place_args((placed, prompts), mesh, SH.TP_ONLY)[1]
+    else:
+        placed, toks = pre.place_args((params, prompts), mesh, SH.TP_ONLY)
+    cuda = prompts.is_cuda
+    if cuda:
+        torch.cuda.synchronize()
+    place_s = time.monotonic() - t0
+    prefill = pre.get_fn(mesh, SH.TP_ONLY)
+    decode = dec.get_fn(mesh, SH.TP_ONLY)
+    t0 = time.monotonic()
+    with counts.path("tp"):
+        first, cache = prefill(placed, toks)
+        if cuda:
+            torch.cuda.synchronize()
+        prefill_s = time.monotonic() - t0
+        _, got, cache, ms = decode_steps(placed, cfg, cache, ref["token"],
+                                         steps, ref["fed"], step=decode)
+    out = {"tp": cfg.tp, "place_s": place_s, "prefill_s": prefill_s,
+           "prefill_rel_l2": rel_l2(first, ref["first"]),
+           "rel_l2": rel_l2(got, ref["want"]),
+           "argmax": int((got[-1].argmax(-1) ==
+                          ref["want"][-1].argmax(-1)).sum()),
+           "step_ms_p50": float(np.percentile(ms or [0], 50)),
+           "weight_bytes": entry_weight_bytes(placed, cfg, mesh)}
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"X TP ({cfg.name}): logits not finite")
+    del cache, got
+    if fault:
+        with entry0_partial_only():
+            _, cache = prefill(placed, toks)
+            _, bad, cache, _ = decode_steps(placed, cfg, cache, ref["token"],
+                                            steps, ref["fed"], step=decode)
+        out["fault_entry0"] = rel_l2(bad, ref["want"])
+        del cache, bad
+    if moe_checks:
+        out.update(tp_moe_checks(prefill, placed, toks, router0))
+        if not (out["repeats"] and out["route_equal"]):
+            raise AssertionError(f"X6 ({cfg.name}): the tensor-parallel "
+                                 f"prefill does not repeat bit for bit, or "
+                                 f"its routing differs from the whole "
+                                 f"router's: {json.dumps(out)}")
+    return out
+
+
+def check_tp(tag: str, n: dict, f32: dict) -> None:
+    """X5 / X6: the tensor-parallel logits within X_REL_TOL[tag] of the
+    unsharded decode's, the float32 control within X_F32_TOL, the
+    planted fault beyond X_REL_TOL[tag]."""
+    limit = X_REL_TOL[tag]
+    if not n["rel_l2"] <= limit:
+        raise AssertionError(f"{tag}: tensor-parallel logits differ by "
+                             f"{n['rel_l2']:.4g} (relative L2), beyond "
+                             f"{limit}")
+    if not f32["rel_l2"] <= X_F32_TOL:
+        raise AssertionError(f"{tag}: the float32 control differs by "
+                             f"{f32['rel_l2']:.4g}, beyond {X_F32_TOL}")
+    if not n["fault_entry0"] > limit:
+        raise AssertionError(f"{tag}: the limit {limit} passes the planted "
+                             f"fault (entry 0's partial output only: "
+                             f"{n['fault_entry0']:.4g})")
 
 
 def check_x_decode(tag: str, n: dict) -> None:
@@ -2173,19 +2424,28 @@ def x_decode_case(tag: str, seed: int, device):
     return base, cfg, params, prompts, steps
 
 
+#: The tensor-parallel check of each sharded decode's configuration.
+TP_TAG = {"X1": "X5", "X2": "X6"}
+
+
 def x_decode_phases(counts, card: str, seed: int, mesh,
                     device="cuda") -> dict:
-    """X1 and X2 (module doc).  Returns {config name: numbers}."""
+    """X1 and X2, each followed by its tensor-parallel check, X5 and X6
+    (module doc).  Returns {config name: numbers}, X5's and X6's under
+    ``"tp"``."""
     import dataclasses
     import torch
     from repro_torch.models import transformer as tf
     out = {}
+    cuda = torch.device(device).type == "cuda"
     for tag in ("X1", "X2"):
         t0 = time.monotonic()
         base, cfg, params, prompts, steps = x_decode_case(tag, seed, device)
         b, t = prompts.shape
         before = counts.by_path["mesh"]["flash_decode"]
-        n = sharded_decode_check(params, cfg, prompts, steps, mesh, counts)
+        ref, ref32 = {}, {}
+        n = sharded_decode_check(params, cfg, prompts, steps, mesh, counts,
+                                 keep=ref)
         n["flash_decode_launches"] = \
             counts.by_path["mesh"]["flash_decode"] - before
         if tag == "X1":
@@ -2195,6 +2455,16 @@ def x_decode_phases(counts, card: str, seed: int, mesh,
                 placed["k"], placed["v"], placed["lengths"] + steps,
                 cfg.padded_heads, seed + 31) if prompts.is_cuda else None
             del placed
+        t1 = time.monotonic()
+        tp_cfg = dataclasses.replace(cfg, tp=mesh.shape["model"])
+        before = counts.by_path["tp"]["flash_decode"]
+        tp = tp_check(params, tp_cfg, prompts, steps, mesh, ref, counts,
+                      moe_checks=cfg.is_moe)
+        tp["flash_decode_launches"] = \
+            counts.by_path["tp"]["flash_decode"] - before
+        del ref
+        release(device)
+        tp["seconds"] = time.monotonic() - t1
         check_cfg = (dataclasses.replace(cfg, n_layers=X_CHECK_LAYERS,
                                          param_dtype=torch.float32,
                                          act_dtype=torch.float32)
@@ -2204,22 +2474,32 @@ def x_decode_phases(counts, card: str, seed: int, mesh,
         release(device)
         n["f32"] = sharded_decode_check(params, check_cfg,
                                         prompts[:X_CHECK_BATCH], steps, mesh,
-                                        PathLaunches({}), fault=False)
+                                        PathLaunches({}), fault=False,
+                                        keep=ref32)
+        t1 = time.monotonic()
+        tp["f32"] = tp_check(params, dataclasses.replace(check_cfg,
+                                                         tp=tp_cfg.tp),
+                             prompts[:X_CHECK_BATCH], steps, mesh, ref32,
+                             PathLaunches({}), fault=False, consume=True)
+        tp["seconds"] += time.monotonic() - t1
         n.update(reduced=[f"n_layers {base.n_layers}->{cfg.n_layers}"]
                  if cfg.n_layers != base.n_layers else [],
                  limit=X_REL_TOL[tag], f32_limit=X_F32_TOL,
-                 seconds=time.monotonic() - t0)
-        del params, prompts
+                 seconds=time.monotonic() - t0, tp=tp)
+        tp.update(limit=X_REL_TOL[TP_TAG[tag]], f32_limit=X_F32_TOL)
+        del params, prompts, ref32
         release(device)
         # one launch a layer, step and shard of positions on the card;
         # none for MLA (plain einsums) or on the CPU's plain route
         want = cfg.n_layers * steps * sum(hi > lo for lo, hi in n[
             "cache_placed"]["seq_bounds"]) if cfg.attn != "mla" and \
-            torch.device(device).type == "cuda" else 0
-        if n["flash_decode_launches"] != want:
-            raise AssertionError(f"{tag} ({cfg.name}): flash_decode "
-                                 f"launched {n['flash_decode_launches']} "
-                                 f"times on the mesh path, want {want}")
+            cuda else 0
+        for path, got in (("mesh", n["flash_decode_launches"]),
+                          ("tp", tp["flash_decode_launches"])):
+            if got != want:
+                raise AssertionError(f"{tag} ({cfg.name}): flash_decode "
+                                     f"launched {got} times on the {path} "
+                                     f"path, want {want}")
         log(f"{tag} {cfg.name} ({cfg.n_layers} layers, tp 1, "
             f"{cfg.act_dtype}): {b} x {t} tokens, {steps} steps, the cache "
             f"{json.dumps(n['cache_placed'])} over {mesh}; logits vs the "
@@ -2238,7 +2518,27 @@ def x_decode_phases(counts, card: str, seed: int, mesh,
             + (f"; its LSE output {json.dumps(n['flash_decode_lse'])}"
                if n.get("flash_decode_lse") else "")
             + f" ({n['seconds']:.1f} s on {card})")
+        log(f"{TP_TAG[tag]} {cfg.name} tensor-parallel (tp {tp['tp']}: heads"
+            f", mlp, vocab and experts over {mesh}, TP_ONLY) through the "
+            f"cells' get_fn(mesh, TP_ONLY), the same {b} x {t} tokens and "
+            f"{steps} steps on the sequence-sharded cache: logits vs the "
+            f"unsharded decode relative L2 {tp['rel_l2']:.4g} (limit "
+            f"{tp['limit']}), the prefill's {tp['prefill_rel_l2']:.4g}, "
+            f"argmax {tp['argmax']}/{b}; planted fault (entry 0's attention "
+            f"partial only) {tp['fault_entry0']:.4g}; float32 "
+            f"{X_CHECK_LAYERS}-layer control {tp['f32']['rel_l2']:.4g} "
+            f"(limit {X_F32_TOL}); prefill {tp['prefill_s']:.3f} s, step p50 "
+            f"{tp['step_ms_p50']:.3f} ms; weight bytes an entry "
+            f"{json.dumps(tp['weight_bytes'])} (placed in "
+            f"{tp['place_s']:.2f} s); flash_decode launched "
+            f"{tp['flash_decode_launches']} times on the tp path"
+            + (f"; layer 0's MoE repeats bit for bit: {tp['repeats']} "
+               f"({tp['differing']} of {tp['elements']} differ), route "
+               f"equal to the whole router's: {tp['route_equal']}"
+               if "repeats" in tp else "")
+            + f" ({tp['seconds']:.1f} s on {card})")
         check_x_decode(tag, n)
+        check_tp(TP_TAG[tag], tp, tp["f32"])
         out[cfg.name] = n
     return out
 
@@ -3201,9 +3501,9 @@ def gqa_train_without_mask(p, x, cfg, positions):
     import torch
     from repro_torch.models import attention as A
     b, t, _ = x.shape
-    hq, kv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
+    hq, dh = cfg.padded_heads, cfg.d_head
     q, k, v = A._proj_qkv_gqa(p, x, cfg, positions)
-    k_full, v_full = A._expand_kv(k, hq, kv), A._expand_kv(v, hq, kv)
+    k_full, v_full = A._expand_kv(k, cfg), A._expand_kv(v, cfg)
     scores = torch.einsum("bthd,bshd->bhts", q, k_full) / float(np.sqrt(dh))
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
     ctx = torch.einsum("bhts,bshd->bthd", probs, v_full).reshape(b, t, hq * dh)
@@ -4375,6 +4675,47 @@ def cells_phase() -> list:
     if len(rows) != 44:
         raise AssertionError(f"B1: {len(rows)} cells, not 44")
     return rows
+
+
+def ring_layout_bytes(grids=RING_GRIDS) -> dict:
+    """B1's ``ogb_products`` line: Equiformer-v2's ring bundle at that
+    shape (``launch.steps.equiformer_ring_bundle``) for each ``("data",
+    "model")`` grid, its abstract arguments laid out by its ``arg_specs``
+    through ``TP_ONLY`` over a mesh of meta devices (nothing allocated):
+    per mesh entry the node state (the float32 node irreps of its block,
+    which ``forward_ring`` keeps on that entry), the node inputs (features,
+    positions, labels) and the edge buckets, against the node state of
+    all nodes on one device."""
+    from repro_torch import sharding as SH
+    from repro_torch.configs import get
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_mesh
+    spec = get("equiformer-v2")
+    shape = spec.shapes["ogb_products"]
+    out = {}
+    for p_data, p_model in grids:
+        bundle = S.equiformer_ring_bundle(spec, shape, p_data, p_model)
+        mesh = make_mesh((p_data, p_model), ("data", "model"),
+                         ["meta"] * (p_data * p_model))
+        _, _, batch = bundle.place_args(bundle.abstract_args, mesh,
+                                        SH.TP_ONLY)
+        nodes, pos, src_b, dst_b, labels = batch
+        if any(t.device.type != "meta" for x in batch
+               for t in x.shards.values()):
+            raise AssertionError("B1 ring: a shard off the meta device")
+        c = spec.config
+        irreps = c.d_hidden * (c.l_max + 1) ** 2 * 4
+
+        def entry(x, e):
+            return x.shard(e).numel() * x.shard(e).element_size()
+        out[f"{p_data}x{p_model}"] = {
+            "n_pad": nodes.shape[0], "bucket_cap": src_b.shape[-1],
+            "node_state_bytes": nodes.shard(0).shape[0] * irreps,
+            "node_input_bytes": entry(nodes, 0) + entry(pos, 0) +
+            entry(labels, 0),
+            "bucket_bytes": entry(src_b, 0) + entry(dst_b, 0),
+            "node_state_whole_bytes": nodes.shape[0] * irreps}
+    return out
 
 
 def same_layout(tag, got, want) -> None:
@@ -5846,12 +6187,15 @@ def main(argv=None) -> int:
 
     # -- B. the launch layer: every cell abstract, one cell a family run ------
     cells = cells_phase()
+    ring_bytes = ring_layout_bytes()
+    log(f"B1 equiformer-v2/ogb_products@ring, bytes a device by (data, "
+        f"model) grid (meta, nothing allocated): {json.dumps(ring_bytes)}")
     laps.lap("B1 cells")
     launch = {"decode": launch_decode(counts, card, args.seed)}
     log(f"B2 decode: {json.dumps(launch['decode'])} on {card}")
     launch["train"] = launch_train_cells(counts, card, args.seed)
     log(f"B2 train: {json.dumps(launch['train'])} on {card}")
-    launch.update(dspc=dspc_events, cells=len(cells))
+    launch.update(dspc=dspc_events, cells=len(cells), ring_bytes=ring_bytes)
     laps.lap("B2 cells on the card")
 
     # -- B3 and E. the train CLI's processes beside the eight examples -------

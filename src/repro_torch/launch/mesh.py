@@ -309,6 +309,16 @@ class Placed:
         """The shard mesh entry ``entry`` (row-major) holds."""
         return self.shards[self.entry_keys[entry]]
 
+    def map(self, fn: Callable[[torch.Tensor, tuple, torch.device],
+                               torch.Tensor]) -> "Placed":
+        """A placed tensor of the same layout whose shards are
+        ``fn(shard, slices, device)``: ``slices`` index the shard's
+        block in the whole tensor.  ``fn`` keeps each shard's shape (a
+        norm, a residual add)."""
+        return Placed(self.sharding, self.shape, self.dtype,
+                      {key: fn(t, _slices(self.bounds(key[0])), key[1])
+                       for key, t in self.shards.items()}, self.entry_keys)
+
     def nbytes_by_device(self) -> Dict[torch.device, int]:
         """Bytes of shards held on each device."""
         out: Dict[torch.device, int] = {}
@@ -369,3 +379,74 @@ def gather(placed: Placed, device=None) -> torch.Tensor:
     for _, bounds, shard in placed.blocks:
         out[_slices(bounds)] = shard.to(out.device)
     return out
+
+
+# -------------------------------------------------------------------------
+# Trees of placed tensors, and the collectives one controller runs
+# -------------------------------------------------------------------------
+def _tree_map(fn, tree, *rest, path: str = ""):
+    """``fn(path, leaf, *rest_leaves)`` over the tensor leaves of ``tree``
+    (dicts, lists, tuples and named tuples), the same tree structure in
+    ``rest``."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest),
+                             path=f"{path}{k}.") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_tree_map(fn, v, *(r[i] for r in rest), path=f"{path}{i}.")
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else \
+            type(tree)(out)
+    return fn(path[:-1], tree, *rest)
+
+
+def place_tree(tree, shardings, specs=None):
+    """Each tensor of ``tree`` placed (:func:`place`) by the
+    :class:`NamedSharding` at the same place of ``shardings`` (a tree of
+    the same structure: ``sharding.resolve_tree``'s output).
+
+    A split dimension must split evenly: one the axes' size does not
+    divide raises ``ValueError`` naming the leaf, the dimension and, with
+    ``specs`` (the logical spec tree the shardings were resolved from),
+    its logical name.  A leaf already placed by its sharding is kept, one
+    placed by another is gathered and placed anew.  ``tree`` may hold
+    meta tensors: their placed shards are meta tensors too, and nothing
+    is allocated."""
+    def one(path, x, sh, *spec):
+        if isinstance(x, Placed) and x.sharding == sh:
+            return x
+        parts = sh.parts(len(x.shape))
+        for i, (n, p) in enumerate(zip(x.shape, parts)):
+            if n % p:
+                name = f" ({spec[0][i]})" if spec and spec[0] else ""
+                raise ValueError(
+                    f"{path}: dimension {i}{name} of size {n} does not "
+                    f"split evenly over {p} mesh entries")
+        return place(gather(x) if isinstance(x, Placed) else x, sh)
+    rest = (shardings,) if specs is None else (shardings, specs)
+    return _tree_map(one, tree, *rest)
+
+
+def local_tree(tree, entry: int):
+    """The tensors mesh entry ``entry`` (row-major) holds of a tree of
+    :class:`Placed` leaves: each its shard; a whole tensor stays as it
+    is."""
+    return _tree_map(lambda _, x: x.shard(entry) if isinstance(x, Placed)
+                     else x, tree)
+
+
+def psum(parts, device) -> torch.Tensor:
+    """The entries' partial outputs summed in entry order on ``device``
+    (the reference's ``psum``): in float32, or wider where the parts are,
+    rounded once to the parts' dtype, so the result is the same on every
+    run."""
+    acc = torch.promote_types(parts[0].dtype, torch.float32)
+    out = parts[0].to(device, acc)
+    for p in parts[1:]:
+        out = out + p.to(device, acc)
+    return out.to(parts[0].dtype)
+
+
+def all_gather(parts, dim: int, device) -> torch.Tensor:
+    """Split outputs put back together in entry order along ``dim`` on
+    ``device`` (logit columns over ``vocab``, contexts over ``heads``)."""
+    return torch.cat([p.to(device) for p in parts], dim=dim)

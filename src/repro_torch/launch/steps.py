@@ -50,6 +50,7 @@ from repro_torch import sharding as SH
 from repro_torch.configs import get as get_arch
 from repro_torch.configs.common import ArchSpec, ShapeSpec
 from repro_torch.core.graph import resolve_device
+from repro_torch.launch.mesh import Placed, gather, place_tree
 from repro_torch.models import dien as dien_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import load_tree, softmax_cross_entropy
@@ -77,7 +78,9 @@ class StepBundle:
     def get_fn(self, mesh=None, rules=None):
         """The step: ``mesh_fn(mesh)`` where the cell needs a mesh, else
         ``fn``, run inside ``sharding.activation_sharding(rules, mesh)``
-        when both are given."""
+        when both are given.  An LM prefill or decode cell given
+        arguments laid out by :meth:`place_args` runs the
+        tensor-parallel serve path (``models.transformer``)."""
         if self.mesh_fn is not None:
             if mesh is None:
                 raise ValueError(f"{self.name} needs a mesh")
@@ -86,8 +89,21 @@ class StepBundle:
             return SH.wrap_with_activation_sharding(self.fn, rules, mesh)
         return self.fn
 
+    def place_args(self, args: tuple, mesh, rules) -> tuple:
+        """``args`` laid out over ``mesh`` by :attr:`arg_specs` through
+        ``rules`` (``launch.mesh.place_tree``; a dimension split unevenly
+        raises)."""
+        return tuple(place_tree(a, SH.resolve_tree(sp, rules, mesh), sp)
+                     for a, sp in zip(args, self.arg_specs))
+
 
 _OPT = opt.AdamWConfig()
+
+
+def _whole(x):
+    """A small argument whole on its first entry's device (tokens,
+    lengths), as the model code takes it."""
+    return gather(x) if isinstance(x, Placed) else x
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -142,7 +158,7 @@ def lm_bundle(spec: ArchSpec, shape: ShapeSpec, smoke: bool) -> StepBundle:
         s_max = t
 
         def prefill(params, tokens):
-            return tf.prefill(params, tokens, cfg, s_max)
+            return tf.prefill(params, _whole(tokens), cfg, s_max)
 
         return StepBundle(
             name=name, fn=prefill, mesh_fn=None,
@@ -154,7 +170,8 @@ def lm_bundle(spec: ArchSpec, shape: ShapeSpec, smoke: bool) -> StepBundle:
         s_max = t
 
         def decode(params, cache, token):
-            return tf.decode_step(params, cache, token, cfg)
+            cache = dict(cache, lengths=_whole(cache["lengths"]))
+            return tf.decode_step(params, cache, _whole(token), cfg)
 
         # one token per sequence; cache attention reads the whole window
         flops = (2 * cfg.active_param_count() * b
@@ -641,20 +658,38 @@ def dspc_host_args(spec: ArchSpec, shape: ShapeSpec, seed: int = 0, *,
 # ==========================================================================
 # Ring variant: node-sharded Equiformer-v2 for the full-batch-large shapes
 # ==========================================================================
-class _RingHead(nn.Module):
-    """The ring forward and the head on its scalars, as one module's
-    ``forward``, so that ``functional_call`` swaps the parameters in for
-    the whole loss."""
+class _RingLoss(nn.Module):
+    """The ring forward, the head on its scalars and the masked
+    cross-entropy, as one module's ``forward``, so that
+    ``functional_call`` swaps the parameters in for the whole loss.  The
+    head and the per-row losses run block by block on the node blocks'
+    devices (``ring.forward_ring`` keeps the node state sharded over
+    ``data``); only each block's sum and count reach the controller."""
 
     def __init__(self, model: EquiformerV2, mesh) -> None:
         super().__init__()
         self.m = model
         self.mesh = mesh
 
-    def forward(self, nodes, pos, sb, db):
+    def forward(self, nodes, pos, sb, db, labels):
+        from repro_torch.launch.mesh import Placed, psum
         from repro_torch.models.gnn import ring
         x = ring.forward_ring(self.m, nodes, pos, sb, db, self.mesh)
-        return self.m.head(x[..., 0]).float()
+        sums, counts = [], []
+        for key, bounds, block in x.blocks:
+            lab = (labels.shard(x.entry_keys.index(key))
+                   if isinstance(labels, Placed)
+                   else labels[slice(*bounds[0])]).to(key[1])
+            head = ring._on(self.m.head, lambda h, z: h(z), key[1])
+            logits = head(block[..., 0]).float()
+            mask = lab >= 0
+            logz = torch.logsumexp(logits, dim=-1)
+            ll = logits.gather(-1, lab.clamp(min=0).long()[:, None])[:, 0]
+            sums.append(torch.where(mask, logz - ll, 0.0).sum())
+            counts.append(mask.sum())
+        home = labels.device if torch.is_tensor(labels) else \
+            labels.entry_keys[0][1]
+        return psum(sums, home) / psum(counts, home).clamp(min=1)
 
 
 def equiformer_ring_bundle(spec: ArchSpec, shape: ShapeSpec,
@@ -681,17 +716,10 @@ def equiformer_ring_bundle(spec: ArchSpec, shape: ShapeSpec,
 
     def mesh_fn(mesh):
         def loss_fn(params, batch):
-            nodes, pos, sb, db, labels = batch
-            model = modules.on(nodes.device)
-            logits = torch.func.functional_call(
-                _RingHead(model, mesh),
-                {f"m.{k}": v for k, v in params.items()},
-                (nodes, pos, sb, db))
-            mask = labels >= 0
-            logz = torch.logsumexp(logits, dim=-1)
-            ll = logits.gather(-1, labels.clamp(min=0).long()[:, None])[:, 0]
-            per = torch.where(mask, logz - ll, 0.0)
-            return per.sum() / mask.sum().clamp(min=1)
+            model = modules.on(next(iter(params.values())).device)
+            return torch.func.functional_call(
+                _RingLoss(model, mesh),
+                {f"m.{k}": v for k, v in params.items()}, batch)
 
         return make_train_step_fn(loss_fn, _OPT)
 

@@ -2,10 +2,13 @@
 GQA (qwen2, phi3) and MLA (deepseek-v2), each with the plain causal
 path, blockwise prefill and one-token decode against the cache.
 
-On one card there is no mesh: the reference's ``shard_act`` constraints
-have no counterpart, and query heads are padded to a multiple of
-``cfg.tp`` only as the configuration says (``tp = 1`` keeps the
-published count).
+Query heads are padded to a multiple of ``cfg.tp`` as the configuration
+says (``tp = 1`` keeps the published count).  The projections take
+their head count from the weights they are given: all of them, or, on
+the tensor-parallel path, one ``model`` entry's columns of ``wq`` /
+``bq`` / ``wuq`` / ``wuk`` / ``wuv`` and rows of ``wo``, whose output is
+that entry's partial sum (``prefill_tp``, ``gqa_decode_tp``,
+``mla_decode_tp``; the sums in entry order, ``launch.mesh.psum``).
 
 Two places differ from the reference on purpose, and say so below:
 decode writes the new cache rows in place (K and V for GQA, the latent
@@ -34,6 +37,7 @@ import torch
 
 from repro_torch.core.graph import resolve_device
 from repro_torch.kernels.flash_decode.ops import decode_attention
+from repro_torch.launch.mesh import all_gather, psum
 from repro_torch.models.common import dense_init, init_rms, rms_norm
 
 
@@ -105,37 +109,58 @@ def gqa_specs(cfg) -> dict:
     return s
 
 
-def _proj_qkv_gqa(p, x, cfg, positions):
+def _gqa_q(p, x, cfg, cos, sin):
+    """q [b, t, h, dh] of the query heads ``p["wq"]`` holds (all of them,
+    or one entry's under tensor parallelism), rotated by (cos, sin)."""
     b, t, _ = x.shape
-    hq, kv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
     q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(b, t, -1, cfg.d_head)
+    return apply_rope(q, cos[:, :, None, :], sin[:, :, None, :])
+
+
+def _gqa_kv(p, x, cfg, cos, sin):
+    """k (rotated) and v [b, t, kv, dh]."""
+    b, t, _ = x.shape
+    kv, dh = cfg.n_kv_heads, cfg.d_head
     k = x @ p["wk"]
     v = x @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, t, hq, dh)
-    k = k.reshape(b, t, kv, dh)
-    v = v.reshape(b, t, kv, dh)
-    cos, sin = rope_tables(positions, dh, cfg.rope_theta)  # [b, t, dh/2]
-    q = apply_rope(q, cos[:, :, None, :], sin[:, :, None, :])
-    k = apply_rope(k, cos[:, :, None, :], sin[:, :, None, :])
-    return q, k, v
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    k = apply_rope(k.reshape(b, t, kv, dh), cos[:, :, None, :],
+                   sin[:, :, None, :])
+    return k, v.reshape(b, t, kv, dh)
 
 
-def _expand_kv(x: torch.Tensor, hq: int, kv: int) -> torch.Tensor:
-    """[b, t, kv, dh] -> [b, t, hq, dh]: query head h reads KV head
+def _proj_qkv_gqa(p, x, cfg, positions):
+    """q [b, t, h, dh] (:func:`_gqa_q`), k and v [b, t, kv, dh]."""
+    cos, sin = rope_tables(positions, cfg.d_head, cfg.rope_theta)
+    return (_gqa_q(p, x, cfg, cos, sin),) + _gqa_kv(p, x, cfg, cos, sin)
+
+
+def _expand_kv(x: torch.Tensor, cfg, head0: int = 0,
+               n: int | None = None) -> torch.Tensor:
+    """[b, t, kv, dh] -> [b, t, n, dh] for the query heads [head0, head0
+    + n) (default: all ``cfg.padded_heads``): query head h reads KV head
     h // ceil(hq / kv) (``jnp.repeat`` over the head axis)."""
-    return x.repeat_interleave(-(-hq // kv), dim=2)[:, :, :hq]
+    hq, kv = cfg.padded_heads, cfg.n_kv_heads
+    n = hq - head0 if n is None else n
+    return x.repeat_interleave(-(-hq // kv), dim=2)[:, :, head0:head0 + n]
 
 
-def gqa_train(p, x, cfg, positions):
+def gqa_train(p, x, cfg, positions, head0: int = 0):
     """Causal self-attention over the full sequence (the plain prefill
-    core): ``[b, h, t, t]`` scores, fp32 softmax.  Returns
-    (out [b, t, d], (k, v) [b, t, kv, dh])."""
+    core): ``[b, h, t, t]`` scores, fp32 softmax.  Under tensor
+    parallelism ``p`` holds one entry's heads, the first of them
+    ``head0``, and the output is that entry's partial sum (module doc).
+    Returns (out [b, t, d], (k, v) [b, t, kv, dh])."""
     b, t, _ = x.shape
-    hq, kv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
+    dh = cfg.d_head
     q, k, v = _proj_qkv_gqa(p, x, cfg, positions)
-    k_full, v_full = _expand_kv(k, hq, kv), _expand_kv(v, hq, kv)
+    hq = q.shape[2]
+    k_full = _expand_kv(k, cfg, head0, hq)
+    v_full = _expand_kv(v, cfg, head0, hq)
     scores = torch.einsum("bthd,bshd->bhts", q, k_full) / float(np.sqrt(dh))
     mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
     scores = torch.where(mask, scores.float(), -1e30)
@@ -248,31 +273,41 @@ def _batch_merge(parts_by_rows: dict, b: int, dtype) -> torch.Tensor:
     return out
 
 
-def gqa_decode_sharded(p, x, cache_k, cache_v, layer: int, lengths, cfg):
-    """:func:`gqa_decode` against layer ``layer`` of a placed cache
-    (``repro_torch.launch.mesh.Placed`` k and v, ``[L, b, S, kv, dh]``
-    split over the sequence, and the batch where the rules say so).
+def _pad_group(q: torch.Tensor, cfg) -> torch.Tensor:
+    """q [b, hq, dh] padded with zero heads up to kv * ceil(hq / kv), so
+    that head counts that do not divide (phi3: 48 padded q heads, 10 kv)
+    work."""
+    hq, kv = cfg.padded_heads, cfg.n_kv_heads
+    hq_pad = kv * -(-hq // kv)
+    if hq_pad == hq:
+        return q
+    return torch.cat([q, q.new_zeros((q.shape[0], hq_pad - hq,
+                                      q.shape[2]))], dim=1)
+
+
+def gqa_cache_attend(q, k_new, v_new, cache_k, cache_v, layer: int,
+                     lengths, cfg) -> torch.Tensor:
+    """The sequence-sharded decode's attention on layer ``layer`` of a
+    placed cache (``repro_torch.launch.mesh.Placed`` k and v, ``[L, b,
+    S, kv, dh]`` split over the sequence, and the batch where the rules
+    say so): q [b, hq, dh] and the new rows k_new, v_new [b, kv, dh] on
+    the controller's device -> the context [b, 1, hq * dh] there.
 
     The new K and V rows go only into the shard that holds position
     ``lengths[b]`` (clamped to S - 1, as on one device).  Each shard
     runs :func:`decode_attention` -- the flash_decode kernel on a card,
     one launch a shard -- on its own device over its local lengths
     ``clamp(lengths + 1 - lo, 0, hi - lo)``, returning its output and
-    log-sum-exp; the parts are merged on ``x``'s device in shard order
+    log-sum-exp; the parts are merged on q's device in shard order
     (:func:`merge_by_lse`).  A shard past every row's length launches
     all the same and weighs 0; a shard of no positions (``s_max`` split
-    unevenly) is skipped.  Returns out [b, 1, d]."""
-    b = x.shape[0]
-    hq, kv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
-    q, k_new, v_new = _proj_qkv_gqa(p, x, cfg, lengths[:, None])
+    unevenly) is skipped."""
+    b = q.shape[0]
+    hq, dh = cfg.padded_heads, cfg.d_head
     at = lengths.long().clamp(0, cache_k.shape[2] - 1)
-    cache_write(cache_k, layer, k_new[:, 0], at)
-    cache_write(cache_v, layer, v_new[:, 0], at)
-    group = -(-hq // kv)
-    hq_pad = kv * group
-    q = q.reshape(b, hq, dh)
-    if hq_pad != hq:
-        q = torch.cat([q, q.new_zeros((b, hq_pad - hq, dh))], dim=1)
+    cache_write(cache_k, layer, k_new, at)
+    cache_write(cache_v, layer, v_new, at)
+    q = _pad_group(q, cfg)
     ends = lengths.to(torch.int64) + 1
     parts: dict = {}
     for key, (b0, b1), (s0, s1), kt in _cache_blocks(cache_k):
@@ -283,33 +318,58 @@ def gqa_decode_sharded(p, x, cache_k, cache_v, layer: int, lengths, cfg):
         o, lse = decode_attention(q[b0:b1].to(dev), kt[layer],
                                   cache_v.shards[key][layer],
                                   local.to(torch.int32), return_lse=True)
-        parts.setdefault((b0, b1), []).append((o.to(x.device),
-                                               lse.to(x.device)))
-    ctx = _batch_merge(parts, b, x.dtype)
-    ctx = ctx.reshape(b, 1, hq_pad * dh)[..., :hq * dh]
+        parts.setdefault((b0, b1), []).append((o.to(q.device),
+                                               lse.to(q.device)))
+    ctx = _batch_merge(parts, b, q.dtype)
+    return ctx.reshape(b, 1, -1)[..., :hq * dh]
+
+
+def gqa_decode_sharded(p, x, cache_k, cache_v, layer: int, lengths, cfg):
+    """:func:`gqa_decode` against layer ``layer`` of a placed cache
+    (:func:`gqa_cache_attend`).  Returns out [b, 1, d]."""
+    b = x.shape[0]
+    q, k_new, v_new = _proj_qkv_gqa(p, x, cfg, lengths[:, None])
+    ctx = gqa_cache_attend(q.reshape(b, -1, cfg.d_head), k_new[:, 0],
+                           v_new[:, 0], cache_k, cache_v, layer, lengths,
+                           cfg)
     return ctx @ p["wo"]
 
 
-def mla_decode_sharded(p, x, cache_ckv, cache_kr, layer: int, lengths, cfg):
-    """:func:`mla_decode` against layer ``layer`` of a placed latent
-    cache (``ckv [L, b, S, cl]`` and ``kr [L, b, S, dr]``), as
-    :func:`gqa_decode_sharded` does it for GQA: the new rows into the
-    shard that holds ``lengths[b]``, then the absorbed einsums over each
-    shard on its device (plain torch: the reference has no MLA kernel),
-    each giving its latent context under its own softmax and the
-    log-sum-exp of its masked scores, merged on ``x``'s device in shard
-    order.  Returns out [b, 1, d]."""
-    b = x.shape[0]
-    h, dn, dr, dv, cl = (cfg.padded_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
-                         cfg.v_head_dim, cfg.kv_lora)
-    positions = lengths[:, None]
+def _mla_absorbed_q(p, x, cfg, positions):
+    """The absorbed decode's query: (q_lat [b, h, cl], q_rope [b, h,
+    dr]) for the heads ``p`` holds (W_uk folded into q_nope)."""
+    h, dn, cl = _mla_heads(p, cfg), cfg.qk_nope_dim, cfg.kv_lora
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
-    ckv_new, kr_new = _mla_ckv(p, x, cfg, positions)
-    at = lengths.long().clamp(0, cache_ckv.shape[2] - 1)
-    cache_write(cache_ckv, layer, ckv_new[:, 0], at)
-    cache_write(cache_kr, layer, kr_new[:, 0], at)
     q_lat = torch.einsum("bhd,chd->bhc", q_nope[:, 0],
                          p["wuk"].reshape(cl, h, dn))
+    return q_lat, q_rope[:, 0]
+
+
+def _mla_absorbed_out(p, ctx_lat, cfg) -> torch.Tensor:
+    """The latent context [b, h, cl] of the heads ``p`` holds through
+    W_uv and ``wo``: out [b, 1, d] (one entry's partial sum under tensor
+    parallelism)."""
+    b, h = ctx_lat.shape[:2]
+    ctx = torch.einsum("bhc,chd->bhd", ctx_lat,
+                       p["wuv"].reshape(cfg.kv_lora, h, cfg.v_head_dim))
+    return ctx.reshape(b, 1, -1) @ p["wo"]
+
+
+def mla_cache_attend(q_lat, q_rope, ckv_new, kr_new, cache_ckv, cache_kr,
+                     layer: int, lengths, cfg) -> torch.Tensor:
+    """:func:`gqa_cache_attend` for MLA: q_lat [b, h, cl], q_rope [b, h,
+    dr] and the new rows ckv_new [b, cl], kr_new [b, dr] on the
+    controller's device, a placed latent cache (``ckv [L, b, S, cl]``
+    and ``kr [L, b, S, dr]``) -> the latent context [b, h, cl] there.
+    The absorbed einsums over each shard on its device (plain torch: the
+    reference has no MLA kernel), each giving its latent context under
+    its own softmax and the log-sum-exp of its masked scores, merged in
+    shard order."""
+    b = q_lat.shape[0]
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    at = lengths.long().clamp(0, cache_ckv.shape[2] - 1)
+    cache_write(cache_ckv, layer, ckv_new, at)
+    cache_write(cache_kr, layer, kr_new, at)
     scale = float(np.sqrt(dn + dr))
     parts: dict = {}
     for key, (b0, b1), (s0, s1), ct in _cache_blocks(cache_ckv):
@@ -318,20 +378,138 @@ def mla_decode_sharded(p, x, cache_ckv, cache_kr, layer: int, lengths, cfg):
         dev = key[1]
         c, r = ct[layer], cache_kr.shards[key][layer]
         scores = (torch.einsum("bhc,bsc->bhs", q_lat[b0:b1].to(dev), c) +
-                  torch.einsum("bhd,bsd->bhs", q_rope[b0:b1, 0].to(dev), r))
+                  torch.einsum("bhd,bsd->bhs", q_rope[b0:b1].to(dev), r))
         scores = scores / scale
         valid = s0 + torch.arange(s1 - s0, device=dev) <= \
             lengths[b0:b1, None].to(dev)
         scores = torch.where(valid[:, None], scores.float(), -1e30)
         lse = torch.logsumexp(scores, dim=-1)
-        probs = torch.exp(scores - lse[..., None]).to(x.dtype)
+        probs = torch.exp(scores - lse[..., None]).to(q_lat.dtype)
         ctx = torch.einsum("bhs,bsc->bhc", probs, c)
-        parts.setdefault((b0, b1), []).append((ctx.to(x.device),
-                                               lse.to(x.device)))
-    ctx_lat = _batch_merge(parts, b, x.dtype)
-    ctx = torch.einsum("bhc,chd->bhd", ctx_lat,
-                       p["wuv"].reshape(cl, h, dv)).reshape(b, 1, h * dv)
-    return ctx @ p["wo"]
+        parts.setdefault((b0, b1), []).append((ctx.to(q_lat.device),
+                                               lse.to(q_lat.device)))
+    return _batch_merge(parts, b, q_lat.dtype)
+
+
+def mla_decode_sharded(p, x, cache_ckv, cache_kr, layer: int, lengths, cfg):
+    """:func:`mla_decode` against layer ``layer`` of a placed latent
+    cache (:func:`mla_cache_attend`).  Returns out [b, 1, d]."""
+    positions = lengths[:, None]
+    q_lat, q_rope = _mla_absorbed_q(p, x, cfg, positions)
+    ckv_new, kr_new = _mla_ckv(p, x, cfg, positions)
+    ctx_lat = mla_cache_attend(q_lat, q_rope, ckv_new[:, 0], kr_new[:, 0],
+                               cache_ckv, cache_kr, layer, lengths, cfg)
+    return _mla_absorbed_out(p, ctx_lat, cfg)
+
+
+# -------------------------------------------------------------------------
+# Tensor parallelism: the query heads split over the mesh's model axis
+# -------------------------------------------------------------------------
+def _entry_heads(groups, cfg):
+    """Each group's entries with the first query head each holds:
+    ``[(b0, b1, [(dev, p, head0), ...]), ...]`` (``p`` an entry's
+    layer-local attention weights, its heads a contiguous range in model
+    order)."""
+    hl = cfg.padded_heads // len(groups[0][2])
+    return [(b0, b1, [(dev, p, m * hl) for m, (dev, p) in enumerate(ents)])
+            for b0, b1, ents in groups]
+
+
+def prefill_tp(groups, x, cfg, positions, attn_fn):
+    """A layer's attention over split heads: ``groups`` ``[(b0, b1,
+    [(dev, p), ...]), ...]`` -- each batch range [b0, b1) (``batch`` ->
+    ``data``) with its ``model`` entries in order, ``p`` an entry's
+    layer-local attention weights (``wq`` / ``bq`` / ``wuq`` / ``wuk``
+    / ``wuv`` by column, ``wo`` by row, the rest whole) -- and the normed
+    residual ``x`` [b, t, d] on the controller's device.  Each entry runs
+    ``attn_fn`` (the plain or blockwise prefill) for its heads on its
+    device and multiplies by its ``wo`` rows; the partial outputs are
+    summed in entry order on ``x``'s device.  Returns (out [b, t, d],
+    the two cache tensors of the first entry of each range, joined over
+    the batch on ``x``'s device)."""
+    outs, c1s, c2s = [], [], []
+    for b0, b1, ents in _entry_heads(groups, cfg):
+        parts = []
+        for m, (dev, p, head0) in enumerate(ents):
+            kw = {} if cfg.attn == "mla" else dict(head0=head0)
+            out, (c1, c2) = attn_fn(p, x[b0:b1].to(dev), cfg,
+                                    positions[b0:b1].to(dev), **kw)
+            parts.append(out)
+            if m == 0:
+                c1s.append(c1.to(x.device))
+                c2s.append(c2.to(x.device))
+        outs.append(psum(parts, x.device))
+    return torch.cat(outs), (torch.cat(c1s), torch.cat(c2s))
+
+
+def gqa_decode_tp(groups, x, cache_k, cache_v, layer: int, lengths, cfg):
+    """The sequence-sharded decode over split heads (``groups`` and ``x``
+    [b, 1, d] as :func:`prefill_tp` takes them): each entry projects q
+    for its heads; the heads are gathered on ``x``'s device ([b, hq,
+    dh]) beside the new K and V rows (the first entry's: ``wk`` / ``wv``
+    are whole); :func:`gqa_cache_attend` runs flash_decode a cache shard
+    and merges the shards by their log-sum-exps; each entry multiplies
+    its heads' slice of the context by its ``wo`` rows, and the partial
+    outputs are summed.  Returns out [b, 1, d]."""
+    dh = cfg.d_head
+    qs, ks, vs = [], [], []
+    for b0, b1, ents in groups:
+        heads = []
+        for m, (dev, p) in enumerate(ents):
+            h = x[b0:b1].to(dev)
+            cos, sin = rope_tables(lengths[b0:b1, None].to(dev), dh,
+                                   cfg.rope_theta)
+            heads.append(_gqa_q(p, h, cfg, cos, sin)[:, 0])
+            if m == 0:
+                k, v = _gqa_kv(p, h, cfg, cos, sin)
+                ks.append(k[:, 0].to(x.device))
+                vs.append(v[:, 0].to(x.device))
+        qs.append(all_gather(heads, 1, x.device))
+    ctx = gqa_cache_attend(torch.cat(qs), torch.cat(ks), torch.cat(vs),
+                           cache_k, cache_v, layer, lengths, cfg)
+    outs = []
+    for b0, b1, ents in _entry_heads(groups, cfg):
+        parts = []
+        for dev, p, head0 in ents:
+            n = p["wo"].shape[0]
+            part = ctx[b0:b1, :, head0 * dh:head0 * dh + n].to(dev)
+            parts.append(part @ p["wo"])
+        outs.append(psum(parts, x.device))
+    return torch.cat(outs)
+
+
+def mla_decode_tp(groups, x, cache_ckv, cache_kr, layer: int, lengths, cfg):
+    """:func:`gqa_decode_tp` for MLA: each entry's absorbed query
+    (``wuq`` / ``wuk`` columns of its heads), the latent queries gathered
+    over the heads, :func:`mla_cache_attend` over the cache shards, then
+    each entry's heads of the latent context through its ``wuv``
+    columns and ``wo`` rows, the partial outputs summed."""
+    qls, qrs, cs, rs = [], [], [], []
+    for b0, b1, ents in groups:
+        lat, rope = [], []
+        for m, (dev, p) in enumerate(ents):
+            h, pos = x[b0:b1].to(dev), lengths[b0:b1, None].to(dev)
+            q_lat, q_rope = _mla_absorbed_q(p, h, cfg, pos)
+            lat.append(q_lat)
+            rope.append(q_rope)
+            if m == 0:
+                ckv, kr = _mla_ckv(p, h, cfg, pos)
+                cs.append(ckv[:, 0].to(x.device))
+                rs.append(kr[:, 0].to(x.device))
+        qls.append(all_gather(lat, 1, x.device))
+        qrs.append(all_gather(rope, 1, x.device))
+    ctx_lat = mla_cache_attend(torch.cat(qls), torch.cat(qrs), torch.cat(cs),
+                               torch.cat(rs), cache_ckv, cache_kr, layer,
+                               lengths, cfg)
+    outs = []
+    for b0, b1, ents in _entry_heads(groups, cfg):
+        parts = []
+        for dev, p, head0 in ents:
+            h = _mla_heads(p, cfg)
+            parts.append(_mla_absorbed_out(
+                p, ctx_lat[b0:b1, head0:head0 + h].to(dev), cfg))
+        outs.append(psum(parts, x.device))
+    return torch.cat(outs)
 
 
 # -------------------------------------------------------------------------
@@ -379,15 +557,18 @@ def blockwise_attention(q, make_kv_block, t_kv: int, block_k: int,
     return acc / l.clamp(min=1e-30)[..., None]
 
 
-def gqa_prefill_blockwise(p, x, cfg, positions, block_k: int = 1024):
-    """GQA prefill with blockwise attention; returns (out, (k, v))."""
+def gqa_prefill_blockwise(p, x, cfg, positions, block_k: int = 1024,
+                          head0: int = 0):
+    """GQA prefill with blockwise attention (``head0`` as in
+    :func:`gqa_train`); returns (out, (k, v))."""
     b, t, _ = x.shape
-    hq, kv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
+    dh = cfg.d_head
     q, k, v = _proj_qkv_gqa(p, x, cfg, positions)
+    hq = q.shape[2]
 
     def kv_block(start):
-        return (_expand_kv(k[:, start:start + block_k], hq, kv),
-                _expand_kv(v[:, start:start + block_k], hq, kv))
+        return (_expand_kv(k[:, start:start + block_k], cfg, head0, hq),
+                _expand_kv(v[:, start:start + block_k], cfg, head0, hq))
 
     ctx = blockwise_attention(q.transpose(1, 2), kv_block, t, block_k,
                               1.0 / math.sqrt(dh), positions)
@@ -402,7 +583,7 @@ def mla_prefill_blockwise(p, x, cfg, positions, block_k: int = 1024):
     one block at a time, never at full length.  Returns (out, (ckv,
     k_rope))."""
     b, t, _ = x.shape
-    h, dn, dr, dv = (cfg.padded_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+    h, dn, dr, dv = (_mla_heads(p, cfg), cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
     q_nope, q_rope = _mla_q(p, x, cfg, positions)        # [b, t, h, .]
     ckv, k_rope = _mla_ckv(p, x, cfg, positions)         # [b, t, cl / dr]
@@ -473,9 +654,14 @@ def mla_specs(cfg) -> dict:
     return s
 
 
+def _mla_heads(p, cfg) -> int:
+    """The query heads ``p`` holds (all, or one entry's)."""
+    return p["wuk"].shape[-1] // cfg.qk_nope_dim
+
+
 def _mla_q(p, x, cfg, positions):
     b, t, _ = x.shape
-    h, dn, dr = cfg.padded_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    h, dn, dr = _mla_heads(p, cfg), cfg.qk_nope_dim, cfg.qk_rope_dim
     if cfg.q_lora:
         q = rms_norm(p["q_norm"], x @ p["wdq"]) @ p["wuq"]
     else:
@@ -501,7 +687,7 @@ def mla_train(p, x, cfg, positions):
     fp32 softmax.  Returns (out [b, t, d], (ckv [b, t, cl], k_rope
     [b, t, dr]))."""
     b, t, _ = x.shape
-    h, dn, dr, dv = (cfg.padded_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+    h, dn, dr, dv = (_mla_heads(p, cfg), cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     ckv, k_rope = _mla_ckv(p, x, cfg, positions)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.graph import resolve_device
+from repro_torch.launch.mesh import Placed, all_gather
 
 
 def dense_init(d_in: int, d_out: int, *, generator: torch.Generator,
@@ -73,6 +74,48 @@ def softmax_cross_entropy(logits: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels[..., None].long())[..., 0]
     return (logz - ll).mean()
+
+
+def take_rows(table, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for a whole or a placed table ([V, D]): the
+    vocab-parallel embedding.  Placed: each row shard (the first copy of
+    each block) takes the ids in its range on its device, zeros for the
+    others, and the shards' rows are added in shard order on ``ids``'
+    device (one of them nonzero: the sum is the row, exactly); negative
+    ids count from the end, as whole-tensor indexing reads them.  The
+    LM's ``embed`` (``vocab`` -> ``model``) and DIEN's tables
+    (``table_rows`` -> ``model``) read rows this way."""
+    if not isinstance(table, Placed):
+        return table[ids]
+    if any(p != 1 for p in table.parts[1:]):
+        raise ValueError(f"a table splits only its rows, got "
+                         f"{table.sharding.spec}")
+    n = table.shape[0]
+    ids = torch.where(ids < 0, ids + n, ids)
+    out = None
+    for key, bounds, shard in table.blocks:
+        lo, hi = bounds[0]
+        if hi == lo:
+            continue
+        local = ids.to(key[1]) - lo
+        hit = (local >= 0) & (local < hi - lo)
+        rows = torch.where(hit[..., None], shard[local.clamp(0, hi - lo - 1)],
+                           0).to(ids.device)
+        out = rows if out is None else out + rows
+    return out
+
+
+def split_logits(x: torch.Tensor, head) -> torch.Tensor:
+    """``x @ head`` for a whole or a placed head ([d, V]) whose columns
+    are split (``vocab`` -> ``model``): each block of columns computed on
+    its device, the blocks gathered in order on ``x``'s device."""
+    if not isinstance(head, Placed):
+        return x @ head
+    if head.parts[0] != 1:
+        raise ValueError(f"a head splits only its columns, got "
+                         f"{head.sharding.spec}")
+    return all_gather([x.to(key[1]) @ shard for key, _, shard in head.blocks],
+                      -1, x.device)
 
 
 def to_tensor(a, device) -> torch.Tensor:

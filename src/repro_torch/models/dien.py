@@ -52,8 +52,8 @@ import torch.nn.functional as F
 
 from repro_torch import sharding as SH
 from repro_torch.core.graph import resolve_device
-from repro_torch.launch.mesh import Placed, place
-from repro_torch.models.common import dense_init, load_tree
+from repro_torch.launch.mesh import place
+from repro_torch.models.common import dense_init, load_tree, take_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,32 +154,6 @@ def place_params(params: dict, mesh) -> dict:
     sharding = SH.resolve(TABLE_SPEC, SH.FSDP_TP, mesh)
     return dict(params, **{name: place(params[name], sharding)
                            for name in TABLES})
-
-
-def take_rows(table, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` for a whole or a placed table ([V, D]).  Placed:
-    each row shard (the first copy of each block) takes the ids in its
-    range on its device, zeros for the others, and the shards' rows are
-    added in shard order on ``ids``' device; negative ids count from the
-    end, as whole-tensor indexing reads them."""
-    if not isinstance(table, Placed):
-        return table[ids]
-    if any(p != 1 for p in table.parts[1:]):
-        raise ValueError(f"a table splits only its rows, got "
-                         f"{table.sharding.spec}")
-    n = table.shape[0]
-    ids = torch.where(ids < 0, ids + n, ids)
-    out = None
-    for key, bounds, shard in table.blocks:
-        lo, hi = bounds[0]
-        if hi == lo:
-            continue
-        local = ids.to(key[1]) - lo
-        hit = (local >= 0) & (local < hi - lo)
-        rows = torch.where(hit[..., None], shard[local.clamp(0, hi - lo - 1)],
-                           0).to(ids.device)
-        out = rows if out is None else out + rows
-    return out
 
 
 def _prelu_mlp(layers, x: torch.Tensor, last_linear: bool = True):

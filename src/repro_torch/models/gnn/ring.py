@@ -28,11 +28,17 @@ around a ring.  The scheme, exact up to float32 summation order:
   ``1e-30`` floor and one division.  The masks come before ``exp``, as
   the reference's do.
 
-Outside the attention -- the embedding, the equivariant RMS norms,
-``out_project`` and the FFN -- :func:`forward_ring` runs on the
-controller's device over the whole blocked layout: they act node by
-node, and the graphs run here fit one card (``ogb_products``, which
-would need them node-sharded, is not run).
+The node state is sharded everywhere, as the reference's is
+(``P("data")``, replicated over ``model``): :func:`forward_ring` keeps
+the blocked layout as a ``launch.mesh.Placed`` split over ``data`` --
+block ``d`` on every entry (d, m) of its row, one copy a distinct
+device -- and runs the embedding, both equivariant RMS norms,
+``out_project`` and the FFN block by block on the blocks' devices (they
+act node by node); :func:`ring_attention` takes and returns the blocks
+where they lie.  No tensor of all nodes is made on the controller's
+device; :func:`unblock` gathers the real rows where a caller wants them
+whole.  Module weights reach another device than their own as
+differentiable copies (:func:`_on`).
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.launch.mesh import (NamedSharding, PartitionSpec, Placed,
+                                     place)
 from repro_torch.models.gnn import irreps as IR
 from repro_torch.models.gnn.equiformer_v2 import (edge_messages,
                                                   head_weight, out_project)
@@ -122,8 +130,15 @@ def blocked_layout(node_feat, pos, n_nodes: int, p_data: int):
 
 def unblock(x, n_nodes: int, p_data: int):
     """Inverse of :func:`blocked_layout` on the node axis: the real rows
-    of each block, in node order."""
+    of each block, in node order.  ``x`` whole, or placed over ``data``
+    (:func:`forward_ring`'s output: the blocks gathered onto the first
+    one's device)."""
     n_loc = -(-n_nodes // p_data)
+    if isinstance(x, Placed):
+        shards = [t for _, _, t in x.blocks]
+        return torch.cat([t[:min((b + 1) * n_loc, n_nodes) - b * n_loc]
+                          .to(shards[0].device)
+                          for b, t in enumerate(shards)])
     return torch.cat([x[b * (n_loc + 1): b * (n_loc + 1) + (
         min((b + 1) * n_loc, n_nodes) - b * n_loc)] for b in range(p_data)])
 
@@ -143,27 +158,34 @@ def _source_block(d: int, s: int, p_data: int) -> int:
     return next(i for i, j in _shift_perm(p_data, s) if j == d)
 
 
-class _Messages(nn.Module):
-    def __init__(self, layer) -> None:
+class _Call(nn.Module):
+    """``fn(module, *args)`` as a module's forward, so that
+    ``functional_call`` can swap the module's tensors in."""
+
+    def __init__(self, module: nn.Module, fn) -> None:
         super().__init__()
-        self.layer = layer
+        self.module = module
+        self.fn = fn
 
-    def forward(self, x_src, x_dst, rel):
-        return edge_messages(self.layer, x_src, x_dst, rel, self.layer.cfg)
+    def forward(self, *args):
+        return self.fn(self.module, *args)
 
 
-def _messages_on(layer, dev: torch.device):
-    """``edge_messages`` of ``layer`` computed on ``dev``: directly where
-    the layer lies, else through copies of its weights and buffers on
-    ``dev`` (differentiable copies: the gradient reaches the layer's own
+def _on(module: nn.Module, fn, dev: torch.device):
+    """``fn(module, *args)`` computed on ``dev``: directly where the
+    module lies, else through copies of its weights and buffers on
+    ``dev`` (differentiable copies: the gradient reaches the module's own
     parameters)."""
-    if next(layer.parameters()).device == dev:
-        return lambda *a: edge_messages(layer, *a, layer.cfg)
-    wrapper = _Messages(layer)
+    if next(module.parameters()).device == dev:
+        return lambda *a: fn(module, *a)
+    call = _Call(module, fn)
     tensors = {n: t.to(dev) for n, t in
-               list(wrapper.named_parameters()) +
-               list(wrapper.named_buffers())}
-    return lambda *a: torch.func.functional_call(wrapper, tensors, a)
+               list(call.named_parameters()) + list(call.named_buffers())}
+    return lambda *a: torch.func.functional_call(call, tensors, a)
+
+
+def _messages(layer, x_src, x_dst, rel):
+    return edge_messages(layer, x_src, x_dst, rel, layer.cfg)
 
 
 def _pmax(parts, dev: torch.device) -> torch.Tensor:
@@ -190,36 +212,77 @@ def _entry_devices(mesh):
     return mesh.devices
 
 
-def ring_attention(layer, h: torch.Tensor, pos: torch.Tensor, src_b, dst_b,
-                   mesh) -> torch.Tensor:
+def _node_blocks(x, mesh) -> Placed:
+    """``x`` [p_data * (n_loc + 1), ...] in the blocked layout as blocks
+    over ``data`` (replicated over ``model``): as it is when already so
+    placed, else cut (:func:`launch.mesh.place`)."""
+    sharding = NamedSharding(mesh, PartitionSpec("data"))
+    p_data = mesh.shape["data"]
+    if x.shape[0] % p_data:
+        raise ValueError(f"{x.shape[0]} rows do not split into {p_data} "
+                         f"blocks")
+    if isinstance(x, Placed):
+        spec = tuple(x.sharding.spec)
+        while spec and spec[-1] is None:       # ("data", None) == ("data",)
+            spec = spec[:-1]
+        if x.sharding.mesh != mesh or spec != ("data",):
+            raise ValueError(f"node blocks must be placed by {sharding.spec} "
+                             f"on {mesh}, got {x.sharding.spec}")
+        return x
+    return place(x, sharding)
+
+
+def _nodewise(fn, first: Placed, *rest: Placed, shape=None) -> Placed:
+    """``fn(device, shard, *shards)`` for each shard of ``first`` and the
+    shards of ``rest`` at the same (block, device): a placed tensor of
+    ``first``'s layout (node rows), of ``shape`` (default ``first``'s)."""
+    shards = {key: fn(key[1], t, *(r.shards[key] for r in rest))
+              for key, t in first.shards.items()}
+    return Placed(first.sharding, shape or first.shape,
+                  next(iter(shards.values())).dtype, shards,
+                  first.entry_keys)
+
+
+def _bucket(b, d: int, m: int, s: int, p_model: int) -> torch.Tensor:
+    """Entry (d, m)'s bucket of ring step s: from its own shard of
+    buckets placed over ``("data", "model")``, else from the whole
+    array."""
+    if isinstance(b, Placed):
+        return b.shard(d * p_model + m)[0, 0, s]
+    return b[d, m, s] if torch.is_tensor(b) else torch.from_numpy(
+        np.asarray(b[d, m, s]))
+
+
+def ring_attention(layer, h: Placed, pos: Placed, src_b, dst_b,
+                   mesh) -> Placed:
     """One layer's ring attention (the reference's ``make_ring_attn``
     and ``_ring_attn_local``): ``h`` [p_data * (n_loc + 1), C, K] and
-    ``pos`` [.., 3] in the blocked layout on the controller's device,
-    buckets (src, dst) [p_data, p_model, p_data, cap] -> the aggregated,
-    attention-weighted messages in the same layout (before
-    ``out_project``)."""
+    ``pos`` [.., 3] in the blocked layout, placed over ``data``
+    (:func:`forward_ring`), buckets (src, dst) [p_data, p_model, p_data,
+    cap] (whole, or placed over ``("data", "model")``: each entry reads
+    its own) -> the aggregated, attention-weighted messages (before
+    ``out_project``), placed as ``h`` is.  Entry (d, m) reads its own
+    copy of block d and fetches block ``(d - s) mod p_data`` from entry
+    (that block, m) at step s."""
     cfg = layer.cfg
     devs = _entry_devices(mesh)
     p_data, p_model = devs.shape
     n1 = h.shape[0] // p_data                 # n_loc + 1 (the dump row)
-    if n1 * p_data != h.shape[0]:
-        raise ValueError(f"{h.shape[0]} rows do not split into {p_data} "
-                         f"blocks")
-    src_b = torch.as_tensor(np.asarray(src_b) if not torch.is_tensor(src_b)
-                            else src_b)
-    dst_b = torch.as_tensor(np.asarray(dst_b) if not torch.is_tensor(dst_b)
-                            else dst_b)
-    pos = pos.to(h.dtype)
     # the reference's float32 accumulators, wider for a float64 forward
     acc = torch.promote_types(h.dtype, torch.float32)
-    messages = {dev: _messages_on(layer, dev) for dev in mesh.distinct_devices}
+    messages = {dev: _on(layer, _messages, dev)
+                for dev in mesh.distinct_devices}
 
-    def block(x, d, dev):
-        return x[d * n1:(d + 1) * n1].to(dev)
+    def block(x, d, m, dev):
+        """Block d as entry (d, m) holds it, on ``dev``."""
+        return x.shard(d * p_model + m).to(dev)
+
+    def pos_block(d, m, dev):
+        return block(pos, d, m, dev).to(h.dtype)
 
     def buckets(d, m, s, dev):
-        return (src_b[d, m, s].to(dev, torch.int64),
-                dst_b[d, m, s].to(dev, torch.int64))
+        return (_bucket(src_b, d, m, s, p_model).to(dev, torch.int64),
+                _bucket(dst_b, d, m, s, p_model).to(dev, torch.int64))
 
     # phase 1: the streaming max of the logits, without gradient
     maxima = {}
@@ -227,12 +290,12 @@ def ring_attention(layer, h: torch.Tensor, pos: torch.Tensor, src_b, dst_b,
         for d in range(p_data):
             for m in range(p_model):
                 dev = devs[d, m]
-                x_in, p_in = block(h, d, dev), block(pos, d, dev)
+                x_in, p_in = block(h, d, m, dev), pos_block(d, m, dev)
                 mx = torch.full((n1, cfg.n_heads), -1e30, dtype=acc,
                                 device=dev)
                 for s in range(p_data):
                     sd = _source_block(d, s, p_data)
-                    x_blk, p_blk = block(h, sd, dev), block(pos, sd, dev)
+                    x_blk, p_blk = block(h, sd, m, dev), pos_block(sd, m, dev)
                     src, dst = buckets(d, m, s, dev)
                     rel = p_in[dst] - p_blk[src]
                     _, alpha = messages[dev](x_blk[src], x_in[dst], rel)
@@ -259,13 +322,13 @@ def ring_attention(layer, h: torch.Tensor, pos: torch.Tensor, src_b, dst_b,
         msg = head_weight(w, msg.to(acc), cfg)
         return agg_sum(msg, dst, n1), agg_sum(w, dst, n1)
 
-    out = []
+    out = {}
     hsz = cfg.d_hidden // cfg.n_heads
     for d in range(p_data):
         nums, dens = [], []
         for m in range(p_model):
             dev = devs[d, m]
-            x_in, p_in = block(h, d, dev), block(pos, d, dev)
+            x_in, p_in = block(h, d, m, dev), pos_block(d, m, dev)
             num = torch.zeros((n1, cfg.d_hidden, cfg.comps), dtype=acc,
                               device=dev)
             den = torch.zeros((n1, cfg.n_heads), dtype=acc, device=dev)
@@ -273,8 +336,8 @@ def ring_attention(layer, h: torch.Tensor, pos: torch.Tensor, src_b, dst_b,
                 sd = _source_block(d, s, p_data)
                 src, dst = buckets(d, m, s, dev)
                 dn, dd = torch.utils.checkpoint.checkpoint(
-                    step, block(h, sd, dev), x_in, block(pos, sd, dev), p_in,
-                    shift[d, m], src, dst, messages[dev],
+                    step, block(h, sd, m, dev), x_in, pos_block(sd, m, dev),
+                    p_in, shift[d, m], src, dst, messages[dev],
                     use_reentrant=False)
                 num = num + dn
                 den = den + dd
@@ -283,31 +346,59 @@ def ring_attention(layer, h: torch.Tensor, pos: torch.Tensor, src_b, dst_b,
         home = devs[d, 0]
         num = _psum(nums, home)
         den = torch.clamp(_psum(dens, home), min=1e-30)
-        out.append((num / torch.repeat_interleave(den, hsz, dim=-1)[..., None]
-                    ).to(h.dtype).to(h.device))
-    return torch.cat(out)
+        out[d] = (num / torch.repeat_interleave(den, hsz, dim=-1)[..., None]
+                  ).to(h.dtype)
+    return Placed(h.sharding, h.shape, h.dtype,
+                  {key: out[key[0][0]].to(key[1]) for key in h.shards},
+                  h.entry_keys)
 
 
 # -------------------------------------------------------------------------
 # Full ring forward
 # -------------------------------------------------------------------------
-def forward_ring(model, nodes: torch.Tensor, pos: torch.Tensor, src_b,
-                 dst_b, mesh) -> torch.Tensor:
+def _lift(embed, nodes, cfg):
+    """The embedded scalars as degree-0 irreps [n, C, K]."""
+    h0 = embed(nodes.to(cfg.dtype))
+    x = h0.new_zeros((nodes.shape[0], cfg.d_hidden, cfg.comps))
+    x[..., 0] = h0
+    return x
+
+
+def _norm1(layer, x):
+    return IR.equivariant_rms_norm(layer.cfg.l_max, x, layer.norm1)
+
+
+def _after_attention(layer, x, agg):
+    """The rest of a layer once its attention is aggregated: the
+    residual ``out_project``, the second norm and the FFN."""
+    x = x + out_project(layer.out, agg, layer.cfg)
+    return x + layer.ffn(IR.equivariant_rms_norm(layer.cfg.l_max, x,
+                                                 layer.norm2))
+
+
+def forward_ring(model, nodes, pos, src_b, dst_b, mesh) -> Placed:
     """The port's ``EquiformerV2`` over the ring: ``nodes`` [p_data *
     (n_loc + 1), F] and ``pos`` likewise (:func:`blocked_layout`: each
     block carries its own dump row, so block-local pads hit block-local
-    rows), on the model's device.  Returns the node irreps in the same
-    layout (:func:`unblock` takes the real rows)."""
+    rows), whole or already placed over ``data`` (module doc).  Returns
+    the node irreps in the same layout, placed over ``data``
+    (:func:`unblock` takes the real rows)."""
     cfg = model.cfg
-    h0 = model.embed(nodes.to(cfg.dtype))
-    x = h0.new_zeros((nodes.shape[0], cfg.d_hidden, cfg.comps))
-    x[..., 0] = h0
+    _entry_devices(mesh)
+    nodes, pos = _node_blocks(nodes, mesh), _node_blocks(pos, mesh)
+    devs = mesh.distinct_devices
+
+    def on(module, fn):
+        calls = {dev: _on(module, fn, dev) for dev in devs}
+        return lambda dev, *a: calls[dev](*a)
+
+    lift = on(model.embed, lambda emb, n: _lift(emb, n, cfg))
+    x = _nodewise(lift, nodes, shape=(nodes.shape[0], cfg.d_hidden,
+                                      cfg.comps))
     for layer in model.layers:
-        h = IR.equivariant_rms_norm(cfg.l_max, x, layer.norm1)
+        h = _nodewise(on(layer, _norm1), x)
         agg = ring_attention(layer, h, pos, src_b, dst_b, mesh)
-        x = x + out_project(layer.out, agg, cfg)
-        h = IR.equivariant_rms_norm(cfg.l_max, x, layer.norm2)
-        x = x + layer.ffn(h)
+        x = _nodewise(on(layer, _after_attention), x, agg)
     return x
 
 

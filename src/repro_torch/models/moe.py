@@ -9,8 +9,9 @@ n_tok), each expert takes at most ``cap = ceil(tg * k / e *
 moe_capacity_factor)`` rows of a group of ``tg`` tokens, and the
 overflow is dropped (its weight zeroed).  So ``moe_groups`` and
 ``moe_capacity_factor`` decide which tokens drop, on one card as on a
-mesh; only the group axis's sharding over the data axis waits for the
-mesh slice.
+mesh.  On a mesh (:func:`moe_dispatch_tp`) the routed experts are split
+over ``model`` and the buffer's rows over the batch ranges; routing and
+the un-dispatch run whole, as on one card.
 
 Routing keeps the reference's order exactly: a float32 router, softmax,
 the top k with ties to the lower expert id (``lax.top_k``'s order), a
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import resolve_device
+from repro_torch.launch.mesh import psum
 from repro_torch.models.common import dense_init, swiglu
 
 
@@ -192,6 +194,46 @@ def undispatch(gathered: torch.Tensor, st: torch.Tensor,
     return out
 
 
+def _dispatch(router: torch.Tensor, x: torch.Tensor, cfg):
+    """Route ``x`` [b, t, d] and fill the dispatch buffer: (tokens [g,
+    tg, d], its :class:`Routing`, each sorted assignment's buffer row
+    [g, tg * k], the buffer [e + 1, g * cap, d])."""
+    b, t, d = x.shape
+    g, tg, cap = dispatch_shape(b * t, cfg)
+    tokens = x.reshape(g, tg, d)
+    r = route(router, tokens, cfg)
+    gi = torch.arange(g, device=x.device)[:, None]
+    rows = gi * cap + r.slot_c                                 # [g, tg * k]
+    buf = x.new_zeros((cfg.moe_experts + 1, g * cap, d))
+    buf[r.slot_e, rows] = tokens[gi, r.st]
+    return tokens, r, rows, buf
+
+
+def _experts(h: torch.Tensor, p: dict) -> torch.Tensor:
+    """The three batched expert products of ``h`` [e', n, d] by the
+    experts ``p`` holds ([e', d, f] / [e', f, d])."""
+    act = swiglu(torch.bmm(h, p["w_gate"]), torch.bmm(h, p["w_up"]))
+    return torch.bmm(act, p["w_down"])
+
+
+def _combine(out_e: torch.Tensor, r: Routing, rows: torch.Tensor,
+             cfg) -> torch.Tensor:
+    """Each token's weighted expert rows added in sorted order
+    (:func:`undispatch`): [g, tg, d]."""
+    e = cfg.moe_experts
+    # a dropped assignment reads expert e - 1's row at weight 0 where the
+    # reference reads its zero dump row: the same 0 without a copy
+    gathered = out_e[r.slot_e.clamp(max=e - 1), rows] * \
+        (r.sp * r.keep).to(out_e.dtype)[..., None]
+    return undispatch(gathered, r.st, cfg.moe_top_k)
+
+
+def _shared(p: dict) -> dict:
+    """The shared experts of ``p`` as a dense FFN's weights."""
+    return {"w_gate": p["ws_gate"], "w_up": p["ws_up"],
+            "w_down": p["ws_down"]}
+
+
 def moe_dispatch(p: dict, x: torch.Tensor, cfg):
     """x [b, t, d] -> (out [b, t, d], its :class:`Routing`), the
     reference's grouped fixed-capacity dispatch (module doc) without the
@@ -202,24 +244,63 @@ def moe_dispatch(p: dict, x: torch.Tensor, cfg):
     rows of every group are one batched product; every output element
     is the same dot product either way."""
     b, t, d = x.shape
-    e = cfg.moe_experts
-    g, tg, cap = dispatch_shape(b * t, cfg)
-    tokens = x.reshape(g, tg, d)
-    r = route(p["router"], tokens, cfg)
-    gi = torch.arange(g, device=x.device)[:, None]
-    rows = gi * cap + r.slot_c                                 # [g, tg * k]
-    buf = x.new_zeros((e + 1, g * cap, d))
-    buf[r.slot_e, rows] = tokens[gi, r.st]
-    h = buf[:e]
-    act = swiglu(torch.bmm(h, p["w_gate"]), torch.bmm(h, p["w_up"]))
-    out_e = torch.bmm(act, p["w_down"])
-    # a dropped assignment reads expert e - 1's row at weight 0 where the
-    # reference reads its zero dump row: the same 0 without a copy
-    gathered = out_e[r.slot_e.clamp(max=e - 1), rows] * \
-        (r.sp * r.keep).to(x.dtype)[..., None]
-    routed = undispatch(gathered, r.st, cfg.moe_top_k)
-    shared = swiglu(tokens @ p["ws_gate"], tokens @ p["ws_up"]) @ p["ws_down"]
+    tokens, r, rows, buf = _dispatch(p["router"], x, cfg)
+    routed = _combine(_experts(buf[:cfg.moe_experts], p), r, rows, cfg)
+    shared = dense_ffn(_shared(p), tokens)
     return (routed + shared).reshape(b, t, d), r
+
+
+def moe_dispatch_tp(groups, x: torch.Tensor, cfg):
+    """:func:`moe_dispatch`'s output with the experts over the mesh's
+    ``model`` axis: ``groups`` ``[(b0, b1, [(dev, p), ...]), ...]`` (as
+    ``attention.prefill_tp`` takes them; ``p`` an entry's layer-local
+    FFN weights: ``E / p`` routed experts, its columns of the shared
+    ``ws_gate`` / ``ws_up`` and rows of ``ws_down``, the router whole)
+    and ``x`` [b, t, d] on the controller's device.
+
+    ``route`` runs on ``x``'s device with the replicated router, as on
+    one device, and fills the whole dispatch buffer there.  Model entry
+    m computes the three batched products of its experts' slice of the
+    buffer, the buffer's rows split over the batch ranges (``data``);
+    the slices go back into the whole buffer in expert order and
+    :func:`undispatch` adds each token's rows as on one device.  The
+    shared experts run as a dense FFN split over ``mlp``, the entries'
+    partial outputs summed in entry order.  Returns out [b, t, d]."""
+    b, t, d = x.shape
+    home = x.device
+    router = groups[0][2][0][1]["router"].to(home)
+    tokens, r, rows, buf = _dispatch(router, x, cfg)
+    out_e = buf.new_empty((cfg.moe_experts,) + tuple(buf.shape[1:]))
+    n = buf.shape[1]
+    step = -(-n // len(groups))
+    e0 = 0
+    for m in range(len(groups[0][2])):
+        e1 = e0 + groups[0][2][m][1]["w_gate"].shape[0]
+        for gi, (_, _, ents) in enumerate(groups):
+            c0, c1 = min(gi * step, n), min((gi + 1) * step, n)
+            dev, p = ents[m]
+            if c1 > c0:
+                out_e[e0:e1, c0:c1] = _experts(
+                    buf[e0:e1, c0:c1].to(dev), p).to(home)
+        e0 = e1
+    routed = _combine(out_e, r, rows, cfg).reshape(b, t, d)
+    shared = torch.cat([psum([dense_ffn(_shared(p), x[b0:b1].to(dev))
+                              for dev, p in ents], home)
+                        for b0, b1, ents in groups])
+    return routed + shared
+
+
+def ffn_tp(groups, x: torch.Tensor, cfg) -> torch.Tensor:
+    """A layer's FFN over the mesh's ``model`` axis (``groups`` and ``x``
+    as :func:`moe_dispatch_tp` takes them): the MoE by
+    :func:`moe_dispatch_tp`, the dense SwiGLU split over ``mlp``
+    (``w_gate`` / ``w_up`` by column, ``w_down`` by row), each entry's
+    partial output summed in entry order on ``x``'s device."""
+    if cfg.is_moe:
+        return moe_dispatch_tp(groups, x, cfg)
+    return torch.cat([psum([dense_ffn(p, x[b0:b1].to(dev))
+                            for dev, p in ents], x.device)
+                      for b0, b1, ents in groups])
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg):
@@ -231,6 +312,6 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg):
 
 
 __all__ = ["Routing", "aux_loss", "dense_ffn", "dense_ffn_specs",
-           "dispatch_shape", "init_dense_ffn", "init_moe", "moe_dispatch",
-           "moe_ffn", "moe_specs",
+           "dispatch_shape", "ffn_tp", "init_dense_ffn", "init_moe",
+           "moe_dispatch", "moe_dispatch_tp", "moe_ffn", "moe_specs",
            "no_drop_capacity_factor", "route", "undispatch"]

@@ -20,17 +20,31 @@ drops the aux loss, as the reference's ``prefill`` and ``decode_step``
 do (here it is not computed at all).
 
 The mesh: ``param_specs``, ``act_spec`` and ``cache_specs`` are the
-reference's logical specs (``repro_torch.sharding``).  Of them only the
-cache's act here: ``init_cache`` / ``prefill`` with ``mesh=`` lay the
-cache out over the mesh (``cache_seq`` -> ``model``: each sequence
-shard its own tensor on its entry's device), and ``decode_step`` on such
-a cache runs the sequence-sharded decode (``attention.gqa_decode_sharded``,
-``mla_decode_sharded``): one flash_decode launch a shard for GQA, the
-shards' partial outputs merged by their log-sum-exps.  The weights stay
-whole on the controller's device, so ``seq_parallel`` (a layout hint for
-XLA's partitioner over a tensor-parallel forward) and ``unroll_scans``
-(a cost-analysis mode of XLA) have no effect: the port has no
-tensor-parallel forward yet.
+reference's logical specs (``repro_torch.sharding``).  ``init_cache`` /
+``prefill`` with ``mesh=`` lay the cache out over the mesh (``cache_seq``
+-> ``model``: each sequence shard its own tensor on its entry's device),
+and ``decode_step`` on such a cache runs the sequence-sharded decode
+(``attention.gqa_decode_sharded``, ``mla_decode_sharded``): one
+flash_decode launch a shard for GQA, the shards' partial outputs merged
+by their log-sum-exps.
+
+The tensor-parallel serve path: :func:`place_params` lays the weights
+out by ``param_specs`` (``TP_ONLY``: ``heads``, ``mlp``, ``vocab`` and
+``experts`` over ``model``, the batch over ``data``), and ``prefill`` /
+``decode_step`` given that placed tree run each layer over the mesh's
+``model`` entries: the vocab-parallel embedding
+(``common.take_rows``), each entry's heads (``attention.prefill_tp``,
+``gqa_decode_tp`` / ``mla_decode_tp`` on the sequence-sharded cache),
+its slice of the FFN or its experts (``moe.ffn_tp``) and its logit
+columns (``common.split_logits``), the partial outputs summed in entry
+order on the controller's device (``launch.mesh.psum``).  In the
+prefill the residual stream is laid out by ``act_spec`` through
+``sharding.shard_act``: sequence shards, one on each ``model`` entry's
+device, where ``t % tp == 0`` -- the norms and residual adds run on
+the shards, gathered before attention and the FFN.  ``cfg.tp`` must be
+the mesh's ``model`` size (the reference pads the query heads to its
+model axis).  ``unroll_scans`` (a cost-analysis mode of XLA) has no
+effect.
 """
 
 from __future__ import annotations
@@ -43,11 +57,13 @@ import torch.utils.checkpoint
 
 from repro_torch import sharding as SH
 from repro_torch.core.graph import resolve_device
-from repro_torch.launch.mesh import Placed, place_zeros
+from repro_torch.launch.mesh import (Placed, block_bounds, gather,
+                                     local_tree, place_tree, place_zeros)
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models.common import (dense_init, init_rms, load_tree,
-                                      rms_norm, softmax_cross_entropy)
+                                      rms_norm, softmax_cross_entropy,
+                                      split_logits, take_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,9 +76,11 @@ class TransformerConfig:
     decide which routed assignments drop (``moe.dispatch_shape``).
     ``remat`` recomputes each layer in ``forward_train``'s backward.
     ``sharded_decode`` sequence-splits a cache laid out over a mesh
-    (``cache_specs``); ``seq_parallel`` only chooses ``act_spec`` and
+    (``cache_specs``); ``seq_parallel`` chooses ``act_spec``, the
+    residual stream's layout in the tensor-parallel prefill, and
     ``unroll_scans`` has no effect (module doc); ``tp`` pads the query
-    heads and the vocabulary."""
+    heads and the vocabulary, and is the ``model`` size of the mesh the
+    tensor-parallel path runs on."""
     name: str
     n_layers: int
     d_model: int
@@ -193,6 +211,41 @@ def param_specs(cfg: TransformerConfig) -> dict:
             "layers": SH.map_specs(lambda sp: ("layers",) + tuple(sp),
                                    layer),
             "ln_f": (None,), "lm_head": ("embed", "vocab")}
+
+
+def check_tp(cfg: TransformerConfig, mesh) -> None:
+    """Raise ``ValueError`` unless the tensor-parallel path can run
+    ``cfg`` on ``mesh``: a ``model`` axis whose size divides the padded
+    heads, the padded vocabulary, the FFN's width and the experts (none
+    is ever split unevenly), and equals ``cfg.tp``."""
+    if "model" not in mesh.axis_names:
+        raise ValueError(f"the tensor-parallel path needs a 'model' mesh "
+                         f"axis, got {mesh.axis_names}")
+    p = mesh.shape["model"]
+    dims = {"heads": cfg.padded_heads, "vocab": cfg.padded_vocab}
+    if cfg.is_moe:
+        dims.update(experts=cfg.moe_experts,
+                    mlp=cfg.moe_shared * cfg.moe_d_ff)
+    else:
+        dims["mlp"] = cfg.d_ff
+    for name, n in dims.items():
+        if n % p:
+            raise ValueError(f"{cfg.name}: {name} ({n}) does not split "
+                             f"evenly over the mesh's model axis of {p}")
+    if cfg.tp != p:
+        raise ValueError(f"{cfg.name}: tp = {cfg.tp} must equal the mesh's "
+                         f"model axis ({p}): the reference pads the query "
+                         f"heads to it")
+
+
+def place_params(params: dict, cfg: TransformerConfig, mesh,
+                 rules=SH.TP_ONLY) -> dict:
+    """``params`` laid out over ``mesh`` by :func:`param_specs` through
+    ``rules`` (``launch.mesh.place_tree``): the tree ``prefill`` and
+    ``decode_step`` run the tensor-parallel path on (module doc)."""
+    check_tp(cfg, mesh)
+    specs = param_specs(cfg)
+    return place_tree(params, SH.resolve_tree(specs, rules, mesh), specs)
 
 
 #: [b, t, d] activations: batch-sharded.
@@ -372,20 +425,16 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     Returns (logits [b, Vpad] of the last position, cache) with the
     cache of :func:`init_cache` (laid out over ``mesh`` when given; each
     layer's rows written into the shards they reach)
-    filled to length t."""
+    filled to length t.  Given :func:`place_params`' tree, the
+    tensor-parallel prefill (module doc), its cache laid out over that
+    tree's mesh."""
+    if isinstance(params["embed"], Placed):
+        return _prefill_tp(params, tokens, cfg, s_max)
     b, t = tokens.shape
     x = params["embed"][tokens].to(cfg.act_dtype)
     positions = torch.arange(t, dtype=torch.int32,
                              device=tokens.device).expand(b, t)
-    mla = cfg.attn == "mla"
-    if t >= cfg.blockwise_prefill_from:
-        blockwise = (A.mla_prefill_blockwise if mla
-                     else A.gqa_prefill_blockwise)
-
-        def attn_fn(p, h, c, pos):
-            return blockwise(p, h, c, pos, block_k=cfg.prefill_block_k)
-    else:
-        attn_fn = A.mla_train if mla else A.gqa_train
+    attn_fn = _prefill_attention(cfg, t)
     cache = init_cache(cfg, b, s_max, device=tokens.device, mesh=mesh)
     n1, n2 = cache_names(cfg)
     for i in range(cfg.n_layers):
@@ -405,6 +454,19 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     return logits, cache
 
 
+def _prefill_attention(cfg: TransformerConfig, t: int):
+    """The prefill's attention: blockwise from ``blockwise_prefill_from``
+    tokens on, else the plain causal path."""
+    mla = cfg.attn == "mla"
+    if t < cfg.blockwise_prefill_from:
+        return A.mla_train if mla else A.gqa_train
+    blockwise = A.mla_prefill_blockwise if mla else A.gqa_prefill_blockwise
+
+    def attn_fn(p, h, c, pos, **kw):
+        return blockwise(p, h, c, pos, block_k=cfg.prefill_block_k, **kw)
+    return attn_fn
+
+
 def _ffn(p: dict, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     """The layer's FFN; serving never computes the MoE aux loss."""
     return M.moe_dispatch(p, x, cfg)[0] if cfg.is_moe else M.dense_ffn(p, x)
@@ -418,7 +480,10 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
     tensors (``k`` / ``v``, or ``ckv`` / ``kr`` for MLA); the returned
     cache shares them and carries ``lengths + 1``.  A cache laid out
     over a mesh (``init_cache(..., mesh=)``) takes the sequence-sharded
-    decode (module doc)."""
+    decode (module doc); given :func:`place_params`' tree and such a
+    cache, the tensor-parallel decode."""
+    if isinstance(params["embed"], Placed):
+        return _decode_step_tp(params, cache, token, cfg)
     x = params["embed"][token[:, None]].to(cfg.act_dtype)
     lengths = cache["lengths"]
     n1, n2 = cache_names(cfg)
@@ -441,3 +506,134 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
         x = x + _ffn(lp["ffn"], rms_norm(lp["ln2"], x), cfg)
     logits = rms_norm(params["ln_f"], x[:, 0]) @ params["lm_head"]
     return logits, {n1: cache[n1], n2: cache[n2], "lengths": lengths + 1}
+
+
+# -------------------------------------------------------------------------
+# The tensor-parallel serve path (module doc)
+# -------------------------------------------------------------------------
+def _tp_setup(params: dict, cfg: TransformerConfig, b: int):
+    """(mesh, rules, groups) of a placed tree: ``groups`` ``[(b0, b1,
+    [(device, entry's tree), ...]), ...]``, each batch range (``batch``
+    through the active rules, ``TP_ONLY`` outside a context) with its
+    ``model`` entries in order.  Raises where the path cannot run
+    (:func:`check_tp`, or a weight split over another axis than
+    ``model``)."""
+    mesh = params["embed"].sharding.mesh
+    check_tp(cfg, mesh)
+    for path, x in _leaves(params):
+        used = {a for e in x.sharding.spec if e is not None
+                for a in (e if isinstance(e, tuple) else (e,))}
+        if used - {"model"}:
+            raise ValueError(f"{path} is split over {sorted(used)}: the "
+                             f"tensor-parallel path splits weights over "
+                             f"'model' only (TP_ONLY)")
+    rules = SH.active_rules() or SH.TP_ONLY
+    batch = SH.resolve(("batch",), rules, mesh)
+    rows: dict = {}
+    for e, (coords, dev) in enumerate(batch.entries()):
+        (r,) = batch.block_of(coords, 1)
+        rows.setdefault(r, {}).setdefault(
+            coords["model"], (dev, local_tree(params, e)))
+    groups = []
+    for r in sorted(rows):
+        ((b0, b1),) = block_bounds((b,), batch.parts(1), (r,))
+        if b1 > b0:
+            groups.append((b0, b1, [rows[r][m] for m in sorted(rows[r])]))
+    return mesh, rules, groups
+
+
+def _leaves(tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _layer_groups(groups, i: int, part: str):
+    """Layer ``i``'s ``part`` (``"attn"`` / ``"ffn"``) of each entry's
+    tree, in the groups' layout."""
+    return [(b0, b1, [(dev, _layer(tree["layers"][part], i))
+                      for dev, tree in ents]) for b0, b1, ents in groups]
+
+
+def _norm(g: torch.Tensor, x):
+    """RMSNorm of the residual stream, whole or placed (each shard on
+    its device)."""
+    if isinstance(x, Placed):
+        return x.map(lambda s, _, dev: rms_norm(g.to(dev), s))
+    return rms_norm(g.to(x.device), x)
+
+
+def _whole(x, device) -> torch.Tensor:
+    """The residual stream whole on ``device`` (gathered when placed)."""
+    return gather(x, device) if isinstance(x, Placed) else x.to(device)
+
+
+def _add(x, f: torch.Tensor):
+    """``x + f``, for a placed ``x`` each shard plus its slice of ``f``
+    on the shard's device."""
+    if isinstance(x, Placed):
+        return x.map(lambda s, sl, dev: s + f[sl].to(dev))
+    return x + f
+
+
+def _residual(x: torch.Tensor, spec, mesh, rules):
+    """The residual stream laid out by ``spec`` (``sharding.shard_act``);
+    whole where no axis of the mesh applies."""
+    with SH.activation_sharding(rules, mesh):
+        return SH.shard_act(x, spec)
+
+
+def _prefill_tp(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+                s_max: int):
+    b, t = tokens.shape
+    home = tokens.device
+    mesh, rules, groups = _tp_setup(params, cfg, b)
+    whole = local_tree(params, 0)
+    x = take_rows(params["embed"], tokens).to(cfg.act_dtype)
+    x = _residual(x, act_spec(cfg, t), mesh, rules)
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=home).expand(b, t)
+    attn_fn = _prefill_attention(cfg, t)
+    cache = init_cache(cfg, b, s_max, device=home, mesh=mesh)
+    n1, n2 = cache_names(cfg)
+    for i in range(cfg.n_layers):
+        lp = _layer(whole["layers"], i)
+        h, (c1, c2) = A.prefill_tp(_layer_groups(groups, i, "attn"),
+                                   _whole(_norm(lp["ln1"], x), home), cfg,
+                                   positions, attn_fn)
+        A.cache_fill(cache[n1], i, c1)
+        A.cache_fill(cache[n2], i, c2)
+        x = _add(x, h)
+        x = _add(x, M.ffn_tp(_layer_groups(groups, i, "ffn"),
+                             _whole(_norm(lp["ln2"], x), home), cfg))
+    last = rms_norm(whole["ln_f"].to(home), _whole(x, home)[:, -1])
+    cache["lengths"].fill_(t)
+    return split_logits(last, params["lm_head"]), cache
+
+
+def _decode_step_tp(params: dict, cache: dict, token: torch.Tensor,
+                    cfg: TransformerConfig):
+    home = token.device
+    mesh, rules, groups = _tp_setup(params, cfg, token.shape[0])
+    n1, n2 = cache_names(cfg)
+    if not isinstance(cache[n1], Placed):
+        raise ValueError("the tensor-parallel decode runs on a cache laid "
+                         "out over the mesh (init_cache(..., mesh=) or the "
+                         "tensor-parallel prefill)")
+    whole = local_tree(params, 0)
+    x = take_rows(params["embed"], token[:, None]).to(cfg.act_dtype)
+    x = _residual(x, ACT, mesh, rules)
+    lengths = cache["lengths"]
+    decode = A.mla_decode_tp if cfg.attn == "mla" else A.gqa_decode_tp
+    for i in range(cfg.n_layers):
+        lp = _layer(whole["layers"], i)
+        x = _add(x, decode(_layer_groups(groups, i, "attn"),
+                           _whole(_norm(lp["ln1"], x), home), cache[n1],
+                           cache[n2], i, lengths, cfg))
+        x = _add(x, M.ffn_tp(_layer_groups(groups, i, "ffn"),
+                             _whole(_norm(lp["ln2"], x), home), cfg))
+    last = rms_norm(whole["ln_f"].to(home), _whole(x, home)[:, 0])
+    return (split_logits(last, params["lm_head"]),
+            {n1: cache[n1], n2: cache[n2], "lengths": lengths + 1})

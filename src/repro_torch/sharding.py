@@ -16,21 +16,26 @@ collapses to one name when one is left), and a single axis the mesh
 lacks replicates.
 
 In the reference these specs are hints that XLA's partitioner acts on.
-Here one controller drives every entry of a mesh, so only the paths that
-lay tensors out by hand follow them:
+Here one controller drives every entry of a mesh, so the paths that lay
+tensors out do it by hand, each by its specs:
 
 * the sequence-sharded decode cache (``transformer.init_cache(...,
   mesh=)``, ``cache_specs``: ``cache_seq`` -> ``model``);
+* the tensor-parallel serve path of the LMs (``transformer.place_params``
+  by ``param_specs``: ``heads``, ``mlp``, ``vocab`` and ``experts`` ->
+  ``model``; the residual stream by ``act_spec`` through
+  :func:`shard_act`);
 * the ZeRO optimizer state (``optimizer.place_state``, ``state_specs``);
 * DIEN's row-sharded tables (``dien.place_params``: ``table_rows`` ->
   ``model``);
-* the ring-partitioned Equiformer-v2 (``models.gnn.ring``: its own node
-  blocks and edge buckets over ``("data", "model")``).
+* the ring-partitioned Equiformer-v2 (``models.gnn.ring``: node blocks
+  over ``data``, edge buckets over ``("data", "model")``).
 
-Everything else computes on whole tensors, so ``constraint`` and
-``shard_act`` check the spec against the mesh and return their input's
-values unchanged (the reference's ``with_sharding_constraint`` changes
-a layout, never a value).
+``constraint`` and ``shard_act`` (inside :func:`activation_sharding`)
+lay a tensor out by its spec (``launch.mesh.place``) when the spec names
+an axis of the mesh, and return it unchanged where none applies: the
+reference's ``with_sharding_constraint`` changes a layout, never a
+value, and so does a layout here.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Callable, Mapping, Sequence
 
-from repro_torch.launch.mesh import Mesh, NamedSharding, PartitionSpec
+from repro_torch.launch.mesh import (Mesh, NamedSharding, PartitionSpec,
+                                     Placed, gather, place)
 
 # Rule tables: logical name -> mesh axis (or tuple, or None = replicate).
 FSDP_TP: dict[str, Any] = {
@@ -131,17 +137,25 @@ def resolve_tree(specs, rules: Mapping[str, Any], mesh: Mesh):
 
 def constraint(x, spec, rules: Mapping[str, Any], mesh: Mesh):
     """The reference's ``with_sharding_constraint`` through the table:
-    the spec is resolved (and must fit the mesh); the values are
-    ``x``'s, unchanged (module doc)."""
-    resolve(spec, rules, mesh)
-    return x
+    ``x`` (a tensor or a :class:`Placed`) laid out by the resolved spec
+    when it names a mesh axis, else returned as it is (module doc).  A
+    placed ``x`` already in that layout is returned as it is; in
+    another, it is gathered and placed anew."""
+    sharding = resolve(spec, rules, mesh)
+    if not any(sharding.spec):
+        return x
+    if isinstance(x, Placed):
+        if x.sharding == sharding:
+            return x
+        x = gather(x)
+    return place(x, sharding)
 
 
 # -------------------------------------------------------------------------
 # Activation-sharding context: model code may call ``shard_act(x, spec)``
 # unconditionally; the launch layer activates the (rules, mesh) pair for
 # the duration of a call.  Outside the context it is the identity; inside
-# it resolves the spec and returns ``x`` unchanged (module doc).
+# it is :func:`constraint` under the active pair.
 # -------------------------------------------------------------------------
 _ACT_CTX: list = []
 
@@ -155,9 +169,15 @@ def activation_sharding(rules: Mapping[str, Any], mesh: Mesh):
         _ACT_CTX.pop()
 
 
+def active_rules():
+    """The rule table of the innermost :func:`activation_sharding`
+    context, or ``None`` outside every context."""
+    return _ACT_CTX[-1][0] if _ACT_CTX else None
+
+
 def shard_act(x, spec):
-    """Constrain an activation to a logical spec (identity outside the
-    context; the values unchanged inside it)."""
+    """Lay an activation out by a logical spec (module doc); the
+    identity outside the context."""
     if not _ACT_CTX:
         return x
     rules, mesh = _ACT_CTX[-1]
@@ -171,6 +191,7 @@ def wrap_with_activation_sharding(fn, rules, mesh):
     return wrapped
 
 
-__all__ = ["FSDP_TP", "TP_ONLY", "activation_sharding", "constraint",
+__all__ = ["FSDP_TP", "TP_ONLY", "activation_sharding", "active_rules",
+           "constraint",
            "drop_pod", "is_spec", "map_specs", "resolve", "resolve_tree",
            "shard_act", "wrap_with_activation_sharding"]

@@ -1201,6 +1201,41 @@ def test_sharded_decode_on_four_cuda_entries_equals_the_cpu(card, arch):
     assert out["cuda"][3] == (cfg.n_layers * 4 * 4 if arch == "gqa" else 0)
 
 
+@pytest.mark.parametrize("arch", ["gqa", "mla"])
+def test_tp_serve_on_four_cuda_entries_equals_the_cpu(card, arch):
+    """The tensor-parallel serve path (the weights placed over a
+    ``("model",)`` mesh of four ``cuda:0`` entries, tp 4) in float32:
+    prefill and 4 decode steps give the CPU mesh's logits within 1e-4;
+    GQA launches K4 once a layer, step and cache shard, MLA none."""
+    from repro_torch.configs.deepseek_v2_lite_16b import SMOKE as DS
+    from repro_torch.configs.qwen2_7b import SMOKE as LM_SMOKE
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import tree_map
+    base = LM_SMOKE if arch == "gqa" else DS
+    cfg = dataclasses.replace(base, tp=4, param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    params = tf.init_params(cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mesh = make_mesh((4,), ("model",), [dev] * 4)
+        placed = tf.place_params(tree_map(lambda x: x.to(dev), params), cfg,
+                                 mesh)
+        before = FD.launches.count
+        logits, cache = tf.prefill(placed, toks.to(dev), cfg, 16)
+        tok, got = logits.argmax(-1).to(torch.int32), [logits.cpu()]
+        for _ in range(4):
+            logits, cache = tf.decode_step(placed, cache, tok, cfg)
+            got.append(logits.cpu())
+            tok = logits.argmax(-1).to(torch.int32)
+        out[dev] = (torch.stack(got), FD.launches.count - before)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    assert out["cpu"][1] == 0
+    assert out["cuda"][1] == (cfg.n_layers * 4 * 4 if arch == "gqa" else 0)
+
+
 def test_ring_on_the_card_equals_the_cpu(card):
     """The ring-partitioned Equiformer-v2 (a small config) over a (2, 2)
     mesh of ``cuda:0`` entries gives the CPU mesh's node irreps within

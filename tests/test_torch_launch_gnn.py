@@ -156,7 +156,10 @@ def test_ring_bundle_is_abstract_and_sized_as_reference():
 def test_ring_bundle_step_equals_the_local_step():
     """The ring bundle's step (``mesh_fn``) at a small Equiformer-v2 on a
     (2, 1) CPU mesh: its loss, grad norm and updated parameters equal a
-    step of the same cross-entropy over the local ``node_forward``."""
+    step of the same cross-entropy over the local ``node_forward``, and
+    the same step on the batch laid out by the bundle's ``arg_specs``
+    (node blocks over ``data``, buckets over ``("data", "model")``)
+    gives the same numbers."""
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.common import softmax_cross_entropy
@@ -219,3 +222,15 @@ def test_ring_bundle_step_equals_the_local_step():
         np.testing.assert_allclose(host(got[1].mu[name]),
                                    host(want[1].mu[name]), err_msg=name,
                                    **TOL)
+    from repro_torch import sharding as SH
+    from repro_torch.launch.mesh import Placed
+    _, _, placed = bundle.place_args((params, state, batch), mesh,
+                                     SH.TP_ONLY)
+    assert all(isinstance(x, Placed) for x in placed)
+    again = bundle.get_fn(mesh)(params, state, placed)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(again[2][k]), float(got[2][k]),
+                                   err_msg=k, **TOL)
+    for name in params:
+        np.testing.assert_allclose(host(again[0][name]), host(got[0][name]),
+                                   err_msg=name, **TOL)

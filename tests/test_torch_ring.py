@@ -4,11 +4,19 @@ against the reference's (``repro.models.gnn.ring``) on the CPU:
 * ``bucket_edges`` (also at a ``cap`` below the fullest bucket, with its
   ``dropped`` count), ``blocked_layout``, ``bucket_specs``' shapes and
   ``_shift_perm`` equal the reference's exactly;
-* ``forward_ring`` over CPU meshes (2, 2), (3, 1) and (1, 2) gives the
-  reference's local ``equiformer_v2.forward`` node irreps within rtol
-  1e-4 / atol 1e-5, with carried weights, as
+* ``forward_ring`` over CPU meshes (2, 2), (3, 1), (2, 1) and (1, 2)
+  gives the reference's local ``equiformer_v2.forward`` node irreps
+  within rtol 1e-4 / atol 1e-5, with carried weights, as
   ``tests/launch/ring_check.py`` holds the reference's ring to its local
-  path;
+  path; its output is node blocks placed over ``data``, and given its
+  inputs already so placed (the buckets over ``("data", "model")``) it
+  gives the same irreps bit for bit;
+* no operation of ``forward_ring`` makes a tensor of all the nodes' rows
+  (the node state stays in blocks);
+* the ring bundle at ``ogb_products`` laid out over meta meshes (4, 1)
+  and (2, 2) by its ``arg_specs``: node blocks over ``data`` and the
+  buckets over ``("data", "model")``, their bytes a device, nothing
+  allocated;
 * the gradient of a scalar loss through the ring equals the port's
   local gradient within rtol 1e-4 / atol 1e-5, for every parameter;
 * a float64 module runs the ring with float64 accumulators: its node
@@ -25,7 +33,8 @@ import torch
 from repro.models.gnn import equiformer_v2 as E2
 from repro.models.gnn import ring as JR
 from repro.models.gnn.graph import from_numpy as jax_from_numpy
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import (NamedSharding, PartitionSpec, Placed,
+                                     make_mesh, place)
 from repro_torch.models.gnn import equiformer_v2 as T2
 from repro_torch.models.gnn import ring as RG
 from repro_torch.models.gnn.graph import GraphBatch, from_numpy
@@ -88,7 +97,7 @@ def models():
         jax.tree.map(np.asarray, params))
 
 
-@pytest.mark.parametrize("p_data,p_model", [(2, 2), (3, 1), (1, 2)])
+@pytest.mark.parametrize("p_data,p_model", [(2, 2), (3, 1), (2, 1), (1, 2)])
 def test_forward_ring_matches_the_references_local_forward(p_data, p_model):
     jcfg, params, model = models()
     feat, pos, snd, rcv = graph()
@@ -104,8 +113,88 @@ def test_forward_ring_matches_the_references_local_forward(p_data, p_model):
         x = RG.forward_ring(model, torch.from_numpy(nodes),
                             torch.from_numpy(pblk), src_b, dst_b, mesh)
     assert dropped == 0 and x.shape[0] == nodes.shape[0]
-    np.testing.assert_allclose(RG.unblock(x, n, p_data).numpy(), want,
-                               rtol=1e-4, atol=1e-5)
+    assert isinstance(x, Placed) and tuple(x.sharding.spec) == ("data",)
+    got = RG.unblock(x, n, p_data)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    blocks = NamedSharding(mesh, PartitionSpec("data"))
+    cells = NamedSharding(mesh, PartitionSpec("data", "model"))
+    with torch.no_grad():
+        again = RG.forward_ring(
+            model, place(torch.from_numpy(nodes), blocks),
+            place(torch.from_numpy(pblk), blocks),
+            place(torch.from_numpy(src_b), cells),
+            place(torch.from_numpy(dst_b), cells), mesh)
+    assert torch.equal(RG.unblock(again, n, p_data), got)
+
+
+@pytest.mark.parametrize("p_data,p_model", [(2, 2), (2, 1)])
+def test_forward_ring_makes_no_tensor_of_all_nodes(p_data, p_model):
+    """No tensor an operation of ``forward_ring`` returns has the rows of
+    the whole blocked layout (its inputs placed over ``data``): the
+    embedding, the norms, the attention and the FFN all run block by
+    block, on tensors of a block's rows.  (At p_data = 3 a block's
+    degree-1 irreps reshaped for a product, n_loc + 1 rows x 3, would
+    have as many rows as the whole layout.)"""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    _, _, model = models()
+    feat, pos, snd, rcv = graph(4, n=30, e=90)
+    n = feat.shape[0]
+    src_b, dst_b, n_loc, _ = RG.bucket_edges(snd, rcv, n, p_data, p_model)
+    nodes, pblk, _ = RG.blocked_layout(feat, pos, n, p_data)
+    n_pad = nodes.shape[0]
+    assert src_b.shape[-1] < n_pad
+    mesh = make_mesh((p_data, p_model), ("data", "model"),
+                     ["cpu"] * (p_data * p_model))
+    blocks = NamedSharding(mesh, PartitionSpec("data"))
+    nodes_p = place(torch.from_numpy(nodes), blocks)
+    pos_p = place(torch.from_numpy(pblk), blocks)
+    rows = []
+
+    class Rows(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (list, tuple)) else [out]):
+                if isinstance(t, torch.Tensor) and t.dim():
+                    rows.append(t.shape[0])
+            return out
+    with torch.no_grad(), Rows():
+        x = RG.forward_ring(model, nodes_p, pos_p, src_b, dst_b, mesh)
+    assert n_loc + 1 in rows and n_pad not in rows
+    assert x.shape[0] == n_pad
+
+
+@pytest.mark.parametrize("grid", [(4, 1), (2, 2)])
+def test_ring_bundle_lays_ogb_products_out_on_meta(grid):
+    from repro_torch import sharding as SH
+    from repro_torch.launch import steps as S
+    p_data, p_model = grid
+    bundle = S.make_bundle("equiformer-v2", "ogb_products", variant="ring")
+    n = 2449029
+    _, _, n_loc = RG.bucket_specs(n, 61859140, p_data, p_model)
+    mesh = make_mesh(grid, ("data", "model"), ["meta"] * (p_data * p_model))
+    mine = S.equiformer_ring_bundle(bundle_spec(), ogb_shape(), p_data,
+                                    p_model)
+    _, _, batch = mine.place_args(mine.abstract_args, mesh, SH.TP_ONLY)
+    nodes, pos, src_b, dst_b, labels = batch
+    assert bundle.arg_specs[2] == mine.arg_specs[2]
+    for x in batch:
+        assert all(t.device.type == "meta" for t in x.shards.values())
+    assert tuple(nodes.sharding.spec) == ("data", None)
+    assert tuple(src_b.sharding.spec) == ("data", "model", None, None)
+    assert nodes.shard(0).shape == (n_loc + 1, 100)
+    cap = src_b.shape[-1]
+    assert src_b.shard(0).shape == (1, 1, p_data, cap)
+    assert sum(t.numel() for t in nodes.shards.values()) == \
+        p_data * (n_loc + 1) * 100
+
+
+def bundle_spec():
+    from repro_torch.configs import get
+    return get("equiformer-v2")
+
+
+def ogb_shape():
+    return bundle_spec().shapes["ogb_products"]
 
 
 def test_ring_gradient_matches_the_local_gradient():

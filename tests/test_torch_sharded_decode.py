@@ -16,7 +16,8 @@ flash_decode's LSE output, against the reference on the CPU:
   does not divide every shard count, and some shards lie wholly past
   every row's length;
 * ``merge_by_lse`` gives zeros, not NaN, for rows no shard holds;
-* phase X of ``chip_smoke.py`` on the CPU at ``SMOKE``.
+* phase X of ``chip_smoke.py`` on the CPU at ``SMOKE``, the
+  tensor-parallel X5 and X6 included.
 """
 
 import dataclasses
@@ -195,8 +196,10 @@ def test_placed_cache_shards_are_their_own_contiguous_tensors():
 def test_chip_smoke_mesh_phase_on_the_cpu(monkeypatch):
     """Phase X of ``chip_smoke.py`` on the CPU, every configuration at
     ``SMOKE`` and every count cut: the sharded decodes within their
-    limits and the planted plain-mean fault beyond, the float32 controls
-    within 1e-4, the placed AdamW step equal to the unplaced one, DIEN's
+    limits and the planted plain-mean fault beyond, the tensor-parallel
+    ones (X5, X6) within theirs and the entry-0 fault beyond, X6's
+    prefill repeating bit for bit and its routing the whole router's,
+    the float32 controls within 1e-4, the placed AdamW step equal to the unplaced one, DIEN's
     row-sharded tables bit for bit, the ring within G's tolerances and
     its planted fault outside; no kernel launches on the CPU."""
     import chip_smoke
@@ -229,6 +232,16 @@ def test_chip_smoke_mesh_phase_on_the_cpu(monkeypatch):
             n["fault_plain_mean"]
         assert n["f32"]["sharded"] <= chip_smoke.X_F32_TOL
         assert n["flash_decode_launches"] == 0
+        tp = n["tp"]
+        assert tp["tp"] == 4 and tp["flash_decode_launches"] == 0
+        assert tp["rel_l2"] <= chip_smoke.X_REL_TOL[
+            chip_smoke.TP_TAG[tag]] < tp["fault_entry0"]
+        assert tp["f32"]["rel_l2"] <= chip_smoke.X_F32_TOL
+        sizes = tp["weight_bytes"]
+        assert len(set(sizes["by_entry"])) == 1
+        assert sizes["whole"] / 4 < sizes["by_entry"][0] < sizes["whole"]
+    tp6 = out["decode"]["deepseek-v2-236b-smoke"]["tp"]
+    assert tp6["repeats"] and tp6["route_equal"]
     assert set(out["decode"]) == {"qwen2-7b-smoke", "deepseek-v2-236b-smoke"}
     zero = out["zero"]
     assert zero["serve_p99_equal"] and zero["retrieval_equal"]
@@ -247,9 +260,11 @@ def test_chip_smoke_mesh_phase_on_the_cpu(monkeypatch):
 
 
 def test_chip_smoke_x_seed_readings_on_the_cpu(monkeypatch):
-    """``--lm-seeds``' X1 and X2 readings on the CPU at ``SMOKE``: each
-    seed's sharded decode within its X_REL_TOL and its plain-mean fault
-    beyond, the readings differing from seed to seed."""
+    """``--lm-seeds``' X1, X2, X5 and X6 readings on the CPU at
+    ``SMOKE``: each seed's sharded and tensor-parallel decode within its
+    X_REL_TOL and its planted fault (the shards' plain mean, entry 0's
+    attention partial only) beyond, the readings differing from seed to
+    seed."""
     import chip_smoke
     for name in ("qwen2_7b", "deepseek_v2_236b"):
         mod = importlib.import_module(f"repro_torch.configs.{name}")
@@ -258,11 +273,11 @@ def test_chip_smoke_x_seed_readings_on_the_cpu(monkeypatch):
                            X2_PROMPT=9, X2_STEPS=3).items():
         monkeypatch.setattr(chip_smoke, key, value)
     out = chip_smoke.x_seed_readings([0, 1], "the CPU", device="cpu")
-    assert set(out) == {"X1", "X2"}
+    assert set(out) == {"X1", "X2", "X5", "X6"}
     for tag, by_seed in out.items():
+        got, fault = (("sharded", "fault_plain_mean") if tag in ("X1", "X2")
+                      else ("rel_l2", "fault_entry0"))
         assert set(by_seed) == {0, 1}
         for n in by_seed.values():
-            assert n["sharded"] <= chip_smoke.X_REL_TOL[tag] < \
-                n["fault_plain_mean"]
-        assert by_seed[0]["fault_plain_mean"] != \
-            by_seed[1]["fault_plain_mean"]
+            assert n[got] <= chip_smoke.X_REL_TOL[tag] < n[fault]
+        assert by_seed[0][fault] != by_seed[1][fault]

@@ -15,7 +15,9 @@ layouts (``repro_torch.launch.mesh``) against the reference's
 * ``place`` / ``gather`` round trips bit for bit, with shards of
   ``ceil(n / p)`` rows where ``p`` does not divide ``n``, one shard per
   distinct (block, device) pair, each its own contiguous tensor;
-* ``constraint`` and ``shard_act`` return their input unchanged;
+* ``constraint`` and ``shard_act`` return their input outside the
+  context and where the spec names no mesh axis, and lay it out by the
+  spec where it names one;
 * the reference's GNN ``param_specs`` fault: its tree does not match its
   parameters at 2 layers (EGNN 30 leaves against 18), while the port's
   matches its own module's parameter tree and replicates it.
@@ -225,16 +227,29 @@ def test_place_copies_once_per_distinct_device():
 
 
 def test_constraint_and_shard_act_return_their_input():
+    """Outside the context, and where a spec names no axis of the mesh,
+    ``shard_act`` and ``constraint`` return their input; where it names
+    one they lay it out by it (the values unchanged), and a tensor
+    already so laid out is returned as it is."""
     mesh = make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
     x = torch.randn(4, 3)
-    assert SH.shard_act(x, ("batch", None)) is x
+    assert SH.shard_act(x, ("batch", "act_seq")) is x
     with SH.activation_sharding(SH.FSDP_TP, mesh):
-        assert SH.shard_act(x, ("batch", "act_seq")) is x
-    assert SH.constraint(x, ("batch", None), SH.FSDP_TP, mesh) is x
+        assert SH.shard_act(x, ("seq", None)) is x
+        placed = SH.shard_act(x, ("batch", "act_seq"))
+        assert SH.shard_act(placed, ("batch", "act_seq")) is placed
+        again = SH.shard_act(placed, ("batch", None))
+    assert isinstance(placed, Placed) and tuple(placed.sharding.spec) == \
+        ("data", "model") and len(placed.shards) == 4
+    assert torch.equal(gather(placed), x) and torch.equal(gather(again), x)
+    assert tuple(again.sharding.spec) == ("data", None)
+    assert SH.constraint(x, ("seq", "kv_heads"), SH.FSDP_TP, mesh) is x
+    assert torch.equal(gather(SH.constraint(x, ("batch", None), SH.FSDP_TP,
+                                            mesh)), x)
     fn = SH.wrap_with_activation_sharding(
-        lambda y: SH.shard_act(y, ("batch", None)) * 2, SH.FSDP_TP, mesh)
+        lambda y: SH.shard_act(y, ("seq", None)) * 2, SH.FSDP_TP, mesh)
     assert torch.equal(fn(x), x * 2)
-    assert not SH._ACT_CTX
+    assert not SH._ACT_CTX and SH.active_rules() is None
 
 
 def test_act_spec_matches_the_reference():

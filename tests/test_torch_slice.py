@@ -364,6 +364,8 @@ def test_chip_smoke_counts_launches_by_path():
     fd.count += 6                  # X's unsharded decode and LSE holds
     with counts.path("mesh"):
         fd.count += 28 * 16 * 4    # X1: a launch a layer, step and shard
+    with counts.path("tp"):
+        fd.count += 28 * 16 * 4    # X5: the same on the tp path
     with counts.path("launch"):
         fd.count += 28 * 16        # B2: the decode_32k cell's decode
     with counts.path("examples"):
@@ -384,6 +386,7 @@ def test_chip_smoke_counts_launches_by_path():
         "deepseek-v2-lite-16b": zero, "deepseek-v2-236b": zero,
         "gnn": zero, "recsys": zero, "train": zero,
         "mesh": dict(zero, flash_decode=1792),
+        "tp": dict(zero, flash_decode=1792),
         "launch": dict(zero, flash_decode=448),
         "examples": dict(zero, spc_query=30, embedding_bag=1,
                          flash_decode=22)}
@@ -393,8 +396,8 @@ def test_chip_smoke_counts_launches_by_path():
                                                 service=40, examples=30))
     assert counts.of("segment_matmul") == (53, dict(paths, kernels=53))
     assert counts.of("flash_decode") == (
-        512 + 448 + 640 + 1792 + 448 + 22, dict(
-            paths, lm=512, mesh=1792, launch=448, examples=22,
+        512 + 448 + 640 + 1792 + 1792 + 448 + 22, dict(
+            paths, lm=512, mesh=1792, tp=1792, launch=448, examples=22,
             **{"qwen2-7b": 448, "phi3-medium-14b": 640}))
     assert chip_smoke.LM_LAYERS * chip_smoke.LM_STEPS == 512
     counts.check()
@@ -446,12 +449,24 @@ def test_chip_smoke_counts_launches_by_path():
     for path, c in (("dspc", sq), ("kernels", sq), ("kernels", sm),
                     ("analytics", eb), ("lm", fd), ("service", sq),
                     ("qwen2-7b", fd), ("phi3-medium-14b", fd), ("mesh", fd),
-                    ("examples", sq), ("examples", eb), ("examples", fd)):
+                    ("tp", fd), ("examples", sq), ("examples", eb),
+                    ("examples", fd)):
         with no_launch.path(path):
             c.count += 1
     with pytest.raises(AssertionError, match="flash_decode never launched "
                                              "on the launch path"):
         no_launch.check()
+    no_tp = chip_smoke.PathLaunches(kernels)
+    for path, c in (("dspc", sq), ("kernels", sq), ("kernels", sm),
+                    ("analytics", eb), ("lm", fd), ("service", sq),
+                    ("qwen2-7b", fd), ("phi3-medium-14b", fd), ("mesh", fd),
+                    ("launch", fd), ("examples", sq), ("examples", eb),
+                    ("examples", fd)):
+        with no_tp.path(path):
+            c.count += 1
+    with pytest.raises(AssertionError, match="flash_decode never launched "
+                                             "on the tp path"):
+        no_tp.check()
 
 
 def test_launch_counter_counts_every_threaded_increment():
