@@ -2328,7 +2328,7 @@ def tp_check(params, cfg, prompts, steps: int, mesh, ref: dict, counts,
     return out
 
 
-def check_tp(tag: str, n: dict, f32: dict) -> None:
+def check_x_tp(tag: str, n: dict, f32: dict) -> None:
     """X5 / X6: the tensor-parallel logits within X_REL_TOL[tag] of the
     unsharded decode's, the float32 control within X_F32_TOL, the
     planted fault beyond X_REL_TOL[tag]."""
@@ -2538,7 +2538,7 @@ def x_decode_phases(counts, card: str, seed: int, mesh,
                if "repeats" in tp else "")
             + f" ({tp['seconds']:.1f} s on {card})")
         check_x_decode(tag, n)
-        check_tp(TP_TAG[tag], tp, tp["f32"])
+        check_x_tp(TP_TAG[tag], tp, tp["f32"])
         out[cfg.name] = n
     return out
 

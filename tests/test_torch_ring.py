@@ -166,14 +166,15 @@ def test_forward_ring_makes_no_tensor_of_all_nodes(p_data, p_model):
 @pytest.mark.parametrize("grid", [(4, 1), (2, 2)])
 def test_ring_bundle_lays_ogb_products_out_on_meta(grid):
     from repro_torch import sharding as SH
+    from repro_torch.configs import get
     from repro_torch.launch import steps as S
     p_data, p_model = grid
     bundle = S.make_bundle("equiformer-v2", "ogb_products", variant="ring")
-    n = 2449029
-    _, _, n_loc = RG.bucket_specs(n, 61859140, p_data, p_model)
+    spec = get("equiformer-v2")
+    _, _, n_loc = RG.bucket_specs(2449029, 61859140, p_data, p_model)
     mesh = make_mesh(grid, ("data", "model"), ["meta"] * (p_data * p_model))
-    mine = S.equiformer_ring_bundle(bundle_spec(), ogb_shape(), p_data,
-                                    p_model)
+    mine = S.equiformer_ring_bundle(spec, spec.shapes["ogb_products"],
+                                    p_data, p_model)
     _, _, batch = mine.place_args(mine.abstract_args, mesh, SH.TP_ONLY)
     nodes, pos, src_b, dst_b, labels = batch
     assert bundle.arg_specs[2] == mine.arg_specs[2]
@@ -186,15 +187,6 @@ def test_ring_bundle_lays_ogb_products_out_on_meta(grid):
     assert src_b.shard(0).shape == (1, 1, p_data, cap)
     assert sum(t.numel() for t in nodes.shards.values()) == \
         p_data * (n_loc + 1) * 100
-
-
-def bundle_spec():
-    from repro_torch.configs import get
-    return get("equiformer-v2")
-
-
-def ogb_shape():
-    return bundle_spec().shapes["ogb_products"]
 
 
 def test_ring_gradient_matches_the_local_gradient():
