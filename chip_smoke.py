@@ -75,9 +75,10 @@ K.  kernels   -- the kernel microbench entry point
 A1. analytics, pinned before the chunk -- attaches a ``SnapshotStore``,
                 seeds ``TopKBetweenness`` (512 sampled pairs x all n
                 candidates) and pins a snapshot, keeping a copy of it.
-5. maintain  -- one ``apply_events`` chunk of the configuration's
-                update_batch = 64 events (32 inserts, 32 deletes from
-                ``graph_stream``); it publishes into the store.
+5. maintain  -- one ``apply_events`` chunk of MAINTAIN_EVENTS = 16
+                events (8 inserts, 8 deletes from ``graph_stream``; the
+                configuration's update_batch of 64 cut for the script's
+                time limit); it publishes into the store.
 6. serve     -- 64 batches of 1024 random pairs through
                 ``QueryEngine(route="auto")`` (the kernel route on the
                 card), then the same batches on the plain-torch merge
@@ -369,7 +370,8 @@ X.  mesh     -- the mesh models over X_ENTRIES = 4 entries of ``cuda:0``
                 28 x 16 x 4); every step's logits within a relative L2
                 of X_REL_TOL["X5"] of X1's unsharded decode (no
                 unsharded run repeats), which the planted fault (each
-                attention's partial outputs cut to entry 0's) must miss;
+                attention's partial outputs summed without the last
+                entry's: its heads dropped) must miss;
                 the float32 control against X1's; each entry's weight
                 bytes against the shard shapes of ``resolve_tree``; the
                 prefill's seconds and the step p50.  X6: the same for
@@ -389,7 +391,32 @@ X.  mesh     -- the mesh models over X_ENTRIES = 4 entries of ``cuda:0``
                 not resolve at outputs near 0; ``bucket_edges`` dropping
                 none, and the planted fault (model column 0's partial
                 sums kept, no sum over ``model``) outside both; time and
-                peak memory of the float32 calls.
+                peak memory of the float32 calls.  X7-X9, FSDP over the
+                (2, 2) mesh: the train cells' ``get_fn(mesh, FSDP_TP)``
+                on arguments laid out by ``place_args`` (weights over
+                ``data`` and ``model``, the batch over ``data``) against
+                their ``get_fn()`` from the same random weights and
+                batches.  X7: qwen2-1.5b CONFIG through train_4k, tp 16
+                as the cell builds it (16 padded heads, 8 an entry),
+                bf16, remat, X7_LAYERS of its 28 layers, batch 256 ->
+                X7_BATCH x 4096 (``reduced``), X7_STEPS steps; each
+                step's loss and grad norm and the updated parameters
+                within X_REL_TOL["X7"] (relative), which the planted
+                fault (one entry's heads dropped) must exceed; the step
+                p50s, the peak memory and each entry's parameter and
+                moment bytes.  X8: deepseek-v2-lite-16b CONFIG at full
+                width, MCHECK_LAYERS of 27 layers, float32 at the no-drop
+                capacity factor (no expert flips), X8_BATCH x X8_SEQ,
+                one step within X8_REL_TOL, run twice bit for bit, the
+                planted fault (one entry's experts dropped) beyond.  X9:
+                DIEN CONFIG through train_batch at X3_GRAD_BATCH, tables
+                over ``model``: one step in float32 (relative errors,
+                timed) and in float64 (every updated parameter within
+                X3_ADAMW_RTOL, as X4 holds its element-wise tolerance in
+                float64), each table's and moment's bytes an entry.
+                Then, on meta, each entry's parameter and moment bytes of
+                the five LM train_4k cells at full size on the (16, 16)
+                production mesh.
 B.  launch   -- the launch layer (``repro_torch.launch.steps``).  B1:
                 every one of ``all_cells()``'s 44 cells built at full
                 size on the meta device (nothing allocated), one line a
@@ -445,7 +472,8 @@ and fails if a redesigned kernel (``REDESIGNED``: ``flash_decode_mma``,
 ``--lm-seeds 0,1,...`` builds the kernels and then only reads L4 and its
 controls for the first 2 requests of each seed (prefilled and decoded
 as 2 requests), X1's and X2's sharded decode and plain-mean fault and
-X5's and X6's tensor-parallel decode and entry-0 fault from each seed,
+X5's and X6's tensor-parallel decode and their fault (one entry's heads
+dropped) and X7's FSDP steps and the same fault from each seed,
 prints them and exits.  ``--replica-of DIR --pairs
 FILE`` is S3's second process.
 
@@ -456,7 +484,8 @@ L3; flash_decode exactly 8 x 64 times), the mesh path (the sharded
 prefills and decodes, the placed AdamW step, the row-sharded DIEN
 calls and the ring calls of X; flash_decode exactly 28 x 16 x 4 times,
 all in X1), the tp path (X5's and X6's tensor-parallel prefills and
-decodes; flash_decode exactly 28 x 16 x 4 times, all in X5), the launch path (B2's cells: flash_decode exactly 28 x 16
+decodes; flash_decode exactly 28 x 16 x 4 times, all in X5), the fsdp
+path (X7-X9's FSDP steps, which launch no kernel), the launch path (B2's cells: flash_decode exactly 28 x 16
 times in the decode; the train cells and the dspc events launch none),
 the examples path (E's in-process examples: spc_query in the DSPC
 examples' serving, embedding_bag in analytics_spc's re-rank, flash_decode
@@ -556,6 +585,9 @@ PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
                 # a shard (MLA's shards, ZeRO, DIEN's tables and the ring
                 # launch none)
                 "mesh": ("flash_decode",),
+                # phase X7-X9: the FSDP train steps (no function of the
+                # reference has a custom VJP: no kernel, as on "train")
+                "fsdp": (),
                 # phase X5 / X6: the tensor-parallel serve path (qwen2-7b's
                 # decode on the sequence-sharded cache, one launch a
                 # shard; deepseek-v2-236b's MLA and MoE launch none)
@@ -701,8 +733,11 @@ T_GNN_STEPS = 3
 #: smallest over seeds 0-3 (``--lm-seeds``) on an H100 (X1: 0.01834 and
 #: 0.1128; X2: 0.08117 and 0.1540, where an expert flips); X5's and X6's
 #: likewise for the tensor-parallel decode against the same unsharded
-#: one and its entry-0 fault (X5: 0.01980 and 1.392; X6: 0.08879 and
-#: 1.267); the
+#: one and its fault, one entry's heads dropped (X5: 0.01980 and 1.1646;
+#: X6: 0.08879 and 0.8778; with PR 25's fault, entry 0's partial only,
+#: 0.7058 and 0.6779); X7's for the FSDP steps' loss, grad norm and
+#: parameters against the one-device steps, and the same fault (0.01011
+#: and 0.05499); the
 #: tolerance of K4's LSE output; the sharded decode steps traced; X3's
 #: gradient batch and AdamW tolerance (PR 22's: rtol 1e-6, atol 1e-6
 #: times each leaf's largest magnitude); X4's timed calls at
@@ -711,11 +746,19 @@ X_ENTRIES, X_GRID = 4, (2, 2)
 X1_BATCH, X1_PROMPT, X1_STEPS = 4, 2048, 16
 X2_BATCH, X2_PROMPT, X2_STEPS = 2, 1024, 8
 X_CHECK_LAYERS, X_CHECK_BATCH, X_F32_TOL = 2, 2, 1e-4
-X_REL_TOL = {"X1": 6.557e-2, "X2": 1.176e-1, "X5": 7.058e-1,
-             "X6": 6.779e-1}
+X_REL_TOL = {"X1": 6.557e-2, "X2": 1.176e-1, "X5": 5.922e-1,
+             "X6": 4.833e-1, "X7": 3.255e-2}
 X_LSE_ATOL, X_TRACE_STEPS = 1e-3, 2
 X3_GRAD_BATCH, X3_ADAMW_RTOL = 4096, 1e-6
 X4_REPS = 3
+#: X7-X9 (FSDP, over X_GRID): X7 qwen2-1.5b through train_4k at X7_LAYERS
+#: of its 28 layers (as phase L), its global batch of 256 cut to X7_BATCH
+#: (two sequences a data row), X7_STEPS AdamW steps; X8 deepseek-v2-lite
+#: at MCHECK_LAYERS of 27 layers in float32 at the no-drop capacity
+#: factor, X8_BATCH x X8_SEQ, one step, within X8_REL_TOL; X9 DIEN at
+#: X3_GRAD_BATCH within X3_ADAMW_RTOL.
+X7_LAYERS, X7_BATCH, X7_STEPS = 8, 4, 2
+X8_BATCH, X8_SEQ, X8_REL_TOL = 2, 1024, 1e-3
 #: X4's layers at minibatch_lg (CONFIG's 12 until PR 24; cut for the
 #: script's time limit: the ring's one call there took 24.6 s at 12
 #: layers, 8.2 s at 4, on an H100).
@@ -724,6 +767,11 @@ X4_LG_LAYERS = 4
 RING_GRIDS = ((4, 1), (2, 2))
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W).
 BF16_DENSE_OPS_PER_S = 989e12
+#: Phase 5: the events of its one chunk (half inserts, half deletes): the
+#: configuration's update_batch of 64 cut for the script's time limit (the
+#: 64-event chunk took 324-373 s on an H100, host-bound at ~1.2 ms a BFS
+#: level's sync).
+MAINTAIN_EVENTS = 16
 #: Phase B (the launch layer): B2's decode cell (qwen2-1.5b decode_32k at
 #: 28 layers) cut from its global batch of 128 to B2_DECODE_BATCH (a zero
 #: cache of 128 x 32768 tokens would take about 120 GB), its steps; the
@@ -1496,12 +1544,14 @@ def lm_seed_readings(seeds, card: str) -> int:
 
 def x_seed_readings(seeds, card: str, device="cuda") -> dict:
     """X1's and X2's sharded decode and its plain-mean fault, then X5's
-    and X6's tensor-parallel decode and its entry-0 fault, from each
-    seed, with the main run's inputs from that seed (untraced, without
-    the float32 controls): {tag: {seed: readings}}."""
+    and X6's tensor-parallel decode and their fault (one entry's heads
+    dropped), then X7's FSDP steps and the same fault, from each seed,
+    with the main run's inputs from that seed (untraced, without the
+    float32 controls): {tag: {seed: readings}}."""
     import dataclasses
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh((X_ENTRIES,), ("model",), mesh_devices(device))
+    grid = make_mesh(X_GRID, ("data", "model"), mesh_devices(device))
     out = {}
     for seed in seeds:
         for tag in ("X1", "X2"):
@@ -1516,13 +1566,20 @@ def x_seed_readings(seeds, card: str, device="cuda") -> dict:
                 cfg, tp=mesh.shape["model"]), prompts, steps, mesh, ref,
                 PathLaunches({}))
             out.setdefault(TP_TAG[tag], {})[seed] = {
-                k: tp[k] for k in ("rel_l2", "fault_entry0", "argmax")}
+                k: tp[k] for k in ("rel_l2", "fault_heads_dropped",
+                                   "argmax")}
             log(f"{tag} and {TP_TAG[tag]} seed {seed}: "
                 f"{json.dumps(out[tag][seed])}, "
                 f"{json.dumps(out[TP_TAG[tag]][seed])} "
                 f"({time.monotonic() - t0:.3f} s on {card})")
             del params, prompts, n, ref, tp
             release(device)
+        t0 = time.monotonic()
+        n = x7_case(seed, grid, PathLaunches({}), device)
+        out.setdefault("X7", {})[seed] = {
+            k: n[k] for k in ("rel", "fault", "loss", "grad_norm", "params")}
+        log(f"X7 seed {seed}: {json.dumps(out['X7'][seed])} "
+            f"({time.monotonic() - t0:.3f} s on {card})")
     return out
 
 
@@ -2149,20 +2206,6 @@ def placed_cache_line(tf, cfg, mesh, b: int, s_max: int) -> dict:
                            for i in range(parts[2])]}
 
 
-@contextlib.contextmanager
-def entry0_partial_only():
-    """X5's and X6's planted fault: each attention's partial outputs
-    reduced to entry 0's (its heads through its ``wo`` rows), the other
-    entries' dropped."""
-    from repro_torch.models import attention as A
-    psum = A.psum
-    A.psum = lambda parts, device: parts[0].to(device)
-    try:
-        yield
-    finally:
-        A.psum = psum
-
-
 def tp_cells(cfg, b: int, s_max: int):
     """X5's and X6's prefill and decode cells (``launch.steps.lm_bundle``)
     of ``cfg``'s architecture at ``cfg`` (its ``tp`` the mesh's model
@@ -2271,7 +2314,7 @@ def tp_check(params, cfg, prompts, steps: int, mesh, ref: dict, counts,
     logits against ``ref``'s (:func:`sharded_decode_check`'s unsharded
     run) as a relative L2 error (``tp``), the prefill's seconds, the
     step p50, each entry's weight bytes; with ``fault`` the planted
-    fault (:func:`entry0_partial_only`) replayed outside the path; with
+    fault (:func:`one_entry_heads_dropped`) replayed outside the path; with
     ``moe_checks`` :func:`tp_moe_checks`; with ``consume`` the weights
     are placed by :func:`place_consuming`, which empties ``params``."""
     import torch
@@ -2312,11 +2355,11 @@ def tp_check(params, cfg, prompts, steps: int, mesh, ref: dict, counts,
         raise AssertionError(f"X TP ({cfg.name}): logits not finite")
     del cache, got
     if fault:
-        with entry0_partial_only():
+        with one_entry_heads_dropped():
             _, cache = prefill(placed, toks)
             _, bad, cache, _ = decode_steps(placed, cfg, cache, ref["token"],
                                             steps, ref["fed"], step=decode)
-        out["fault_entry0"] = rel_l2(bad, ref["want"])
+        out["fault_heads_dropped"] = rel_l2(bad, ref["want"])
         del cache, bad
     if moe_checks:
         out.update(tp_moe_checks(prefill, placed, toks, router0))
@@ -2340,10 +2383,10 @@ def check_x_tp(tag: str, n: dict, f32: dict) -> None:
     if not f32["rel_l2"] <= X_F32_TOL:
         raise AssertionError(f"{tag}: the float32 control differs by "
                              f"{f32['rel_l2']:.4g}, beyond {X_F32_TOL}")
-    if not n["fault_entry0"] > limit:
+    if not n["fault_heads_dropped"] > limit:
         raise AssertionError(f"{tag}: the limit {limit} passes the planted "
-                             f"fault (entry 0's partial output only: "
-                             f"{n['fault_entry0']:.4g})")
+                             f"fault (one entry's heads dropped: "
+                             f"{n['fault_heads_dropped']:.4g})")
 
 
 def check_x_decode(tag: str, n: dict) -> None:
@@ -2524,8 +2567,8 @@ def x_decode_phases(counts, card: str, seed: int, mesh,
             f"{steps} steps on the sequence-sharded cache: logits vs the "
             f"unsharded decode relative L2 {tp['rel_l2']:.4g} (limit "
             f"{tp['limit']}), the prefill's {tp['prefill_rel_l2']:.4g}, "
-            f"argmax {tp['argmax']}/{b}; planted fault (entry 0's attention "
-            f"partial only) {tp['fault_entry0']:.4g}; float32 "
+            f"argmax {tp['argmax']}/{b}; planted fault (one entry's heads "
+            f"dropped) {tp['fault_heads_dropped']:.4g}; float32 "
             f"{X_CHECK_LAYERS}-layer control {tp['f32']['rel_l2']:.4g} "
             f"(limit {X_F32_TOL}); prefill {tp['prefill_s']:.3f} s, step p50 "
             f"{tp['step_ms_p50']:.3f} ms; weight bytes an entry "
@@ -2775,6 +2818,363 @@ def ring_phase(counts, card: str, seed: int, grid_mesh,
         del inp, batch, model, wide, nodes, pos, src_b, dst_b, got, want
         del got64, want64
         release(device)
+    return out
+
+
+@contextlib.contextmanager
+def one_entry_heads_dropped():
+    """X5's, X6's and X7's planted fault: each attention's partial outputs
+    summed without the last model entry's, whose heads are dropped."""
+    from repro_torch.models import attention as A
+    psum = A.psum
+    A.psum = lambda parts, device: psum(parts[:-1], device)
+    try:
+        yield
+    finally:
+        A.psum = psum
+
+
+@contextlib.contextmanager
+def one_entry_experts_dropped(per_entry: int):
+    """X8's planted fault: the last model entry's ``per_entry`` experts'
+    outputs dropped before the un-dispatch adds them."""
+    import torch
+    from repro_torch.models import moe as M
+    combine = M._combine
+
+    def dropped(out_e, r, rows, cfg):
+        kept = torch.cat([out_e[:-per_entry],
+                          torch.zeros_like(out_e[-per_entry:])])
+        return combine(kept, r, rows, cfg)
+    M._combine = dropped
+    try:
+        yield
+    finally:
+        M._combine = combine
+
+
+def fsdp_bundle(cfg, kind: str, dims: dict):
+    """The train cell (``launch.steps``) of ``cfg``'s architecture at
+    ``cfg``, its shape cut to ``dims``."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.launch import steps as S
+    spec = dataclasses.replace(get(cfg.name.removesuffix("-smoke")),
+                               config=cfg)
+    build = S.dien_bundle if kind == "recsys_train" else S.lm_bundle
+    return build(spec, ShapeSpec("fsdp", kind, dims), False)
+
+
+def fsdp_steps(step, params, state, batches, place=None) -> tuple:
+    """``step`` over ``batches`` from (params, state), each batch laid out
+    by ``place`` first where given: (params, state, each step's loss and
+    grad norm, each step's ms by the host clock to a synchronise)."""
+    import torch
+    stats, ms = [], []
+    for batch in batches:
+        if place is not None:
+            batch = place(batch)
+        t0 = time.monotonic()
+        params, state, st = step(params, state, batch)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        stats.append((float(st["loss"]), float(st["grad_norm"])))
+    return params, state, stats, ms
+
+
+def fsdp_reading(got_params, got_stats, want_params, want_stats) -> dict:
+    """The FSDP steps against the one-device steps: each step's loss and
+    grad norm as relative errors, the updated parameters (every leaf, as
+    one vector) as a relative L2 error, and the largest of them."""
+    import torch
+    from repro_torch.launch.mesh import Placed, gather
+    from repro_torch.train.checkpoint import flatten
+    diff = norm = 0.0
+    for g, w in zip(flatten(got_params)[0], flatten(want_params)[0]):
+        g = gather(g, w.device) if isinstance(g, Placed) else g
+        diff += float(torch.sum((g.double() - w.double()) ** 2))
+        norm += float(torch.sum(w.double() ** 2))
+    out = {"loss": [abs(g[0] - w[0]) / abs(w[0])
+                    for g, w in zip(got_stats, want_stats)],
+           "grad_norm": [abs(g[1] - w[1]) / abs(w[1])
+                         for g, w in zip(got_stats, want_stats)],
+           "params": (diff / norm) ** 0.5}
+    out["rel"] = max(out["loss"] + out["grad_norm"] + [out["params"]])
+    return out
+
+
+def entry_bytes(placed, mesh) -> list:
+    """Each mesh entry's bytes of a placed tree."""
+    from repro_torch.launch.mesh import local_tree
+    return [tree_bytes(local_tree(placed, e)) for e in range(mesh.size)]
+
+
+def fsdp_lm_case(tag: str, cfg, dims: dict, steps: int, seed: int, mesh,
+                 counts, device, fault, repeat: bool = False) -> dict:
+    """X7 / X8: ``steps`` AdamW steps of ``cfg``'s train cell from the
+    same random weights and ``lm_batch`` batches through the one-device
+    ``get_fn()`` and through ``get_fn(mesh, FSDP_TP)`` on arguments laid
+    out by ``place_args`` (inside ``counts.path("fsdp")``), then again
+    under the planted ``fault``; with ``repeat`` the sharded steps once
+    more, which must give the same bits."""
+    import torch
+    from repro_torch import sharding as SH
+    from repro_torch.data.pipelines import lm_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.checkpoint import flatten
+    bundle = fsdp_bundle(cfg, "train", dims)
+    b, t = dims["global_batch"], dims["seq_len"]
+    params = tf.init_params(cfg, generator=torch.Generator(
+        device).manual_seed(seed + 79), device=device)
+    state = O.init(params, O.AdamWConfig())
+    batches = [tensors(lm_batch(s, b, t, cfg.vocab, seed=seed), device)
+               for s in range(steps)]
+    want_p, _, want_stats, ms_one = fsdp_steps(bundle.get_fn(), params,
+                                               state, batches)
+    placed = bundle.place_args((params, state, batches[0]), mesh,
+                               SH.FSDP_TP)[:2]
+    del params, state
+    release(device)
+
+    def place(batch):
+        return bundle.place_args((placed[0], placed[1], batch), mesh,
+                                 SH.FSDP_TP)[2]
+    step = bundle.get_fn(mesh, SH.FSDP_TP)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with counts.path("fsdp"):
+        got_p, got_s, got_stats, ms = fsdp_steps(step, *placed, batches,
+                                                 place)
+    out = {"reduced": [], "batch": b, "seq": t, "steps": steps,
+           "step_ms": ms, "step_ms_p50": float(np.median(ms)),
+           "one_device_step_ms": ms_one,
+           "one_device_step_ms_p50": float(np.median(ms_one)),
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
+           "param_bytes_by_entry": entry_bytes(got_p, mesh),
+           "moment_bytes_by_entry": entry_bytes(
+               (got_s.mu, got_s.nu, got_s.err), mesh)}
+    out.update(fsdp_reading(got_p, got_stats, want_p, want_stats))
+    if not all(np.isfinite(x) for s in got_stats for x in s):
+        raise AssertionError(f"{tag}: the FSDP step's loss or grad norm is "
+                             f"not finite: {got_stats}")
+    # the repeat is held against a host copy: the card holds the placed
+    # arguments, the one-device parameters and one run at a time
+    kept = [{k: x.cpu() for k, x in leaf.shards.items()}
+            for leaf in flatten(got_p)[0]] if repeat else None
+    del got_p, got_s
+    release(device)
+    if repeat:
+        again_p, _, again_stats, _ = fsdp_steps(step, *placed, batches,
+                                                place)
+        out["repeats"] = again_stats == got_stats and all(
+            torch.equal(x.cpu(), k[key]) for leaf, k in zip(
+                flatten(again_p)[0], kept) for key, x in leaf.shards.items())
+        del again_p, kept
+        release(device)
+    with fault():
+        bad_p, _, bad_stats, _ = fsdp_steps(step, *placed, batches, place)
+    out["fault"] = fsdp_reading(bad_p, bad_stats, want_p, want_stats)["rel"]
+    del bad_p, placed, want_p
+    release(device)
+    return out
+
+
+def x7_case(seed: int, mesh, counts, device="cuda") -> dict:
+    """X7 (module doc): qwen2-1.5b through train_4k over ``mesh``."""
+    import dataclasses
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.configs.qwen2_1_5b import CONFIG
+    dims = LM_SHAPES["train_4k"].dims
+    cfg = dataclasses.replace(CONFIG, n_layers=min(X7_LAYERS,
+                                                   CONFIG.n_layers))
+    out = fsdp_lm_case("X7", cfg, dict(seq_len=dims["seq_len"],
+                                       global_batch=X7_BATCH), X7_STEPS,
+                       seed, mesh, counts, device, one_entry_heads_dropped)
+    out["reduced"] = [f"n_layers {CONFIG.n_layers}->{cfg.n_layers}",
+                      f"global_batch {dims['global_batch']}->{X7_BATCH}"]
+    out["tp"] = cfg.tp
+    return out
+
+
+def x8_case(seed: int, mesh, counts, device="cuda") -> dict:
+    """X8 (module doc): deepseek-v2-lite-16b in float32 at the no-drop
+    capacity factor over ``mesh``."""
+    from repro_torch.configs.deepseek_v2_lite_16b import CONFIG
+    cfg = no_drop_float32(CONFIG, min(MCHECK_LAYERS, CONFIG.n_layers))
+    per_entry = cfg.moe_experts // mesh.shape["model"]
+    out = fsdp_lm_case(
+        "X8", cfg, dict(seq_len=X8_SEQ, global_batch=X8_BATCH), 1, seed,
+        mesh, counts, device, lambda: one_entry_experts_dropped(per_entry),
+        repeat=True)
+    out["reduced"] = [f"n_layers {CONFIG.n_layers}->{cfg.n_layers}",
+                      "float32, capacity factor e / k (no drops)",
+                      f"train_4k 256 x 4096 -> {X8_BATCH} x {X8_SEQ}"]
+    return out
+
+
+def x9_case(seed: int, mesh, counts, device="cuda") -> dict:
+    """X9 (module doc): DIEN's train_batch over ``mesh``, one FSDP step
+    against one one-device step from the same weights and batch: in
+    float32 (the cell; timed) by the relative errors of
+    :func:`fsdp_reading`, and in float64 (its weights widened) every
+    updated parameter within X3's element-wise AdamW tolerance.  Float32
+    does not resolve that tolerance on the leaves that start at zero (the
+    biases: after one step all update, ``lr`` times ``g / (|g| + eps)``,
+    where two summation orders of a gradient near ``eps`` move it by
+    more than ``X3_ADAMW_RTOL`` of ``lr``), as X4 holds its element-wise
+    tolerance in float64."""
+    import dataclasses
+    import torch
+    from repro_torch import sharding as SH
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.configs.dien import CONFIG
+    from repro_torch.models import dien as D
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.checkpoint import flatten
+    out = {"reduced": [f"batch {RECSYS_SHAPES['train_batch'].dims['batch']}"
+                       f"->{X3_GRAD_BATCH}"], "rtol": X3_ADAMW_RTOL,
+           "bytes_by_entry": {}}
+    batch = dien_inputs(CONFIG, 3, X3_GRAD_BATCH, seed, device)
+    params = D.init_params(CONFIG, generator=torch.Generator(
+        device).manual_seed(seed + 83), device=device)
+    for dtype in (torch.float32, torch.float64):
+        cfg = dataclasses.replace(CONFIG, dtype=dtype)
+        bundle = fsdp_bundle(cfg, "recsys_train", dict(batch=X3_GRAD_BATCH))
+        p0 = O.tree_map(lambda x: x.to(dtype), params)
+        state = O.init(p0, O.AdamWConfig())
+        want_p, _, want_stats, ms_one = fsdp_steps(bundle.get_fn(), p0,
+                                                   state, [batch])
+        placed = bundle.place_args((p0, state, batch), mesh, SH.FSDP_TP)
+        step = bundle.get_fn(mesh, SH.FSDP_TP)
+        if dtype == torch.float32:
+            with counts.path("fsdp"):
+                got_p, got_s, got_stats, ms = fsdp_steps(
+                    step, placed[0], placed[1], [placed[2]])
+            out.update(fsdp_reading(got_p, got_stats, want_p, want_stats),
+                       step_ms=ms, one_device_step_ms=ms_one)
+            for name in D.TABLES:
+                by = out["bytes_by_entry"]
+                by[name] = entry_bytes(got_p[name], mesh)
+                for part in ("mu", "nu"):
+                    by[f"{part}.{name}"] = entry_bytes(
+                        getattr(got_s, part)[name], mesh)
+                by[name + "_whole"] = tree_bytes(want_p[name])
+        else:
+            got_p = fsdp_steps(step, placed[0], placed[1], [placed[2]])[0]
+            err = 0.0
+            for (name, w), a in zip(_leaf_names(want_p), flatten(got_p)[0]):
+                err = max(err, check_close(
+                    f"X9 DIEN {name} in float64: FSDP vs one device",
+                    gather_whole(a, w.device), w, X3_ADAMW_RTOL,
+                    X3_ADAMW_RTOL * float(w.abs().max())))
+            out["float64_max_abs_err"] = err
+        del p0, state, placed, got_p, want_p
+        release(device)
+    del params, batch
+    release(device)
+    return out
+
+
+def gather_whole(x, device):
+    from repro_torch.launch.mesh import Placed, gather
+    return gather(x, device) if isinstance(x, Placed) else x
+
+
+def fsdp_entry_bytes() -> dict:
+    """Each entry's parameter and moment bytes of the five LM train_4k
+    cells at full size on the production mesh, (16, 16) ("data",
+    "model"), laid out through ``FSDP_TP`` over meta devices (nothing
+    allocated), beside the whole parameters' bytes."""
+    from repro_torch import sharding as SH
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import PRODUCTION_MODEL_AXIS, make_mesh
+    p = PRODUCTION_MODEL_AXIS
+    mesh = make_mesh((p, p), ("data", "model"), ["meta"] * (p * p))
+    out = {}
+    for arch in ("qwen2-1.5b", "qwen2-7b", "phi3-medium-14b",
+                 "deepseek-v2-lite-16b", "deepseek-v2-236b"):
+        bundle = S.make_bundle(arch, "train_4k")
+        params, state, _ = bundle.place_args(bundle.abstract_args, mesh,
+                                             SH.FSDP_TP)
+        per = [entry_bytes(params, mesh), entry_bytes(
+            (state.mu, state.nu, state.err), mesh)]
+        if any(len(set(x)) != 1 for x in per):
+            raise AssertionError(f"X FSDP bytes ({arch}): entries differ")
+        out[arch] = {"param_bytes_by_entry": per[0][0],
+                     "moment_bytes_by_entry": per[1][0],
+                     "param_bytes_whole": tree_bytes(bundle.abstract_args[0])}
+    return out
+
+
+def check_fsdp(tag: str, n: dict, limit: float) -> None:
+    """X7 / X8: the FSDP steps within ``limit`` of the one-device steps,
+    the planted fault beyond it (and X8's repeat bit for bit)."""
+    if not n["rel"] <= limit:
+        raise AssertionError(f"{tag}: the FSDP step differs from the "
+                             f"one-device step by {n['rel']:.4g}, beyond "
+                             f"{limit}: {json.dumps(n)}")
+    if not n["fault"] > limit:
+        raise AssertionError(f"{tag}: the limit {limit} passes the planted "
+                             f"fault ({n['fault']:.4g})")
+    if n.get("repeats") is False:
+        raise AssertionError(f"{tag}: two FSDP steps from the same "
+                             f"arguments differ")
+
+
+def fsdp_phase(counts, card: str, seed: int, device="cuda") -> dict:
+    """X7-X9 (module doc) over X_GRID's mesh of X_ENTRIES entries, and the
+    five LM cells' bytes an entry on the production mesh (meta)."""
+    from repro_torch.launch.mesh import make_mesh
+    grid_mesh = make_mesh(X_GRID, ("data", "model"), mesh_devices(device))
+    t0 = time.monotonic()
+    out = {"X7": x7_case(seed, grid_mesh, counts, device)}
+    check_fsdp("X7", out["X7"], X_REL_TOL["X7"])
+    n = out["X7"]
+    log(f"X7 qwen2-1.5b FSDP over {grid_mesh} (tp {n['tp']}, bf16, remat; "
+        f"{n['batch']} x {n['seq']}, {n['steps']} steps; reduced "
+        f"{json.dumps(n['reduced'])}) vs the one-device step: loss "
+        f"{json.dumps(n['loss'])}, grad norm {json.dumps(n['grad_norm'])}, "
+        f"parameters {n['params']:.4g} (relative; limit {X_REL_TOL['X7']}), "
+        f"planted fault (one entry's heads dropped) {n['fault']:.4g}; step "
+        f"p50 {n['step_ms_p50']:.3f} ms (FSDP) vs "
+        f"{n['one_device_step_ms_p50']:.3f} ms (one device), peak "
+        f"{n['peak_bytes']} B; bytes an entry: parameters "
+        f"{json.dumps(n['param_bytes_by_entry'])}, moments "
+        f"{json.dumps(n['moment_bytes_by_entry'])} on {card}")
+    out["X8"] = x8_case(seed, grid_mesh, counts, device)
+    n = out["X8"]
+    log(f"X8 deepseek-v2-lite-16b FSDP over {grid_mesh} (reduced "
+        f"{json.dumps(n['reduced'])}) vs the one-device step: loss "
+        f"{json.dumps(n['loss'])}, grad norm {json.dumps(n['grad_norm'])}, "
+        f"parameters {n['params']:.4g} (relative; limit {X8_REL_TOL}), "
+        f"repeats bit for bit: {n['repeats']}, planted fault (one entry's "
+        f"experts dropped) {n['fault']:.4g}; step {n['step_ms_p50']:.3f} ms "
+        f"vs {n['one_device_step_ms_p50']:.3f} ms, peak {n['peak_bytes']} B"
+        f" on {card}")
+    check_fsdp("X8", n, X8_REL_TOL)
+    out["X9"] = x9_case(seed, grid_mesh, counts, device)
+    n = out["X9"]
+    log(f"X9 DIEN FSDP over {grid_mesh} (tables over model, batch over "
+        f"data; reduced {json.dumps(n['reduced'])}) vs the one-device step: "
+        f"float32 loss {json.dumps(n['loss'])}, grad norm "
+        f"{json.dumps(n['grad_norm'])}, parameters {n['params']:.4g} "
+        f"(relative); float64 parameters max |diff| "
+        f"{n['float64_max_abs_err']:.3g} (rtol {n['rtol']}, atol "
+        f"{n['rtol']} x each leaf's largest magnitude); step ms "
+        f"{json.dumps(n['step_ms'])} vs {json.dumps(n['one_device_step_ms'])}"
+        f"; bytes an entry {json.dumps(n['bytes_by_entry'])} on {card}")
+    out["production_bytes"] = fsdp_entry_bytes()
+    log(f"X FSDP bytes an entry of the LM train_4k cells at full size on "
+        f"the (16, 16) production mesh (meta): "
+        f"{json.dumps(out['production_bytes'])}")
+    if any(counts.by_path["fsdp"].values()):
+        raise AssertionError(f"X7-X9 launched a kernel of the port: "
+                             f"{counts.by_path['fsdp']}")
+    out["seconds"] = time.monotonic() - t0
     return out
 
 
@@ -5480,8 +5880,9 @@ def main(argv=None) -> int:
     n, m = CONFIG.n >> args.halvings, CONFIG.m >> args.halvings
     reduced = ([f"n {CONFIG.n}->{n}", f"m {CONFIG.m}->{m}"]
                if args.halvings else []) + [
+        f"5 maintain chunk {CONFIG.update_batch}->{MAINTAIN_EVENTS} events",
         f"service update_batch {CONFIG.update_batch}->{SERVICE_CHUNK} (S1-S4 "
-        f"only; phase 5 keeps {CONFIG.update_batch})",
+        f"only)",
         # the script's time limit (PR 24 added phases B and E)
         f"M deepseek-v2-lite-16b global_batch 128->{DS_BATCH} (8 until "
         f"PR 24)",
@@ -5669,7 +6070,7 @@ def main(argv=None) -> int:
     laps.lap("A1 analytics")
 
     # -- 5. maintain --------------------------------------------------------
-    half = CONFIG.update_batch // 2
+    half = MAINTAIN_EVENTS // 2
     events = graph_stream(edges, n, half, half, seed=args.seed)
     syncs0 = B.frontier_syncs.count
     regrows0 = svc.stats.label_regrows
@@ -6182,6 +6583,7 @@ def main(argv=None) -> int:
 
     # -- X. the mesh models ----------------------------------------------------
     mesh = mesh_phase(counts, card, args.seed)
+    mesh["fsdp"] = fsdp_phase(counts, card, args.seed)
     log(f"X: {json.dumps(mesh)} on {card}")
     laps.lap("X mesh")
 

@@ -22,12 +22,28 @@ entry's device -- which :func:`gather` puts back together.  A
 dimension split ``p`` ways that ``p`` does not divide gets shards of
 ``ceil(n / p)`` rows, the last ones shorter (possibly empty).
 
+FSDP (``FSDP_TP``: weights split over ``data`` as well as ``model``):
+:func:`gather_entry` gives one mesh entry its view of a leaf, one layer
+at a time -- its own block of every dimension split over ``model``,
+the ``data`` shards put back together -- and :func:`reduce_scatter`
+sums the entries' gradients of their views onto the leaf's shards, in
+entry order (data order, then model) in float32, rounded once, as
+:func:`psum` sums partial outputs.  The gradient is routed by hand, not
+by autograd: :class:`ShardGrads` takes each view through an autograd
+node (:func:`entry_view`) whose backward hands the view's gradient back
+to it, and reduce-scatters under ``no_grad`` once every entry that took
+a view of that (leaf, layer) has handed its gradient in.  Autograd
+would add the entries' gradients into the shard in its own order and
+in the leaf's dtype; by hand the sum has one order and one rounding,
+so a step repeats bit for bit.
+
 The reference's TPU roofline constants have no counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Callable, Dict, Iterable, Iterator, Mapping, Sequence, \
     Tuple
@@ -386,8 +402,19 @@ def gather(placed: Placed, device=None) -> torch.Tensor:
 # -------------------------------------------------------------------------
 def _tree_map(fn, tree, *rest, path: str = ""):
     """``fn(path, leaf, *rest_leaves)`` over the tensor leaves of ``tree``
-    (dicts, lists, tuples and named tuples), the same tree structure in
-    ``rest``."""
+    (dicts, lists, tuples, named tuples and dataclasses such as
+    ``GraphBatch``), the same tree structure in ``rest``.  A ``None``
+    leaf (a ``GraphBatch`` without positions) and a dataclass's ``int``
+    fields (``n_node``, ``n_graph``) are kept as they are."""
+    if tree is None:
+        return None
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _tree_map(fn, getattr(tree, f.name),
+                              *(getattr(r, f.name) for r in rest),
+                              path=f"{path}{f.name}.")
+            for f in dataclasses.fields(tree)
+            if not isinstance(getattr(tree, f.name), int)})
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v, *(r[k] for r in rest),
                              path=f"{path}{k}.") for k, v in tree.items()}
@@ -450,3 +477,242 @@ def all_gather(parts, dim: int, device) -> torch.Tensor:
     """Split outputs put back together in entry order along ``dim`` on
     ``device`` (logit columns over ``vocab``, contexts over ``heads``)."""
     return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+# -------------------------------------------------------------------------
+# FSDP: each entry's view of a leaf gathered over "data", and the views'
+# gradients reduce-scattered back onto the leaf's shards
+# -------------------------------------------------------------------------
+def entry_coords(mesh: Mesh, entry: int) -> Dict[str, int]:
+    """The coordinates of mesh entry ``entry`` (row-major)."""
+    return dict(zip(mesh.axis_names, (int(i) for i in np.unravel_index(
+        entry, mesh.devices.shape))))
+
+
+def entry_bounds(placed: Placed, entry: int) -> Tuple[Tuple[int, int], ...]:
+    """Per dimension, the ``[lo, hi)`` rows of mesh entry ``entry``'s
+    view of ``placed``: a dimension split over ``"data"`` whole (FSDP
+    gathers it), one split over another axis the entry's own block of
+    it.  A dimension split over ``"data"`` together with another axis
+    raises ``ValueError``: no rule table lays a weight out so."""
+    sh, ndim = placed.sharding, len(placed.shape)
+    bounds = placed.bounds(sh.block_of(entry_coords(sh.mesh, entry), ndim))
+    out = []
+    for i, e in enumerate(tuple(sh.spec) + (None,) * (ndim - len(sh.spec))):
+        axes = _axes_of(e)
+        if "data" not in axes:
+            out.append(bounds[i])
+        elif axes == ("data",):
+            out.append((0, placed.shape[i]))
+        else:
+            raise ValueError(f"dimension {i} is split over {axes}: FSDP "
+                             f"gathers a dimension split over 'data' alone")
+    return tuple(out)
+
+
+def _within(inner, outer) -> tuple:
+    """Slices of the rows ``inner`` (bounds) relative to ``outer``."""
+    return tuple(slice(lo - o, hi - o) for (lo, hi), (o, _) in
+                 zip(inner, outer))
+
+
+def _layer_bounds(bounds, layer):
+    return bounds if layer is None else ((layer, layer + 1),) + bounds[1:]
+
+
+def gather_entry(placed: Placed, entry: int, layer: int | None = None,
+                 device=None) -> torch.Tensor:
+    """FSDP's all-gather: mesh entry ``entry``'s view of ``placed``
+    (:func:`entry_bounds`: its blocks of the dimensions split over
+    ``"model"``, the ``"data"`` shards put back together in order) as a
+    tensor of its own on ``device`` (default: the entry's).  With
+    ``layer``, index ``layer`` of the leading dimension only (the LM's
+    stacked layers): one layer at a time."""
+    view = _layer_bounds(entry_bounds(placed, entry), layer)
+    dev = canonical_device(device if device is not None else
+                           placed.sharding.mesh.devices.flat[entry])
+    shape = [hi - lo for lo, hi in view][0 if layer is None else 1:]
+    out = torch.empty(shape, dtype=placed.dtype, device=dev)
+    for _, bounds, shard in placed.blocks:
+        inner = tuple((max(a, c), min(b, d))
+                      for (a, b), (c, d) in zip(bounds, view))
+        if any(hi <= lo for lo, hi in inner):
+            continue
+        src = shard[_within(inner, bounds)]
+        dst = _within(inner, view)
+        if layer is not None:
+            src, dst = src[0], dst[1:]
+        out[dst] = src.to(dev)
+    return out
+
+
+def reduce_scatter(placed: Placed, parts: Mapping[int, torch.Tensor],
+                   layer: int | None = None) -> Dict[tuple, torch.Tensor]:
+    """FSDP's reduce-scatter: ``parts`` are the gradients of mesh entries'
+    views of ``placed`` (``{entry: tensor}``, each of the shape
+    :func:`gather_entry` gives).  Each (block, device) shard of
+    ``placed`` gets the sum of the views that hold its block, each sliced
+    to it, added in entry order -- data order, then model -- in float32
+    and rounded once (:func:`psum`), so the result is the same on every
+    run.  With ``layer``, the shards' index ``layer`` of the leading
+    dimension.  A shard that no view holds gets zeros."""
+    views = {e: _layer_bounds(entry_bounds(placed, e), layer)
+             for e in sorted(parts)}
+    out = {}
+    for key, shard in placed.shards.items():
+        bounds = _layer_bounds(placed.bounds(key[0]), layer)
+        got = []
+        for e, view in views.items():
+            if all(c <= a and b <= d for (a, b), (c, d) in zip(bounds, view)):
+                sl = _within(bounds, view)
+                got.append(parts[e][sl if layer is None else sl[1:]])
+        out[key] = psum(got, key[1]) if got else torch.zeros(
+            shard.shape[0 if layer is None else 1:], dtype=shard.dtype,
+            device=key[1])
+    return out
+
+
+class _GatherView(torch.autograd.Function):
+    """:func:`gather_entry` as a node of the autograd graph: its backward
+    hands the view's gradient to the :class:`ShardGrads` that took it
+    (the gradient is routed by hand) and passes nothing on."""
+
+    @staticmethod
+    def forward(ctx, anchor, grads, placed, entry, layer):
+        ctx.taken = (grads, placed, entry, layer)
+        return gather_entry(placed, entry, layer)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grads, placed, entry, layer = ctx.taken
+        grads._arrive(placed, entry, layer, grad)
+        return None, None, None, None, None
+
+
+_GRAD_SINKS: list = []
+
+
+class ShardGrads:
+    """The gradients of a tree of :class:`Placed` leaves under FSDP,
+    laid out as the leaves are.
+
+    Inside ``with ShardGrads(device) as grads:`` the model code takes
+    each mesh entry's view of a leaf by :func:`entry_view` (a gather,
+    one layer at a time), and a backward from a loss to ``grads.anchor``
+    (``torch.autograd.grad``) hands each view's gradient back here.  A
+    view's gradient never reaches the leaf through autograd, which would
+    add the entries' gradients in its own order and in the leaf's
+    dtype: it is routed by hand.  Once every entry that took a view of a
+    (leaf, layer) has handed in its gradient, they are reduce-scattered
+    onto the leaf's shards (:func:`reduce_scatter`: in entry order, in
+    float32) and dropped; :meth:`result` reduces what is left (views
+    that reached no loss) and gives each leaf its gradient as a
+    :class:`Placed` of the leaf's sharding, zeros where no view was
+    taken.  An entry's view of a (leaf, layer) is taken once a forward;
+    a second gradient for it raises ``RuntimeError``.  ``remat``'s
+    recomputation takes the views again, which changes nothing here.
+
+    On distinct cards autograd runs each device's backward on a thread
+    of its own, so views' gradients arrive concurrently: each arrival
+    counts itself on the key's ``itertools.count`` (``next`` on it is
+    atomic), and the one that brings the count to the views taken
+    reduces; the shards of a stacked leaf are allocated at its first
+    view, in the forward, and each reduce writes its own layer."""
+
+    def __init__(self, device) -> None:
+        self.anchor = torch.zeros((), device=canonical_device(device),
+                                  requires_grad=True)
+        self._taken: dict = {}      # (id(leaf), layer) -> entries
+        self._got: dict = {}        # (id(leaf), layer) -> {entry: grad}
+        self._count: dict = {}      # (id(leaf), layer) -> arrivals
+        self._done: set = set()
+        self._shards: dict = {}     # id(leaf) -> (leaf, {key: grad})
+
+    def __enter__(self) -> "ShardGrads":
+        _GRAD_SINKS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _GRAD_SINKS.remove(self)
+
+    def view(self, placed: Placed, entry: int,
+             layer: int | None = None) -> torch.Tensor:
+        """Mesh entry ``entry``'s view of ``placed`` (:func:`gather_entry`)
+        whose gradient comes back here."""
+        self._taken.setdefault((id(placed), layer), set()).add(entry)
+        if id(placed) not in self._shards:
+            self._shards[id(placed)] = (placed, {} if layer is None else {
+                key: torch.zeros_like(t) for key, t in placed.shards.items()})
+        return _GatherView.apply(self.anchor, self, placed, entry, layer)
+
+    def _arrive(self, placed, entry, layer, grad) -> None:
+        k = (id(placed), layer)
+        got = self._got.setdefault(k, {})
+        if k in self._done or entry in got:
+            raise RuntimeError(f"entry {entry}'s view of a leaf of shape "
+                               f"{placed.shape} (layer {layer}) was taken "
+                               f"twice in one forward")
+        got[entry] = grad
+        if next(self._count.setdefault(k, itertools.count(1))) == \
+                len(self._taken[k]):
+            self._reduce(k)
+
+    @torch.no_grad()
+    def _reduce(self, k) -> None:
+        parts = self._got.pop(k)
+        self._done.add(k)
+        placed, shards = self._shards[k[0]]
+        layer = k[1]
+        for key, g in reduce_scatter(placed, parts, layer).items():
+            if layer is None:
+                shards[key] = g
+            else:
+                shards[key][layer] = g
+
+    @torch.no_grad()
+    def result(self, tree):
+        """``tree``'s leaves' gradients, each a :class:`Placed` of the
+        leaf's sharding (module doc)."""
+        for k in list(self._got):
+            self._reduce(k)
+
+        def grad(_, x):
+            shards = self._shards.get(id(x), (x, {}))[1]
+            return Placed(x.sharding, x.shape, x.dtype,
+                          {key: shards[key] if key in shards else
+                           torch.zeros_like(t)
+                           for key, t in x.shards.items()}, x.entry_keys)
+        return _tree_map(grad, tree)
+
+
+def entry_view(placed: Placed, entry: int,
+               layer: int | None = None) -> torch.Tensor:
+    """Mesh entry ``entry``'s view of ``placed``, one layer at a time with
+    ``layer``: inside a :class:`ShardGrads` context taken through it (its
+    gradient routed back there), else a plain :func:`gather_entry`."""
+    if _GRAD_SINKS:
+        return _GRAD_SINKS[-1].view(placed, entry, layer)
+    return gather_entry(placed, entry, layer)
+
+
+def entry_views(tree, entry: int, layer: int | None = None):
+    """:func:`entry_view` over every :class:`Placed` leaf of ``tree``."""
+    return _tree_map(lambda _, x: entry_view(x, entry, layer), tree)
+
+
+def entry_grid(mesh: Mesh) -> list:
+    """The mesh's entries as FSDP reads them: one row per ``"data"``
+    index, in order, each ``[(entry, device), ...]`` over the
+    ``"model"`` indices in order (an axis the mesh lacks counts as size
+    1).  Raises ``ValueError`` on any other axis."""
+    other = set(mesh.axis_names) - {"data", "model"}
+    if other:
+        raise ValueError(f"FSDP runs on ('data', 'model') meshes; this one "
+                         f"has {sorted(other)} too")
+    shape = mesh.shape
+    grid = [[None] * shape.get("model", 1) for _ in range(shape.get(
+        "data", 1))]
+    for e, dev in enumerate(mesh.devices.flat):
+        c = entry_coords(mesh, e)
+        grid[c.get("data", 0)][c.get("model", 0)] = (e, dev)
+    return grid

@@ -78,9 +78,13 @@ class StepBundle:
     def get_fn(self, mesh=None, rules=None):
         """The step: ``mesh_fn(mesh)`` where the cell needs a mesh, else
         ``fn``, run inside ``sharding.activation_sharding(rules, mesh)``
-        when both are given.  An LM prefill or decode cell given
-        arguments laid out by :meth:`place_args` runs the
-        tensor-parallel serve path (``models.transformer``)."""
+        when both are given.  Given arguments laid out by
+        :meth:`place_args`, an LM prefill or decode cell runs the
+        tensor-parallel serve path (``TP_ONLY``; ``models.transformer``),
+        an LM or DIEN train cell the FSDP step (``FSDP_TP``;
+        ``train.loop``), which returns the new parameters and state laid
+        out as its arguments; whole arguments run the one-device step.  A
+        GNN train cell refuses placed arguments (:func:`_gnn_step`)."""
         if self.mesh_fn is not None:
             if mesh is None:
                 raise ValueError(f"{self.name} needs a mesh")
@@ -371,13 +375,36 @@ def _named_params(model: nn.Module) -> dict:
     return {k: p.detach() for k, p in model.named_parameters()}
 
 
+#: ROADMAP's name for the GNN train cells' step on a placed batch.
+GNN_EDGE_SHARDED_STEP = "the GNN cells' edge-sharded step"
+
+
+def _gnn_step(loss_fn):
+    """The GNN cells' train step: on one device only.  Arguments laid out
+    by ``place_args`` raise ``ValueError``: the edge-sharded step (segment
+    sums, softmaxes and PNA's max / min / std reduced across the edge
+    shards) is not ported yet, and the step does not gather the batch
+    behind the caller's back."""
+    step = make_train_step_fn(loss_fn, _OPT)
+
+    def gnn_step(params, state, batch):
+        if any(isinstance(x, Placed) for x in _leaves(
+                (params, state, batch))):
+            raise ValueError(f"a GNN train cell runs on one device: its "
+                             f"step on placed arguments waits for "
+                             f"{GNN_EDGE_SHARDED_STEP} (ROADMAP queue 1, "
+                             f"item 1)")
+        return step(params, state, batch)
+    return gnn_step
+
+
 def gnn_bundle(spec: ArchSpec, shape: ShapeSpec, smoke: bool) -> StepBundle:
     s = _gnn_setup(spec, shape, smoke)
     params_a = _named_params(s["modules"].on("meta"))
     p_specs = replicated_specs(s["modules"].on("meta"))
     return StepBundle(
         name=f"{spec.arch_id}/{shape.name}",
-        fn=make_train_step_fn(s["loss_fn"], _OPT), mesh_fn=None,
+        fn=_gnn_step(s["loss_fn"]), mesh_fn=None,
         abstract_args=(params_a, opt.init(params_a, _OPT),
                        (s["batch_a"], s["labels_a"])),
         arg_specs=(p_specs, opt.state_specs(p_specs),
@@ -824,6 +851,9 @@ def _leaves(tree) -> list:
         return [x for v in tree.values() for x in _leaves(v)]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _leaves(v)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [x for f in dataclasses.fields(tree)
+                for x in _leaves(getattr(tree, f.name))]
     return [tree]
 
 

@@ -8,7 +8,8 @@ their head count from the weights they are given: all of them, or, on
 the tensor-parallel path, one ``model`` entry's columns of ``wq`` /
 ``bq`` / ``wuq`` / ``wuk`` / ``wuv`` and rows of ``wo``, whose output is
 that entry's partial sum (``prefill_tp``, ``gqa_decode_tp``,
-``mla_decode_tp``; the sums in entry order, ``launch.mesh.psum``).
+``mla_decode_tp``, and under FSDP training ``train_tp`` on each entry's
+gathered view; the sums in entry order, ``launch.mesh.psum``).
 
 Two places differ from the reference on purpose, and say so below:
 decode writes the new cache rows in place (K and V for GQA, the latent
@@ -440,6 +441,26 @@ def prefill_tp(groups, x, cfg, positions, attn_fn):
                 c2s.append(c2.to(x.device))
         outs.append(psum(parts, x.device))
     return torch.cat(outs), (torch.cat(c1s), torch.cat(c2s))
+
+
+def train_tp(groups, x, cfg, positions):
+    """The training attention over split heads (``groups`` and ``x`` as
+    :func:`prefill_tp` takes them; under FSDP ``p`` is an entry's
+    gathered view of the layer, ``launch.mesh.entry_view``): each entry
+    runs :func:`gqa_train` (from its first head) or :func:`mla_train` on
+    its heads, differentiable, and the entries' partial outputs are
+    summed in entry order on ``x``'s device (``launch.mesh.psum``).  No
+    cache is kept.  Returns out [b, t, d]."""
+    attn = mla_train if cfg.attn == "mla" else gqa_train
+    outs = []
+    for b0, b1, ents in _entry_heads(groups, cfg):
+        parts = []
+        for dev, p, head0 in ents:
+            kw = {} if cfg.attn == "mla" else dict(head0=head0)
+            parts.append(attn(p, x[b0:b1].to(dev), cfg,
+                              positions[b0:b1].to(dev), **kw)[0])
+        outs.append(psum(parts, x.device))
+    return torch.cat(outs)
 
 
 def gqa_decode_tp(groups, x, cache_k, cache_v, layer: int, lengths, cfg):

@@ -76,30 +76,63 @@ def softmax_cross_entropy(logits: torch.Tensor,
     return (logz - ll).mean()
 
 
+def row_blocks(table: Placed) -> list:
+    """A placed ``[V, D]`` table's row blocks ``[(lo, hi, block)]`` in row
+    order, each block whole over D on the device of its first entry:
+    where the columns are split too (FSDP's ``embed`` -> ``data``), a row
+    block's column shards are put back together in order there."""
+    rows: dict = {}
+    for key, bounds, shard in table.blocks:
+        rows.setdefault(bounds[0], []).append((bounds[1], key[1], shard))
+    out = []
+    for (lo, hi), cols in sorted(rows.items()):
+        cols.sort(key=lambda c: c[0])
+        dev = cols[0][1]
+        out.append((lo, hi, cols[0][2] if len(cols) == 1 else torch.cat(
+            [s.to(dev) for _, _, s in cols], dim=1)))
+    return out
+
+
+def col_blocks(head: Placed) -> list:
+    """A placed ``[d, V]`` head's column blocks ``[block]`` in column
+    order, each whole over d (its row shards, FSDP's ``embed`` ->
+    ``data``, put back together on its first entry's device)."""
+    cols: dict = {}
+    for key, bounds, shard in head.blocks:
+        cols.setdefault(bounds[1], []).append((bounds[0], key[1], shard))
+    out = []
+    for _, rows in sorted(cols.items()):
+        rows.sort(key=lambda r: r[0])
+        dev = rows[0][1]
+        out.append(rows[0][2] if len(rows) == 1 else torch.cat(
+            [s.to(dev) for _, _, s in rows], dim=0))
+    return out
+
+
 def take_rows(table, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` for a whole or a placed table ([V, D]): the
-    vocab-parallel embedding.  Placed: each row shard (the first copy of
-    each block) takes the ids in its range on its device, zeros for the
-    others, and the shards' rows are added in shard order on ``ids``'
+    """``table[ids]`` for a whole or a placed table ([V, D]), or for its
+    row blocks ``[(lo, hi, block)]`` (:func:`row_blocks`; the FSDP train
+    path's gathered views): the vocab-parallel embedding.  Placed: each
+    row block takes the ids in its range on its device, zeros for the
+    others, and the blocks' rows are added in row order on ``ids``'
     device (one of them nonzero: the sum is the row, exactly); negative
     ids count from the end, as whole-tensor indexing reads them.  The
-    LM's ``embed`` (``vocab`` -> ``model``) and DIEN's tables
-    (``table_rows`` -> ``model``) read rows this way."""
-    if not isinstance(table, Placed):
+    LM's ``embed`` (``vocab`` -> ``model``, and under FSDP ``embed`` ->
+    ``data``) and DIEN's tables (``table_rows`` -> ``model``) read rows
+    this way.  Under autograd a block's gradient holds the rows its ids
+    hit and zeros elsewhere."""
+    if isinstance(table, torch.Tensor):
         return table[ids]
-    if any(p != 1 for p in table.parts[1:]):
-        raise ValueError(f"a table splits only its rows, got "
-                         f"{table.sharding.spec}")
-    n = table.shape[0]
+    blocks = row_blocks(table) if isinstance(table, Placed) else table
+    n = blocks[-1][1]
     ids = torch.where(ids < 0, ids + n, ids)
     out = None
-    for key, bounds, shard in table.blocks:
-        lo, hi = bounds[0]
+    for lo, hi, block in blocks:
         if hi == lo:
             continue
-        local = ids.to(key[1]) - lo
+        local = ids.to(block.device) - lo
         hit = (local >= 0) & (local < hi - lo)
-        rows = torch.where(hit[..., None], shard[local.clamp(0, hi - lo - 1)],
+        rows = torch.where(hit[..., None], block[local.clamp(0, hi - lo - 1)],
                            0).to(ids.device)
         out = rows if out is None else out + rows
     return out
@@ -107,15 +140,14 @@ def take_rows(table, ids: torch.Tensor) -> torch.Tensor:
 
 def split_logits(x: torch.Tensor, head) -> torch.Tensor:
     """``x @ head`` for a whole or a placed head ([d, V]) whose columns
-    are split (``vocab`` -> ``model``): each block of columns computed on
-    its device, the blocks gathered in order on ``x``'s device."""
-    if not isinstance(head, Placed):
+    are split (``vocab`` -> ``model``), or for its column blocks
+    (:func:`col_blocks`; the FSDP train path's gathered views): each
+    block of columns computed on its device, the blocks gathered in
+    order on ``x``'s device."""
+    if isinstance(head, torch.Tensor):
         return x @ head
-    if head.parts[0] != 1:
-        raise ValueError(f"a head splits only its columns, got "
-                         f"{head.sharding.spec}")
-    return all_gather([x.to(key[1]) @ shard for key, _, shard in head.blocks],
-                      -1, x.device)
+    blocks = col_blocks(head) if isinstance(head, Placed) else head
+    return all_gather([x.to(w.device) @ w for w in blocks], -1, x.device)
 
 
 def to_tensor(a, device) -> torch.Tensor:

@@ -36,6 +36,17 @@ in shard order on the ids' device -- one row plus zeros, so the result
 equals the unsharded gather bit for bit.  ``unroll_scans`` has no
 effect here.
 
+FSDP training: ``make_train_loss`` on a tree laid out by ``param_specs``
+through ``FSDP_TP`` (``launch.steps``' ``place_args``; the batch over
+``data``) runs each data row on its batch rows, on its first entry's
+views of the replicated leaves and on the row blocks of the tables that
+its ``model`` entries hold (``launch.mesh.entry_view``).  A table's
+gradient lands on its row shards, rows outside a shard's range adding
+zero, and ``launch.mesh.ShardGrads`` sums the data rows' gradients in
+data order.  The rows' per-example terms are joined in data order
+before the means, so at one data row the loss is the one-device loss
+bit for bit.
+
 Shapes: ``train_batch`` (65536) runs the train step; ``serve_p99`` /
 ``serve_bulk`` the scoring forward; ``retrieval_cand`` scores one user
 state against 10^6 candidates as one batched dot against the item table
@@ -52,7 +63,9 @@ import torch.nn.functional as F
 
 from repro_torch import sharding as SH
 from repro_torch.core.graph import resolve_device
-from repro_torch.launch.mesh import place
+from repro_torch.launch.mesh import (Placed, block_bounds, entry_bounds,
+                                     entry_grid, entry_view, entry_views,
+                                     gather, place)
 from repro_torch.models.common import dense_init, load_tree, take_rows
 
 
@@ -260,34 +273,88 @@ def forward(params, batch, cfg: DIENConfig) -> torch.Tensor:
     return _evolve(params, batch, hs, beh, cfg)
 
 
-def aux_loss(params, hs, beh, neg_beh, mask) -> torch.Tensor:
-    """Auxiliary loss: h_t should score e_{t+1} over sampled negatives."""
+def _aux_terms(params, hs, beh, neg_beh, mask):
+    """The auxiliary loss's masked log-likelihoods and mask, [B, T-1]."""
     h = hs[:, :-1]                                  # [B, T-1, H]
     pos = beh[:, 1:]
     neg = neg_beh[:, 1:]
     m = mask[:, 1:].to(h.dtype)
     pos_logit = _prelu_mlp(params["aux"], torch.cat([h, pos], -1))[..., 0]
     neg_logit = _prelu_mlp(params["aux"], torch.cat([h, neg], -1))[..., 0]
-    ll = (F.logsigmoid(pos_logit) + F.logsigmoid(-neg_logit)) * m
+    return (F.logsigmoid(pos_logit) + F.logsigmoid(-neg_logit)) * m, m
+
+
+def aux_loss(params, hs, beh, neg_beh, mask) -> torch.Tensor:
+    """Auxiliary loss: h_t should score e_{t+1} over sampled negatives."""
+    ll, m = _aux_terms(params, hs, beh, neg_beh, mask)
     return -ll.sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def _loss_terms(params, batch, cfg: DIENConfig):
+    """Each example's CTR log-likelihood [B] and the auxiliary loss's
+    terms (:func:`_aux_terms`) of a batch."""
+    hs, beh = interest_states(params, batch, cfg)
+    neg_beh = behavior_embed(params, batch["neg_items"], batch["neg_cates"])
+    ll, m = _aux_terms(params, hs, beh, neg_beh, batch["hist_mask"])
+    logits = _evolve(params, batch, hs, beh, cfg)
+    y = batch["label"].to(logits.dtype)
+    return y * F.logsigmoid(logits) + (1 - y) * F.logsigmoid(-logits), ll, m
+
+
+def _loss(ce, ll, m, cfg: DIENConfig) -> torch.Tensor:
+    return -torch.mean(ce) + cfg.aux_weight * (
+        -ll.sum() / torch.clamp(m.sum(), min=1.0))
 
 
 def make_train_loss(cfg: DIENConfig):
     """loss_fn(params, batch) -> scalar: the mean CTR cross-entropy plus
     ``aux_weight`` times :func:`aux_loss`.  The reference's ``forward``
     runs the extractor GRU a second time; here its states are computed
-    once and serve both terms (the same numbers)."""
+    once and serve both terms (the same numbers).  Given a tree laid out
+    by ``param_specs`` through ``FSDP_TP`` (module doc), each data row's
+    terms come from its batch rows and are joined in data order before
+    the means."""
     def loss_fn(params, batch):
-        hs, beh = interest_states(params, batch, cfg)
-        neg_beh = behavior_embed(params, batch["neg_items"],
-                                 batch["neg_cates"])
-        aux = aux_loss(params, hs, beh, neg_beh, batch["hist_mask"])
-        logits = _evolve(params, batch, hs, beh, cfg)
-        y = batch["label"].to(logits.dtype)
-        ce = -torch.mean(y * F.logsigmoid(logits)
-                         + (1 - y) * F.logsigmoid(-logits))
-        return ce + cfg.aux_weight * aux
+        if isinstance(params["item_table"], Placed):
+            return _fsdp_train_loss(params, batch, cfg)
+        return _loss(*_loss_terms(params, batch, cfg), cfg)
     return loss_fn
+
+
+def _fsdp_train_loss(params, batch, cfg: DIENConfig):
+    """:func:`make_train_loss` on a placed tree: data row d runs on its
+    first entry's views of the replicated leaves and on the row blocks
+    of the tables its ``model`` entries hold (``launch.mesh.entry_view``;
+    a table's gradient lands on its row shards), over its batch rows."""
+    mesh = params["item_table"].sharding.mesh
+    home = mesh.devices.flat[0]
+    grid = entry_grid(mesh)
+    b = batch["label"].shape[0]
+    if b % len(grid):
+        raise ValueError(f"the batch ({b}) does not split evenly over "
+                         f"{len(grid)} data rows")
+    parts = []
+    for d, row in enumerate(grid):
+        (b0, b1), = block_bounds((b,), (len(grid),), (d,))
+        e, dev = row[0]
+        p = entry_views({k: v for k, v in params.items()
+                         if k not in TABLES}, e)
+        for name in TABLES:
+            p[name] = [entry_bounds(params[name], em)[0] +
+                       (entry_view(params[name], em),) for em, _ in row]
+        rows = {k: _rows(v, e, b0, b1, dev) for k, v in batch.items()}
+        parts.append([x.to(home) for x in _loss_terms(p, rows, cfg)])
+    return _loss(*(torch.cat(xs) for xs in zip(*parts)), cfg)
+
+
+def _rows(x, entry: int, b0: int, b1: int, dev) -> torch.Tensor:
+    """Batch rows [b0, b1) of ``x`` on ``dev``: the shard ``entry`` holds
+    where ``x`` is placed with those rows, else a slice."""
+    if isinstance(x, Placed):
+        if x.bounds(x.entry_keys[entry][0])[0] == (b0, b1):
+            return x.shard(entry)
+        x = gather(x)
+    return x[b0:b1].to(dev)
 
 
 def retrieval_scores(params, batch, candidate_ids,

@@ -9,9 +9,12 @@ n_tok), each expert takes at most ``cap = ceil(tg * k / e *
 moe_capacity_factor)`` rows of a group of ``tg`` tokens, and the
 overflow is dropped (its weight zeroed).  So ``moe_groups`` and
 ``moe_capacity_factor`` decide which tokens drop, on one card as on a
-mesh.  On a mesh (:func:`moe_dispatch_tp`) the routed experts are split
-over ``model`` and the buffer's rows over the batch ranges; routing and
-the un-dispatch run whole, as on one card.
+mesh.  On a mesh (:func:`moe_dispatch_tp`, and :func:`moe_ffn_tp` with
+the aux loss for FSDP training) the routed experts are split over
+``model`` and the buffer's rows over the batch ranges; routing and the
+un-dispatch run whole, as on one card.  The shared experts run on the
+layer's input as it is (``[b, t, d]``) on one card as on a mesh, so its
+gradient adds the same two terms either way.
 
 Routing keeps the reference's order exactly: a float32 router, softmax,
 the top k with ties to the lower expert id (``lax.top_k``'s order), a
@@ -244,28 +247,16 @@ def moe_dispatch(p: dict, x: torch.Tensor, cfg):
     rows of every group are one batched product; every output element
     is the same dot product either way."""
     b, t, d = x.shape
-    tokens, r, rows, buf = _dispatch(p["router"], x, cfg)
+    _, r, rows, buf = _dispatch(p["router"], x, cfg)
     routed = _combine(_experts(buf[:cfg.moe_experts], p), r, rows, cfg)
-    shared = dense_ffn(_shared(p), tokens)
-    return (routed + shared).reshape(b, t, d), r
+    # the shared experts on x, as the mesh path runs them: x's gradient
+    # then adds two terms in either path, the same bits at one entry
+    return routed.reshape(b, t, d) + dense_ffn(_shared(p), x), r
 
 
-def moe_dispatch_tp(groups, x: torch.Tensor, cfg):
-    """:func:`moe_dispatch`'s output with the experts over the mesh's
-    ``model`` axis: ``groups`` ``[(b0, b1, [(dev, p), ...]), ...]`` (as
-    ``attention.prefill_tp`` takes them; ``p`` an entry's layer-local
-    FFN weights: ``E / p`` routed experts, its columns of the shared
-    ``ws_gate`` / ``ws_up`` and rows of ``ws_down``, the router whole)
-    and ``x`` [b, t, d] on the controller's device.
-
-    ``route`` runs on ``x``'s device with the replicated router, as on
-    one device, and fills the whole dispatch buffer there.  Model entry
-    m computes the three batched products of its experts' slice of the
-    buffer, the buffer's rows split over the batch ranges (``data``);
-    the slices go back into the whole buffer in expert order and
-    :func:`undispatch` adds each token's rows as on one device.  The
-    shared experts run as a dense FFN split over ``mlp``, the entries'
-    partial outputs summed in entry order.  Returns out [b, t, d]."""
+def _moe_tp(groups, x: torch.Tensor, cfg):
+    """:func:`moe_dispatch_tp`'s body: (out [b, t, d], its
+    :class:`Routing`)."""
     b, t, d = x.shape
     home = x.device
     router = groups[0][2][0][1]["router"].to(home)
@@ -287,7 +278,37 @@ def moe_dispatch_tp(groups, x: torch.Tensor, cfg):
     shared = torch.cat([psum([dense_ffn(_shared(p), x[b0:b1].to(dev))
                               for dev, p in ents], home)
                         for b0, b1, ents in groups])
-    return routed + shared
+    return routed + shared, r
+
+
+def moe_dispatch_tp(groups, x: torch.Tensor, cfg):
+    """:func:`moe_dispatch`'s output with the experts over the mesh's
+    ``model`` axis: ``groups`` ``[(b0, b1, [(dev, p), ...]), ...]`` (as
+    ``attention.prefill_tp`` takes them; ``p`` an entry's layer-local
+    FFN weights: ``E / p`` routed experts, its columns of the shared
+    ``ws_gate`` / ``ws_up`` and rows of ``ws_down``, the router whole)
+    and ``x`` [b, t, d] on the controller's device.
+
+    ``route`` runs on ``x``'s device with the replicated router (the
+    first entry's), as on one device, and fills the whole dispatch
+    buffer there.  Model entry m computes the three batched products of
+    its experts' slice of the buffer, the buffer's rows split over the
+    batch ranges (``data``); the slices go back into the whole buffer in
+    expert order and :func:`undispatch` adds each token's rows as on one
+    device.  The shared experts run as a dense FFN split over ``mlp``,
+    the entries' partial outputs summed in entry order.  Returns out [b,
+    t, d]."""
+    return _moe_tp(groups, x, cfg)[0]
+
+
+def moe_ffn_tp(groups, x: torch.Tensor, cfg):
+    """:func:`moe_ffn` over the mesh (``groups`` and ``x`` as
+    :func:`moe_dispatch_tp` takes them; under FSDP each ``p`` an entry's
+    gathered view, only the first entry's with the router):
+    differentiable, (out [b, t, d], aux loss) with the aux loss of the
+    whole routing, as one device computes it."""
+    out, r = _moe_tp(groups, x, cfg)
+    return out, aux_loss(r, cfg.moe_experts)
 
 
 def ffn_tp(groups, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -313,5 +334,6 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg):
 
 __all__ = ["Routing", "aux_loss", "dense_ffn", "dense_ffn_specs",
            "dispatch_shape", "ffn_tp", "init_dense_ffn", "init_moe",
-           "moe_dispatch", "moe_dispatch_tp", "moe_ffn", "moe_specs",
+           "moe_dispatch", "moe_dispatch_tp", "moe_ffn", "moe_ffn_tp",
+           "moe_specs",
            "no_drop_capacity_factor", "route", "undispatch"]

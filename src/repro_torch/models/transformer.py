@@ -45,6 +45,31 @@ the shards, gathered before attention and the FFN.  ``cfg.tp`` must be
 the mesh's ``model`` size (the reference pads the query heads to its
 model axis).  ``unroll_scans`` (a cost-analysis mode of XLA) has no
 effect.
+
+FSDP training: ``make_train_loss`` given a tree laid out by
+``param_specs`` through ``FSDP_TP`` (``launch.steps``' ``place_args``:
+``embed`` and ``expert_embed`` over ``data``, ``heads``, ``mlp``,
+``vocab`` and ``experts`` over ``model``) runs each layer over the
+mesh, under ``remat`` one ``torch.utils.checkpoint`` a layer, whose
+backward gathers the layer again.  Each mesh entry takes its view of
+the layer (``launch.mesh.entry_view``: its ``model`` block, the
+``data`` shards gathered), and runs its heads
+(``attention.train_tp``) and its FFN slice or experts
+(``moe.ffn_tp`` / ``moe_ffn_tp``: ``route`` and the aux loss whole on
+the first entry's router, as on one device) on its data row's batch
+rows; the partial outputs are summed in entry order.  The residual is
+laid out by ``act_spec`` (the reference's ``_layer_fwd`` constrains it
+so), the norms run on its shards, the embedding is vocab-parallel over
+each data row's entries, and the head and cross-entropy run one
+sequence at a time over the entries' logit columns, the sequences
+added in batch order as on one device.  The views' gradients are
+reduce-scattered onto the shards by ``launch.mesh.ShardGrads``
+(``train.loop.value_and_grad``).  ``check_tp``'s ``cfg.tp == model``
+does not apply here: ``cfg.tp`` pads the heads and the vocabulary, as
+the reference pads them whatever the mesh, and the train path needs
+only that the mesh's sizes divide every split dimension
+(:func:`check_fsdp`).  At a mesh of one entry the step is the one-device
+step, bit for bit.
 """
 
 from __future__ import annotations
@@ -57,8 +82,10 @@ import torch.utils.checkpoint
 
 from repro_torch import sharding as SH
 from repro_torch.core.graph import resolve_device
-from repro_torch.launch.mesh import (Placed, block_bounds, gather,
-                                     local_tree, place_tree, place_zeros)
+from repro_torch.launch.mesh import (Placed, block_bounds, entry_bounds,
+                                     entry_grid, entry_view, entry_views,
+                                     gather, local_tree, place_tree,
+                                     place_zeros)
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models.common import (dense_init, init_rms, load_tree,
@@ -338,8 +365,12 @@ def make_train_loss(cfg: TransformerConfig):
     5 GB in bf16, 10 GB more in float32, and as much again for their
     gradient).  Every sequence has t - 1 tokens, so the mean of the
     sequences' means is the reference's mean over all of them, up to
-    float32 summation order."""
+    float32 summation order.  Given a tree laid out by
+    ``param_specs`` through ``FSDP_TP`` (``launch.steps``' ``place_args``),
+    the FSDP train path (module doc)."""
     def loss_fn(params, batch):
+        if isinstance(params["embed"], Placed):
+            return _fsdp_train_loss(params, batch, cfg)
         x, aux = _train_hidden(params, batch["tokens"], cfg)
         x, labels = x[:, :-1], batch["labels"][:, 1:]
         total = 0
@@ -637,3 +668,103 @@ def _decode_step_tp(params: dict, cache: dict, token: torch.Tensor,
     last = rms_norm(whole["ln_f"].to(home), _whole(x, home)[:, 0])
     return (split_logits(last, params["lm_head"]),
             {n1: cache[n1], n2: cache[n2], "lengths": lengths + 1})
+
+
+# -------------------------------------------------------------------------
+# FSDP training on a placed tree (module doc)
+# -------------------------------------------------------------------------
+def check_fsdp(cfg: TransformerConfig, mesh, batch: int) -> None:
+    """Raise ``ValueError`` unless the FSDP train path can run ``cfg`` on
+    ``mesh`` at a global batch of ``batch``: the ``model`` size divides
+    the padded heads, the padded vocabulary, the FFN's width and the
+    experts, and the ``data`` size divides ``d_model`` (``embed``,
+    ``expert_embed``) and the batch.  ``cfg.tp`` need not be the
+    ``model`` size (module doc)."""
+    grid = entry_grid(mesh)
+    p_data, p_model = len(grid), len(grid[0])
+    dims = [("heads", cfg.padded_heads, p_model),
+            ("vocab", cfg.padded_vocab, p_model),
+            ("mlp", cfg.moe_shared * cfg.moe_d_ff if cfg.is_moe
+             else cfg.d_ff, p_model),
+            ("embed", cfg.d_model, p_data), ("batch", batch, p_data)]
+    if cfg.is_moe:
+        dims.append(("experts", cfg.moe_experts, p_model))
+    for name, n, p in dims:
+        if n % p:
+            raise ValueError(f"{cfg.name}: {name} ({n}) does not split "
+                             f"evenly over {p} mesh entries")
+
+
+def _fsdp_layer(layers: dict, x, i: int, cfg: TransformerConfig, grid,
+                rows, positions, home):
+    """Layer ``i`` on the placed tree: the norms on the residual's
+    shards, each entry's heads and FFN slice (or experts) on its
+    gathered view of the layer, the partial outputs summed in entry
+    order.  Returns (x, aux loss or None)."""
+    e0 = grid[0][0][0]
+
+    def groups(part, skip=()):
+        tree = {k: v for k, v in layers[part].items() if k not in skip}
+        return [(b0, b1, [(dev, entry_views(tree, e, i)) for e, dev in row])
+                for (b0, b1), row in zip(rows, grid)]
+    h = _whole(_norm(entry_view(layers["ln1"], e0, i), x), home)
+    x = _add(x, A.train_tp(groups("attn"), h, cfg, positions))
+    h = _whole(_norm(entry_view(layers["ln2"], e0, i), x), home)
+    if not cfg.is_moe:
+        return _add(x, M.ffn_tp(groups("ffn"), h, cfg)), None
+    g = groups("ffn", skip=("router",))
+    dev, first = g[0][2][0]
+    # route runs whole on one entry's view of the router
+    g[0][2][0] = (dev, dict(first, router=entry_view(
+        layers["ffn"]["router"], e0, i)))
+    f, aux = M.moe_ffn_tp(g, h, cfg)
+    return _add(x, f), aux
+
+
+def _sequence_ce_tp(x: torch.Tensor, labels: torch.Tensor, *heads):
+    """One sequence's mean cross-entropy against the logit columns of
+    the head's blocks ``heads`` (:func:`common.split_logits`)."""
+    return softmax_cross_entropy(split_logits(x, list(heads)), labels)
+
+
+def _fsdp_train_loss(params: dict, batch: dict, cfg: TransformerConfig):
+    """``make_train_loss`` on a tree laid out through ``FSDP_TP``."""
+    mesh = params["embed"].sharding.mesh
+    home = mesh.devices.flat[0]
+    tokens, labels = (_whole(batch[k], home) for k in ("tokens", "labels"))
+    b, t = tokens.shape
+    check_fsdp(cfg, mesh, b)
+    grid = entry_grid(mesh)
+    rows = [block_bounds((b,), (len(grid),), (d,))[0]
+            for d in range(len(grid))]
+    rules = SH.active_rules() or SH.FSDP_TP
+    xs = []
+    for (b0, b1), row in zip(rows, grid):
+        blocks = [entry_bounds(params["embed"], e)[0] +
+                  (entry_view(params["embed"], e),) for e, _ in row]
+        xs.append(take_rows(blocks, tokens[b0:b1].to(row[0][1])).to(home))
+    x = _residual(torch.cat(xs).to(cfg.act_dtype), act_spec(cfg, t), mesh,
+                  rules)
+    positions = torch.arange(t, dtype=torch.int32, device=home).expand(b, t)
+    auxes = []
+    for i in range(cfg.n_layers):
+        args = (params["layers"], x, i, cfg, grid, rows, positions, home)
+        if cfg.remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _fsdp_layer, *args, use_reentrant=False)
+        else:
+            x, aux = _fsdp_layer(*args)
+        if aux is not None:
+            auxes.append(aux)
+    aux = (torch.stack(auxes).sum() if auxes else
+           torch.zeros((), dtype=torch.float32, device=home))
+    x = _whole(_norm(entry_view(params["ln_f"], grid[0][0][0]), x), home)
+    x, labels = x[:, :-1], labels[:, 1:]
+    total = 0
+    for (b0, b1), row in zip(rows, grid):
+        heads = [entry_view(params["lm_head"], e) for e, _ in row]
+        for i in range(b0, b1):
+            total = total + torch.utils.checkpoint.checkpoint(
+                _sequence_ce_tp, x[i], labels[i], *heads,
+                use_reentrant=False)
+    return total / b + cfg.aux_loss_weight * aux

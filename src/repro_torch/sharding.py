@@ -25,6 +25,11 @@ tensors out do it by hand, each by its specs:
   by ``param_specs``: ``heads``, ``mlp``, ``vocab`` and ``experts`` ->
   ``model``; the residual stream by ``act_spec`` through
   :func:`shard_act`);
+* FSDP training of the LM and DIEN train cells on arguments laid out by
+  ``launch.steps``' ``place_args`` through ``FSDP_TP`` (``embed`` ->
+  ``data`` too; each entry gathers its view of a layer, the gradients
+  reduce-scattered: ``launch.mesh.ShardGrads``), the new parameters and
+  AdamW state laid out as the arguments;
 * the ZeRO optimizer state (``optimizer.place_state``, ``state_specs``);
 * DIEN's row-sharded tables (``dien.place_params``: ``table_rows`` ->
   ``model``);
@@ -41,6 +46,7 @@ value, and so does a layout here.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Any, Callable, Mapping, Sequence
 
 from repro_torch.launch.mesh import (Mesh, NamedSharding, PartitionSpec,
@@ -96,10 +102,18 @@ def is_spec(x) -> bool:
 
 
 def map_specs(fn: Callable, specs):
-    """``fn`` over every spec leaf of ``specs`` (dicts, lists, tuples and
-    named tuples), rebuilt in the same structure."""
+    """``fn`` over every spec leaf of ``specs`` (dicts, lists, tuples,
+    named tuples and dataclasses such as ``GraphBatch``), rebuilt in the
+    same structure.  A dataclass field holding an ``int`` (``n_node``,
+    ``n_graph``: the reference's ``static=True`` fields) is kept as it
+    is."""
     if is_spec(specs):
         return fn(specs)
+    if dataclasses.is_dataclass(specs) and not isinstance(specs, type):
+        return dataclasses.replace(specs, **{
+            f.name: map_specs(fn, getattr(specs, f.name))
+            for f in dataclasses.fields(specs)
+            if not isinstance(getattr(specs, f.name), int)})
     if isinstance(specs, dict):
         return {k: map_specs(fn, v) for k, v in specs.items()}
     if isinstance(specs, tuple) and hasattr(specs, "_fields"):

@@ -23,6 +23,12 @@ with ``torch.utils.checkpoint``, which the LM's ``remat`` uses), and
 the guard selects each leaf on the device, so a step syncs with the
 host once, when ``run`` reads the loss (the reference's
 ``block_until_ready``).
+
+The same step runs FSDP on a tree laid out by ``param_specs`` through
+``FSDP_TP`` (``launch.steps``' ``place_args``): :func:`value_and_grad`
+takes the placed path (its doc), and ``optimizer.apply`` updates each
+parameter shard beside its moments' shards, so the new parameters and
+state keep the arguments' layout.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import Placed, ShardGrads
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt
 from repro_torch.train.checkpoint import flatten, unflatten
@@ -63,8 +70,24 @@ class FailAfter:
 
 def value_and_grad(loss_fn: Callable, params, batch):
     """(loss, grads): the gradient of every leaf of ``params`` (zeros
-    where the loss does not reach it), in ``params``' tree and dtypes."""
+    where the loss does not reach it), in ``params``' tree and dtypes.
+
+    A tree of placed leaves (``launch.steps``' ``place_args``) takes the
+    FSDP path: the loss takes each mesh entry's view of a leaf through
+    ``launch.mesh.entry_view``, and the backward runs inside a
+    ``launch.mesh.ShardGrads``, which reduce-scatters the views'
+    gradients onto the leaves' shards; each gradient is a ``Placed`` of
+    its leaf's layout."""
     leaves, td = flatten(params)
+    if any(isinstance(x, Placed) for x in leaves):
+        if not all(isinstance(x, Placed) for x in leaves):
+            raise ValueError("a tree with placed leaves trains only with "
+                             "every leaf placed (place_args)")
+        with ShardGrads(leaves[0].entry_keys[0][1]) as sink, \
+                torch.enable_grad():
+            loss = loss_fn(params, batch)
+            torch.autograd.grad(loss, [sink.anchor], allow_unused=True)
+        return loss.detach(), sink.result(params)
     live = [x.detach().requires_grad_() for x in leaves]
     with torch.enable_grad():
         loss = loss_fn(unflatten(td, live), batch)

@@ -26,7 +26,11 @@ device -- each copy of a replicated block, so that the copies stay
 equal -- and gathers the new parameters whole on their own device.  The
 compression scale is a per-tensor maximum, so it is taken over the
 blocks first.  Only the norm's float32 summation order differs from the
-unplaced step.
+unplaced step.  Under FSDP the parameters and their gradients are laid
+out too (``launch.steps``' ``place_args``; the gradients by
+``launch.mesh.ShardGrads``), as the moments: each parameter shard is
+updated on its device beside its moments' shards and the new parameters
+stay laid out, and a placed ``step`` advances on every copy.
 """
 
 from __future__ import annotations
@@ -103,10 +107,18 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 sum of squares."""
-    total = 0
+    """sqrt of the sum of every leaf's float32 sum of squares; a placed
+    leaf's over its distinct blocks, each once, added on the first
+    placed leaf's first entry's device."""
+    total, home = 0, None
     for x in flatten(tree)[0]:
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
+        if isinstance(x, Placed):
+            home = home or x.entry_keys[0][1]
+            for _, _, shard in x.blocks:
+                total = total + torch.sum(torch.square(shard.to(
+                    torch.float32))).to(home)
+        else:
+            total = total + torch.sum(torch.square(x.to(torch.float32)))
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
@@ -243,14 +255,26 @@ class _OnDevice:
 
 def _apply_placed(params, grads, state: OptState, cfg: AdamWConfig,
                   finite=None):
-    """:func:`_apply` over a state laid out by :func:`place_state`."""
-    step = state.step + 1
+    """:func:`_apply` over a state laid out by :func:`place_state`, or by
+    ``launch.steps``' ``place_args`` together with the parameters and
+    their gradients (FSDP: a placed ``step`` too, each copy advanced)."""
+    step_in = state.step
+    if isinstance(step_in, Placed):
+        step_in = step_in.shard(0)
+    step = step_in + 1
     p_leaves, td = flatten(params)
     g_leaves = flatten(grads)[0]
     mus, nus, errs = (flatten(t)[0] for t in (state.mu, state.nu, state.err))
     ctrl = step.device
-    # each gradient scattered into its moments' shards
-    g_sh = [{key: g[_slices(m.bounds(key[0]))].to(key[1])
+    for p, g, m in zip(p_leaves, g_leaves, mus):
+        for x in (p, g):
+            if isinstance(x, Placed) and x.sharding != m.sharding:
+                raise ValueError(f"a parameter or gradient laid out by "
+                                 f"{x.sharding.spec}, its moments by "
+                                 f"{m.sharding.spec}")
+    # each gradient scattered into its moments' shards (a placed one is)
+    g_sh = [g.shards if isinstance(g, Placed) else
+            {key: g[_slices(m.bounds(key[0]))].to(key[1])
              for key in m.shards} for g, m in zip(g_leaves, mus)]
     total = torch.zeros((), dtype=torch.float32, device=ctrl)
     for g, m in zip(g_sh, mus):
@@ -279,28 +303,34 @@ def _apply_placed(params, grads, state: OptState, cfg: AdamWConfig,
         for key, gk in g.items():
             dev = key[1]
             sh[key] = _update(
-                cfg, p[_slices(m.bounds(key[0]))].to(dev), gk,
+                cfg, p.shards[key] if isinstance(p, Placed) else
+                p[_slices(m.bounds(key[0]))].to(dev), gk,
                 m.shards[key], v.shards[key],
                 e.shards[key] if cfg.compress else None, clip(dev),
                 lr_on(dev), b1c(dev), b2c(dev),
                 None if ok is None else ok(dev),
                 None if scale is None else scale(dev))
-        out = torch.empty_like(p)
-        for key, bounds, _ in m.blocks:
-            out[_slices(bounds)] = sh[key][0].to(p.device)
-        new_p.append(out)
 
         def placed(old, i):
             return Placed(old.sharding, old.shape, old.dtype,
                           {key: x[i] for key, x in sh.items()},
                           old.entry_keys)
+        if isinstance(p, Placed):
+            new_p.append(placed(p, 0))
+        else:
+            out = torch.empty_like(p)
+            for key, bounds, _ in m.blocks:
+                out[_slices(bounds)] = sh[key][0].to(p.device)
+            new_p.append(out)
         new_m.append(placed(m, 1))
         new_v.append(placed(v, 2))
         if cfg.compress:
             new_e.append(placed(e, 3))
     err = unflatten(flatten(state.err)[1], new_e) if cfg.compress \
         else state.err
-    new_state = OptState(step=step,
+    new_step = state.step.map(lambda t, *_: t + 1) \
+        if isinstance(state.step, Placed) else step
+    new_state = OptState(step=new_step,
                          mu=unflatten(flatten(state.mu)[1], new_m),
                          nu=unflatten(flatten(state.nu)[1], new_v), err=err)
     stats = {"grad_norm": gnorm, "lr": lr}

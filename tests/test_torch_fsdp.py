@@ -1,0 +1,332 @@
+"""FSDP training over a mesh: the train cells' ``get_fn(mesh, FSDP_TP)``
+on arguments laid out by ``StepBundle.place_args`` (``train.loop``'s
+placed ``value_and_grad``, ``launch.mesh.gather_entry`` /
+``reduce_scatter`` / ``ShardGrads``, the FSDP train losses of
+``models.transformer`` and ``models.dien``, the placed AdamW) against the
+port's one-device step and the reference's jitted step, on the CPU:
+
+* every LM ``train_4k`` cell and DIEN's ``train_batch``, the LMs' SMOKE
+  configs in float32, over CPU meshes ``("data", "model")`` of (1, 1),
+  (2, 1), (1, 2) and (2, 2) from the port's seeded host arguments: the
+  loss, the grad norm, every updated parameter and every moment equal
+  to ``get_fn()``'s bit for bit at (1, 1), within 1e-5 relative L2
+  elsewhere; qwen2's key bias ``bk`` (a zero-start leaf whose gradient
+  is rounding noise, ``tests/test_torch_launch_lm.py``) within lr of
+  zero in both, its moments at 1e-5 like every leaf's.  Two calls give
+  the same bits, and every output leaf is placed, its shards of the
+  shapes the reference's ``resolve_tree`` gives at that mesh;
+* every cell as it is (the LMs in bfloat16) at (1, 1): the sharded step
+  gives ``get_fn()``'s bits;
+* qwen2-1.5b (GQA, dense), deepseek-v2-lite-16b (MLA, MoE with its aux
+  loss; the zero router of ``test_torch_launch_lm.py``) and DIEN: the
+  reference's host arguments through its jitted cell step and, carried
+  across, through the port's sharded step at (2, 2), in float32 (the
+  LMs' SMOKE configs with float32 dtypes in both packages, the
+  arguments cast): every leaf within the 1e-5 relative L2 above (``bk``
+  within lr of zero), DIEN within ``test_torch_launch_recsys.py``'s
+  rtol 1e-4 / atol 1e-6.  In bfloat16 the port's one-device step sits
+  at the edge of ``test_torch_launch_lm.py``'s 3e-2 a leaf (0.0287 at
+  these inputs, 0.0369 at the reference's seed 1 for deepseek-v2-lite),
+  and the sharded step, whose partial sums round once more, reads on
+  either side of it (0.0314 here, 0.0341 at seed 1): float32 holds the
+  step to the reference 3000 times tighter;
+* ``reduce_scatter`` adds the entries' gradients in entry order in
+  float32 and rounds once; ``gather_entry`` gives an entry its model
+  block and every data shard;
+* a dimension the mesh does not split evenly raises ``ValueError``
+  naming it.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh
+
+from repro import sharding as JS
+from repro.configs import get as jget
+from repro.launch import steps as RS
+from repro_torch import sharding as SH
+from repro_torch.configs import get
+from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import (NamedSharding, PartitionSpec, Placed,
+                                     gather, gather_entry, make_mesh, place,
+                                     reduce_scatter)
+from repro_torch.models import transformer as tf
+from tests.test_torch_launch_lm import (NOISE_GRAD_LEAVES, host, paths,
+                                        rel_l2, zero_router)
+
+GRIDS = ((1, 1), (2, 1), (1, 2), (2, 2))
+LM_ARCHS = ("qwen2-1.5b", "qwen2-7b", "phi3-medium-14b",
+            "deepseek-v2-lite-16b", "deepseek-v2-236b")
+F32_REL_L2 = 1e-5
+DIEN_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def grid_mesh(grid):
+    return make_mesh(grid, ("data", "model"), ["cpu"] * (grid[0] * grid[1]))
+
+
+def cell(arch):
+    spec = get(arch)
+    return spec, "train_4k" if spec.family == "lm" else "train_batch"
+
+
+@functools.lru_cache(maxsize=None)
+def f32_case(arch):
+    """(bundle, host arguments, one-device output): the cell at its SMOKE
+    config in float32 (the LMs; DIEN is float32 already)."""
+    spec, shape = cell(arch)
+    if spec.family == "lm":
+        spec = dataclasses.replace(spec, smoke=dataclasses.replace(
+            spec.smoke, param_dtype=torch.float32, act_dtype=torch.float32))
+    bundle = (S.lm_bundle if spec.family == "lm" else S.dien_bundle)(
+        spec, spec.shapes[shape], True)
+    args = (S.lm_host_args if spec.family == "lm" else S.dien_host_args)(
+        spec, spec.shapes[shape], 0, device="cpu")
+    return bundle, args, bundle.get_fn()(*args)
+
+
+def whole(x):
+    return gather(x) if isinstance(x, Placed) else x
+
+
+def assert_laid_out(arch, got, grid):
+    """Every parameter and state leaf placed, each entry's shard of the
+    shape the reference's ``resolve_tree`` gives under ``FSDP_TP``."""
+    spec, shape = cell(arch)
+    ref = RS.make_bundle(arch, shape, smoke=True)
+    amesh = AbstractMesh(grid, ("data", "model"))
+    want = paths(jax.tree.map(
+        lambda sh, a: np.asarray(sh.shard_shape(a.shape), dtype=np.int64),
+        tuple(JS.resolve_tree(s, JS.FSDP_TP, amesh)
+              for s in ref.arg_specs[:2]),
+        tuple(ref.abstract_args[:2]),
+        is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding)))
+    have = paths(got[:2])
+    assert want.keys() == have.keys()
+    for path, x in have.items():
+        assert isinstance(x, Placed), path
+        for e in range(grid[0] * grid[1]):
+            assert tuple(x.shard(e).shape) == tuple(want[path].tolist()), \
+                path
+
+
+def assert_same_bits(a, b):
+    A, B = paths(a), paths(b)
+    assert A.keys() == B.keys()
+    for path in A:
+        assert torch.equal(whole(A[path]), whole(B[path])), path
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("arch", LM_ARCHS + ("dien",))
+def test_fsdp_step_matches_the_one_device_step(arch, grid):
+    bundle, args, want = f32_case(arch)
+    mesh = grid_mesh(grid)
+    placed = bundle.place_args(args, mesh, SH.FSDP_TP)
+    step = bundle.get_fn(mesh, SH.FSDP_TP)
+    got = step(*placed)
+    assert_same_bits(got, step(*placed))
+    assert_laid_out(arch, got, grid)
+    lr = float(want[2]["lr"])
+    W, G = paths(want), paths(got)
+    assert W.keys() == G.keys()
+    for path, w in W.items():
+        g = whole(G[path])
+        assert g.shape == w.shape and g.dtype == w.dtype, path
+        if grid == (1, 1) or path in ("/2/lr", "/2/skipped", "/1/step"):
+            assert torch.equal(g, w), path
+        elif path.startswith("/0/") and path.endswith("/bk"):
+            # all update of rounding noise (module doc)
+            assert not args[0]["layers"]["attn"]["bk"].any()
+            for x in (g, w):
+                assert float(x.abs().max()) <= lr * 1.01, path
+        else:
+            assert rel_l2(g.numpy(), w.numpy()) <= F32_REL_L2, (
+                path, rel_l2(g.numpy(), w.numpy()))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS + ("dien",))
+def test_fsdp_step_of_the_cell_at_one_entry_is_the_one_device_step(arch):
+    """The cell as it is (the LMs in bfloat16): at (1, 1) the sharded
+    step gives ``get_fn()``'s bits."""
+    spec, shape = cell(arch)
+    bundle = S.make_bundle(arch, shape, smoke=True)
+    args = S.make_host_args(arch, shape, 0, device="cpu")
+    mesh = grid_mesh((1, 1))
+    assert_same_bits(bundle.get_fn(mesh, SH.FSDP_TP)(
+        *bundle.place_args(args, mesh, SH.FSDP_TP)), bundle.get_fn()(*args))
+
+
+def f32_reference(arch, shape):
+    """The reference's bundle at the SMOKE config in float32 (the LMs;
+    DIEN is float32), and its host arguments cast to it (the MoE
+    configurations' router zeroed, module doc)."""
+    jspec = jget(arch)
+    if jspec.family != "lm":
+        return RS.make_bundle(arch, shape, smoke=True), \
+            RS.make_host_args(arch, shape)
+    jspec = dataclasses.replace(jspec, smoke=dataclasses.replace(
+        jspec.smoke, param_dtype=jnp.float32, act_dtype=jnp.float32))
+    args = jax.tree.map(lambda x: x.astype(jnp.float32)
+                        if x.dtype == jnp.bfloat16 else x,
+                        RS.make_host_args(arch, shape))
+    if jspec.smoke.is_moe:
+        args = zero_router(args)
+    return RS.lm_bundle(jspec, jspec.shapes[shape], True), args
+
+
+@pytest.mark.parametrize("arch", ("qwen2-1.5b", "deepseek-v2-lite-16b",
+                                  "dien"))
+def test_fsdp_step_matches_the_reference(arch):
+    spec, shape = cell(arch)
+    ref, args = f32_reference(arch, shape)
+    want = jax.tree.map(np.asarray, jax.jit(ref.get_fn())(*args))
+    port_args = S.load_reference_args(arch, shape, jax.tree.map(
+        np.asarray, args), device="cpu")
+    bundle = f32_case(arch)[0]
+    mesh = grid_mesh((2, 2))
+    got = bundle.get_fn(mesh, SH.FSDP_TP)(
+        *bundle.place_args(port_args, mesh, SH.FSDP_TP))
+    W, G = paths(want), paths(got)
+    lr = float(want[2]["lr"])
+    assert W.keys() == G.keys()
+    for path, w in W.items():
+        g = host(whole(G[path]))
+        assert g.shape == w.shape, path
+        if path in ("/2/lr", "/2/skipped", "/1/step"):
+            np.testing.assert_array_equal(g, w, err_msg=path)
+        elif spec.family == "recsys":
+            np.testing.assert_allclose(g, w, err_msg=path, **DIEN_TOL)
+        elif path.startswith("/0/") and path.rsplit("/", 1)[-1] in \
+                NOISE_GRAD_LEAVES and not np.abs(
+                    host(paths(port_args[0])[path[2:]])).max():
+            for x in (g, w):
+                assert np.abs(x).max() <= lr * 1.01, path
+        else:
+            assert rel_l2(g, w) <= F32_REL_L2, (path, rel_l2(g, w))
+
+
+def test_reduce_scatter_adds_in_entry_order_in_float32():
+    """Four entries' bfloat16 gradients of a leaf laid out (None, "data",
+    "model") over (2, 2): each shard the float32 sum of the two data
+    rows' slices of its model block, rounded once -- not bfloat16
+    additions -- and ``gather_entry`` gives each entry its model block of
+    every data shard, one layer at a time."""
+    mesh = grid_mesh((2, 2))
+    leaf = torch.randn(3, 4, 6, generator=torch.Generator().manual_seed(1))
+    placed = place(leaf, NamedSharding(mesh, PartitionSpec(None, "data",
+                                                           "model")))
+    for e in range(4):
+        m = e % 2
+        torch.testing.assert_close(gather_entry(placed, e, layer=1),
+                                   leaf[1, :, 3 * m:3 * m + 3], rtol=0,
+                                   atol=0)
+    parts = {e: (torch.randn(4, 3, generator=torch.Generator().manual_seed(
+        e)) * 1000).to(torch.bfloat16) + 1 for e in range(4)}
+    out = reduce_scatter(placed, parts, layer=2)
+    for key, g in out.items():
+        (_, d, m), _ = key
+        want = (parts[m][2 * d:2 * d + 2].float() +
+                parts[2 + m][2 * d:2 * d + 2].float()).to(torch.bfloat16)
+        assert torch.equal(g, want)
+
+
+def test_a_dimension_split_unevenly_raises():
+    cfg = get("qwen2-1.5b").smoke
+    with pytest.raises(ValueError, match="heads"):
+        tf.check_fsdp(cfg, grid_mesh((1, 3)), 2)
+    with pytest.raises(ValueError, match="embed"):
+        tf.check_fsdp(cfg, grid_mesh((3, 1)), 3)
+    with pytest.raises(ValueError, match="batch"):
+        tf.check_fsdp(cfg, grid_mesh((2, 1)), 3)
+    bundle, args, _ = f32_case("qwen2-1.5b")
+    with pytest.raises(ValueError, match=r"\(vocab\) of size 512 does not "
+                       r"split evenly"):
+        bundle.place_args(args, grid_mesh((1, 3)), SH.FSDP_TP)
+
+
+def test_chip_smoke_fsdp_phase_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s X7-X9 on the CPU at ``SMOKE`` (qwen2-1.5b,
+    deepseek-v2-lite-16b and DIEN; train_4k's t cut to 16, X9's batch to
+    8): each FSDP step within its limit of the one-device step and its
+    planted fault beyond, X8 repeating bit for bit, X9 in float64 within
+    X3's AdamW tolerance, every entry holding the same bytes, and the
+    five LM cells' bytes an entry on the (16, 16) meta mesh a sixteenth
+    or less of the whole parameters."""
+    import importlib
+
+    import chip_smoke
+    from repro_torch.configs import common as C
+    from repro_torch.kernels import common
+    for name in ("qwen2_1_5b", "deepseek_v2_lite_16b", "dien"):
+        mod = importlib.import_module(f"repro_torch.configs.{name}")
+        monkeypatch.setattr(mod, "CONFIG", mod.SMOKE)
+    monkeypatch.setitem(C.LM_SHAPES, "train_4k", C.ShapeSpec(
+        "train_4k", "train", dict(seq_len=16, global_batch=256)))
+    for key, value in dict(X7_LAYERS=2, X7_BATCH=2, X8_SEQ=16,
+                           X3_GRAD_BATCH=8).items():
+        monkeypatch.setattr(chip_smoke, key, value)
+    counts = chip_smoke.PathLaunches(
+        {k: common.LaunchCounter(k) for k in chip_smoke.KERNEL_SOURCES})
+    out = chip_smoke.fsdp_phase(counts, "the CPU", 0, device="cpu")
+    x7, x8, x9 = out["X7"], out["X8"], out["X9"]
+    assert x7["rel"] <= chip_smoke.X_REL_TOL["X7"] < x7["fault"]
+    assert x8["rel"] <= chip_smoke.X8_REL_TOL < x8["fault"]
+    assert x8["repeats"] and len(x7["loss"]) == chip_smoke.X7_STEPS
+    assert x9["float64_max_abs_err"] <= chip_smoke.X3_ADAMW_RTOL
+    for n in (x7, x8):
+        for key in ("param_bytes_by_entry", "moment_bytes_by_entry"):
+            assert len(set(n[key])) == 1 and len(n[key]) == 4
+    for arch, n in out["production_bytes"].items():
+        assert 0 < n["param_bytes_by_entry"] * 16 <= \
+            n["param_bytes_whole"], arch
+    assert not any(counts.by_path["fsdp"].values())
+
+
+def test_shard_grads_takes_concurrent_arrivals():
+    """On distinct cards autograd hands the views' gradients back from
+    one thread a device: 8 threads handing in 4 entries' gradients of 6
+    layers in a shuffled order, with a short switch interval, leave each
+    layer reduced once, equal to ``reduce_scatter`` of the same parts."""
+    import random
+    import sys
+    import threading
+
+    from repro_torch.launch.mesh import ShardGrads
+    mesh = grid_mesh((2, 2))
+    placed = place(torch.zeros(6, 4, 6), NamedSharding(
+        mesh, PartitionSpec(None, "data", "model")))
+    grads = ShardGrads("cpu")
+    for layer in range(6):
+        for e in range(4):
+            grads.view(placed, e, layer)
+    parts = {(e, layer): torch.randn(4, 3, generator=torch.Generator()
+                                     .manual_seed(10 * layer + e))
+             for e in range(4) for layer in range(6)}
+    order = list(parts)
+    random.Random(0).shuffle(order)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda keys: [
+            grads._arrive(placed, e, layer, parts[e, layer])
+            for e, layer in keys], args=(order[i::8],)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    got = grads.result(placed)
+    for layer in range(6):
+        want = reduce_scatter(placed, {e: parts[e, layer] for e in range(4)},
+                              layer)
+        for key, shard in got.shards.items():
+            assert torch.equal(shard[layer], want[key]), (layer, key)

@@ -197,7 +197,8 @@ def test_chip_smoke_mesh_phase_on_the_cpu(monkeypatch):
     """Phase X of ``chip_smoke.py`` on the CPU, every configuration at
     ``SMOKE`` and every count cut: the sharded decodes within their
     limits and the planted plain-mean fault beyond, the tensor-parallel
-    ones (X5, X6) within theirs and the entry-0 fault beyond, X6's
+    ones (X5, X6) within theirs and the fault (one entry's heads dropped)
+    beyond, X6's
     prefill repeating bit for bit and its routing the whole router's,
     the float32 controls within 1e-4, the placed AdamW step equal to the unplaced one, DIEN's
     row-sharded tables bit for bit, the ring within G's tolerances and
@@ -235,7 +236,7 @@ def test_chip_smoke_mesh_phase_on_the_cpu(monkeypatch):
         tp = n["tp"]
         assert tp["tp"] == 4 and tp["flash_decode_launches"] == 0
         assert tp["rel_l2"] <= chip_smoke.X_REL_TOL[
-            chip_smoke.TP_TAG[tag]] < tp["fault_entry0"]
+            chip_smoke.TP_TAG[tag]] < tp["fault_heads_dropped"]
         assert tp["f32"]["rel_l2"] <= chip_smoke.X_F32_TOL
         sizes = tp["weight_bytes"]
         assert len(set(sizes["by_entry"])) == 1
@@ -260,23 +261,29 @@ def test_chip_smoke_mesh_phase_on_the_cpu(monkeypatch):
 
 
 def test_chip_smoke_x_seed_readings_on_the_cpu(monkeypatch):
-    """``--lm-seeds``' X1, X2, X5 and X6 readings on the CPU at
-    ``SMOKE``: each seed's sharded and tensor-parallel decode within its
-    X_REL_TOL and its planted fault (the shards' plain mean, entry 0's
-    attention partial only) beyond, the readings differing from seed to
-    seed."""
+    """``--lm-seeds``' X1, X2, X5, X6 and X7 readings on the CPU at
+    ``SMOKE``: each seed's sharded and tensor-parallel decode and FSDP
+    step within its X_REL_TOL and its planted fault (the shards' plain
+    mean; one entry's heads dropped) beyond, the readings differing from
+    seed to seed."""
     import chip_smoke
-    for name in ("qwen2_7b", "deepseek_v2_236b"):
+    from repro_torch.configs import common as C
+    for name in ("qwen2_7b", "deepseek_v2_236b", "qwen2_1_5b"):
         mod = importlib.import_module(f"repro_torch.configs.{name}")
         monkeypatch.setattr(mod, "CONFIG", mod.SMOKE)
+    monkeypatch.setitem(C.LM_SHAPES, "train_4k", C.ShapeSpec(
+        "train_4k", "train", dict(seq_len=16, global_batch=256)))
     for key, value in dict(X1_BATCH=2, X1_PROMPT=10, X1_STEPS=4, X2_BATCH=2,
-                           X2_PROMPT=9, X2_STEPS=3).items():
+                           X2_PROMPT=9, X2_STEPS=3, X7_LAYERS=2,
+                           X7_BATCH=2).items():
         monkeypatch.setattr(chip_smoke, key, value)
     out = chip_smoke.x_seed_readings([0, 1], "the CPU", device="cpu")
-    assert set(out) == {"X1", "X2", "X5", "X6"}
+    assert set(out) == {"X1", "X2", "X5", "X6", "X7"}
     for tag, by_seed in out.items():
-        got, fault = (("sharded", "fault_plain_mean") if tag in ("X1", "X2")
-                      else ("rel_l2", "fault_entry0"))
+        got, fault = {"X1": ("sharded", "fault_plain_mean"),
+                      "X2": ("sharded", "fault_plain_mean"),
+                      "X7": ("rel", "fault")}.get(
+                          tag, ("rel_l2", "fault_heads_dropped"))
         assert set(by_seed) == {0, 1}
         for n in by_seed.values():
             assert n[got] <= chip_smoke.X_REL_TOL[tag] < n[fault]

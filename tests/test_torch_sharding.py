@@ -33,10 +33,13 @@ import torch
 from jax.sharding import AbstractMesh
 
 from repro import sharding as JS
+from repro.launch import steps as RS
 from repro.models import dien as jdien
 from repro.models import transformer as jtf
 from repro.train import optimizer as JO
 from repro_torch import sharding as SH
+from repro_torch.configs import get
+from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import (NamedSharding, PartitionSpec, Placed,
                                      gather, make_mesh, place, place_zeros)
 from repro_torch.models import dien as D
@@ -293,3 +296,61 @@ def test_gnn_param_specs_match_the_ports_own_tree(mod, cls, n_params,
     assert {s.spec for s in SH.resolve_tree(specs, SH.FSDP_TP,
                                             mesh).values()} == \
         {PartitionSpec()}
+
+
+GNN_CELLS = [(a, s) for a, s in S.all_cells() if get(a).family == "gnn"]
+
+
+def port_spec_leaves(tree) -> list:
+    """The specs of a resolved tree in the reference's leaf order: a
+    dataclass's fields in order, its ``int`` fields left out."""
+    if isinstance(tree, NamedSharding):
+        return [tuple(tree.spec)]
+    if dataclasses.is_dataclass(tree):
+        return [s for f in dataclasses.fields(tree)
+                if not isinstance(getattr(tree, f.name), int)
+                for s in port_spec_leaves(getattr(tree, f.name))]
+    return [s for x in tree for s in port_spec_leaves(x)]
+
+
+@pytest.mark.parametrize("arch,shape", GNN_CELLS,
+                         ids=[f"{a}-{s}" for a, s in GNN_CELLS])
+def test_gnn_cells_are_placed_and_their_placed_step_raises(arch, shape):
+    """The port's ``resolve_tree`` took no dataclass (``TypeError: not a
+    spec tree: GraphBatch(...)``), so ``place_args`` failed on every GNN
+    train cell.  Now the batch's specs resolve to the reference's leaf by
+    leaf on (2, 2) -- the edges over ("data", "model"), the int fields
+    kept -- every parameter and moment replicated in both; ``place_args``
+    lays the batch out (the molecule cells on (1, 2): their SMOKE 30
+    edges and 3 molecules do not split over (2, 2), which raises naming
+    the edges), and the step on it raises ``ValueError`` naming ROADMAP's
+    item instead of gathering it."""
+    jmesh = AbstractMesh((2, 2), ("data", "model"))
+    tmesh = make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    ref = RS.make_bundle(arch, shape, smoke=True)
+    port = S.make_bundle(arch, shape, smoke=True)
+    want = ref_leaves(JS.resolve_tree(ref.arg_specs[2], JS.FSDP_TP, jmesh))
+    got = port_spec_leaves(SH.resolve_tree(port.arg_specs[2], SH.FSDP_TP,
+                                           tmesh))
+    assert got == want
+    assert (("data", "model"),) in got
+    for i in (0, 1):
+        assert set(ref_leaves(JS.resolve_tree(ref.arg_specs[i], JS.FSDP_TP,
+                                              jmesh))) == {()}
+        assert set(port_leaves(SH.resolve_tree(port.arg_specs[i],
+                                               SH.FSDP_TP, tmesh))) == {()}
+    args = S.make_host_args(arch, shape, device="cpu")
+    mesh = tmesh
+    if shape == "molecule":
+        with pytest.raises(ValueError, match=r"senders.*\(edges\)"):
+            port.place_args(args, mesh, SH.FSDP_TP)
+        mesh = make_mesh((1, 2), ("data", "model"), ["cpu"] * 2)
+    placed = port.place_args(args, mesh, SH.FSDP_TP)
+    batch = placed[2][0]
+    assert isinstance(batch.senders, Placed) and \
+        batch.senders.sharding.spec == PartitionSpec(("data", "model"))
+    assert (batch.n_node, batch.n_graph) == (args[2][0].n_node,
+                                             args[2][0].n_graph)
+    assert torch.equal(gather(batch.receivers), args[2][0].receivers)
+    with pytest.raises(ValueError, match=S.GNN_EDGE_SHARDED_STEP):
+        port.get_fn(mesh, SH.FSDP_TP)(*placed)

@@ -366,6 +366,8 @@ def test_chip_smoke_counts_launches_by_path():
         fd.count += 28 * 16 * 4    # X1: a launch a layer, step and shard
     with counts.path("tp"):
         fd.count += 28 * 16 * 4    # X5: the same on the tp path
+    with counts.path("fsdp"):
+        pass                       # X7-X9: no kernel has a backward
     with counts.path("launch"):
         fd.count += 28 * 16        # B2: the decode_32k cell's decode
     with counts.path("examples"):
@@ -386,12 +388,12 @@ def test_chip_smoke_counts_launches_by_path():
         "deepseek-v2-lite-16b": zero, "deepseek-v2-236b": zero,
         "gnn": zero, "recsys": zero, "train": zero,
         "mesh": dict(zero, flash_decode=1792),
-        "tp": dict(zero, flash_decode=1792),
+        "tp": dict(zero, flash_decode=1792), "fsdp": zero,
         "launch": dict(zero, flash_decode=448),
         "examples": dict(zero, spc_query=30, embedding_bag=1,
                          flash_decode=22)}
     assert chip_smoke.PATH_KERNELS["recsys"] == () == \
-        chip_smoke.PATH_KERNELS["train"]
+        chip_smoke.PATH_KERNELS["train"] == chip_smoke.PATH_KERNELS["fsdp"]
     assert counts.of("spc_query") == (127, dict(paths, dspc=5, kernels=52,
                                                 service=40, examples=30))
     assert counts.of("segment_matmul") == (53, dict(paths, kernels=53))
