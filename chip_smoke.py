@@ -115,9 +115,10 @@ S1. service  -- ``SPCService(spc=<phase 5's DynamicSPC>, route="auto",
                 transport="dir", keep_published=3,
                 async_checkpoint=True)`` over a fresh directory on the
                 temporary or ``build/`` disk (16 GB free or it raises).
-                One session submits 8 events from ``graph_stream`` (two
-                tickets of 4; the configuration's 64-event chunk is cut
-                to 8 for time, in ``reduced``): seconds from submit to
+                One session submits SERVICE_EVENTS = 4 events, the
+                first 4 of an 8-event ``graph_stream`` (two tickets of
+                2; the configuration's 64-event chunk is cut to 8 for
+                time, both in ``reduced``): seconds from submit to
                 applied for each, 64 pinned batches of 1024 pairs timed
                 idle and again while the second ticket's chunk applies,
                 a read_your_writes read of every written pair equal to
@@ -154,8 +155,8 @@ D.  distributed -- one controller over a device mesh: every visible
                 edge axis ``model`` for the updater, a data axis ``data``
                 for serving); the mesh and whether its devices are
                 distinct on a line of their own.  D1: a power-law graph
-                of its own at DIST_HALVINGS = 2 halvings of the dspc
-                CONFIG (n 16384, m 131072, in ``reduced``), built with
+                of its own at DIST_HALVINGS = 3 halvings of the dspc
+                CONFIG (n 8192, m 65536, in ``reduced``), built with
                 phase 4's knobs on
                 one device and by ``DynamicSPC(..., mesh=)``: the two
                 ``state_dict()``s must be byte-identical.  One chunk of 8
@@ -391,8 +392,8 @@ X.  mesh     -- the mesh models over X_ENTRIES = 4 entries of ``cuda:0``
                 not resolve at outputs near 0; ``bucket_edges`` dropping
                 none, and the planted fault (model column 0's partial
                 sums kept, no sum over ``model``) outside both; time and
-                peak memory of the float32 calls.  X7-X9, FSDP over the
-                (2, 2) mesh: the train cells' ``get_fn(mesh, FSDP_TP)``
+                peak memory of the float32 calls.  X7-X10, FSDP over
+                the (2, 2) mesh: the train cells' ``get_fn(mesh, FSDP_TP)``
                 on arguments laid out by ``place_args`` (weights over
                 ``data`` and ``model``, the batch over ``data``) against
                 their ``get_fn()`` from the same random weights and
@@ -414,9 +415,23 @@ X.  mesh     -- the mesh models over X_ENTRIES = 4 entries of ``cuda:0``
                 timed) and in float64 (every updated parameter within
                 X3_ADAMW_RTOL, as X4 holds its element-wise tolerance in
                 float64), each table's and moment's bytes an entry.
-                Then, on meta, each entry's parameter and moment bytes of
-                the five LM train_4k cells at full size on the (16, 16)
-                production mesh.
+                X10: the GNN train cells' edge-sharded step (the edges
+                over ``("data", "model")``, nodes and weights replicated,
+                the targets over ``data``; ``models/gnn/graph.py``'s
+                ``EdgeShards``) for X10_CELLS: EGNN, PNA, NequIP and
+                Equiformer-v2 at full_graph_sm (phase G's graph: 2708
+                nodes, 10752 edge slots, 2688 an entry; d_feat 1433, 7
+                classes), CONFIG width and depth, float32, two steps;
+                EGNN at molecule (128 x 30 nodes, 8192 edges), one step;
+                each one's loss, grad norm and parameters within
+                X_REL_TOL["X10 <arch>"] of the one-device steps (whose
+                outputs wait on the host meanwhile), which the planted
+                fault (entry 3's edge partials left out of every
+                cross-shard sum, max and min) must exceed; step p50s,
+                peaks and the edge slots an entry.  Then, on meta, each
+                entry's parameter and moment bytes of the five LM
+                train_4k cells at full size on the (16, 16) production
+                mesh.
 B.  launch   -- the launch layer (``repro_torch.launch.steps``).  B1:
                 every one of ``all_cells()``'s 44 cells built at full
                 size on the meta device (nothing allocated), one line a
@@ -485,7 +500,7 @@ prefills and decodes, the placed AdamW step, the row-sharded DIEN
 calls and the ring calls of X; flash_decode exactly 28 x 16 x 4 times,
 all in X1), the tp path (X5's and X6's tensor-parallel prefills and
 decodes; flash_decode exactly 28 x 16 x 4 times, all in X5), the fsdp
-path (X7-X9's FSDP steps, which launch no kernel), the launch path (B2's cells: flash_decode exactly 28 x 16
+path (X7-X10's FSDP steps, which launch no kernel), the launch path (B2's cells: flash_decode exactly 28 x 16
 times in the decode; the train cells and the dspc events launch none),
 the examples path (E's in-process examples: spc_query in the DSPC
 examples' serving, embedding_bag in analytics_spc's re-rank, flash_decode
@@ -585,7 +600,7 @@ PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
                 # a shard (MLA's shards, ZeRO, DIEN's tables and the ring
                 # launch none)
                 "mesh": ("flash_decode",),
-                # phase X7-X9: the FSDP train steps (no function of the
+                # phase X7-X10: the FSDP train steps (no function of the
                 # reference has a custom VJP: no kernel, as on "train")
                 "fsdp": (),
                 # phase X5 / X6: the tensor-parallel serve path (qwen2-7b's
@@ -656,21 +671,25 @@ MAIN_RTOL, MAIN_ATOL = 1e-2, 1e-3
 #: the main path's shape.
 FD_REPS = 3
 #: The service phases (S1-S4): events per ingest chunk (the configuration's
-#: update_batch of 64 cut to 8 for time, listed in ``reduced``), serve
-#: batches timed idle and under ingest and their pairs, front-door callers
-#: and their single-pair requests, the bound on every wait, and the free
-#: disk the fleet's directory needs (up to 5 published snapshots of about
-#: 2.15 GB and a state checkpoint of about 2.2 GB).
-SERVICE_CHUNK, SERVICE_BATCHES, SERVICE_PAIRS = 8, 64, 1024
+#: update_batch of 64 cut to 8 for time, listed in ``reduced``), S1's
+#: events (the first of an 8-event stream, two tickets of half; cut for
+#: the script's time limit, in ``reduced``), serve
+#: batches timed idle and under ingest and their pairs, front-door
+#: callers and their single-pair requests, the bound on every wait, and
+#: the free disk the fleet's directory needs (up to 5 published snapshots
+#: of about 2.15 GB and a state checkpoint of about 2.2 GB).
+SERVICE_CHUNK, SERVICE_EVENTS = 8, 4
+SERVICE_BATCHES, SERVICE_PAIRS = 64, 1024
 FD_CALLERS, FD_REQUESTS = 8, 512
 SERVICE_WAIT_S, FLEET_DISK_BYTES = 600.0, 16 * 10 ** 9
 #: Phase D: mesh entries on a single card (an edge axis and a data axis
 #: of 4 entries of cuda:0), events in its chunk, serve batches and their
 #: pairs, and the halvings of the dspc CONFIG's n and m for its own
-#: graph (n 16384, m 131072: its single-device build, which it is held
-#: against, takes a few seconds).
+#: graph (n 8192, m 65536: its single-device build, which it is held
+#: against, takes a few seconds; 3 halvings, not 2, for the script's
+#: time limit).
 DIST_SHARDS, DIST_EVENTS, DIST_BATCHES, DIST_PAIRS = 4, 8, 64, 1024
-DIST_HALVINGS = 2
+DIST_HALVINGS = 3
 #: Phase M: deepseek-v2-lite-16b CONFIG at full width and depth on
 #: decode_32k's context, its global batch of 128 cut to DS_BATCH
 #: requests (the MLA cache is 31104 B a token: 4.1 GB at 4; 8 until
@@ -737,7 +756,10 @@ T_GNN_STEPS = 3
 #: X6: 0.08879 and 0.8778; with PR 25's fault, entry 0's partial only,
 #: 0.7058 and 0.6779); X7's for the FSDP steps' loss, grad norm and
 #: parameters against the one-device steps, and the same fault (0.01011
-#: and 0.05499); the
+#: and 0.05499); X10's for each GNN cell's edge-sharded steps likewise,
+#: and one entry's edge partials dropped (EGNN 1.254e-7 and 0.2866, PNA
+#: 5.237e-5 and 0.06765, NequIP 8.269e-8 and 8.32e-5, Equiformer-v2
+#: 2.313e-7 and 0.007662, EGNN at molecule 1.362e-6 and 0.004716); the
 #: tolerance of K4's LSE output; the sharded decode steps traced; X3's
 #: gradient batch and AdamW tolerance (PR 22's: rtol 1e-6, atol 1e-6
 #: times each leaf's largest magnitude); X4's timed calls at
@@ -747,7 +769,9 @@ X1_BATCH, X1_PROMPT, X1_STEPS = 4, 2048, 16
 X2_BATCH, X2_PROMPT, X2_STEPS = 2, 1024, 8
 X_CHECK_LAYERS, X_CHECK_BATCH, X_F32_TOL = 2, 2, 1e-4
 X_REL_TOL = {"X1": 6.557e-2, "X2": 1.176e-1, "X5": 5.922e-1,
-             "X6": 4.833e-1, "X7": 3.255e-2}
+             "X6": 4.833e-1, "X7": 3.255e-2, "X10 egnn": 1.433e-1,
+             "X10 pna": 3.385e-2, "X10 nequip": 4.164e-5,
+             "X10 equiformer-v2": 3.831e-3, "X10 egnn molecule": 2.359e-3}
 X_LSE_ATOL, X_TRACE_STEPS = 1e-3, 2
 X3_GRAD_BATCH, X3_ADAMW_RTOL = 4096, 1e-6
 X4_REPS = 3
@@ -759,6 +783,12 @@ X4_REPS = 3
 #: X3_GRAD_BATCH within X3_ADAMW_RTOL.
 X7_LAYERS, X7_BATCH, X7_STEPS = 8, 4, 2
 X8_BATCH, X8_SEQ, X8_REL_TOL = 2, 1024, 1e-3
+#: X10 (the GNN train cells' edge-sharded step over X_GRID): each cell at
+#: CONFIG width and depth in float32 and its AdamW steps; its limit is
+#: X_REL_TOL["X10 <arch>"] (" molecule" after EGNN's molecule cell's).
+X10_CELLS = (("egnn", "full_graph_sm", 2), ("pna", "full_graph_sm", 2),
+             ("nequip", "full_graph_sm", 2),
+             ("equiformer-v2", "full_graph_sm", 2), ("egnn", "molecule", 1))
 #: X4's layers at minibatch_lg (CONFIG's 12 until PR 24; cut for the
 #: script's time limit: the ring's one call there took 24.6 s at 12
 #: layers, 8.2 s at 4, on an H100).
@@ -1580,7 +1610,21 @@ def x_seed_readings(seeds, card: str, device="cuda") -> dict:
             k: n[k] for k in ("rel", "fault", "loss", "grad_norm", "params")}
         log(f"X7 seed {seed}: {json.dumps(out['X7'][seed])} "
             f"({time.monotonic() - t0:.3f} s on {card})")
+        x10_seed_readings(seed, grid, card, device, out)
     return out
+
+
+def x10_seed_readings(seed: int, grid, card: str, device, out: dict) -> None:
+    """X10's cells and their fault from ``seed`` into ``out[tag][seed]``."""
+    for arch, shape, steps in X10_CELLS:
+        t0 = time.monotonic()
+        tag = x10_tag(arch, shape)
+        n = x10_case(arch, shape, steps, seed, grid, PathLaunches({}),
+                     device)
+        out.setdefault(tag, {})[seed] = {
+            k: n[k] for k in ("rel", "fault", "loss", "grad_norm", "params")}
+        log(f"{tag} seed {seed}: {json.dumps(out[tag][seed])} "
+            f"({time.monotonic() - t0:.3f} s on {card})")
 
 
 def zero_rope_decode(decode):
@@ -2853,6 +2897,145 @@ def one_entry_experts_dropped(per_entry: int):
         M._combine = combine
 
 
+@contextlib.contextmanager
+def one_entry_edges_dropped(entry: int = X_ENTRIES - 1):
+    """X10's planted fault: mesh entry ``entry``'s edge partials left out
+    of every cross-shard reduction (sum, max, min) of the GNNs' edge
+    shards."""
+    from repro_torch.models.gnn.graph import EdgeShards
+    saved = {k: getattr(EdgeShards, k) for k in ("sum", "max", "min")}
+
+    def dropping(reduce):
+        return lambda self, parts: reduce(
+            self, [p for i, p in enumerate(parts) if i != entry])
+    for k, reduce in saved.items():
+        setattr(EdgeShards, k, dropping(reduce))
+    try:
+        yield
+    finally:
+        for k, reduce in saved.items():
+            setattr(EdgeShards, k, reduce)
+
+
+def x10_tag(arch: str, shape: str) -> str:
+    return f"X10 {arch}" + (" molecule" if shape == "molecule" else "")
+
+
+def x10_inputs(arch: str, shape: str, seed: int, device):
+    """X10's cell (``launch.steps``) at ``configs/<arch>.py``'s CONFIG and
+    its arguments: random weights from a CPU generator seeded from
+    ``seed``, a fresh AdamW state, phase G's graph of the shape
+    (:func:`gnn_shape_inputs`; PNA's without positions) and labels drawn
+    from ``seed``: classes at full_graph_sm, N(0, 1) targets at
+    molecule."""
+    import dataclasses
+    import importlib
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.launch import steps as S
+    from repro_torch.train import optimizer as O
+    mod = importlib.import_module(
+        f"repro_torch.configs.{arch.replace('-', '_')}")
+    spec = dataclasses.replace(get(arch), config=mod.CONFIG)
+    bundle = S.gnn_bundle(spec, spec.shapes[shape], False)
+    inp = gnn_shape_inputs(shape, seed, device)
+    batch = inp["batch"]
+    if arch == "pna":
+        batch = dataclasses.replace(batch, pos=None)
+    batch_a, labels_a = bundle.abstract_args[2]
+    if (batch.n_node, batch.n_edge) != (batch_a.n_node, batch_a.n_edge):
+        raise AssertionError(f"X10 {arch}/{shape}: the graph has "
+                             f"{batch.n_node} nodes in {batch.n_edge} edge "
+                             f"slots, the cell {batch_a.n_node} in "
+                             f"{batch_a.n_edge}")
+    rng = np.random.default_rng(seed + 89)
+    labels = (rng.integers(0, inp["n_out"], labels_a.shape).astype(np.int32)
+              if labels_a.dtype == torch.int32 else
+              rng.normal(size=labels_a.shape).astype(np.float32))
+    params = S.gnn_params(spec, spec.shapes[shape], seed + 97, smoke=False,
+                          device=device)
+    return bundle, (params, O.init(params, O.AdamWConfig()),
+                    (batch, torch.from_numpy(labels).to(device)))
+
+
+def x10_case(arch: str, shape: str, steps: int, seed: int, mesh, counts,
+             device="cuda") -> dict:
+    """X10 (module doc): ``steps`` AdamW steps of the cell through
+    ``get_fn()``, then, the one-device outputs moved off the card,
+    through ``get_fn(mesh, FSDP_TP)`` on ``place_args`` arguments (inside
+    ``counts.path("fsdp")``), then again with one entry's edge partials
+    dropped."""
+    import torch
+    from repro_torch import sharding as SH
+    bundle, args = x10_inputs(arch, shape, seed, device)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    want_p, _, want_stats, ms_one = fsdp_steps(bundle.get_fn(), args[0],
+                                               args[1], [args[2]] * steps)
+    peak_one = torch.cuda.max_memory_allocated() if cuda else 0
+    # the card holds one run at a time: the reference run's parameters
+    # wait on the host
+    want_p = {k: v.cpu() for k, v in want_p.items()}
+    placed = bundle.place_args(args, mesh, SH.FSDP_TP)
+    del args
+    release(device)
+    step = bundle.get_fn(mesh, SH.FSDP_TP)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with counts.path("fsdp"):
+        got_p, _, got_stats, ms = fsdp_steps(step, placed[0], placed[1],
+                                             [placed[2]] * steps)
+    senders = placed[2][0].senders
+    out = {"steps": steps, "n_node": placed[2][0].n_node,
+           "edge_slots": senders.shape[0],
+           "edges_by_entry": [int(senders.shard(e).shape[0])
+                              for e in range(mesh.size)],
+           "step_ms": ms, "step_ms_p50": float(np.median(ms)),
+           "one_device_step_ms": ms_one,
+           "one_device_step_ms_p50": float(np.median(ms_one)),
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
+           "one_device_peak_bytes": peak_one}
+    out.update(fsdp_reading(got_p, got_stats, want_p, want_stats))
+    if not all(np.isfinite(x) for st in got_stats for x in st):
+        raise AssertionError(f"{x10_tag(arch, shape)}: the sharded step's "
+                             f"loss or grad norm is not finite: {got_stats}")
+    del got_p
+    release(device)
+    with one_entry_edges_dropped():
+        bad_p, _, bad_stats, _ = fsdp_steps(step, placed[0], placed[1],
+                                            [placed[2]] * steps)
+    out["fault"] = fsdp_reading(bad_p, bad_stats, want_p, want_stats)["rel"]
+    del bad_p, placed, want_p
+    release(device)
+    return out
+
+
+def x10_phase(counts, card: str, seed: int, mesh, device="cuda") -> dict:
+    """X10 (module doc): each of X10_CELLS against its limit."""
+    out = {}
+    for arch, shape, steps in X10_CELLS:
+        tag = x10_tag(arch, shape)
+        t0 = time.monotonic()
+        n = x10_case(arch, shape, steps, seed, mesh, counts, device)
+        n["seconds"] = time.monotonic() - t0
+        out[f"{arch}/{shape}"] = n
+        log(f"{tag} {arch}/{shape} edge-sharded over {mesh} (CONFIG, "
+            f"float32; {n['edge_slots']} edge slots, "
+            f"{json.dumps(n['edges_by_entry'])} an entry; {steps} steps) vs "
+            f"the one-device step: loss "
+            f"{json.dumps(n['loss'])}, grad norm {json.dumps(n['grad_norm'])}, "
+            f"parameters {n['params']:.4g} (relative; limit "
+            f"{X_REL_TOL[tag]}), planted fault (entry {X_ENTRIES - 1}'s edge "
+            f"partials dropped) {n['fault']:.4g}; step p50 "
+            f"{n['step_ms_p50']:.3f} ms (sharded) vs "
+            f"{n['one_device_step_ms_p50']:.3f} ms (one device), peak "
+            f"{n['peak_bytes']} B vs {n['one_device_peak_bytes']} B; "
+            f"{n['seconds']:.3f} s on {card}")
+        check_fsdp(tag, n, X_REL_TOL[tag])
+    return out
+
+
 def fsdp_bundle(cfg, kind: str, dims: dict):
     """The train cell (``launch.steps``) of ``cfg``'s architecture at
     ``cfg``, its shape cut to ``dims``."""
@@ -3126,8 +3309,8 @@ def check_fsdp(tag: str, n: dict, limit: float) -> None:
 
 
 def fsdp_phase(counts, card: str, seed: int, device="cuda") -> dict:
-    """X7-X9 (module doc) over X_GRID's mesh of X_ENTRIES entries, and the
-    five LM cells' bytes an entry on the production mesh (meta)."""
+    """X7-X10 (module doc) over X_GRID's mesh of X_ENTRIES entries, and
+    the five LM cells' bytes an entry on the production mesh (meta)."""
     from repro_torch.launch.mesh import make_mesh
     grid_mesh = make_mesh(X_GRID, ("data", "model"), mesh_devices(device))
     t0 = time.monotonic()
@@ -3167,12 +3350,13 @@ def fsdp_phase(counts, card: str, seed: int, device="cuda") -> dict:
         f"{n['rtol']} x each leaf's largest magnitude); step ms "
         f"{json.dumps(n['step_ms'])} vs {json.dumps(n['one_device_step_ms'])}"
         f"; bytes an entry {json.dumps(n['bytes_by_entry'])} on {card}")
+    out["X10"] = x10_phase(counts, card, seed, grid_mesh, device)
     out["production_bytes"] = fsdp_entry_bytes()
     log(f"X FSDP bytes an entry of the LM train_4k cells at full size on "
         f"the (16, 16) production mesh (meta): "
         f"{json.dumps(out['production_bytes'])}")
     if any(counts.by_path["fsdp"].values()):
-        raise AssertionError(f"X7-X9 launched a kernel of the port: "
+        raise AssertionError(f"X7-X10 launched a kernel of the port: "
                              f"{counts.by_path['fsdp']}")
     out["seconds"] = time.monotonic() - t0
     return out
@@ -4574,8 +4758,12 @@ def service_phases(svc, counts, seed: int, card: str,
             f"{written} B written)")
         service.start()
         sess = service.session()
+        # the first SERVICE_EVENTS events of an 8-event stream: a stream
+        # of 4 draws other events, and a delete runs from ~1 s to over
+        # 60 s with its affected hubs
+        half = SERVICE_EVENTS // 2
         events = graph_stream(sorted(edge_set(svc.graph)), n, 4, 4,
-                              seed=seed + 7)
+                              seed=seed + 7)[:SERVICE_EVENTS]
         pinned, rw = service.reader("pinned"), sess.reader()
         batches = [(rng.integers(0, n, SERVICE_PAIRS),
                     rng.integers(0, n, SERVICE_PAIRS))
@@ -4583,13 +4771,13 @@ def service_phases(svc, counts, seed: int, card: str,
         applied_s, overlap = [], 0
         with counts.path("service"):
             t0 = time.monotonic()
-            t1 = sess.submit(events[:4])
+            t1 = sess.submit(events[:half])
             service.wait_for_ticket(t1)
             applied_s.append(time.monotonic() - t0)
             timed_batches(pinned, batches[:2])           # warm-up
             idle_s = timed_batches(pinned, batches)
             t0 = time.monotonic()
-            t2 = sess.submit(events[4:])
+            t2 = sess.submit(events[half:])
             busy_s = []
             for s, t in batches:
                 busy_s += timed_batches(pinned, [(s, t)])
@@ -4629,7 +4817,7 @@ def service_phases(svc, counts, seed: int, card: str,
             "serve_under_ingest_us": percentiles_us(busy_s),
             "batches_during_the_chunk": int(overlap),
             "reader_routes": routes})
-        log(f"S1 service: tickets {t1}, {t2} (4 events each, chunks of "
+        log(f"S1 service: tickets {t1}, {t2} ({half} events each, chunks of "
             f"{SERVICE_CHUNK}) applied {applied_s[0]:.3f}, {applied_s[1]:.3f} "
             f"s after submit (v{out['versions'][0]}, v{out['versions'][1]}); "
             f"the last directory write settled "
@@ -5883,6 +6071,10 @@ def main(argv=None) -> int:
         f"5 maintain chunk {CONFIG.update_batch}->{MAINTAIN_EVENTS} events",
         f"service update_batch {CONFIG.update_batch}->{SERVICE_CHUNK} (S1-S4 "
         f"only)",
+        # the script's time limit (phase X10)
+        f"S1 events 8->{SERVICE_EVENTS} (the first {SERVICE_EVENTS} of "
+        f"the same stream, two tickets of {SERVICE_EVENTS // 2})",
+        f"D halvings 2->{DIST_HALVINGS}",
         # the script's time limit (PR 24 added phases B and E)
         f"M deepseek-v2-lite-16b global_batch 128->{DS_BATCH} (8 until "
         f"PR 24)",

@@ -528,9 +528,17 @@ def gather_entry(placed: Placed, entry: int, layer: int | None = None,
     tensor of its own on ``device`` (default: the entry's).  With
     ``layer``, index ``layer`` of the leading dimension only (the LM's
     stacked layers): one layer at a time."""
-    view = _layer_bounds(entry_bounds(placed, entry), layer)
+    bounds = entry_bounds(placed, entry)
     dev = canonical_device(device if device is not None else
                            placed.sharding.mesh.devices.flat[entry])
+    key = placed.entry_keys[entry]
+    if placed.bounds(key[0]) == bounds and (
+            layer is None or bounds[0] == (0, placed.shape[0])):
+        # the entry's own shard is its view (a leaf not split over
+        # "data", a replicated one): copied from where the entry holds it
+        own = placed.shards[key]
+        return (own if layer is None else own[layer]).to(dev, copy=True)
+    view = _layer_bounds(bounds, layer)
     shape = [hi - lo for lo, hi in view][0 if layer is None else 1:]
     out = torch.empty(shape, dtype=placed.dtype, device=dev)
     for _, bounds, shard in placed.blocks:

@@ -23,7 +23,12 @@ Where the port's trees differ from the reference's:
   the module's ``named_parameters()`` by name, replicated (``()``); the
   step puts them into a module of the bundle built on the parameters'
   device (``torch.func.functional_call``), whose buffers (CG tables,
-  index maps) are its own;
+  index maps) are its own.  On arguments laid out by ``place_args``
+  (``FSDP_TP``: the edges over ``("data", "model")``, the labels of the
+  sampled and molecule cells over ``data``) the step is edge-sharded
+  (:meth:`GNNModules.call`); its losses add each label block's terms
+  where the block lies, the blocks in order, and divide by the whole
+  count;
 * ``GraphBatch`` indexes with int64 (``graph.batch_spec``);
 * the DSPC ``Graph`` keeps ``m2`` as a host int: the abstract graph
   carries ``2 * m``, the high-water mark ``from_edges`` gives a graph of
@@ -50,14 +55,15 @@ from repro_torch import sharding as SH
 from repro_torch.configs import get as get_arch
 from repro_torch.configs.common import ArchSpec, ShapeSpec
 from repro_torch.core.graph import resolve_device
-from repro_torch.launch.mesh import Placed, gather, place_tree
+from repro_torch.launch.mesh import (Placed, entry_view, gather, place_tree,
+                                     psum)
 from repro_torch.models import dien as dien_mod
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import load_tree, softmax_cross_entropy
+from repro_torch.models.common import cross_entropy_terms, load_tree
 from repro_torch.models.gnn.egnn import EGNN
 from repro_torch.models.gnn.equiformer_v2 import EquiformerV2
-from repro_torch.models.gnn.graph import (GraphBatch, batch_spec,
-                                          replicated_specs)
+from repro_torch.models.gnn.graph import (EdgeShards, GraphBatch, ModuleCall,
+                                          batch_spec, replicated_specs)
 from repro_torch.models.gnn.nequip import NequIP
 from repro_torch.models.gnn.pna import PNA
 from repro_torch.models.gnn.sampler import sample_block_caps
@@ -82,9 +88,10 @@ class StepBundle:
         :meth:`place_args`, an LM prefill or decode cell runs the
         tensor-parallel serve path (``TP_ONLY``; ``models.transformer``),
         an LM or DIEN train cell the FSDP step (``FSDP_TP``;
-        ``train.loop``), which returns the new parameters and state laid
-        out as its arguments; whole arguments run the one-device step.  A
-        GNN train cell refuses placed arguments (:func:`_gnn_step`)."""
+        ``train.loop``) and a GNN train cell the edge-sharded step
+        (:meth:`GNNModules.call`), each of which returns the new
+        parameters and state laid out as its arguments; whole arguments
+        run the one-device step."""
         if self.mesh_fn is not None:
             if mesh is None:
                 raise ValueError(f"{self.name} needs a mesh")
@@ -298,11 +305,82 @@ class GNNModules:
             self._built[dev] = self.cls(self.cfg, device=dev)
         return self._built[dev]
 
-    def call(self, params: dict, method: str, *args):
+    def call(self, params: dict, method: str, batch: GraphBatch):
+        """``method`` of the module on ``batch`` with ``params``; a batch
+        laid out by ``place_args`` (its edges placed) runs edge-sharded:
+        :meth:`call_sharded`."""
+        if isinstance(batch.senders, Placed):
+            return self.call_sharded(params, method, batch)
         model = self.on(next(iter(params.values())).device)
         return torch.func.functional_call(
             _Method(model, method), {f"m.{k}": v for k, v in params.items()},
-            args)
+            (batch,))
+
+    def call_sharded(self, params: dict, method: str, batch: GraphBatch):
+        """The edge-sharded forward (the reference's ``"edges": ("data",
+        "model")``, nodes and parameters replicated): mesh entry ``e``
+        runs the messages of its block of the edges
+        (``graph.EdgeShards.placed``) with its own view of the edge
+        weights (``launch.mesh.entry_view``, one a (leaf, entry), on the
+        module built on its device); the shards' partial aggregates come
+        together on the controller's device (entry 0's), where the node
+        work runs once, on entry 0's view of every parameter, so that each
+        leaf's gradient is the sum of its entries' views' gradients in
+        entry order (``launch.mesh.ShardGrads`` under
+        ``train.loop.value_and_grad``).  ``params`` must be placed on
+        the batch's mesh."""
+        mesh = batch.senders.sharding.mesh
+        if not all(isinstance(p, Placed) and p.sharding.mesh == mesh
+                   for p in params.values()):
+            raise ValueError("an edge-sharded batch trains with every "
+                             "parameter placed on its mesh (place_args)")
+        model = self.on(mesh.devices.flat[0])
+        paths = {id(m): name for name, m in model.named_modules()}
+        views: dict = {}
+
+        def view(entry: int, name: str) -> torch.Tensor:
+            if (entry, name) not in views:
+                views[entry, name] = entry_view(params[name], entry)
+            return views[entry, name]
+
+        def call_of(entry: int, device):
+            if entry == 0:
+                return None         # entry 0's views are the module's own
+
+            def call(module, subs, fn, *args):
+                path = paths[id(module)]
+                tensors = {}
+                for sub in subs:
+                    pre = ".".join(x for x in (path, sub) if x) + "."
+                    tensors.update({f"module.{sub}.{k[len(pre):]}":
+                                    view(entry, k) for k in params
+                                    if k.startswith(pre)})
+                twin = self.on(device).get_submodule(path)
+                return torch.func.functional_call(ModuleCall(twin, fn),
+                                                  tensors, args)
+            return call
+
+        nodes, edges = EdgeShards.placed(batch, call_of)
+        return torch.func.functional_call(
+            _Method(model, method), {f"m.{k}": view(0, k) for k in params},
+            (nodes, edges))
+
+
+def _label_blocks(labels) -> list:
+    """(lo, hi, block) of ``labels`` by rows where they lie: the whole
+    tensor, or each block of a placed one on its first entry's device."""
+    if isinstance(labels, Placed):
+        return [(b[0][0], b[0][1], shard) for _, b, shard in labels.blocks]
+    return [(0, labels.shape[0], labels)]
+
+
+def _blocked_mean(terms, out: torch.Tensor, labels, count: int):
+    """The mean of ``terms(out rows, label rows)`` over ``count`` terms:
+    each label block's terms summed on its device, the blocks added in
+    order in float32 on ``out``'s device (``launch.mesh.psum``)."""
+    return psum([terms(out[lo:hi].to(lab.device), lab).sum()
+                 for lo, hi, lab in _label_blocks(labels)],
+                out.device) / count
 
 
 def _gnn_setup(spec: ArchSpec, shape: ShapeSpec, smoke: bool) -> dict:
@@ -340,7 +418,8 @@ def _gnn_setup(spec: ArchSpec, shape: ShapeSpec, smoke: bool) -> dict:
             logits = modules.call(params, method, batch)
             if n_tgt is not None:
                 logits = logits[:n_tgt]
-            return softmax_cross_entropy(logits, labels)
+            return _blocked_mean(cross_entropy_terms, logits, labels,
+                                 logits.shape[0])
 
         labels_a = _meta((n_tgt if n_tgt else n_node,), torch.int32)
         labels_spec = ("batch",) if n_tgt else ()
@@ -358,7 +437,8 @@ def _gnn_setup(spec: ArchSpec, shape: ShapeSpec, smoke: bool) -> dict:
             batch, target = batch_and_target
             out = modules.call(params, "forward", batch)
             g = out if arch == "pna" else out[0]
-            return ((g - target) ** 2).mean()
+            return _blocked_mean(lambda x, t: (x - t) ** 2, g, target,
+                                 g.numel())
 
         labels_a = _meta((n_graph, 1), torch.float32)
         labels_spec = ("batch", None)
@@ -375,36 +455,13 @@ def _named_params(model: nn.Module) -> dict:
     return {k: p.detach() for k, p in model.named_parameters()}
 
 
-#: ROADMAP's name for the GNN train cells' step on a placed batch.
-GNN_EDGE_SHARDED_STEP = "the GNN cells' edge-sharded step"
-
-
-def _gnn_step(loss_fn):
-    """The GNN cells' train step: on one device only.  Arguments laid out
-    by ``place_args`` raise ``ValueError``: the edge-sharded step (segment
-    sums, softmaxes and PNA's max / min / std reduced across the edge
-    shards) is not ported yet, and the step does not gather the batch
-    behind the caller's back."""
-    step = make_train_step_fn(loss_fn, _OPT)
-
-    def gnn_step(params, state, batch):
-        if any(isinstance(x, Placed) for x in _leaves(
-                (params, state, batch))):
-            raise ValueError(f"a GNN train cell runs on one device: its "
-                             f"step on placed arguments waits for "
-                             f"{GNN_EDGE_SHARDED_STEP} (ROADMAP queue 1, "
-                             f"item 1)")
-        return step(params, state, batch)
-    return gnn_step
-
-
 def gnn_bundle(spec: ArchSpec, shape: ShapeSpec, smoke: bool) -> StepBundle:
     s = _gnn_setup(spec, shape, smoke)
     params_a = _named_params(s["modules"].on("meta"))
     p_specs = replicated_specs(s["modules"].on("meta"))
     return StepBundle(
         name=f"{spec.arch_id}/{shape.name}",
-        fn=_gnn_step(s["loss_fn"]), mesh_fn=None,
+        fn=make_train_step_fn(s["loss_fn"], _OPT), mesh_fn=None,
         abstract_args=(params_a, opt.init(params_a, _OPT),
                        (s["batch_a"], s["labels_a"])),
         arg_specs=(p_specs, opt.state_specs(p_specs),
@@ -445,11 +502,20 @@ def gnn_host_args(spec: ArchSpec, shape: ShapeSpec, seed: int = 0, *,
         labels = rng.integers(0, 5, labels_a.shape).astype(np.int32)
     else:
         labels = rng.normal(size=labels_a.shape).astype(np.float32)
-    model = s["modules"].cls(s["cfg"], generator=torch.Generator()
-                             .manual_seed(seed), device=dev)
-    params = _named_params(model)
+    params = gnn_params(spec, shape, seed, smoke=True, device=dev)
     return (params, opt.init(params, _OPT),
             (batch, torch.from_numpy(labels).to(dev)))
+
+
+def gnn_params(spec: ArchSpec, shape: ShapeSpec, seed: int = 0, *,
+               smoke: bool, device="cuda") -> dict:
+    """The cell's parameters by name: its module at the cell's config
+    (SMOKE with ``smoke``, else CONFIG), weights from a CPU
+    ``torch.Generator`` seeded ``seed``, on ``device``."""
+    s = _gnn_setup(spec, shape, smoke)
+    return _named_params(s["modules"].cls(
+        s["cfg"], generator=torch.Generator().manual_seed(seed),
+        device=resolve_device(device)))
 
 
 # ==========================================================================
@@ -898,5 +964,5 @@ def all_cells(include_dspc: bool = True):
 __all__ = ["GNNModules", "StepBundle", "all_cells", "dien_bundle",
            "dien_host_args", "dspc_bundle", "dspc_host_args",
            "equiformer_ring_bundle", "gnn_bundle", "gnn_host_args",
-           "lm_bundle", "lm_host_args", "load_reference_args",
+           "gnn_params", "lm_bundle", "lm_host_args", "load_reference_args",
            "make_bundle", "make_host_args"]

@@ -64,16 +64,21 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 
 
-def softmax_cross_entropy(logits: torch.Tensor,
-                          labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over tokens: float32 logsumexp of ``logits [..., V]``
-    minus the label's logit.  The reference selects the label's logit
-    with an iota compare (which keeps a vocab-sharded mesh elementwise);
-    on one card a gather reads the same number."""
+def cross_entropy_terms(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """Each token's CE: float32 logsumexp of ``logits [..., V]`` minus
+    the label's logit.  The reference selects the label's logit with an
+    iota compare (which keeps a vocab-sharded mesh elementwise); on one
+    card a gather reads the same number."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels[..., None].long())[..., 0]
-    return (logz - ll).mean()
+    return logz - logits.gather(-1, labels[..., None].long())[..., 0]
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over tokens (:func:`cross_entropy_terms`)."""
+    return cross_entropy_terms(logits, labels).mean()
 
 
 def row_blocks(table: Placed) -> list:

@@ -9,7 +9,11 @@ Port of ``repro.models.gnn.egnn``.  Messages depend on invariants
 
 with C = 1 / (deg_i + 1) when ``coord_agg_mean``.  The aggregations are
 the port's ``agg_sum`` (``index_add_``), as the reference's are
-``jax.ops.segment_sum``.
+``jax.ops.segment_sum``.  Each edge shard (``graph.EdgeShards``: one on
+one device) computes its messages with its own ``phi_e`` / ``phi_x``
+and its partial ``dx``, degrees and ``magg``; the shards' sums are
+added before the division by ``deg + 1`` and the node update, which
+runs once.
 
 Weights are held in the reference's ``[in, out]`` layout (``x @ w + b``),
 so :meth:`EGNN.load_reference_params` copies them as they are.
@@ -25,8 +29,9 @@ from torch import nn
 
 from repro_torch.core.graph import resolve_device
 from repro_torch.models.common import MLP
-from repro_torch.models.gnn.graph import (GraphBatch, agg_sum, graph_readout,
-                                          mse_loss, replicated_specs)
+from repro_torch.models.gnn.graph import (EdgeShards, GraphBatch, agg_sum,
+                                          graph_readout, mse_loss,
+                                          replicated_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,22 +55,36 @@ class EGNNLayer(nn.Module):
         self.phi_x = MLP([h, h, 1], **kw)
         self.phi_h = MLP([2 * h, h, h], **kw)
 
-    def forward(self, h, x, batch: GraphBatch):
-        s, r = batch.senders, batch.receivers
-        n1 = batch.n_node + 1
-        mask = batch.edge_mask
+    #: The submodules each edge shard runs with its own parameters.
+    EDGE = ("phi_e", "phi_x")
+
+    def edge_sums(self, shard, h, x, n_node: int):
+        """One edge shard's partial sums: (dx, degrees or None, magg),
+        each [N + 1, ...]."""
+        s, r = shard.senders, shard.receivers
+        n1 = n_node + 1
+        mask = s != n_node
         rel = x[r] - x[s]                                 # x_i - x_j at recv i
         d2 = (rel * rel).sum(dim=-1, keepdim=True)
         m = self.phi_e(torch.cat([h[r], h[s], d2], dim=-1), last_act=True)
         m = m * mask[:, None].to(m.dtype)                 # [E, h]
-        # coordinate update
         dx = agg_sum(rel * self.phi_x(m), r, n1)
+        deg = agg_sum(mask.to(x.dtype), r, n1) if self.coord_agg_mean \
+            else None
+        return dx, deg, agg_sum(m, r, n1)
+
+    def forward(self, h, x, batch: GraphBatch, edges: EdgeShards):
+        parts = [sh.call(self, self.EDGE, EGNNLayer.edge_sums, sh, hd, xd,
+                         batch.n_node)
+                 for sh, hd, xd in zip(edges, edges.on_shards(h),
+                                       edges.on_shards(x))]
+        # coordinate update
+        dx = edges.sum([p[0] for p in parts])
         if self.coord_agg_mean:
-            deg = agg_sum(mask.to(x.dtype), r, n1)
-            dx = dx / (deg[:, None] + 1.0)
+            dx = dx / (edges.sum([p[1] for p in parts])[:, None] + 1.0)
         x = x + dx
         # feature update
-        magg = agg_sum(m, r, n1)
+        magg = edges.sum([p[2] for p in parts])
         h = h + self.phi_h(torch.cat([h, magg], dim=-1))
         return h, x
 
@@ -88,24 +107,28 @@ class EGNN(nn.Module):
             EGNNLayer(cfg, generator, dev) for _ in range(cfg.n_layers))
         self.head = MLP([cfg.d_hidden, cfg.d_hidden, cfg.n_out], **kw)
 
-    def _trunk(self, batch: GraphBatch):
+    def _trunk(self, batch: GraphBatch, edges: EdgeShards | None):
+        edges = EdgeShards.whole(batch) if edges is None else edges
         h = self.embed(batch.nodes.to(self.cfg.dtype))
         x = batch.pos.to(self.cfg.dtype)
         for layer in self.layers:
-            h, x = layer(h, x, batch)
+            h, x = layer(h, x, batch, edges)
         return h, x
 
-    def forward(self, batch: GraphBatch):
-        """Returns (graph_out [G, n_out], h [N+1, d], x [N+1, 3])."""
-        h, x = self._trunk(batch)
+    def forward(self, batch: GraphBatch, edges: EdgeShards | None = None):
+        """Returns (graph_out [G, n_out], h [N+1, d], x [N+1, 3]);
+        ``edges`` (default: the batch's own, one shard) as
+        ``graph.EdgeShards`` gives them."""
+        h, x = self._trunk(batch, edges)
         node_out = self.head(h)
         node_out = node_out * batch.node_mask[:, None].to(node_out.dtype)
         g = graph_readout(node_out, batch.graph_id, batch.n_graph, "sum")
         return g, h, x
 
-    def node_forward(self, batch: GraphBatch) -> torch.Tensor:
+    def node_forward(self, batch: GraphBatch,
+                     edges: EdgeShards | None = None) -> torch.Tensor:
         """Node-level logits [n_node, n_out] (classification shapes)."""
-        h, _ = self._trunk(batch)
+        h, _ = self._trunk(batch, edges)
         return self.head(h)[:batch.n_node]
 
     @torch.no_grad()

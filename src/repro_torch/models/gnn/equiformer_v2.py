@@ -21,6 +21,13 @@ equivariant-norm -> gated FFN -> residual.
 * The aggregations are the port's ``agg_sum`` / ``agg_max``
   (``index_add_`` / ``scatter_reduce_``), as the reference's are
   ``jax.ops.segment_sum`` / ``segment_max``.
+* Each edge shard (``graph.EdgeShards``: one on one device) computes its
+  messages and logits with its own ``so2`` / ``alpha`` weights; the
+  segment softmax runs across the shards (:func:`segment_softmax`: the
+  element-wise max of the shards' maxima, each shard's ``exp`` against
+  it, the denominators summed), each shard's weighted messages are
+  summed, and ``out_project`` and the rest of the layer run once on the
+  summed aggregate.
 
 Weights are held in the reference's ``[in, out]`` layout.
 """
@@ -38,9 +45,9 @@ from torch import nn
 from repro_torch.core.graph import resolve_device
 from repro_torch.models.common import Dense, copy_param, dense_init
 from repro_torch.models.gnn import irreps as IR
-from repro_torch.models.gnn.graph import (GraphBatch, agg_max, agg_sum,
-                                          graph_readout, mse_loss,
-                                          replicated_specs)
+from repro_torch.models.gnn.graph import (EdgeShard, EdgeShards, GraphBatch,
+                                          agg_max, agg_sum, graph_readout,
+                                          mse_loss, replicated_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,15 +181,35 @@ class SO2Linear(nn.Module):
 # -------------------------------------------------------------------------
 # Attention block
 # -------------------------------------------------------------------------
+def segment_softmax(logits, masks, edges: EdgeShards, n_rows: int):
+    """Each shard's logits [E_s, H] -> its edges' softmax weights over
+    the edges of their segment (receiver) in every shard; ``masks``
+    [E_s] bool, each shard's live edges.  The masked logits are -inf
+    before the segment max, which is the element-wise max of the shards'
+    maxima; its -inf (a row with no live edge in any shard, the dump
+    row's) becomes 0 only then.  Each shard takes ``exp`` against that
+    shared max, the denominators are summed across the shards, and
+    masked edges weigh 0: on one shard, the reference's
+    ``_segment_softmax``."""
+    masks = [m[:, None] for m in masks]
+    logits = [torch.where(m, x, -torch.inf) for m, x in zip(masks, logits)]
+    mx = torch.nan_to_num(edges.max([agg_max(x, sh.receivers, n_rows)
+                                     for sh, x in zip(edges, logits)]),
+                          neginf=0.0)
+    ex = [torch.where(m, torch.exp(x - top[sh.receivers]), 0.0)
+          for sh, m, x, top in zip(edges, masks, logits,
+                                   edges.on_shards(mx))]
+    den = edges.sum([agg_sum(e, sh.receivers, n_rows)
+                     for sh, e in zip(edges, ex)])
+    return [e / (d[sh.receivers] + 1e-9)
+            for sh, e, d in zip(edges, ex, edges.on_shards(den))]
+
+
 def _segment_softmax(logits, seg, n_rows: int, mask):
-    """logits [E, H] -> softmax over edges per segment (receiver).  The
-    masked logits are -inf before the segment max, whose -inf (a row
-    with no live edge, the dump row's) becomes 0; masked edges weigh 0."""
-    logits = torch.where(mask[:, None], logits, -torch.inf)
-    mx = torch.nan_to_num(agg_max(logits, seg, n_rows), neginf=0.0)
-    ex = torch.where(mask[:, None], torch.exp(logits - mx[seg]), 0.0)
-    den = agg_sum(ex, seg, n_rows)
-    return ex / (den[seg] + 1e-9)
+    """logits [E, H] -> softmax over edges per segment (receiver), on one
+    device: :func:`segment_softmax` of one shard."""
+    one = EdgeShards([EdgeShard(logits.device, seg, seg)], logits.device)
+    return segment_softmax([logits], [mask], one, n_rows)[0]
 
 
 def inverse_wigner(Ds):
@@ -261,17 +288,32 @@ class EquiformerV2Layer(nn.Module):
     def cgs(self) -> list:
         return [getattr(self, f"cg{i}") for i in range(self.cfg.l_max - 1)]
 
-    def attn(self, x, batch: GraphBatch):
+    #: The submodules each edge shard runs with its own parameters.
+    EDGE = ("so2", "alpha")
+
+    def edge_messages(self, shard, x, pos):
+        """One edge shard's (messages [E_s, C, K], logits [E_s, H])."""
+        s, r = shard.senders, shard.receivers
+        rel = (pos[r] - pos[s]).to(x.dtype)
+        return edge_messages(self, x[s], x[r], rel, self.cfg)
+
+    def attn(self, x, batch: GraphBatch, edges: EdgeShards):
         cfg = self.cfg
-        s, r = batch.senders, batch.receivers
         n1 = batch.n_node + 1
-        mask = batch.edge_mask
-        rel = (batch.pos[r] - batch.pos[s]).to(x.dtype)
-        msg, alpha = edge_messages(self, x[s], x[r], rel, cfg)
-        alpha = _segment_softmax(alpha, r, n1, mask)      # [E, H]
-        msg = head_weight(alpha, msg, cfg)
-        msg = msg * mask[:, None, None].to(msg.dtype)
-        return out_project(self.out, agg_sum(msg, r, n1), cfg)
+        outs = [sh.call(self, self.EDGE, EquiformerV2Layer.edge_messages,
+                        sh, xd, pd)
+                for sh, xd, pd in zip(edges, edges.on_shards(x),
+                                      edges.on_shards(batch.pos))]
+        masks = [sh.senders != batch.n_node for sh in edges]
+        alphas = segment_softmax([a for _, a in outs], masks, edges,
+                                 n1)                      # [E_s, H] each
+        parts = []
+        for i, sh in enumerate(edges):
+            msg = head_weight(alphas[i], outs[i][0], cfg)
+            outs[i] = alphas[i] = None        # each [E_s, C, K] freed early
+            msg = msg * masks[i][:, None, None].to(msg.dtype)
+            parts.append(agg_sum(msg, sh.receivers, n1))
+        return out_project(self.out, edges.sum(parts), cfg)
 
     def ffn(self, x):
         cfg = self.cfg
@@ -286,10 +328,10 @@ class EquiformerV2Layer(nn.Module):
             outs.append(blk * gates[..., l - 1, :][..., None])
         return torch.cat(outs, dim=-1)
 
-    def forward(self, x, batch: GraphBatch):
+    def forward(self, x, batch: GraphBatch, edges: EdgeShards):
         l_max = self.cfg.l_max
         x = x + self.attn(IR.equivariant_rms_norm(l_max, x, self.norm1),
-                          batch)
+                          batch, edges)
         return x + self.ffn(IR.equivariant_rms_norm(l_max, x, self.norm2))
 
     def load(self, p) -> None:
@@ -325,22 +367,26 @@ class EquiformerV2(nn.Module):
             for _ in range(cfg.n_layers))
         self.head = Dense(cfg.d_hidden, cfg.n_out, **kw)
 
-    def forward(self, batch: GraphBatch):
-        """Returns (graph outputs [G, n_out], node irreps [N+1, C, K])."""
+    def forward(self, batch: GraphBatch, edges: EdgeShards | None = None):
+        """Returns (graph outputs [G, n_out], node irreps [N+1, C, K]);
+        ``edges`` (default: the batch's own, one shard) as
+        ``graph.EdgeShards`` gives them."""
         cfg = self.cfg
+        edges = EdgeShards.whole(batch) if edges is None else edges
         h0 = self.embed(batch.nodes.to(cfg.dtype))
         x = h0.new_zeros((batch.n_node + 1, cfg.d_hidden, cfg.comps))
         x[..., 0] = h0
         for layer in self.layers:
-            x = layer(x, batch)
+            x = layer(x, batch, edges)
         node_out = self.head(x[..., 0])
         node_out = node_out * batch.node_mask[:, None].to(node_out.dtype)
         g = graph_readout(node_out, batch.graph_id, batch.n_graph, "sum")
         return g, x
 
-    def node_forward(self, batch: GraphBatch) -> torch.Tensor:
+    def node_forward(self, batch: GraphBatch,
+                     edges: EdgeShards | None = None) -> torch.Tensor:
         """Node-level outputs [n_node, n_out] (classification shapes)."""
-        _, x = self.forward(batch)
+        _, x = self.forward(batch, edges)
         return self.head(x[..., 0])[:batch.n_node]
 
     @torch.no_grad()
@@ -375,4 +421,4 @@ def make_loss(model: EquiformerV2):
 __all__ = ["EquiformerV2", "EquiformerV2Config", "EquiformerV2Layer",
            "MIndex", "SO2Linear", "edge_messages", "from_m_rep",
            "gaussian_rbf", "head_weight", "inverse_wigner", "make_loss",
-           "out_project", "param_specs", "to_m_rep"]
+           "out_project", "param_specs", "segment_softmax", "to_m_rep"]

@@ -12,18 +12,33 @@ The segment aggregations are plain torch segment ops (``index_add_``,
 ``jax.ops.segment_max`` / ``segment_min`` give -inf / +inf on an empty
 segment; the outputs here start at those values so empty segments
 match.
+
+Edge shards (the reference's ``"edges": ("data", "model")``, with the
+nodes replicated, ``sharding.py:41-42``): the models run their edge work
+shard by shard over :class:`EdgeShards` and reduce the shards' partial
+``[N + 1, ...]`` aggregates onto the controller's device -- sums added
+in shard order in float32 (``launch.mesh.psum``), maxima and minima
+element-wise -- and run their node work once on the result.  A batch on
+one device is one shard (:meth:`EdgeShards.whole`), whose reductions
+return their one part as it is: the one-device path is the one-shard
+case of the same code.  :meth:`EdgeShards.placed` is the edge-sharded
+view of a batch laid out by ``launch.steps``' ``place_args``: mesh entry
+``e``'s block of ``senders`` / ``receivers`` on its device, the
+replicated node leaves as entry 0 holds them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.func
+from torch import nn
 
 from repro_torch.core.graph import resolve_device
+from repro_torch.launch.mesh import Placed, psum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +154,118 @@ def agg_std(msgs, receivers, n_rows, eps=1e-9):
     sq, _ = agg_mean(msgs * msgs, receivers, n_rows, eps)
     var = torch.clamp(sq - mean * mean, min=0.0)
     return torch.sqrt(var + eps), mean, deg
+
+
+def pmax(parts, device) -> torch.Tensor:
+    """The element-wise max of the shards' parts on ``device`` (exact, in
+    any order)."""
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = torch.maximum(out, p.to(device))
+    return out
+
+
+def pmin(parts, device) -> torch.Tensor:
+    """The element-wise min of the shards' parts on ``device``."""
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = torch.minimum(out, p.to(device))
+    return out
+
+
+class ModuleCall(nn.Module):
+    """``fn(module, *args)`` as a module's forward, so that
+    ``functional_call`` can swap the module's tensors in."""
+
+    def __init__(self, module: nn.Module, fn) -> None:
+        super().__init__()
+        self.module = module
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(self.module, *args)
+
+
+def _direct(module, names, fn, *args):
+    return fn(module, *args)
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeShard:
+    """One shard of a batch's edges: ``senders`` / ``receivers`` (pads at
+    the dump row) on ``device``, and ``call(module, names, fn, *args)``,
+    which is ``fn(module, *args)`` with the parameters of ``module``'s
+    submodules ``names`` this shard's own: on one device and on mesh
+    entry 0 the module's; on another entry its view of them, on its
+    device (``launch.steps``)."""
+    device: torch.device
+    senders: torch.Tensor
+    receivers: torch.Tensor
+    call: Callable = _direct
+
+
+class EdgeShards:
+    """A batch's edge shards in entry order, onto ``home`` (the
+    controller's device, where the node work runs): module doc."""
+
+    def __init__(self, shards: Sequence[EdgeShard], home) -> None:
+        self.shards = tuple(shards)
+        self.home = torch.device(home)
+
+    @classmethod
+    def whole(cls, batch: GraphBatch) -> "EdgeShards":
+        """The batch's own edges as one shard."""
+        dev = batch.nodes.device
+        return cls([EdgeShard(dev, batch.senders, batch.receivers)], dev)
+
+    @classmethod
+    def placed(cls, batch: GraphBatch, call_of):
+        """(the node part of ``batch``, its edge shards) for a batch laid
+        out by ``place_args``: ``senders`` / ``receivers`` placed over the
+        mesh, shard ``e`` mesh entry ``e``'s on its device; ``nodes``,
+        ``pos`` and ``graph_id`` replicated, taken as entry 0 holds them
+        (nothing is gathered).  ``call_of(entry, device)`` gives an
+        entry's ``call`` (``None``: the module's own parameters).  The
+        node part has no edges: edge work reads the shards."""
+        s, r = batch.senders, batch.receivers
+        if not (isinstance(s, Placed) and isinstance(r, Placed)):
+            raise ValueError("an edge-sharded batch has its senders and "
+                             "receivers placed (place_args)")
+        shards = []
+        for e, dev in enumerate(s.sharding.mesh.devices.flat):
+            shards.append(EdgeShard(dev, s.shard(e), r.shard(e),
+                                    call_of(e, dev) or _direct))
+
+        def entry0(x):
+            return x.shard(0) if isinstance(x, Placed) else x
+        nodes = dataclasses.replace(
+            batch, nodes=entry0(batch.nodes), senders=None, receivers=None,
+            pos=entry0(batch.pos), graph_id=entry0(batch.graph_id))
+        return nodes, cls(shards, shards[0].device)
+
+    def __iter__(self):
+        return iter(self.shards)
+
+    def on_shards(self, x: torch.Tensor) -> list:
+        """``x`` on each shard's device, in shard order: itself where it
+        lies, one copy on each other device (the node state for the
+        shards' edge work)."""
+        copies = {x.device: x}
+        for sh in self.shards:
+            if sh.device not in copies:
+                copies[sh.device] = x.to(sh.device)
+        return [copies[sh.device] for sh in self.shards]
+
+    def sum(self, parts) -> torch.Tensor:
+        """The shards' partial sums added in shard order in float32 on
+        ``home``, rounded once (``launch.mesh.psum``)."""
+        return psum(parts, self.home)
+
+    def max(self, parts) -> torch.Tensor:
+        return pmax(parts, self.home)
+
+    def min(self, parts) -> torch.Tensor:
+        return pmin(parts, self.home)
 
 
 def graph_readout(node_vals, graph_id, n_graph, op: str = "sum"):

@@ -13,6 +13,11 @@ weights over the 15 paths at l_max 2; each path's CG tensor is a buffer
 on the module's device.  Weights are held in the reference's ``[in,
 out]`` layout.
 
+Each edge shard (``graph.EdgeShards``: one on one device) computes its
+geometry once, then a layer's messages with its own ``radial`` weights
+and their partial ``agg_sum``; the shards' sums are added, then divided
+by ``sqrt(avg_degree)`` as on one device, and the node update runs once.
+
 Dtype: everything stays in ``cfg.dtype`` (float32).  The reference
 divides the aggregate by ``np.sqrt(avg_degree)``, a numpy float64 scalar,
 which under the reference package's global x64 flag promotes its
@@ -33,8 +38,9 @@ from torch import nn
 from repro_torch.core.graph import resolve_device
 from repro_torch.models.common import MLP, copy_param, dense_init
 from repro_torch.models.gnn import irreps as IR
-from repro_torch.models.gnn.graph import (GraphBatch, agg_sum, graph_readout,
-                                          mse_loss, replicated_specs)
+from repro_torch.models.gnn.graph import (EdgeShards, GraphBatch, agg_sum,
+                                          graph_readout, mse_loss,
+                                          replicated_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,15 +111,26 @@ class NequIPLayer(nn.Module):
             out[..., IR.l_slice(l3)] += m * w[:, p, :, None]
         return out
 
-    def forward(self, h, batch: GraphBatch, Y, rbf):
+    #: The submodules each edge shard runs with its own parameters.
+    EDGE = ("radial",)
+
+    def edge_sum(self, shard, h, geo, n_node: int):
+        """One edge shard's partial ``agg_sum`` of its messages [N + 1,
+        C, K]; ``geo`` = (Y, rbf) of its edges."""
         cfg = self.cfg
-        s, r = batch.senders, batch.receivers
-        n1 = batch.n_node + 1
+        Y, rbf = geo
+        w = self.radial(rbf).reshape(-1, len(cfg.paths), cfg.d_hidden)
+        w = w * (shard.senders != n_node)[:, None, None].to(w.dtype)
+        msgs = self.tensor_product(h[shard.senders], Y, w)
+        return agg_sum(msgs, shard.receivers, n_node + 1)
+
+    def forward(self, h, batch: GraphBatch, edges: EdgeShards, geos):
+        cfg = self.cfg
         c = cfg.d_hidden
-        w = self.radial(rbf).reshape(-1, len(cfg.paths), c)
-        w = w * batch.edge_mask[:, None, None].to(w.dtype)
-        msgs = self.tensor_product(h[s], Y, w)
-        h = h + agg_sum(msgs, r, n1) / math.sqrt(cfg.avg_degree)
+        parts = [sh.call(self, self.EDGE, NequIPLayer.edge_sum, sh, hd, geo,
+                         batch.n_node)
+                 for sh, hd, geo in zip(edges, edges.on_shards(h), geos)]
+        h = h + edges.sum(parts) / math.sqrt(cfg.avg_degree)
         # self interaction per degree: einsum("cd,ncm->ndm")
         h = torch.cat([self.self_mix[l].t() @ h[..., IR.l_slice(l)]
                        for l in range(cfg.l_max + 1)], dim=-1)
@@ -145,28 +162,38 @@ class NequIP(nn.Module):
             NequIPLayer(cfg, generator, dev) for _ in range(cfg.n_layers))
         self.head = MLP([c, c, cfg.n_out], **kw)
 
-    def forward(self, batch: GraphBatch):
-        """Returns (graph energies [G, n_out], node irreps [N+1, C, K])."""
+    def geometry(self, shard, pos):
+        """One edge shard's (Y, rbf): its edges' spherical harmonics and
+        radial basis, computed once for every layer."""
         cfg = self.cfg
-        s, r = batch.senders, batch.receivers
-        rel = batch.pos[r] - batch.pos[s]
+        rel = pos[shard.receivers] - pos[shard.senders]
         dist = torch.linalg.norm(rel, dim=-1)
-        Y = IR.sph_harm(cfg.l_max, rel).to(cfg.dtype)
-        rbf = bessel_rbf(dist, cfg.n_rbf, cfg.cutoff).to(cfg.dtype)
+        return (IR.sph_harm(cfg.l_max, rel).to(cfg.dtype),
+                bessel_rbf(dist, cfg.n_rbf, cfg.cutoff).to(cfg.dtype))
+
+    def forward(self, batch: GraphBatch, edges: EdgeShards | None = None):
+        """Returns (graph energies [G, n_out], node irreps [N+1, C, K]);
+        ``edges`` (default: the batch's own, one shard) as
+        ``graph.EdgeShards`` gives them."""
+        cfg = self.cfg
+        edges = EdgeShards.whole(batch) if edges is None else edges
+        geos = [self.geometry(sh, pos) for sh, pos in
+                zip(edges, edges.on_shards(batch.pos))]
 
         h0 = self.embed(batch.nodes.to(cfg.dtype))        # [N+1, C]
         h = h0.new_zeros((batch.n_node + 1, cfg.d_hidden, cfg.comps))
         h[..., 0] = h0
         for layer in self.layers:
-            h = layer(h, batch, Y, rbf)
+            h = layer(h, batch, edges, geos)
         node_e = self.head(h[..., 0])
         node_e = node_e * batch.node_mask[:, None].to(node_e.dtype)
         g = graph_readout(node_e, batch.graph_id, batch.n_graph, "sum")
         return g, h
 
-    def node_forward(self, batch: GraphBatch) -> torch.Tensor:
+    def node_forward(self, batch: GraphBatch,
+                     edges: EdgeShards | None = None) -> torch.Tensor:
         """Node-level outputs [n_node, n_out] (classification shapes)."""
-        _, h = self.forward(batch)
+        _, h = self.forward(batch, edges)
         return self.head(h[..., 0])[:batch.n_node]
 
     @torch.no_grad()

@@ -9,6 +9,15 @@ scalers {identity, amplification, attenuation}:
 The 4 x 3 concatenation plus the node's own state is mixed by a linear
 layer (the "towers = 1" variant), with a residual SiLU update.
 
+Each edge shard (``graph.EdgeShards``: one on one device) computes its
+messages with its own ``msg`` weights and their partial sums, sums of
+squares, degrees, maxima and minima; the sums are added across the
+shards, the maxima and minima taken element-wise, and only then do a
+row's empty max / min (-inf / +inf) become 0 -- per shard, a node whose
+live messages all lie in another shard and are negative would read 0 as
+its max.  The mean, std and scalers come from the summed sums, and the
+node update runs once.
+
 The reference keeps each linear layer as ``{"w": [d_in, d_out], "b"}``
 and computes ``x @ w + b``; ``nn.Linear`` stores ``[d_out, d_in]``, so
 :meth:`PNA.load_reference_params` transposes ``w`` on the way in.
@@ -27,9 +36,9 @@ from torch import nn
 
 from repro_torch.core.graph import resolve_device
 from repro_torch.models.common import dense_init, softmax_cross_entropy
-from repro_torch.models.gnn.graph import (GraphBatch, agg_max, agg_min,
-                                          agg_std, graph_readout,
-                                          replicated_specs)
+from repro_torch.models.gnn.graph import (EdgeShards, GraphBatch, agg_max,
+                                          agg_min, agg_sum, degrees,
+                                          graph_readout, replicated_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,19 +72,39 @@ class PNALayer(nn.Module):
         # post-aggregation mix: 12 aggregates + self -> h
         self.upd = _linear(13 * h, h, cfg, generator, device)
 
-    def forward(self, h: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
-        s, r = batch.senders, batch.receivers
-        n1 = batch.n_node + 1
-        edge_mask = batch.edge_mask[:, None]
+    #: The submodules each edge shard runs with its own parameters.
+    EDGE = ("msg",)
+
+    def edge_parts(self, shard, h, n_node: int):
+        """One edge shard's partial aggregates [N + 1, ...]: the sums of
+        its messages and of their squares, the degrees (pad slots count
+        at the dump row), and the max / min over its live messages
+        (-inf / +inf where it has none)."""
+        s, r = shard.senders, shard.receivers
+        n1 = n_node + 1
+        edge_mask = (s != n_node)[:, None]
         m = F.silu(self.msg(torch.cat([h[r], h[s]], dim=-1)))
         m = m * edge_mask.to(m.dtype)
-        # aggregators ------------------------------------------------------
-        std, mean, deg = agg_std(m, r, n1)
         # max/min must ignore pads: pads contribute -inf/+inf start values
-        neg = torch.where(edge_mask, m, -torch.inf)
-        pos = torch.where(edge_mask, m, torch.inf)
-        mx = torch.nan_to_num(agg_max(neg, r, n1), neginf=0.0, posinf=0.0)
-        mn = torch.nan_to_num(agg_min(pos, r, n1), neginf=0.0, posinf=0.0)
+        return (agg_sum(m, r, n1), agg_sum(m * m, r, n1),
+                degrees(r, n1, m.dtype),
+                agg_max(torch.where(edge_mask, m, -torch.inf), r, n1),
+                agg_min(torch.where(edge_mask, m, torch.inf), r, n1))
+
+    def forward(self, h: torch.Tensor, batch: GraphBatch,
+                edges: EdgeShards, eps: float = 1e-9) -> torch.Tensor:
+        parts = [sh.call(self, self.EDGE, PNALayer.edge_parts, sh, hd,
+                         batch.n_node)
+                 for sh, hd in zip(edges, edges.on_shards(h))]
+        tot, sq, deg = (edges.sum([p[i] for p in parts]) for i in range(3))
+        # aggregators (graph.agg_std's formulas) ---------------------------
+        mean = tot / (deg[:, None] + eps)
+        var = torch.clamp(sq / (deg[:, None] + eps) - mean * mean, min=0.0)
+        std = torch.sqrt(var + eps)
+        mx = torch.nan_to_num(edges.max([p[3] for p in parts]), neginf=0.0,
+                              posinf=0.0)
+        mn = torch.nan_to_num(edges.min([p[4] for p in parts]), neginf=0.0,
+                              posinf=0.0)
         aggs = torch.cat([mean, mx, mn, std], dim=-1)          # [N+1, 4h]
         # scalers ----------------------------------------------------------
         logd = torch.log1p(deg)[:, None]
@@ -106,10 +135,15 @@ class PNA(nn.Module):
             PNALayer(cfg, generator, dev) for _ in range(cfg.n_layers))
         self.head = _linear(cfg.d_hidden, cfg.n_out, cfg, generator, dev)
 
-    def forward(self, batch: GraphBatch) -> torch.Tensor:
+    def forward(self, batch: GraphBatch,
+                edges: EdgeShards | None = None) -> torch.Tensor:
+        """Node logits [n_node, n_out], or the graph readout [G, n_out];
+        ``edges`` (default: the batch's own, one shard) as
+        ``graph.EdgeShards`` gives them."""
+        edges = EdgeShards.whole(batch) if edges is None else edges
         h = F.silu(self.embed(batch.nodes.to(self.cfg.dtype)))
         for layer in self.layers:
-            h = layer(h, batch)
+            h = layer(h, batch, edges)
         out = self.head(h)
         if self.cfg.node_level:
             return out[:batch.n_node]

@@ -53,7 +53,7 @@ from repro_torch.launch.mesh import (NamedSharding, PartitionSpec, Placed,
 from repro_torch.models.gnn import irreps as IR
 from repro_torch.models.gnn.equiformer_v2 import (edge_messages,
                                                   head_weight, out_project)
-from repro_torch.models.gnn.graph import agg_max, agg_sum
+from repro_torch.models.gnn.graph import ModuleCall, agg_max, agg_sum, pmax
 
 
 # -------------------------------------------------------------------------
@@ -158,19 +158,6 @@ def _source_block(d: int, s: int, p_data: int) -> int:
     return next(i for i, j in _shift_perm(p_data, s) if j == d)
 
 
-class _Call(nn.Module):
-    """``fn(module, *args)`` as a module's forward, so that
-    ``functional_call`` can swap the module's tensors in."""
-
-    def __init__(self, module: nn.Module, fn) -> None:
-        super().__init__()
-        self.module = module
-        self.fn = fn
-
-    def forward(self, *args):
-        return self.fn(self.module, *args)
-
-
 def _on(module: nn.Module, fn, dev: torch.device):
     """``fn(module, *args)`` computed on ``dev``: directly where the
     module lies, else through copies of its weights and buffers on
@@ -178,7 +165,7 @@ def _on(module: nn.Module, fn, dev: torch.device):
     parameters)."""
     if next(module.parameters()).device == dev:
         return lambda *a: fn(module, *a)
-    call = _Call(module, fn)
+    call = ModuleCall(module, fn)
     tensors = {n: t.to(dev) for n, t in
                list(call.named_parameters()) + list(call.named_buffers())}
     return lambda *a: torch.func.functional_call(call, tensors, a)
@@ -186,14 +173,6 @@ def _on(module: nn.Module, fn, dev: torch.device):
 
 def _messages(layer, x_src, x_dst, rel):
     return edge_messages(layer, x_src, x_dst, rel, layer.cfg)
-
-
-def _pmax(parts, dev: torch.device) -> torch.Tensor:
-    """The elementwise max of the ``model`` entries' parts, on ``dev``."""
-    out = parts[0].to(dev)
-    for p in parts[1:]:
-        out = torch.maximum(out, p.to(dev))
-    return out
 
 
 def _psum(parts, dev: torch.device) -> torch.Tensor:
@@ -306,7 +285,7 @@ def ring_attention(layer, h: Placed, pos: Placed, src_b, dst_b,
                 maxima[d, m] = mx
     shift = {}
     for d in range(p_data):
-        top = _pmax([maxima[d, m] for m in range(p_model)], devs[d, 0])
+        top = pmax([maxima[d, m] for m in range(p_model)], devs[d, 0])
         for m in range(p_model):
             shift[d, m] = top.to(devs[d, m])
     del maxima

@@ -252,23 +252,37 @@ def test_a_dimension_split_unevenly_raises():
 
 
 def test_chip_smoke_fsdp_phase_on_the_cpu(monkeypatch):
-    """``chip_smoke.py``'s X7-X9 on the CPU at ``SMOKE`` (qwen2-1.5b,
-    deepseek-v2-lite-16b and DIEN; train_4k's t cut to 16, X9's batch to
-    8): each FSDP step within its limit of the one-device step and its
-    planted fault beyond, X8 repeating bit for bit, X9 in float64 within
-    X3's AdamW tolerance, every entry holding the same bytes, and the
-    five LM cells' bytes an entry on the (16, 16) meta mesh a sixteenth
-    or less of the whole parameters."""
+    """``chip_smoke.py``'s X7-X10 on the CPU at ``SMOKE`` (qwen2-1.5b,
+    deepseek-v2-lite-16b, DIEN and the four GNNs; train_4k's t cut to 16,
+    X9's batch to 8, full_graph_sm to 40 nodes and 500 edges in 512
+    slots, molecule to 8 graphs of 6 nodes and 10 edges): each FSDP step
+    within its limit of the one-device step and its planted fault beyond,
+    X8 repeating bit for bit, X9 in float64 within X3's AdamW tolerance,
+    every entry holding the same bytes (X10: the same edge slots), and
+    the five LM cells' bytes an entry on the (16, 16) meta mesh a
+    sixteenth or less of the whole parameters."""
     import importlib
 
     import chip_smoke
     from repro_torch.configs import common as C
     from repro_torch.kernels import common
-    for name in ("qwen2_1_5b", "deepseek_v2_lite_16b", "dien"):
+    for name in ("qwen2_1_5b", "deepseek_v2_lite_16b", "dien", "egnn",
+                 "pna", "nequip", "equiformer_v2"):
         mod = importlib.import_module(f"repro_torch.configs.{name}")
         monkeypatch.setattr(mod, "CONFIG", mod.SMOKE)
     monkeypatch.setitem(C.LM_SHAPES, "train_4k", C.ShapeSpec(
         "train_4k", "train", dict(seq_len=16, global_batch=256)))
+    monkeypatch.setitem(C.GNN_SHAPES, "full_graph_sm", C.ShapeSpec(
+        "full_graph_sm", "full_graph", dict(n_nodes=40, n_edges=500,
+                                           d_feat=12, n_classes=5)))
+    monkeypatch.setitem(C.GNN_SHAPES, "molecule", C.ShapeSpec(
+        "molecule", "molecule", dict(n_nodes=6, n_edges=10, batch=8,
+                                     d_feat=4)))
+    # X10's limits are set for CONFIG on the card; at SMOKE the planted
+    # fault moves PNA less (1.2e-3), so they are held at 1e-4 or tighter
+    for tag in [t for t in chip_smoke.X_REL_TOL if t.startswith("X10")]:
+        monkeypatch.setitem(chip_smoke.X_REL_TOL, tag,
+                            min(chip_smoke.X_REL_TOL[tag], 1e-4))
     for key, value in dict(X7_LAYERS=2, X7_BATCH=2, X8_SEQ=16,
                            X3_GRAD_BATCH=8).items():
         monkeypatch.setattr(chip_smoke, key, value)
@@ -283,6 +297,14 @@ def test_chip_smoke_fsdp_phase_on_the_cpu(monkeypatch):
     for n in (x7, x8):
         for key in ("param_bytes_by_entry", "moment_bytes_by_entry"):
             assert len(set(n[key])) == 1 and len(n[key]) == 4
+    assert [s for _, s, _ in chip_smoke.X10_CELLS].count("full_graph_sm") \
+        == 4 and len(out["X10"]) == len(chip_smoke.X10_CELLS)
+    for arch, shape, steps in chip_smoke.X10_CELLS:
+        n = out["X10"][f"{arch}/{shape}"]
+        assert n["rel"] <= chip_smoke.X_REL_TOL[
+            chip_smoke.x10_tag(arch, shape)] < n["fault"], (arch, shape)
+        assert len(n["loss"]) == steps
+        assert n["edges_by_entry"] == [n["edge_slots"] // 4] * 4
     for arch, n in out["production_bytes"].items():
         assert 0 < n["param_bytes_by_entry"] * 16 <= \
             n["param_bytes_whole"], arch

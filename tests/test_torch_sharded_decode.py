@@ -220,6 +220,11 @@ def test_chip_smoke_mesh_phase_on_the_cpu(monkeypatch):
                                   fanout=(3, 2), d_feat=12, n_classes=5))):
         monkeypatch.setitem(C.GNN_SHAPES, shape, C.ShapeSpec(
             shape, C.GNN_SHAPES[shape].kind, dims))
+    # X10's limits are set for CONFIG on the card; at SMOKE the planted
+    # fault moves PNA less (1.2e-3), so they are held at 1e-4 or tighter
+    for tag in [t for t in chip_smoke.X_REL_TOL if t.startswith("X10")]:
+        monkeypatch.setitem(chip_smoke.X_REL_TOL, tag,
+                            min(chip_smoke.X_REL_TOL[tag], 1e-4))
     for key, value in dict(X1_BATCH=2, X1_PROMPT=10, X1_STEPS=4, X2_BATCH=2,
                            X2_PROMPT=9, X2_STEPS=3, X3_GRAD_BATCH=8,
                            X4_REPS=2).items():
@@ -261,28 +266,42 @@ def test_chip_smoke_mesh_phase_on_the_cpu(monkeypatch):
 
 
 def test_chip_smoke_x_seed_readings_on_the_cpu(monkeypatch):
-    """``--lm-seeds``' X1, X2, X5, X6 and X7 readings on the CPU at
+    """``--lm-seeds``' X1, X2, X5, X6, X7 and X10 readings on the CPU at
     ``SMOKE``: each seed's sharded and tensor-parallel decode and FSDP
     step within its X_REL_TOL and its planted fault (the shards' plain
-    mean; one entry's heads dropped) beyond, the readings differing from
-    seed to seed."""
+    mean; one entry's heads dropped; one entry's edge partials dropped)
+    beyond, the readings differing from seed to seed."""
     import chip_smoke
     from repro_torch.configs import common as C
-    for name in ("qwen2_7b", "deepseek_v2_236b", "qwen2_1_5b"):
+    for name in ("qwen2_7b", "deepseek_v2_236b", "qwen2_1_5b", "egnn", "pna",
+                 "nequip", "equiformer_v2"):
         mod = importlib.import_module(f"repro_torch.configs.{name}")
         monkeypatch.setattr(mod, "CONFIG", mod.SMOKE)
     monkeypatch.setitem(C.LM_SHAPES, "train_4k", C.ShapeSpec(
         "train_4k", "train", dict(seq_len=16, global_batch=256)))
+    monkeypatch.setitem(C.GNN_SHAPES, "full_graph_sm", C.ShapeSpec(
+        "full_graph_sm", "full_graph", dict(n_nodes=40, n_edges=500,
+                                           d_feat=12, n_classes=5)))
+    monkeypatch.setitem(C.GNN_SHAPES, "molecule", C.ShapeSpec(
+        "molecule", "molecule", dict(n_nodes=6, n_edges=10, batch=8,
+                                     d_feat=4)))
+    # X10's limits are set for CONFIG on the card; at SMOKE the planted
+    # fault moves PNA less (1.2e-3), so they are held at 1e-4 or tighter
+    for tag in [t for t in chip_smoke.X_REL_TOL if t.startswith("X10")]:
+        monkeypatch.setitem(chip_smoke.X_REL_TOL, tag,
+                            min(chip_smoke.X_REL_TOL[tag], 1e-4))
     for key, value in dict(X1_BATCH=2, X1_PROMPT=10, X1_STEPS=4, X2_BATCH=2,
                            X2_PROMPT=9, X2_STEPS=3, X7_LAYERS=2,
                            X7_BATCH=2).items():
         monkeypatch.setattr(chip_smoke, key, value)
     out = chip_smoke.x_seed_readings([0, 1], "the CPU", device="cpu")
-    assert set(out) == {"X1", "X2", "X5", "X6", "X7"}
+    x10 = {chip_smoke.x10_tag(a, s) for a, s, _ in chip_smoke.X10_CELLS}
+    assert set(out) == {"X1", "X2", "X5", "X6", "X7"} | x10
     for tag, by_seed in out.items():
         got, fault = {"X1": ("sharded", "fault_plain_mean"),
                       "X2": ("sharded", "fault_plain_mean"),
-                      "X7": ("rel", "fault")}.get(
+                      "X7": ("rel", "fault"),
+                      **dict.fromkeys(x10, ("rel", "fault"))}.get(
                           tag, ("rel_l2", "fault_heads_dropped"))
         assert set(by_seed) == {0, 1}
         for n in by_seed.values():
