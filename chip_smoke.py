@@ -54,7 +54,8 @@ Phases, each reported on its own line(s):
 4. build     -- ``DynamicSPC(..., device="cuda", construct_batch=32,
                 l_cap=None)`` on a power-law graph at the ``dspc``
                 configuration's scale (n = 65536, m = 524288, weights
-                proportional to i^-0.8), halved ``--halvings`` times.
+                proportional to i^-0.8), halved ``--halvings`` times
+                (MAIN_HALVINGS = 1 by default: n 32768, m 262144).
 K.  kernels   -- the kernel microbench entry point
                 (``repro_torch.bench.kernels_bench``): spc_query at
                 b = 4096 pairs of l = 64 labels and segment_matmul at
@@ -460,7 +461,21 @@ B.  launch   -- the launch layer (``repro_torch.launch.steps``).  B1:
                 ``python -m repro_torch.launch.train --arch dien`` 3
                 steps into a directory, then 5 from it (``resumed from
                 step 2``) beside an uninterrupted 5: the final
-                checkpoints equal bit for bit.
+                checkpoints equal bit for bit.  B4 (after B2): B4a the
+                dry run (``repro_torch.launch.dryrun``) on the pod16x16
+                mesh of meta entries of B4_CELLS, a full-size cell of each
+                family and Equiformer-v2's ring at ogb_products, one line
+                a record; B4b one more step of B2's decode (after its
+                checks), of T's qwen2-1.5b train step and of B2's EGNN
+                molecule step, each counted on the card with real
+                arguments and on meta copies of them: their FLOPs and
+                bytes by op must be equal; B4c each step's measured time
+                (B2's decode p50, T's s/step, B2's EGNN median) must be at
+                least the count's bound, ``max(compute_term_s,
+                memory_term_s)`` at the H100's data-sheet rates, printed
+                as its roofline share beside the card's name and power
+                limit; the planted fault, the bytes B4_FAULT_BYTES times
+                over, must fail that check.
 E.  examples -- the eight ``repro_torch.examples`` at the reference's CI
                 settings (``--fast`` where it has one): seven in this
                 process through ``main(argv)``, each one's own check
@@ -549,9 +564,14 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
+if SRC not in sys.path:
+    sys.path.insert(0, SRC)
 
-#: H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): HBM
+# bytes/s and the dense bf16 tensor-core rate.
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import \
+    PEAK_FLOPS_BF16 as BF16_DENSE_OPS_PER_S  # noqa: E402
 #: 32-bit scalar operations per second outside the tensor cores (the
 #: fp32 rate; integer compares and adds issue at no more than it).
 SCALAR_OPS_PER_S = 67e12
@@ -795,8 +815,10 @@ X10_CELLS = (("egnn", "full_graph_sm", 2), ("pna", "full_graph_sm", 2),
 X4_LG_LAYERS = 4
 #: B1's ("data", "model") grids for Equiformer-v2's ring at ogb_products.
 RING_GRIDS = ((4, 1), (2, 2))
-#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W).
-BF16_DENSE_OPS_PER_S = 989e12
+#: Phases 4 onwards: the halvings of the dspc CONFIG's n and m by default
+#: (cut for the script's time limit: the whole script took 928.0 s with
+#: none on an H100, phase 4's build alone 173.1 s at full scale).
+MAIN_HALVINGS = 1
 #: Phase 5: the events of its one chunk (half inserts, half deletes): the
 #: configuration's update_batch of 64 cut for the script's time limit (the
 #: 64-event chunk took 324-373 s on an H100, host-bound at ~1.2 ms a BFS
@@ -1295,6 +1317,7 @@ def flash_decode_row(q, k, v, lens, label: str, route: str, calls: int,
     over ``plain_reps``, and the bound.  Returns (the row, the plain
     output)."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import kernel as FD
     from repro_torch.kernels.flash_decode.ops import decode_attention
     from repro_torch.kernels.flash_decode.ref import decode_attention_ref
     _, want, err, rel = hold_flash_decode(q, k, v, lens, label)
@@ -1319,7 +1342,8 @@ def flash_decode_row(q, k, v, lens, label: str, route: str, calls: int,
             reps[key].append(cuda_ms(fn, calls))
     plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, lens),
                        plain_reps, warmup=1)
-    nbytes, ops = flash_decode_work(q, k, lens)
+    # every row at one length: the window the kernel reads is that length
+    ops, nbytes = FD.cost(b, h, kvh, length, d, q.dtype)
     bound, by = bound_ms(nbytes, ops)
     row = {"shape": {"B": b, "H": h, "KVH": kvh, "S": int(k.shape[1]),
                      "D": d, "lengths": length, "group": h // kvh,
@@ -4131,6 +4155,14 @@ def lm_train(counts, card: str, seed: int, device) -> dict:
             T_LM_STEPS, device)
     del p_run
     release(device)
+    if torch.device(device).type == "cuda":     # B4b: one step, counted
+        from repro_torch.train import optimizer as opt
+        out["b4"] = counted_against_meta(
+            "qwen2-1.5b/train_4k", L.make_train_step_fn(
+                tf.make_train_loss(cfg), opt.AdamWConfig()),
+            (params, opt.init(params, opt.AdamWConfig()), batches[0]),
+            device)
+        release(device)
     out.update(step_numbers(hist, step_s, peak, b * t))
     out["flops_per_step"] = _lm_flops(cfg, b * t, t, train=True)
     out["bf16_peak_share"] = (out["flops_per_step"] / out["s_per_step"]
@@ -5319,6 +5351,120 @@ def same_layout(tag, got, want) -> None:
                                  f"{w.dtype}{tuple(w.shape)}")
 
 
+#: B4a: the pod16x16 dry runs, one full-size cell a family and the ring
+#: at ogb_products (the faster cell of each family: B4 stays within a
+#: minute of host time).
+B4_CELLS = (("qwen2-1.5b", "decode_32k", ""), ("egnn", "molecule", ""),
+            ("dien", "retrieval_cand", ""), ("dspc", "query_batch", ""),
+            ("equiformer-v2", "ogb_products", "ring"))
+#: B4c's planted fault: the counted bytes this many times over.
+B4_FAULT_BYTES = 1000
+
+
+def dry_runs(cells=B4_CELLS, out_dir=None) -> list:
+    """B4a: ``launch.dryrun.run_cell`` of each cell on the pod16x16 mesh of
+    meta entries (nothing placed on the card), written to a fresh
+    directory; each record's line and its figures."""
+    import tempfile
+    from repro_torch.launch import dryrun as D
+    out_dir = out_dir or tempfile.mkdtemp(prefix="dryrun-")
+    rows = []
+    for arch, shape, variant in cells:
+        rec = D.run_cell(arch, shape, multi_pod=False, variant=variant,
+                         out_dir=out_dir, force=True)
+        log(f"B4a {D.line(rec)}")
+        if rec["status"] != "ok":
+            raise AssertionError(f"B4a {arch}/{shape}: {rec['status']} "
+                                 f"{rec.get('error', '')[:300]}")
+        rows.append({k: rec[k] for k in (
+            "arch", "shape", "mesh", "dry_s", "flops_per_device",
+            "bytes_per_device", "collective_wire_bytes_per_device",
+            "compute_term_s", "memory_term_s", "collective_term_s",
+            "dominant_term", "fits")} | {"memory": rec["memory"]})
+    return rows
+
+
+def meta_like(tree):
+    """``tree`` with each tensor an empty one of its shape and dtype on
+    the meta device."""
+    import torch
+    from repro_torch.launch.mesh import map_tree
+    return map_tree(lambda _, x: torch.empty_like(x, device="meta"), tree)
+
+
+def counted_against_meta(tag: str, step, args, device) -> dict:
+    """B4b: one ``step`` on ``args`` on the card under the dry run's count
+    (``launch.dryrun.count_step``) and one on meta copies of them: their
+    FLOPs and bytes by op must be equal.  Returns the count's figures and
+    its bound, ``max(compute_term_s, memory_term_s)`` (the H100's
+    data-sheet rates)."""
+    import torch
+    from repro_torch.launch import dryrun as D
+    _, on_meta, meta_s = D.count_step(step, meta_like(args), 1, "meta")
+    _, on_card, card_s = D.count_step(step, args, 1, device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    for what in ("flops_by_op", "bytes_by_op"):
+        got, want = ({k: v for k, v in getattr(x, what).items() if v}
+                     for x in (on_card, on_meta))
+        if got != want:
+            diff = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+                    if got.get(k) != want.get(k)}
+            raise AssertionError(f"B4b {tag}: {what} on the card differ from "
+                                 f"the meta count: {json.dumps(diff)[:600]}")
+    t = D.terms(on_meta, np.zeros(1), np.zeros(1), 0.0, 1)
+    row = {"flops": t["flops_per_device"], "bytes": t["bytes_per_device"],
+           "compute_term_s": t["compute_term_s"],
+           "memory_term_s": t["memory_term_s"],
+           "bound_s": max(t["compute_term_s"], t["memory_term_s"]),
+           "count_s": {"meta": meta_s, "card": card_s}}
+    log(f"B4b {tag}: FLOPs and bytes by op equal on the card and on meta: "
+        f"{json.dumps(row)}")
+    return row
+
+
+def roofline_share(tag: str, row: dict, measured_s: float,
+                   power: str) -> float:
+    """B4c: the step's measured seconds must be at least its counted bound;
+    bound / measured is its roofline share."""
+    if measured_s < row["bound_s"]:
+        raise AssertionError(f"B4c {tag}: measured {measured_s:.6g} s is "
+                             f"below the bound {row['bound_s']:.6g} s")
+    share = row["bound_s"] / measured_s
+    log(f"B4c {tag}: bound {row['bound_s']:.6g} s "
+        f"({'compute' if row['compute_term_s'] >= row['memory_term_s'] else 'memory'}), "
+        f"measured {measured_s:.6g} s, roofline share {share:.4g} on {power}")
+    return share
+
+
+def roofline_phase(launch: dict, train: dict, power: str) -> dict:
+    """B4c over B4b's counts: each step's share, then the planted fault
+    (the bytes B4_FAULT_BYTES times over), which must fail the check."""
+    steps = {"qwen2-1.5b/decode_32k": (
+        launch["decode"]["b4"], launch["decode"]["step_ms_p50"] / 1e3),
+        "qwen2-1.5b/train_4k": (train["qwen2-1.5b"]["b4"],
+                                train["qwen2-1.5b"]["s_per_step"]),
+        "egnn/molecule": (launch["train"]["egnn/molecule"]["b4"],
+                          float(np.median(launch["train"]["egnn/molecule"][
+                              "step_s"])))}
+    out = {}
+    for tag, (row, measured) in steps.items():
+        out[tag] = {"share": roofline_share(tag, row, measured, power),
+                    "measured_s": measured, **row}
+        fault = dict(row, memory_term_s=row["memory_term_s"] *
+                     B4_FAULT_BYTES)
+        fault["bound_s"] = max(fault["compute_term_s"],
+                               fault["memory_term_s"])
+        try:
+            roofline_share(f"{tag} (planted fault: bytes x "
+                           f"{B4_FAULT_BYTES})", fault, measured, power)
+        except AssertionError as e:
+            log(f"B4c {tag}: the planted fault fails the check: {e}")
+        else:
+            raise AssertionError(f"B4c {tag}: the planted fault passes")
+    return out
+
+
 def launch_decode(counts, card: str, seed: int, device="cuda",
                   smoke: bool = False) -> dict:
     """B2's LM cell: ``make_bundle("qwen2-1.5b", "decode_32k").get_fn()``
@@ -5397,6 +5543,10 @@ def launch_decode(counts, card: str, seed: int, device="cuda",
                    step_ms_p90=float(np.percentile(ms, 90)),
                    tokens_per_s=1e3 * b / float(np.median(ms)),
                    peak_bytes=torch.cuda.max_memory_allocated())
+        # B4b, after the checks: one more step, counted (not timed)
+        with torch.no_grad():
+            out["b4"] = counted_against_meta(bundle.name, decode,
+                                             (params, cache, token), dev)
     del params, cache, logits
     release(dev)
     return out
@@ -5487,6 +5637,10 @@ def launch_train_cells(counts, card: str, seed: int, device="cuda",
         out[bundle.name] = {"batch": g, "losses": losses, "step_s": secs,
                             "skipped": skipped, "step": int(state.step),
                             "model_flops": bundle.model_flops}
+        if dev.type == "cuda":      # B4b: one more step, counted
+            out[bundle.name]["b4"] = counted_against_meta(
+                bundle.name, bundle.get_fn(), (params, opt.init(
+                    params, opt.AdamWConfig()), data_at(0)), dev)
         del params, state, model
         release(dev)
     for name, row in out.items():
@@ -5733,7 +5887,7 @@ def examples_phase(counts, device="cuda") -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--halvings", type=int, default=0,
+    ap.add_argument("--halvings", type=int, default=MAIN_HALVINGS,
                     help="halve the dspc CONFIG's n and m this many times")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lm-seeds", default="",
@@ -6791,6 +6945,12 @@ def main(argv=None) -> int:
     log(f"B2 train: {json.dumps(launch['train'])} on {card}")
     launch.update(dspc=dspc_events, cells=len(cells), ring_bytes=ring_bytes)
     laps.lap("B2 cells on the card")
+
+    # -- B4. the dry run on meta, its counts against the card's -------------
+    launch["dry_runs"] = dry_runs()
+    launch["roofline"] = roofline_phase(launch, train, card)
+    log(f"B4: {json.dumps({k: launch[k] for k in ('dry_runs', 'roofline')})}")
+    laps.lap("B4 dry run and roofline")
 
     # -- B3 and E. the train CLI's processes beside the eight examples -------
     # (B3 and fleet_spc are mostly processes starting: they overlap)

@@ -48,7 +48,7 @@ from repro_torch.core.construct import build_index, build_index_batched
 from repro_torch.core.graph import Graph
 from repro_torch.core.labels import SPCIndex
 from repro_torch.core.query import gather_rows, merge_rows
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, alike, collect, working
 
 
 def pad_graph_for(g: Graph, num_shards: int) -> Graph:
@@ -277,6 +277,7 @@ def make_sharded_query(mesh: Mesh, batch_axes: Tuple[str, ...] = ("data",)):
     wraps this with bucket padding so callers keep any batch size.
     """
     devices = mesh.axis_devices(batch_axes)
+    entries = mesh.axis_entries(batch_axes)
 
     def query(idx: SPCIndex, s, t):
         s, t = torch.as_tensor(s), torch.as_tensor(t)
@@ -287,12 +288,17 @@ def make_sharded_query(mesh: Mesh, batch_axes: Tuple[str, ...] = ("data",)):
         copies = replicas_of(idx)
         if not all(d in copies for d in devices):
             copies = replicas_of(replicate_index(mesh, idx))
-        outs = []
-        for d, s_k, t_k in zip(devices, torch.tensor_split(s, len(devices)),
-                               torch.tensor_split(t, len(devices))):
-            rows = copies[d]
-            outs.append(merge_rows(*gather_rows(rows, s_k.to(d).long()),
-                                   *gather_rows(rows, t_k.to(d).long())))
+        s_k, t_k = (torch.tensor_split(x, len(devices)) for x in (s, t))
+        outs = [None] * len(devices)
+        # shards of equal size are alike: a dry run answers one for all
+        for k, same in alike([x.shape[0] for x in s_k]):
+            d, rows = devices[k], copies[devices[k]]
+            with working([entries[j] for j in same]):
+                out = merge_rows(*gather_rows(rows, s_k[k].to(d).long()),
+                                 *gather_rows(rows, t_k[k].to(d).long()))
+            for j in same:
+                outs[j] = out
+        collect("gather", "all-gather", [x for o in outs for x in o])
         home = devices[0]
         return (torch.cat([o[0].to(home) for o in outs]),
                 torch.cat([o[1].to(home) for o in outs]))

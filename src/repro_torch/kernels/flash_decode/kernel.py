@@ -92,6 +92,20 @@ def cut(route: str, b: int, kvh: int, h: int, s: int, sms: int) -> Plan:
     return Plan(route, heads, n_chunks, split_len, -(-s // split_len))
 
 
+def cost(b: int, h: int, kvh: int, s: int, d: int,
+         dtype: torch.dtype) -> tuple:
+    """(FLOPs, bytes) of one call on q [b, h, d] and a cache of ``s``
+    positions and ``kvh`` KV heads: the whole window, as the reference's
+    ``model_flops`` counts a decode ("cache attention reads the whole
+    window").  FLOPs: a multiply and an add per query head, position and
+    channel for q . k and again for p . v.  Bytes: K and V once each
+    however many query heads share them, q and the output, the int32
+    lengths."""
+    esize = torch.empty((), dtype=dtype, device="meta").element_size()
+    return (4 * b * h * s * d,
+            2 * b * s * kvh * d * esize + 2 * b * h * d * esize + 4 * b)
+
+
 def _entry(name: str = "flash_decode_launch"):
     fn = getattr(common.load("flash_decode"), name)
     if fn.argtypes is None:

@@ -37,14 +37,32 @@ would add the entries' gradients into the shard in its own order and
 in the leaf's dtype; by hand the sum has one order and one rounding,
 so a step repeats bit for bit.
 
-The reference's TPU roofline constants have no counterpart here.
+Dry runs (``launch.dryrun``): the H100's roofline constants
+(:data:`PEAK_FLOPS_BF16`, :data:`HBM_BW`, :data:`NVLINK_BW`,
+:data:`NET_BW`) replace the reference's TPU v5e ones, and a
+:class:`Tally`, while one is active (:func:`counting`), takes what a
+step does entry by entry.  The loops that run an entry's work enter it
+(:func:`working`); work outside every entry is the controller's, entry
+0.  In a dry run, entries whose work has the same shapes run it once
+for all of them (:func:`alike`: a production mesh's 256 entries would
+otherwise run every layer 256 times in Python), and that work is
+charged to each.  The collectives below (:func:`place`, :func:`gather`,
+:func:`psum`, :func:`all_gather`, :func:`gather_entry`,
+:func:`reduce_scatter`) charge the bytes they move from entry to entry
+(:meth:`Tally.move`, by entry, not by device: on a meta mesh every
+entry is the same device) and the bytes they read and write; their own
+tensor ops are not counted op by op, and on the meta device they make
+their outputs without copying anything.  Outside a dry run all of this
+costs one attribute read (``_TALLY``), on the card as on meta.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
+import weakref
 from typing import Callable, Dict, Iterable, Iterator, Mapping, Sequence, \
     Tuple
 
@@ -52,6 +70,411 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import resolve_device
+
+# -------------------------------------------------------------------------
+# The H100's roofline constants (NVIDIA H100 SXM data sheet: dense rates
+# without sparsity, at the 700 W power limit; HGX / DGX H100 system
+# specifications for the links)
+# -------------------------------------------------------------------------
+PEAK_FLOPS_BF16 = 989e12       # FLOP/s a GPU, bf16 tensor cores, dense
+HBM_BW = 3.35e12               # bytes/s a GPU
+NVLINK_BW = 450e9              # bytes/s a GPU each way: NVLink 4, 900 GB/s
+                               # in all, within an 8-GPU HGX node
+NET_BW = 50e9                  # bytes/s a GPU each way between nodes: one
+                               # 400 Gb/s NIC a GPU (DGX H100)
+#: GPUs a node: mesh entries e and e' (row-major) share one when
+#: ``e // NODE_GPUS == e' // NODE_GPUS``.
+NODE_GPUS = 8
+
+#: The active :class:`Tally` (``None`` outside a dry run).
+_TALLY = None
+
+
+class Tally:
+    """What one dry run counts over a mesh of ``n`` entries: per entry
+    the FLOPs, the HBM bytes, the live and peak bytes of the tensors the
+    step makes, and the bytes each collective moves in and out, over
+    NVLink (both entries in one node) or the network; summed over the
+    entries, FLOPs, bytes and counts by op.
+
+    ``work`` is the entries the running code works for and how many
+    times (``(entries, times)``); :meth:`charge` adds an op's FLOPs and
+    bytes to each of them ``times`` times."""
+
+    def __init__(self, n: int, alike: bool = False,
+                 host_skip: bool = False) -> None:
+        self.n = n
+        self.alike = alike
+        self.host_skip = host_skip  # collectives.counted
+        self.node = np.arange(n) // NODE_GPUS
+        self.base = (np.zeros(1, dtype=np.int64), 1)
+        self.work = self.base
+        self.peers = None           # entries of the rows a row stands for
+        self.stack: list = []       # works the backward's nodes entered
+        self.quiet = 0
+        self.flops, self.bytes = np.zeros(n), np.zeros(n)
+        self.live, self.peak = np.zeros(n), np.zeros(n)
+        self.link = {k: (np.zeros(n), np.zeros(n)) for k in ("nvlink",
+                                                              "net")}
+        self.flops_by_op: Dict[str, float] = {}
+        self.bytes_by_op: Dict[str, float] = {}
+        self.ops: Dict[str, int] = {}
+        self.moved: Dict[str, tuple] = {}      # op -> (in, out) an entry
+        self.calls: Dict[str, int] = {}
+        self.ring: Dict[str, float] = {}       # op -> ring-estimate bytes
+        self.owners: dict = {}                 # storage -> [entries, refs,
+                                               # bytes]
+        self.geometry: dict = {}               # (sharding, shape) -> ...
+
+    def charge(self, name: str, flops: float, nbytes: float) -> None:
+        """One op of ``flops`` and ``nbytes`` on each working entry."""
+        entries, times = self.work
+        self.flops[entries] += flops * times
+        self.bytes[entries] += nbytes * times
+        k = len(entries) * times
+        self.flops_by_op[name] = self.flops_by_op.get(name, 0.0) + flops * k
+        self.bytes_by_op[name] = self.bytes_by_op.get(name, 0.0) + nbytes * k
+        self.ops[name] = self.ops.get(name, 0) + k
+
+    def move(self, op: str, src, dst, nbytes) -> None:
+        """``nbytes`` from entries ``src`` to entries ``dst`` (arrays of
+        one length, or scalars): the sender reads them and the receiver
+        writes them (HBM bytes, under ``op``); between two entries they
+        also cross a link.  An entry's move to itself is a local copy."""
+        src = np.atleast_1d(np.asarray(src, dtype=np.int64))
+        dst = np.atleast_1d(np.asarray(dst, dtype=np.int64))
+        src, dst = np.broadcast_arrays(src, dst)
+        nb = np.broadcast_to(np.asarray(nbytes, dtype=np.float64), src.shape)
+        np.add.at(self.bytes, src, nb)
+        np.add.at(self.bytes, dst, nb)
+        self.bytes_by_op[op] = self.bytes_by_op.get(op, 0.0) + 2 * nb.sum()
+        far = src != dst
+        src, dst, nb = src[far], dst[far], nb[far]
+        if not len(src):
+            return
+        into, out = self.moved.setdefault(op, (np.zeros(self.n),
+                                               np.zeros(self.n)))
+        np.add.at(into, dst, nb)
+        np.add.at(out, src, nb)
+        near = self.node[src] == self.node[dst]
+        for kind, m in (("nvlink", near), ("net", ~near)):
+            np.add.at(self.link[kind][0], dst[m], nb[m])
+            np.add.at(self.link[kind][1], src[m], nb[m])
+
+    def call(self, op: str, kind: str, result_bytes: float, k: int) -> None:
+        """One call of collective ``op``, whose ring-algorithm counterpart
+        is ``kind`` over ``k`` entries with a result of ``result_bytes``
+        (``launch.collectives.ring_wire_bytes``)."""
+        from repro_torch.launch.collectives import ring_wire_bytes
+        self.calls[op] = self.calls.get(op, 0) + 1
+        self.ring[op] = self.ring.get(op, 0.0) + ring_wire_bytes(
+            kind, result_bytes, k)
+
+    def owner(self, x: torch.Tensor):
+        """The entries the step made ``x``'s storage for (entry 0 for a
+        tensor it did not make)."""
+        got = self.owners.get(_storage_key(x))
+        return got[0] if got is not None else self.base[0]
+
+    def made(self, x: torch.Tensor, fresh: bool) -> None:
+        """``x`` came out of an op: a new storage (``fresh``) is live on
+        the working entries until its last tensor seen here is freed."""
+        key = _storage_key(x)
+        got = self.owners.get(key)
+        if got is None:
+            if not fresh:
+                return
+            entries = self.work[0]
+            nbytes = x.untyped_storage().nbytes()
+            got = self.owners[key] = [entries, 0, nbytes]
+            self.live[entries] += nbytes
+            self.peak[entries] = np.maximum(self.peak[entries],
+                                            self.live[entries])
+        got[1] += 1
+        weakref.finalize(x, self._drop, key)
+
+    def _drop(self, key) -> None:
+        got = self.owners.get(key)
+        if got is None:
+            return
+        got[1] -= 1
+        if got[1] == 0:
+            del self.owners[key]
+            self.live[got[0]] -= got[2]
+
+
+def _storage_key(x: torch.Tensor) -> int:
+    return x.untyped_storage()._cdata
+
+
+@contextlib.contextmanager
+def counting(n: int, alike: bool = False, host_skip: bool = False):
+    """A :class:`Tally` of ``n`` entries active for the block (dry runs
+    do not nest).  With ``alike`` (a dry run on the meta device, where
+    no value is read) entries whose work is alike run it once for all
+    (:func:`alike`, :func:`collapsing`); without it every entry runs its
+    own, and the step's outputs are its true ones.  ``host_skip``:
+    ``launch.collectives.counted``."""
+    global _TALLY
+    if _TALLY is not None:
+        raise RuntimeError("a dry run is already counting")
+    _TALLY = Tally(n, alike, host_skip)
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = None
+
+
+class _Working:
+    __slots__ = ("work", "prev")
+
+    def __init__(self, entries, times: int) -> None:
+        self.work = (np.atleast_1d(np.asarray(entries, dtype=np.int64)),
+                     int(times))
+
+    def __enter__(self):
+        self.prev = _TALLY.work
+        _TALLY.work = self.work
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _TALLY.work = self.prev
+
+
+_IDLE = contextlib.nullcontext()
+
+
+def working(entries, times: int = 1):
+    """The block is the work of mesh entry (or entries) ``entries``,
+    each ``times`` times (:class:`Tally`); nothing outside a dry run."""
+    if _TALLY is None:
+        return _IDLE
+    return _Working(entries, times)
+
+
+def as_controller(fn):
+    """``fn`` run as the controller's work (entry 0).  Under remat the
+    engine recomputes a checkpointed function inside the backward of the
+    node that needs it, whose work is then running; this keeps the
+    recomputation's own work where its forward was."""
+    def run(*args, **kwargs):
+        with working(0):
+            return fn(*args, **kwargs)
+    return run
+
+
+def collapsing() -> bool:
+    """Whether alike entries run their work once (:func:`counting`)."""
+    return _TALLY is not None and _TALLY.alike
+
+
+def alike(keys: Sequence) -> list:
+    """Which items of a loop over entries to run: ``[(i, (i, j, ...)),
+    ...]``, item ``i`` standing for itself and the items ``j`` after it
+    with an equal key (their work has the same shapes).  Outside a dry
+    run on the meta device every item stands alone."""
+    if not collapsing():
+        return [(i, (i,)) for i in range(len(keys))]
+    first: dict = {}
+    for i, k in enumerate(keys):
+        first.setdefault(k, []).append(i)
+    return [(same[0], tuple(same)) for same in first.values()]
+
+
+def each_entry(ents, fn) -> list:
+    """``[fn(i, dev, p, e) for i, (dev, p, e) in enumerate(ents)]`` over a
+    row of mesh entries (``p`` an entry's weights, ``e`` its index), each
+    call in its entry's work (:func:`working`).  In a dry run the
+    entries that share one ``p`` object (:func:`row_groups`) call ``fn``
+    once, for all of them (and for the entries at their places in the
+    rows the running row stands for: :func:`each_row`), and its output
+    stands for each."""
+    outs = [None] * len(ents)
+    peers = _TALLY.peers if _TALLY is not None else None
+    for i, same in alike([id(p) for _, p, _ in ents]):
+        dev, p, e = ents[i]
+        here = [ents[j][2] for j in same] if not peers else \
+            [row[j] for row in peers for j in same]
+        with working(here):
+            out = fn(i, dev, p, e)
+        for j in same:
+            outs[j] = out
+    return outs
+
+
+def row_groups(rows, view) -> list:
+    """``[(b0, b1, [(dev, view(e), e) for e, dev in row]) for b0, b1, row
+    in rows]``: each entry's weights (``view`` gathers or slices them).
+
+    In a dry run on the meta device a row of a size seen before carries
+    no weights (``None``; :func:`each_row` runs the first such row for
+    it), and within a row the entries after the first share the
+    second's view object (:func:`each_entry` runs their work once).  A
+    view is taken once, in the work of every entry it stands for (the
+    moves of each one's view charged: :func:`gather_entry`).  The
+    weights are split evenly over ``model`` (``check_tp``,
+    ``check_fsdp``), so those views have one shape; the first entry
+    stays apart for the work only it does (the new K and V rows, the
+    router)."""
+    if not collapsing():
+        return [(b0, b1, [(dev, view(e), e) for e, dev in row])
+                for b0, b1, row in rows]
+    out = [None] * len(rows)
+    for i, same in alike([b1 - b0 for b0, b1, _ in rows]):
+        b0, b1, row = rows[i]
+        peers = [rows[j][2] for j in same]
+        with working([r[0][0] for r in peers]):
+            ents = [(row[0][1], view(row[0][0]), row[0][0])]
+        if len(row) > 1:
+            with working([e for r in peers for e, _ in r[1:]]):
+                shared = view(row[1][0])
+            ents += [(dev, shared, e) for e, dev in row[1:]]
+        out[i] = (b0, b1, ents)
+        for j in same[1:]:
+            out[j] = (rows[j][0], rows[j][1],
+                      [(dev, None, e) for e, dev in rows[j][2]])
+    return out
+
+
+def each_row(groups, fn) -> list:
+    """``[fn(i, b0, b1, ents) for i, (b0, b1, ents) in enumerate(groups)]``
+    over the rows :func:`row_groups` gives.  In a dry run a row that
+    carries no weights takes the output of the row before it of its
+    size, whose work stands for both (its entries' work charged to the
+    entries at the same places of every row it stands for, its
+    collectives' moves once for each row: :func:`each_entry`,
+    :func:`collect`)."""
+    outs = [None] * len(groups)
+    for i, (b0, b1, ents) in enumerate(groups):
+        if ents[0][1] is None:
+            continue
+        stand = [i] + [j for j in range(i + 1, len(groups))
+                       if groups[j][2][0][1] is None
+                       and groups[j][1] - groups[j][0] == b1 - b0]
+        t = _TALLY
+        if t is not None and len(stand) > 1:
+            t.peers = [[e for _, _, e in groups[j][2]] for j in stand]
+        try:
+            out = fn(i, b0, b1, ents)
+        finally:
+            if t is not None:
+                t.peers = None
+        for j in stand:
+            if outs[j] is None:
+                outs[j] = out
+    return outs
+
+
+def _is_meta(x) -> bool:
+    return x.device.type == "meta"
+
+
+class _Geometry:
+    """How a (sharding, shape) lays blocks over a mesh's entries, for
+    the collectives' charges: each entry's block, each block's bounds
+    and the entries that hold it."""
+
+    def __init__(self, sharding: NamedSharding, shape) -> None:
+        ndim = len(shape)
+        parts = sharding.parts(ndim)
+        index: dict = {}
+        blk, bounds, holders = [], [], []
+        for e, (coords, _) in enumerate(sharding.entries()):
+            b = sharding.block_of(coords, ndim)
+            if b not in index:
+                index[b] = len(bounds)
+                bounds.append(block_bounds(shape, parts, b))
+                holders.append([])
+            blk.append(index[b])
+            holders[index[b]].append(e)
+        self.coords = np.stack(np.unravel_index(
+            np.arange(len(blk)), sharding.mesh.devices.shape), axis=1)
+        self.blk = np.asarray(blk, dtype=np.int64)
+        self.bounds = np.asarray(bounds, dtype=np.int64).reshape(
+            len(bounds), ndim, 2)
+        self.holders = [np.asarray(h, dtype=np.int64) for h in holders]
+        data = [i for i, e in enumerate(tuple(sharding.spec) + (None,) * (
+            ndim - len(sharding.spec))) if "data" in _axes_of(e)]
+        self.views = self.bounds[self.blk].copy()   # entry -> view bounds
+        for i in data:
+            self.views[:, i] = (0, shape[i])
+        self.cache: dict = {}
+
+    def nearest(self, b: int, e: int, node) -> int:
+        """The holder of block ``b`` nearest entry ``e``: ``e`` itself,
+        else one in its node, then the one whose mesh coordinates differ
+        from ``e``'s on the fewest axes (an all-gather along one axis),
+        then the closest in mesh order."""
+        h = self.holders[b]
+        axes = (self.coords[h] != self.coords[e]).sum(axis=1)
+        return int(h[np.lexsort((np.abs(h - e), axes,
+                                 node[h] != node[e]))[0]])
+
+
+def _geometry(t: Tally, sharding: NamedSharding, shape) -> _Geometry:
+    key = (sharding, tuple(shape))
+    g = t.geometry.get(key)
+    if g is None:
+        g = t.geometry[key] = _Geometry(sharding, shape)
+    return g
+
+
+def _volume(bounds) -> np.ndarray:
+    return np.prod(np.maximum(bounds[..., 1] - bounds[..., 0], 0), axis=-1)
+
+
+def _layered(bounds, layer):
+    if layer is None:
+        return bounds
+    out = bounds.copy()
+    out[..., 0, :] = (layer, layer + 1)
+    return out
+
+
+def _counting():
+    """The active tally, unless the running code is a collective's own
+    (:func:`_quiet`)."""
+    t = _TALLY
+    return None if t is None or t.quiet else t
+
+
+def collect(op: str, kind: str, parts, dst=None) -> None:
+    """Charge ``parts`` brought into entry ``dst`` (default: the first
+    working one) from the entries that made them (:meth:`Tally.owner`;
+    a tensor listed ``k`` times stands for the first ``k`` of its
+    owners), as one call of ``op`` (``kind``: its ring counterpart over
+    ``len(parts)`` entries).  Nothing outside a dry run."""
+    t = _counting()
+    if t is None:
+        return
+    dst = int(t.work[0][0]) if dst is None else dst
+    times: dict = {}
+    for p in parts:
+        times[id(p)] = times.get(id(p), 0) + 1
+    for r in range(len(t.peers) if t.peers else 1):
+        seen: dict = {}
+        src, nb = [], []
+        for p in parts:
+            own = t.owner(p)
+            i = seen[id(p)] = seen.get(id(p), -1) + 1
+            src.append(int(own[(r * times[id(p)] + i) % len(own)]))
+            nb.append(p.numel() * p.element_size())
+        t.move(op, src, dst, nb)
+        t.call(op, kind, nb[0] if kind == "all-reduce" else sum(nb),
+               len(parts))
+
+
+def count_move(op: str, kind: str, src, dst, nbytes) -> None:
+    """Charge moves ``src`` -> ``dst`` of ``nbytes`` (arrays or scalars)
+    a collective of the model code makes itself (the ring's block
+    fetches; ``dst=None``: the working entries), as one call of ``op``.
+    Nothing outside a dry run."""
+    t = _counting()
+    if t is None:
+        return
+    dst = t.work[0] if dst is None else dst
+    t.move(op, src, dst, nbytes)
+    t.call(op, kind, float(np.max(nbytes)), int(np.size(src)) + 1)
 
 
 def canonical_device(device) -> torch.device:
@@ -140,6 +563,16 @@ class Mesh:
         moved = np.transpose(self.devices, pos + rest)
         grid = moved.reshape(math.prod(moved.shape[:len(pos)]), -1)
         return tuple(grid[:, 0])
+
+    def axis_entries(self, axes: Iterable[str]) -> Tuple[int, ...]:
+        """The entries (row-major indices) :meth:`axis_devices` names."""
+        axes = tuple(axes)
+        pos = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(len(self.axis_names)) if i not in pos]
+        idx = np.arange(self.size).reshape(self.devices.shape)
+        moved = np.transpose(idx, pos + rest)
+        grid = moved.reshape(math.prod(moved.shape[:len(pos)]), -1)
+        return tuple(int(e) for e in grid[:, 0])
 
 
 def _devices(devices) -> list:
@@ -331,9 +764,22 @@ class Placed:
         ``fn(shard, slices, device)``: ``slices`` index the shard's
         block in the whole tensor.  ``fn`` keeps each shard's shape (a
         norm, a residual add)."""
-        return Placed(self.sharding, self.shape, self.dtype,
-                      {key: fn(t, _slices(self.bounds(key[0])), key[1])
-                       for key, t in self.shards.items()}, self.entry_keys)
+        holders: dict = {}
+        for e, key in enumerate(self.entry_keys):
+            holders.setdefault(key, []).append(e)
+        keys = list(self.shards)
+        shards = {}
+        # each shard's work is its holders' (alike shards once in a dry
+        # run on meta: alike)
+        for i, same in alike([tuple(self.shards[k].shape) for k in keys]):
+            key = keys[i]
+            with working([e for j in same for e in holders[keys[j]]]):
+                out = fn(self.shards[key], _slices(self.bounds(key[0])),
+                         key[1])
+            for j in same:
+                shards[keys[j]] = out
+        return Placed(self.sharding, self.shape, self.dtype, shards,
+                      self.entry_keys)
 
     def nbytes_by_device(self) -> Dict[torch.device, int]:
         """Bytes of shards held on each device."""
@@ -370,11 +816,20 @@ def place(tensor: torch.Tensor, sharding: NamedSharding) -> Placed:
     """``tensor`` cut into the blocks ``sharding`` names, each copied
     once to each distinct device that holds it, as a contiguous tensor
     of its own (never a view of ``tensor``)."""
+    t = _counting()
+    if t is not None:
+        g = _geometry(t, sharding, tensor.shape)
+        nb = _volume(g.bounds)[g.blk] * tensor.element_size()
+        t.move("place", t.owner(tensor)[0], np.arange(t.n), nb)
+        t.call("place", "all-to-all", tensor.numel() *
+               tensor.element_size(), t.n)
+
     def make(bounds, dev):
         part = tensor[_slices(bounds)]
         return torch.empty(part.shape, dtype=tensor.dtype,
                            device=dev).copy_(part)
-    return _layout(tuple(tensor.shape), tensor.dtype, sharding, make)
+    with quiet():
+        return _layout(tuple(tensor.shape), tensor.dtype, sharding, make)
 
 
 def place_zeros(shape, dtype, sharding: NamedSharding) -> Placed:
@@ -390,17 +845,27 @@ def gather(placed: Placed, device=None) -> torch.Tensor:
     block read once."""
     if device is None:
         device = placed.entry_keys[0][1]
-    out = torch.empty(placed.shape, dtype=placed.dtype,
-                      device=canonical_device(device))
-    for _, bounds, shard in placed.blocks:
-        out[_slices(bounds)] = shard.to(out.device)
-    return out
+    t = _counting()
+    if t is not None:
+        g = _geometry(t, placed.sharding, placed.shape)
+        dst = int(t.work[0][0])
+        src = [g.nearest(b, dst, t.node) for b in range(len(g.holders))]
+        esize = placed.dtype.itemsize
+        t.move("gather", src, dst, _volume(g.bounds) * esize)
+        t.call("gather", "all-gather", math.prod(placed.shape) * esize,
+               len(src))
+    with quiet():
+        out = torch.empty(placed.shape, dtype=placed.dtype,
+                          device=canonical_device(device))
+        for _, bounds, shard in placed.blocks:
+            out[_slices(bounds)] = shard.to(out.device)
+        return out
 
 
 # -------------------------------------------------------------------------
 # Trees of placed tensors, and the collectives one controller runs
 # -------------------------------------------------------------------------
-def _tree_map(fn, tree, *rest, path: str = ""):
+def map_tree(fn, tree, *rest, path: str = ""):
     """``fn(path, leaf, *rest_leaves)`` over the tensor leaves of ``tree``
     (dicts, lists, tuples, named tuples and dataclasses such as
     ``GraphBatch``), the same tree structure in ``rest``.  A ``None``
@@ -410,16 +875,16 @@ def _tree_map(fn, tree, *rest, path: str = ""):
         return None
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: _tree_map(fn, getattr(tree, f.name),
-                              *(getattr(r, f.name) for r in rest),
-                              path=f"{path}{f.name}.")
+            f.name: map_tree(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest),
+                             path=f"{path}{f.name}.")
             for f in dataclasses.fields(tree)
             if not isinstance(getattr(tree, f.name), int)})
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest),
-                             path=f"{path}{k}.") for k, v in tree.items()}
+        return {k: map_tree(fn, v, *(r[k] for r in rest),
+                            path=f"{path}{k}.") for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        out = [_tree_map(fn, v, *(r[i] for r in rest), path=f"{path}{i}.")
+        out = [map_tree(fn, v, *(r[i] for r in rest), path=f"{path}{i}.")
                for i, v in enumerate(tree)]
         return type(tree)(*out) if hasattr(tree, "_fields") else \
             type(tree)(out)
@@ -450,14 +915,14 @@ def place_tree(tree, shardings, specs=None):
                     f"split evenly over {p} mesh entries")
         return place(gather(x) if isinstance(x, Placed) else x, sh)
     rest = (shardings,) if specs is None else (shardings, specs)
-    return _tree_map(one, tree, *rest)
+    return map_tree(one, tree, *rest)
 
 
 def local_tree(tree, entry: int):
     """The tensors mesh entry ``entry`` (row-major) holds of a tree of
     :class:`Placed` leaves: each its shard; a whole tensor stays as it
     is."""
-    return _tree_map(lambda _, x: x.shard(entry) if isinstance(x, Placed)
+    return map_tree(lambda _, x: x.shard(entry) if isinstance(x, Placed)
                      else x, tree)
 
 
@@ -466,17 +931,52 @@ def psum(parts, device) -> torch.Tensor:
     (the reference's ``psum``): in float32, or wider where the parts are,
     rounded once to the parts' dtype, so the result is the same on every
     run."""
-    acc = torch.promote_types(parts[0].dtype, torch.float32)
-    out = parts[0].to(device, acc)
-    for p in parts[1:]:
-        out = out + p.to(device, acc)
-    return out.to(parts[0].dtype)
+    collect("psum", "all-reduce", parts)
+    with quiet():
+        acc = torch.promote_types(parts[0].dtype, torch.float32)
+        out = parts[0].to(device, acc)
+        for p in parts[1:]:
+            out = out + p.to(device, acc)
+        return out.to(parts[0].dtype)
 
 
 def all_gather(parts, dim: int, device) -> torch.Tensor:
     """Split outputs put back together in entry order along ``dim`` on
     ``device`` (logit columns over ``vocab``, contexts over ``heads``)."""
-    return torch.cat([p.to(device) for p in parts], dim=dim)
+    collect("all_gather", "all-gather", parts)
+    with quiet():
+        return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def kernel_cost(name: str, flops: float, nbytes: float):
+    """The block is one call of kernel ``name``: in a dry run it charges
+    ``flops`` and ``nbytes`` to the working entries, whatever route the
+    block takes (the card's kernel, its plain version, or outputs made
+    on the meta device), and the block's own ops are not counted."""
+    t = _counting()
+    if t is None:
+        return _IDLE
+    t.charge(name, flops, nbytes)
+    return _Quiet(t)
+
+
+class _Quiet:
+    __slots__ = ("t",)
+
+    def __init__(self, t: Tally) -> None:
+        self.t = t
+
+    def __enter__(self):
+        self.t.quiet += 1
+
+    def __exit__(self, *exc) -> None:
+        self.t.quiet -= 1
+
+
+def quiet():
+    """The block's tensor ops are a collective's, charged by formula,
+    not op by op (module doc)."""
+    return _IDLE if _TALLY is None else _Quiet(_TALLY)
 
 
 # -------------------------------------------------------------------------
@@ -531,6 +1031,53 @@ def gather_entry(placed: Placed, entry: int, layer: int | None = None,
     bounds = entry_bounds(placed, entry)
     dev = canonical_device(device if device is not None else
                            placed.sharding.mesh.devices.flat[entry])
+    t = _counting()
+    if t is not None:
+        _charge_views(t, placed, entry, layer)
+        if _is_meta(placed.shards[placed.entry_keys[entry]]):
+            view = _layer_bounds(bounds, layer)
+            with quiet(), _for_entry(entry):
+                return torch.empty([hi - lo for lo, hi in view][
+                    0 if layer is None else 1:], dtype=placed.dtype,
+                    device=dev)
+    with quiet(), _for_entry(entry):
+        return _gather_entry(placed, entry, layer, bounds, dev)
+
+
+def _for_entry(entry: int):
+    """:func:`working` for ``entry`` unless the running work is already
+    its (alike entries included)."""
+    t = _TALLY
+    if t is None or entry in t.work[0]:
+        return _IDLE
+    return working(entry)
+
+
+def _charge_views(t: Tally, placed: Placed, entry: int, layer) -> None:
+    """The moves of entry ``entry``'s view (:func:`gather_entry`), and of
+    the views of the entries it works for alike (:func:`alike`)."""
+    g = _geometry(t, placed.sharding, placed.shape)
+    es = t.work[0] if entry in t.work[0] else [entry]
+    esize = placed.dtype.itemsize
+    for e in es:
+        key = ("view", layer is None, int(e))
+        got = g.cache.get(key)
+        if got is None:
+            view = _layered(g.views[e], 0 if layer is not None else None)
+            blocks = _layered(g.bounds, 0 if layer is not None else None)
+            lo = np.maximum(blocks[..., 0], view[..., 0])
+            hi = np.minimum(blocks[..., 1], view[..., 1])
+            vol = np.prod(np.maximum(hi - lo, 0), axis=-1)
+            hit = np.nonzero(vol)[0]
+            got = g.cache[key] = (
+                np.asarray([g.nearest(b, int(e), t.node) for b in hit],
+                           dtype=np.int64), vol[hit] * esize)
+        t.move("gather_entry", got[0], int(e), got[1])
+        t.call("gather_entry", "all-gather", float(got[1].sum()),
+               len(got[0]))
+
+
+def _gather_entry(placed: Placed, entry: int, layer, bounds, dev):
     key = placed.entry_keys[entry]
     if placed.bounds(key[0]) == bounds and (
             layer is None or bounds[0] == (0, placed.shape[0])):
@@ -564,6 +1111,40 @@ def reduce_scatter(placed: Placed, parts: Mapping[int, torch.Tensor],
     and rounded once (:func:`psum`), so the result is the same on every
     run.  With ``layer``, the shards' index ``layer`` of the leading
     dimension.  A shard that no view holds gets zeros."""
+    t = _counting()
+    if t is not None:
+        _charge_reduce(t, placed, sorted(parts), layer)
+        if _is_meta(next(iter(parts.values()))):
+            with quiet():
+                return {key: torch.empty(
+                    shard.shape[0 if layer is None else 1:],
+                    dtype=shard.dtype, device=key[1])
+                    for key, shard in placed.shards.items()}
+    with quiet():
+        return _reduce_scatter(placed, parts, layer)
+
+
+def _charge_reduce(t: Tally, placed: Placed, views, layer) -> None:
+    """The moves of :func:`reduce_scatter`: each entry's block from every
+    view that holds it."""
+    g = _geometry(t, placed.sharding, placed.shape)
+    key = ("reduce", layer is None, tuple(views))
+    got = g.cache.get(key)
+    if got is None:
+        v = np.asarray(views, dtype=np.int64)
+        blocks = _layered(g.bounds[g.blk], 0 if layer is not None else None)
+        vb = _layered(g.views[v], 0 if layer is not None else None)
+        holds = np.all((vb[None, :, :, 0] <= blocks[:, None, :, 0]) &
+                       (blocks[:, None, :, 1] <= vb[None, :, :, 1]), axis=-1)
+        dst, which = np.nonzero(holds)
+        got = g.cache[key] = (v[which], dst, _volume(blocks)[dst] *
+                              placed.dtype.itemsize)
+    t.move("reduce_scatter", got[0], got[1], got[2])
+    t.call("reduce_scatter", "reduce-scatter",
+           float(got[2].max()) if len(got[2]) else 0.0, len(views))
+
+
+def _reduce_scatter(placed: Placed, parts, layer):
     views = {e: _layer_bounds(entry_bounds(placed, e), layer)
              for e in sorted(parts)}
     out = {}
@@ -635,6 +1216,8 @@ class ShardGrads:
         self._count: dict = {}      # (id(leaf), layer) -> arrivals
         self._done: set = set()
         self._shards: dict = {}     # id(leaf) -> (leaf, {key: grad})
+        self._alike: dict = {}      # (id(leaf), layer, entry) -> entries
+                                    # its view stands for (dry runs)
 
     def __enter__(self) -> "ShardGrads":
         _GRAD_SINKS.append(self)
@@ -647,7 +1230,11 @@ class ShardGrads:
              layer: int | None = None) -> torch.Tensor:
         """Mesh entry ``entry``'s view of ``placed`` (:func:`gather_entry`)
         whose gradient comes back here."""
-        self._taken.setdefault((id(placed), layer), set()).add(entry)
+        t = _TALLY
+        group = tuple(int(e) for e in t.work[0]) if t is not None and \
+            entry in t.work[0] else (entry,)
+        self._taken.setdefault((id(placed), layer), set()).update(group)
+        self._alike[(id(placed), layer, entry)] = group
         if id(placed) not in self._shards:
             self._shards[id(placed)] = (placed, {} if layer is None else {
                 key: torch.zeros_like(t) for key, t in placed.shards.items()})
@@ -656,14 +1243,15 @@ class ShardGrads:
     def _arrive(self, placed, entry, layer, grad) -> None:
         k = (id(placed), layer)
         got = self._got.setdefault(k, {})
-        if k in self._done or entry in got:
-            raise RuntimeError(f"entry {entry}'s view of a leaf of shape "
-                               f"{placed.shape} (layer {layer}) was taken "
-                               f"twice in one forward")
-        got[entry] = grad
-        if next(self._count.setdefault(k, itertools.count(1))) == \
-                len(self._taken[k]):
-            self._reduce(k)
+        count = self._count.setdefault(k, itertools.count(1))
+        for e in self._alike.get(k + (entry,), (entry,)):
+            if k in self._done or e in got:
+                raise RuntimeError(f"entry {e}'s view of a leaf of shape "
+                                   f"{placed.shape} (layer {layer}) was "
+                                   f"taken twice in one forward")
+            got[e] = grad
+            if next(count) == len(self._taken[k]):
+                self._reduce(k)
 
     @torch.no_grad()
     def _reduce(self, k) -> None:
@@ -690,7 +1278,7 @@ class ShardGrads:
                           {key: shards[key] if key in shards else
                            torch.zeros_like(t)
                            for key, t in x.shards.items()}, x.entry_keys)
-        return _tree_map(grad, tree)
+        return map_tree(grad, tree)
 
 
 def entry_view(placed: Placed, entry: int,
@@ -705,22 +1293,24 @@ def entry_view(placed: Placed, entry: int,
 
 def entry_views(tree, entry: int, layer: int | None = None):
     """:func:`entry_view` over every :class:`Placed` leaf of ``tree``."""
-    return _tree_map(lambda _, x: entry_view(x, entry, layer), tree)
+    return map_tree(lambda _, x: entry_view(x, entry, layer), tree)
 
 
 def entry_grid(mesh: Mesh) -> list:
     """The mesh's entries as FSDP reads them: one row per ``"data"``
-    index, in order, each ``[(entry, device), ...]`` over the
-    ``"model"`` indices in order (an axis the mesh lacks counts as size
-    1).  Raises ``ValueError`` on any other axis."""
-    other = set(mesh.axis_names) - {"data", "model"}
+    index (per ``("pod", "data")`` pair on a mesh of pods: the batch's
+    ``("pod", "data")`` blocks), in order, each ``[(entry, device), ...]``
+    over the ``"model"`` indices in order (an axis the mesh lacks counts
+    as size 1).  Raises ``ValueError`` on any other axis."""
+    other = set(mesh.axis_names) - {"pod", "data", "model"}
     if other:
-        raise ValueError(f"FSDP runs on ('data', 'model') meshes; this one "
-                         f"has {sorted(other)} too")
+        raise ValueError(f"FSDP runs on ('data', 'model') meshes (and "
+                         f"their pods); this one has {sorted(other)} too")
     shape = mesh.shape
-    grid = [[None] * shape.get("model", 1) for _ in range(shape.get(
-        "data", 1))]
+    pods, data = shape.get("pod", 1), shape.get("data", 1)
+    grid = [[None] * shape.get("model", 1) for _ in range(pods * data)]
     for e, dev in enumerate(mesh.devices.flat):
         c = entry_coords(mesh, e)
-        grid[c.get("data", 0)][c.get("model", 0)] = (e, dev)
+        grid[c.get("pod", 0) * data + c.get("data", 0)][
+            c.get("model", 0)] = (e, dev)
     return grid

@@ -43,7 +43,6 @@ the port's numpy pipelines, which equal the reference's).
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -55,8 +54,8 @@ from repro_torch import sharding as SH
 from repro_torch.configs import get as get_arch
 from repro_torch.configs.common import ArchSpec, ShapeSpec
 from repro_torch.core.graph import resolve_device
-from repro_torch.launch.mesh import (Placed, entry_view, gather, place_tree,
-                                     psum)
+from repro_torch.launch.mesh import (Placed, map_tree, entry_view, gather,
+                                     local_tree, place_tree, psum)
 from repro_torch.models import dien as dien_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import cross_entropy_terms, load_tree
@@ -115,6 +114,11 @@ def _whole(x):
     """A small argument whole on its first entry's device (tokens,
     lengths), as the model code takes it."""
     return gather(x) if isinstance(x, Placed) else x
+
+
+def _whole_tree(tree):
+    """``tree`` with each placed leaf gathered whole (:func:`_whole`)."""
+    return map_tree(lambda _, x: _whole(x), tree)
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -677,8 +681,8 @@ def dspc_bundle(spec: ArchSpec, shape: ShapeSpec, smoke: bool) -> StepBundle:
 
     if shape.kind == "dspc_build":
         def mesh_fn(mesh):
-            return functools.partial(
-                dist.make_distributed_builder(mesh, "model"), l_cap=l_cap)
+            build = dist.make_distributed_builder(mesh, "model")
+            return lambda g: build(_whole_tree(g), l_cap=l_cap)
         return StepBundle(
             name=name, fn=None, mesh_fn=mesh_fn,
             abstract_args=(graph_a,), arg_specs=(graph_spec,),
@@ -688,7 +692,8 @@ def dspc_bundle(spec: ArchSpec, shape: ShapeSpec, smoke: bool) -> StepBundle:
         fn = inc_spc if shape.kind == "dspc_inc" else dec_spc
 
         def wrapped(g, idx, a, b):
-            return fn(g, idx, int(a), int(b))
+            a, b = int(_whole(a)), int(_whole(b))   # read on the host
+            return fn(_whole_tree(g), _whole_tree(idx), a, b)
 
         return StepBundle(
             name=name, fn=wrapped, mesh_fn=None,
@@ -703,7 +708,11 @@ def dspc_bundle(spec: ArchSpec, shape: ShapeSpec, smoke: bool) -> StepBundle:
         def mesh_fn(mesh):
             axes = tuple(a for a in ("pod", "data", "model")
                          if a in mesh.axis_names)
-            return dist.make_sharded_query(mesh, axes)
+            query = dist.make_sharded_query(mesh, axes)
+            # the placed index is replicated: entry 0's copy stands for
+            # each entry's own (the query reads it on every device)
+            return lambda idx, s, t: query(local_tree(idx, 0), _whole(s),
+                                           _whole(t))
 
         return StepBundle(
             name=name, fn=None, mesh_fn=mesh_fn,
@@ -809,6 +818,10 @@ def equiformer_ring_bundle(spec: ArchSpec, shape: ShapeSpec,
 
     def mesh_fn(mesh):
         def loss_fn(params, batch):
+            # placed (replicated) weights: entry 0's view, so that their
+            # gradients come back laid out as they are
+            params = {k: entry_view(v, 0) if isinstance(v, Placed) else v
+                      for k, v in params.items()}
             model = modules.on(next(iter(params.values())).device)
             return torch.func.functional_call(
                 _RingLoss(model, mesh),

@@ -38,7 +38,8 @@ import torch
 
 from repro_torch.core.graph import resolve_device
 from repro_torch.kernels.flash_decode.ops import decode_attention
-from repro_torch.launch.mesh import all_gather, psum
+from repro_torch.launch.mesh import (all_gather, alike, collect, each_entry,
+                                     each_row, psum, working)
 from repro_torch.models.common import dense_init, init_rms, rms_norm
 
 
@@ -207,12 +208,16 @@ def gqa_decode(p, x, cache_k, cache_v, lengths, cfg):
 # -------------------------------------------------------------------------
 def _cache_blocks(cache) -> list:
     """A placed ``[L, b, S, ...]`` cache's blocks as ``(key, (b0, b1),
-    (s0, s1), shard)``, each block once in mesh order; only the batch
-    and sequence axes may be split (``cache_specs``)."""
+    (s0, s1), shard, entry)``, each block once in mesh order with the
+    first entry that holds it; only the batch and sequence axes may be
+    split (``cache_specs``)."""
     if any(p != 1 for i, p in enumerate(cache.parts) if i not in (1, 2)):
         raise ValueError(f"a decode cache splits only its batch and "
                          f"sequence axes, got {cache.sharding.spec}")
-    return [(key, bounds[1], bounds[2], t)
+    first = {}
+    for e, key in enumerate(cache.entry_keys):
+        first.setdefault(key, e)
+    return [(key, bounds[1], bounds[2], t, first[key])
             for key, bounds, t in cache.blocks]
 
 
@@ -233,18 +238,28 @@ def cache_write(cache, layer: int, new: torch.Tensor,
     """Write ``new`` [b, ...] at positions ``at`` [b] of layer ``layer``
     of a placed cache, into the shard (each copy of it) whose range
     holds the position; the other shards keep their rows (each rewrites
-    its own value).  No host sync."""
-    for (block, dev), shard in cache.shards.items():
-        (b0, b1), (s0, s1) = cache.bounds(block)[1:3]
+    its own value).  No host sync.  Each shard's write is the work of
+    the entries holding it (alike shards once in a dry run:
+    ``launch.mesh.alike``)."""
+    holders: dict = {}
+    for e, key in enumerate(cache.entry_keys):
+        holders.setdefault(key, []).append(e)
+    keys = list(cache.shards)
+    bounds = [cache.bounds(key[0])[1:3] for key in keys]
+    for i, same in alike([(b1 - b0, s1 - s0) for (b0, b1), (s0, s1)
+                          in bounds]):
+        (b0, b1), (s0, s1) = bounds[i]
         if b1 == b0 or s1 == s0:
             continue
-        a = at[b0:b1].to(dev)
-        hit = ((a >= s0) & (a < s1)).view(-1, *([1] * (new.dim() - 1)))
-        idx = (a - s0).clamp(0, s1 - s0 - 1)
-        rows = torch.arange(b1 - b0, device=dev)
-        part = shard[layer]
-        part[rows, idx] = torch.where(hit, new[b0:b1].to(dev),
-                                      part[rows, idx])
+        dev, shard = keys[i][1], cache.shards[keys[i]]
+        with working([e for j in same for e in holders[keys[j]]]):
+            a = at[b0:b1].to(dev)
+            hit = ((a >= s0) & (a < s1)).view(-1, *([1] * (new.dim() - 1)))
+            idx = (a - s0).clamp(0, s1 - s0 - 1)
+            rows = torch.arange(b1 - b0, device=dev)
+            part = shard[layer]
+            part[rows, idx] = torch.where(hit, new[b0:b1].to(dev),
+                                          part[rows, idx])
 
 
 def merge_by_lse(parts, out_dtype) -> torch.Tensor:
@@ -262,16 +277,48 @@ def merge_by_lse(parts, out_dtype) -> torch.Tensor:
     return out.to(out_dtype)
 
 
-def _batch_merge(parts_by_rows: dict, b: int, dtype) -> torch.Tensor:
-    """Each batch range's parts merged by :func:`merge_by_lse`, the
-    ranges laid side by side into [b, ...]."""
+def _batch_merge(parts_by_rows: dict, b: int, dtype,
+                 device) -> torch.Tensor:
+    """Each batch range's parts, brought to ``device`` (the shards' moves
+    charged as the merge's: ``launch.mesh.collect``), merged by
+    :func:`merge_by_lse`, the ranges laid side by side into [b, ...]
+    (alike ranges merged once in a dry run)."""
+    collect("merge", "all-gather", [x for parts in parts_by_rows.values()
+                                    for pair in parts for x in pair])
+    ranges = list(parts_by_rows)
     out = None
-    for (b0, b1), parts in parts_by_rows.items():
-        merged = merge_by_lse(parts, dtype)
+    for i, same in alike([(b1 - b0, len(parts_by_rows[(b0, b1)]))
+                          for b0, b1 in ranges]):
+        with working(0, len(same)):
+            merged = merge_by_lse([(o.to(device), lse.to(device)) for o, lse
+                                   in parts_by_rows[ranges[i]]], dtype)
         if out is None:
             out = merged.new_zeros((b,) + tuple(merged.shape[1:]))
-        out[b0:b1] = merged
+        for j in same:
+            b0, b1 = ranges[j]
+            out[b0:b1] = merged
     return out
+
+
+def _shard_parts(blocks, fn) -> dict:
+    """``{(b0, b1): [fn(key, b0, b1, s0, s1, shard), ...]}`` over a
+    placed cache's blocks (:func:`_cache_blocks`) in order, each call the
+    work of the block's entry (alike blocks once in a dry run:
+    ``launch.mesh.alike``)."""
+    live = [blk for blk in blocks if blk[1][1] > blk[1][0] and
+            blk[2][1] > blk[2][0]]
+    parts: dict = {}
+    got = [None] * len(live)
+    for i, same in alike([(b1 - b0, s1 - s0) for _, (b0, b1), (s0, s1), _, _
+                          in live]):
+        key, (b0, b1), (s0, s1), shard, _ = live[i]
+        with working([live[j][4] for j in same]):
+            out = fn(key, b0, b1, s0, s1, shard)
+        for j in same:
+            got[j] = out
+    for blk, out in zip(live, got):
+        parts.setdefault(blk[1], []).append(out)
+    return parts
 
 
 def _pad_group(q: torch.Tensor, cfg) -> torch.Tensor:
@@ -310,18 +357,14 @@ def gqa_cache_attend(q, k_new, v_new, cache_k, cache_v, layer: int,
     cache_write(cache_v, layer, v_new, at)
     q = _pad_group(q, cfg)
     ends = lengths.to(torch.int64) + 1
-    parts: dict = {}
-    for key, (b0, b1), (s0, s1), kt in _cache_blocks(cache_k):
-        if b1 == b0 or s1 == s0:
-            continue
+    def attend(key, b0, b1, s0, s1, kt):
         dev = key[1]
         local = (ends[b0:b1].to(dev) - s0).clamp(0, s1 - s0)
-        o, lse = decode_attention(q[b0:b1].to(dev), kt[layer],
-                                  cache_v.shards[key][layer],
-                                  local.to(torch.int32), return_lse=True)
-        parts.setdefault((b0, b1), []).append((o.to(q.device),
-                                               lse.to(q.device)))
-    ctx = _batch_merge(parts, b, q.dtype)
+        return decode_attention(q[b0:b1].to(dev), kt[layer],
+                                cache_v.shards[key][layer],
+                                local.to(torch.int32), return_lse=True)
+    ctx = _batch_merge(_shard_parts(_cache_blocks(cache_k), attend), b,
+                       q.dtype, q.device)
     return ctx.reshape(b, 1, -1)[..., :hq * dh]
 
 
@@ -372,10 +415,7 @@ def mla_cache_attend(q_lat, q_rope, ckv_new, kr_new, cache_ckv, cache_kr,
     cache_write(cache_ckv, layer, ckv_new, at)
     cache_write(cache_kr, layer, kr_new, at)
     scale = float(np.sqrt(dn + dr))
-    parts: dict = {}
-    for key, (b0, b1), (s0, s1), ct in _cache_blocks(cache_ckv):
-        if b1 == b0 or s1 == s0:
-            continue
+    def attend(key, b0, b1, s0, s1, ct):
         dev = key[1]
         c, r = ct[layer], cache_kr.shards[key][layer]
         scores = (torch.einsum("bhc,bsc->bhs", q_lat[b0:b1].to(dev), c) +
@@ -386,10 +426,9 @@ def mla_cache_attend(q_lat, q_rope, ckv_new, kr_new, cache_ckv, cache_kr,
         scores = torch.where(valid[:, None], scores.float(), -1e30)
         lse = torch.logsumexp(scores, dim=-1)
         probs = torch.exp(scores - lse[..., None]).to(q_lat.dtype)
-        ctx = torch.einsum("bhs,bsc->bhc", probs, c)
-        parts.setdefault((b0, b1), []).append((ctx.to(q_lat.device),
-                                               lse.to(q_lat.device)))
-    return _batch_merge(parts, b, q_lat.dtype)
+        return torch.einsum("bhs,bsc->bhc", probs, c), lse
+    return _batch_merge(_shard_parts(_cache_blocks(cache_ckv), attend), b,
+                        q_lat.dtype, q_lat.device)
 
 
 def mla_decode_sharded(p, x, cache_ckv, cache_kr, layer: int, lengths, cfg):
@@ -406,40 +445,35 @@ def mla_decode_sharded(p, x, cache_ckv, cache_kr, layer: int, lengths, cfg):
 # -------------------------------------------------------------------------
 # Tensor parallelism: the query heads split over the mesh's model axis
 # -------------------------------------------------------------------------
-def _entry_heads(groups, cfg):
-    """Each group's entries with the first query head each holds:
-    ``[(b0, b1, [(dev, p, head0), ...]), ...]`` (``p`` an entry's
-    layer-local attention weights, its heads a contiguous range in model
-    order)."""
-    hl = cfg.padded_heads // len(groups[0][2])
-    return [(b0, b1, [(dev, p, m * hl) for m, (dev, p) in enumerate(ents)])
-            for b0, b1, ents in groups]
+def _head0(groups, cfg, i: int) -> int:
+    """The first query head the ``i``-th entry of a group holds (its heads
+    a contiguous range in model order)."""
+    return i * (cfg.padded_heads // len(groups[0][2]))
 
 
 def prefill_tp(groups, x, cfg, positions, attn_fn):
     """A layer's attention over split heads: ``groups`` ``[(b0, b1,
-    [(dev, p), ...]), ...]`` -- each batch range [b0, b1) (``batch`` ->
-    ``data``) with its ``model`` entries in order, ``p`` an entry's
+    [(dev, p, e), ...]), ...]`` -- each batch range [b0, b1) (``batch`` ->
+    ``data``) with its ``model`` entries in order, ``p`` entry ``e``'s
     layer-local attention weights (``wq`` / ``bq`` / ``wuq`` / ``wuk``
     / ``wuv`` by column, ``wo`` by row, the rest whole) -- and the normed
     residual ``x`` [b, t, d] on the controller's device.  Each entry runs
     ``attn_fn`` (the plain or blockwise prefill) for its heads on its
-    device and multiplies by its ``wo`` rows; the partial outputs are
-    summed in entry order on ``x``'s device.  Returns (out [b, t, d],
-    the two cache tensors of the first entry of each range, joined over
-    the batch on ``x``'s device)."""
-    outs, c1s, c2s = [], [], []
-    for b0, b1, ents in _entry_heads(groups, cfg):
-        parts = []
-        for m, (dev, p, head0) in enumerate(ents):
-            kw = {} if cfg.attn == "mla" else dict(head0=head0)
-            out, (c1, c2) = attn_fn(p, x[b0:b1].to(dev), cfg,
-                                    positions[b0:b1].to(dev), **kw)
-            parts.append(out)
-            if m == 0:
-                c1s.append(c1.to(x.device))
-                c2s.append(c2.to(x.device))
-        outs.append(psum(parts, x.device))
+    device and multiplies by its ``wo`` rows (``launch.mesh.each_entry``);
+    the partial outputs are summed in entry order on ``x``'s device.
+    Returns (out [b, t, d], the two cache tensors of the first entry of
+    each range, joined over the batch on ``x``'s device)."""
+    def row(_, b0, b1, ents):
+        def run(i, dev, p, e):
+            kw = {} if cfg.attn == "mla" else dict(
+                head0=_head0(groups, cfg, i))
+            return attn_fn(p, x[b0:b1].to(dev), cfg,
+                           positions[b0:b1].to(dev), **kw)
+        got = each_entry(ents, run)
+        c1, c2 = got[0][1]
+        return (psum([out for out, _ in got], x.device), c1.to(x.device),
+                c2.to(x.device))
+    outs, c1s, c2s = zip(*each_row(groups, row))
     return torch.cat(outs), (torch.cat(c1s), torch.cat(c2s))
 
 
@@ -452,15 +486,15 @@ def train_tp(groups, x, cfg, positions):
     summed in entry order on ``x``'s device (``launch.mesh.psum``).  No
     cache is kept.  Returns out [b, t, d]."""
     attn = mla_train if cfg.attn == "mla" else gqa_train
-    outs = []
-    for b0, b1, ents in _entry_heads(groups, cfg):
-        parts = []
-        for dev, p, head0 in ents:
-            kw = {} if cfg.attn == "mla" else dict(head0=head0)
-            parts.append(attn(p, x[b0:b1].to(dev), cfg,
-                              positions[b0:b1].to(dev), **kw)[0])
-        outs.append(psum(parts, x.device))
-    return torch.cat(outs)
+
+    def row(_, b0, b1, ents):
+        def run(i, dev, p, e):
+            kw = {} if cfg.attn == "mla" else dict(
+                head0=_head0(groups, cfg, i))
+            return attn(p, x[b0:b1].to(dev), cfg, positions[b0:b1].to(dev),
+                        **kw)[0]
+        return psum(each_entry(ents, run), x.device)
+    return torch.cat(each_row(groups, row))
 
 
 def gqa_decode_tp(groups, x, cache_k, cache_v, layer: int, lengths, cfg):
@@ -473,30 +507,28 @@ def gqa_decode_tp(groups, x, cache_k, cache_v, layer: int, lengths, cfg):
     its heads' slice of the context by its ``wo`` rows, and the partial
     outputs are summed.  Returns out [b, 1, d]."""
     dh = cfg.d_head
-    qs, ks, vs = [], [], []
-    for b0, b1, ents in groups:
-        heads = []
-        for m, (dev, p) in enumerate(ents):
+
+    def project_row(_, b0, b1, ents):
+        def project(i, dev, p, e):
             h = x[b0:b1].to(dev)
             cos, sin = rope_tables(lengths[b0:b1, None].to(dev), dh,
                                    cfg.rope_theta)
-            heads.append(_gqa_q(p, h, cfg, cos, sin)[:, 0])
-            if m == 0:
-                k, v = _gqa_kv(p, h, cfg, cos, sin)
-                ks.append(k[:, 0].to(x.device))
-                vs.append(v[:, 0].to(x.device))
-        qs.append(all_gather(heads, 1, x.device))
+            q = _gqa_q(p, h, cfg, cos, sin)[:, 0]
+            return (q, _gqa_kv(p, h, cfg, cos, sin)) if i == 0 else (q, None)
+        got = each_entry(ents, project)
+        k, v = got[0][1]
+        return (all_gather([q for q, _ in got], 1, x.device),
+                k[:, 0].to(x.device), v[:, 0].to(x.device))
+    qs, ks, vs = zip(*each_row(groups, project_row))
     ctx = gqa_cache_attend(torch.cat(qs), torch.cat(ks), torch.cat(vs),
                            cache_k, cache_v, layer, lengths, cfg)
-    outs = []
-    for b0, b1, ents in _entry_heads(groups, cfg):
-        parts = []
-        for dev, p, head0 in ents:
-            n = p["wo"].shape[0]
-            part = ctx[b0:b1, :, head0 * dh:head0 * dh + n].to(dev)
-            parts.append(part @ p["wo"])
-        outs.append(psum(parts, x.device))
-    return torch.cat(outs)
+
+    def out_row(_, b0, b1, ents):
+        def out(i, dev, p, e):
+            head0, n = _head0(groups, cfg, i), p["wo"].shape[0]
+            return ctx[b0:b1, :, head0 * dh:head0 * dh + n].to(dev) @ p["wo"]
+        return psum(each_entry(ents, out), x.device)
+    return torch.cat(each_row(groups, out_row))
 
 
 def mla_decode_tp(groups, x, cache_ckv, cache_kr, layer: int, lengths, cfg):
@@ -505,45 +537,45 @@ def mla_decode_tp(groups, x, cache_ckv, cache_kr, layer: int, lengths, cfg):
     over the heads, :func:`mla_cache_attend` over the cache shards, then
     each entry's heads of the latent context through its ``wuv``
     columns and ``wo`` rows, the partial outputs summed."""
-    qls, qrs, cs, rs = [], [], [], []
-    for b0, b1, ents in groups:
-        lat, rope = [], []
-        for m, (dev, p) in enumerate(ents):
+    def project_row(_, b0, b1, ents):
+        def project(i, dev, p, e):
             h, pos = x[b0:b1].to(dev), lengths[b0:b1, None].to(dev)
-            q_lat, q_rope = _mla_absorbed_q(p, h, cfg, pos)
-            lat.append(q_lat)
-            rope.append(q_rope)
-            if m == 0:
-                ckv, kr = _mla_ckv(p, h, cfg, pos)
-                cs.append(ckv[:, 0].to(x.device))
-                rs.append(kr[:, 0].to(x.device))
-        qls.append(all_gather(lat, 1, x.device))
-        qrs.append(all_gather(rope, 1, x.device))
+            q = _mla_absorbed_q(p, h, cfg, pos)
+            return (q, _mla_ckv(p, h, cfg, pos)) if i == 0 else (q, None)
+        got = each_entry(ents, project)
+        ckv, kr = got[0][1]
+        return (all_gather([q[0] for q, _ in got], 1, x.device),
+                all_gather([q[1] for q, _ in got], 1, x.device),
+                ckv[:, 0].to(x.device), kr[:, 0].to(x.device))
+    qls, qrs, cs, rs = zip(*each_row(groups, project_row))
     ctx_lat = mla_cache_attend(torch.cat(qls), torch.cat(qrs), torch.cat(cs),
                                torch.cat(rs), cache_ckv, cache_kr, layer,
                                lengths, cfg)
-    outs = []
-    for b0, b1, ents in _entry_heads(groups, cfg):
-        parts = []
-        for dev, p, head0 in ents:
-            h = _mla_heads(p, cfg)
-            parts.append(_mla_absorbed_out(
-                p, ctx_lat[b0:b1, head0:head0 + h].to(dev), cfg))
-        outs.append(psum(parts, x.device))
-    return torch.cat(outs)
+
+    def out_row(_, b0, b1, ents):
+        def out(i, dev, p, e):
+            head0, h = _head0(groups, cfg, i), _mla_heads(p, cfg)
+            return _mla_absorbed_out(
+                p, ctx_lat[b0:b1, head0:head0 + h].to(dev), cfg)
+        return psum(each_entry(ents, out), x.device)
+    return torch.cat(each_row(groups, out_row))
 
 
 # -------------------------------------------------------------------------
 # Blockwise (flash-style) attention for long prefill.
 # -------------------------------------------------------------------------
 def blockwise_attention(q, make_kv_block, t_kv: int, block_k: int,
-                        scale: float, q_positions, d_v: int | None = None):
+                        scale: float, q_positions, d_v: int | None = None,
+                        q_last=None):
     """q [b, h, t, dh]; ``make_kv_block(start)`` -> (k [b, n, h, dh],
     v [b, n, h, d_v]; ``d_v`` defaults to dh) for the true block
     ``[start, min(start + block_k, t_kv))``; causal mask by absolute
     positions (key ``start + j`` is
     seen by queries with ``q_positions >= start + j``).  ``q_positions``
-    must not decrease along t, as prefill's do.
+    must not decrease along t, as prefill's do.  ``q_last``: each
+    query's largest position over the batch on the host, where the
+    caller knows them (a prefill's are 0..t-1); else they are read from
+    ``q_positions``, one host read a block.
 
     Keys and values stream through in blocks with the online-softmax
     recurrence, in float32.  The rows whose queries all precede a block
@@ -556,9 +588,11 @@ def blockwise_attention(q, make_kv_block, t_kv: int, block_k: int,
     m = torch.full((b, h, t), float("-inf"), device=q.device)
     l = torch.zeros((b, h, t), device=q.device)
     acc = torch.zeros((b, h, t, d_v or dh), device=q.device)
-    last = q_positions.amax(dim=0).contiguous()       # [t], sorted
+    last = q_positions.amax(dim=0).contiguous() if q_last is None \
+        else np.asarray(q_last)                       # [t], sorted
     for start in range(0, t_kv, block_k):
-        lo = int(torch.searchsorted(last, start))
+        lo = int(torch.searchsorted(last, start) if q_last is None else
+                 np.searchsorted(last, start))
         if lo == t:
             continue
         k_blk, v_blk = make_kv_block(start)
@@ -579,9 +613,10 @@ def blockwise_attention(q, make_kv_block, t_kv: int, block_k: int,
 
 
 def gqa_prefill_blockwise(p, x, cfg, positions, block_k: int = 1024,
-                          head0: int = 0):
+                          head0: int = 0, q_last=None):
     """GQA prefill with blockwise attention (``head0`` as in
-    :func:`gqa_train`); returns (out, (k, v))."""
+    :func:`gqa_train`, ``q_last`` as :func:`blockwise_attention` takes
+    it); returns (out, (k, v))."""
     b, t, _ = x.shape
     dh = cfg.d_head
     q, k, v = _proj_qkv_gqa(p, x, cfg, positions)
@@ -592,12 +627,13 @@ def gqa_prefill_blockwise(p, x, cfg, positions, block_k: int = 1024,
                 _expand_kv(v[:, start:start + block_k], cfg, head0, hq))
 
     ctx = blockwise_attention(q.transpose(1, 2), kv_block, t, block_k,
-                              1.0 / math.sqrt(dh), positions)
+                              1.0 / math.sqrt(dh), positions, q_last=q_last)
     ctx = ctx.transpose(1, 2).to(x.dtype).reshape(b, t, hq * dh)
     return ctx @ p["wo"], (k, v)
 
 
-def mla_prefill_blockwise(p, x, cfg, positions, block_k: int = 1024):
+def mla_prefill_blockwise(p, x, cfg, positions, block_k: int = 1024,
+                          q_last=None):
     """MLA prefill with blockwise attention: the rope part rides in
     extended head dims (q_ext = [q_nope, q_rope], k_ext = [k_nope, k_rope
     on every head]), and k_nope and v are expanded from the latent cache
@@ -619,7 +655,8 @@ def mla_prefill_blockwise(p, x, cfg, positions, block_k: int = 1024):
                 (ckv_blk @ p["wuv"]).reshape(b, n, h, dv))
 
     ctx = blockwise_attention(q_ext, kv_block, t, block_k,
-                              1.0 / math.sqrt(dn + dr), positions, d_v=dv)
+                              1.0 / math.sqrt(dn + dr), positions, d_v=dv,
+                              q_last=q_last)
     ctx = ctx.transpose(1, 2).to(x.dtype).reshape(b, t, h * dv)
     return ctx @ p["wo"], (ckv, k_rope)
 

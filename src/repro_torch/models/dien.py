@@ -63,9 +63,9 @@ import torch.nn.functional as F
 
 from repro_torch import sharding as SH
 from repro_torch.core.graph import resolve_device
-from repro_torch.launch.mesh import (Placed, block_bounds, entry_bounds,
-                                     entry_grid, entry_view, entry_views,
-                                     gather, place)
+from repro_torch.launch.mesh import (Placed, block_bounds, collect,
+                                     entry_bounds, entry_grid, entry_view,
+                                     entry_views, gather, place, working)
 from repro_torch.models.common import dense_init, load_tree, take_rows
 
 
@@ -268,7 +268,12 @@ def forward(params, batch, cfg: DIENConfig) -> torch.Tensor:
 
     batch: hist_items/hist_cates int [B, T], hist_mask bool [B, T],
     target_item/target_cate int [B], profile int [B, bags, bag_size],
-    tensors on the parameters' device."""
+    tensors on the parameters' device.  Given a tree laid out by
+    ``param_specs`` (and the batch by ``batch``), each data row scores
+    its batch rows (:func:`_per_row`); with only the tables placed
+    (:func:`place_params`) the tables are read where they lie."""
+    if isinstance(params["attn"], Placed):
+        return _per_row(params, batch, lambda p, rows: forward(p, rows, cfg))
     hs, beh = interest_states(params, batch, cfg)
     return _evolve(params, batch, hs, beh, cfg)
 
@@ -337,14 +342,47 @@ def _fsdp_train_loss(params, batch, cfg: DIENConfig):
     for d, row in enumerate(grid):
         (b0, b1), = block_bounds((b,), (len(grid),), (d,))
         e, dev = row[0]
-        p = entry_views({k: v for k, v in params.items()
-                         if k not in TABLES}, e)
-        for name in TABLES:
-            p[name] = [entry_bounds(params[name], em)[0] +
-                       (entry_view(params[name], em),) for em, _ in row]
-        rows = {k: _rows(v, e, b0, b1, dev) for k, v in batch.items()}
-        parts.append([x.to(home) for x in _loss_terms(p, rows, cfg)])
+        with working(e):
+            rows = {k: _rows(v, e, b0, b1, dev) for k, v in batch.items()}
+            terms = _loss_terms(_row_params(params, row), rows, cfg)
+        collect("gather", "all-gather", terms)
+        parts.append([x.to(home) for x in terms])
     return _loss(*(torch.cat(xs) for xs in zip(*parts)), cfg)
+
+
+def _row_params(params, row) -> dict:
+    """A data row's weights: its first entry's views of the replicated
+    leaves, and each table as the row blocks its ``model`` entries hold
+    (``launch.mesh.entry_view``)."""
+    e = row[0][0]
+    p = entry_views({k: v for k, v in params.items() if k not in TABLES}, e)
+    for name in TABLES:
+        p[name] = [entry_bounds(params[name], em)[0] +
+                   (entry_view(params[name], em),) for em, _ in row]
+    return p
+
+
+def _per_row(params, batch, fn) -> torch.Tensor:
+    """``fn(weights, rows)`` for each data row of a placed tree
+    (:func:`_row_params`) on its batch rows (``batch`` split evenly over
+    the rows, or whole on the first where it does not split), the
+    outputs joined in row order on the controller's device."""
+    mesh = params["item_table"].sharding.mesh
+    home = mesh.devices.flat[0]
+    grid = entry_grid(mesh)
+    b = batch["hist_mask"].shape[0]
+    if b % len(grid):
+        grid = grid[:1]
+    outs = []
+    for d, row in enumerate(grid):
+        (b0, b1), = block_bounds((b,), (len(grid),), (d,))
+        e, dev = row[0]
+        with working(e):
+            out = fn(_row_params(params, row),
+                     {k: _rows(v, e, b0, b1, dev) for k, v in batch.items()})
+        outs.append(out)
+    collect("gather", "all-gather", outs)
+    return torch.cat([o.to(home) for o in outs])
 
 
 def _rows(x, entry: int, b0: int, b1: int, dev) -> torch.Tensor:
@@ -362,7 +400,15 @@ def retrieval_scores(params, batch, candidate_ids,
     """Score one (or few) users against N candidates: the user vector is
     the last valid extractor state (position ``max(length - 1, 0)``)
     projected through ``attn``; scores are its dot with each candidate's
-    item + cate embedding.  Returns [B, N]."""
+    item + cate embedding.  Returns [B, N].  On a placed tree each data
+    row scores its users (:func:`_per_row`) against every candidate
+    (gathered where placed)."""
+    if isinstance(params["attn"], Placed):
+        cand = {k: gather(v) if isinstance(v, Placed) else v
+                for k, v in candidate_ids.items()}
+        return _per_row(params, batch, lambda p, rows: retrieval_scores(
+            p, rows, {k: v.to(rows["hist_mask"].device)
+                      for k, v in cand.items()}, cfg))
     hs, _ = interest_states(params, batch, cfg)
     lengths = batch["hist_mask"].sum(dim=-1)
     last = hs[torch.arange(hs.shape[0], device=hs.device),

@@ -38,7 +38,8 @@ import torch.func
 from torch import nn
 
 from repro_torch.core.graph import resolve_device
-from repro_torch.launch.mesh import Placed, psum
+from repro_torch.launch.mesh import (Placed, alike, collect, psum, quiet,
+                                     working)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,18 +160,23 @@ def agg_std(msgs, receivers, n_rows, eps=1e-9):
 def pmax(parts, device) -> torch.Tensor:
     """The element-wise max of the shards' parts on ``device`` (exact, in
     any order)."""
-    out = parts[0].to(device)
-    for p in parts[1:]:
-        out = torch.maximum(out, p.to(device))
-    return out
+    return _reduce("pmax", torch.maximum, parts, device)
 
 
 def pmin(parts, device) -> torch.Tensor:
     """The element-wise min of the shards' parts on ``device``."""
-    out = parts[0].to(device)
-    for p in parts[1:]:
-        out = torch.minimum(out, p.to(device))
-    return out
+    return _reduce("pmin", torch.minimum, parts, device)
+
+
+def _reduce(op: str, fn, parts, device) -> torch.Tensor:
+    """``fn`` over the parts in order on ``device``, as a collective of a
+    dry run's count (``launch.mesh.collect``)."""
+    collect(op, "all-reduce", parts)
+    with quiet():
+        out = parts[0].to(device)
+        for p in parts[1:]:
+            out = fn(out, p.to(device))
+        return out
 
 
 class ModuleCall(nn.Module):
@@ -188,6 +194,15 @@ class ModuleCall(nn.Module):
 
 def _direct(module, names, fn, *args):
     return fn(module, *args)
+
+
+def _in_work(entries, call):
+    """``call`` as the work of mesh entries ``entries``
+    (``launch.mesh.working``)."""
+    def run(*args):
+        with working(entries):
+            return call(*args)
+    return run
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,9 +223,12 @@ class EdgeShards:
     """A batch's edge shards in entry order, onto ``home`` (the
     controller's device, where the node work runs): module doc."""
 
-    def __init__(self, shards: Sequence[EdgeShard], home) -> None:
+    def __init__(self, shards: Sequence[EdgeShard], home,
+                 stands=None) -> None:
         self.shards = tuple(shards)
         self.home = torch.device(home)
+        # the entries each shard's work stands for (several in a dry run)
+        self.stands = stands or [(i,) for i in range(len(self.shards))]
 
     @classmethod
     def whole(cls, batch: GraphBatch) -> "EdgeShards":
@@ -231,17 +249,23 @@ class EdgeShards:
         if not (isinstance(s, Placed) and isinstance(r, Placed)):
             raise ValueError("an edge-sharded batch has its senders and "
                              "receivers placed (place_args)")
-        shards = []
-        for e, dev in enumerate(s.sharding.mesh.devices.flat):
-            shards.append(EdgeShard(dev, s.shard(e), r.shard(e),
-                                    call_of(e, dev) or _direct))
+        devs = s.sharding.mesh.devices.flat
+        shards, stands = [], []
+        # shards of one shape are alike (entry 0's call is the module's
+        # own): a dry run runs one for all of them (launch.mesh.alike)
+        for e, same in alike([(tuple(s.shard(e).shape), e == 0)
+                              for e in range(len(devs))]):
+            shards.append(EdgeShard(devs[e], s.shard(e), r.shard(e),
+                                    _in_work(same, call_of(e, devs[e])
+                                             or _direct)))
+            stands.append(same)
 
         def entry0(x):
             return x.shard(0) if isinstance(x, Placed) else x
         nodes = dataclasses.replace(
             batch, nodes=entry0(batch.nodes), senders=None, receivers=None,
             pos=entry0(batch.pos), graph_id=entry0(batch.graph_id))
-        return nodes, cls(shards, shards[0].device)
+        return nodes, cls(shards, shards[0].device, stands)
 
     def __iter__(self):
         return iter(self.shards)
@@ -256,16 +280,20 @@ class EdgeShards:
                 copies[sh.device] = x.to(sh.device)
         return [copies[sh.device] for sh in self.shards]
 
+    def _each(self, parts) -> list:
+        """Each shard's part once for every entry its work stands for."""
+        return [p for p, same in zip(parts, self.stands) for _ in same]
+
     def sum(self, parts) -> torch.Tensor:
         """The shards' partial sums added in shard order in float32 on
         ``home``, rounded once (``launch.mesh.psum``)."""
-        return psum(parts, self.home)
+        return psum(self._each(parts), self.home)
 
     def max(self, parts) -> torch.Tensor:
-        return pmax(parts, self.home)
+        return pmax(self._each(parts), self.home)
 
     def min(self, parts) -> torch.Tensor:
-        return pmin(parts, self.home)
+        return pmin(self._each(parts), self.home)
 
 
 def graph_readout(node_vals, graph_id, n_graph, op: str = "sum"):

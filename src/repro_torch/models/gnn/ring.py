@@ -43,13 +43,16 @@ differentiable copies (:func:`_on`).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.launch.mesh import (NamedSharding, PartitionSpec, Placed,
-                                     place)
+                                     alike, collapsing, count_move, place,
+                                     quiet, working)
 from repro_torch.models.gnn import irreps as IR
 from repro_torch.models.gnn.equiformer_v2 import (edge_messages,
                                                   head_weight, out_project)
@@ -184,6 +187,34 @@ def _psum(parts, dev: torch.device) -> torch.Tensor:
     return out
 
 
+def _ring_moves(h: Placed, pos: Placed, p_data: int, p_model: int, n1: int,
+                cfg, acc) -> None:
+    """A dry run's charge for the moves of :func:`ring_attention` on
+    every entry: at each step s > 0 of both phases entry (d, m) fetches
+    block (d - s) mod p_data of ``h`` and ``pos`` from entry (that block,
+    m); each row's maxima, numerators and denominators go from its
+    entries to entry (d, 0), the shifts and the aggregate back."""
+    blk = (h.shard(0).numel() * h.dtype.itemsize +
+           pos.shard(0).numel() * pos.dtype.itemsize)
+    d, m, s = np.meshgrid(np.arange(p_data), np.arange(p_model),
+                          np.arange(1, p_data), indexing="ij")
+    sd = (d - s) % p_data
+    for _ in range(2):
+        count_move("ring", "collective-permute", (sd * p_model + m).ravel(),
+                   (d * p_model + m).ravel(), blk)
+    d, m = np.meshgrid(np.arange(p_data), np.arange(1, p_model),
+                       indexing="ij")
+    entry, home = (d * p_model + m).ravel(), (d * p_model).ravel()
+    size = torch.empty((), dtype=acc, device="meta").element_size()
+    maxima = n1 * cfg.n_heads * size
+    sums = n1 * (cfg.d_hidden * cfg.comps + cfg.n_heads) * size
+    agg = n1 * cfg.d_hidden * cfg.comps * h.dtype.itemsize
+    count_move("pmax", "all-reduce", entry, home, maxima)
+    count_move("ring", "collective-permute", home, entry, maxima)
+    count_move("psum", "all-reduce", entry, home, sums)
+    count_move("ring", "collective-permute", home, entry, agg)
+
+
 def _entry_devices(mesh):
     if mesh.axis_names != ("data", "model"):
         raise ValueError(f"the ring runs over a ('data', 'model') mesh, "
@@ -214,9 +245,21 @@ def _node_blocks(x, mesh) -> Placed:
 def _nodewise(fn, first: Placed, *rest: Placed, shape=None) -> Placed:
     """``fn(device, shard, *shards)`` for each shard of ``first`` and the
     shards of ``rest`` at the same (block, device): a placed tensor of
-    ``first``'s layout (node rows), of ``shape`` (default ``first``'s)."""
-    shards = {key: fn(key[1], t, *(r.shards[key] for r in rest))
-              for key, t in first.shards.items()}
+    ``first``'s layout (node rows), of ``shape`` (default ``first``'s).
+    Each shard's work is that of the entries holding it
+    (``launch.mesh.working``; alike shards once in a dry run)."""
+    holders: dict = {}
+    for e, key in enumerate(first.entry_keys):
+        holders.setdefault(key, []).append(e)
+    keys = list(first.shards)
+    shards = {}
+    for i, same in alike([tuple(first.shards[k].shape) for k in keys]):
+        key = keys[i]
+        with working([e for j in same for e in holders[keys[j]]]):
+            out = fn(key[1], first.shards[key],
+                     *(r.shards[key] for r in rest))
+        for j in same:
+            shards[keys[j]] = out
     return Placed(first.sharding, shape or first.shape,
                   next(iter(shards.values())).dtype, shards,
                   first.entry_keys)
@@ -251,6 +294,19 @@ def ring_attention(layer, h: Placed, pos: Placed, src_b, dst_b,
     acc = torch.promote_types(h.dtype, torch.float32)
     messages = {dev: _on(layer, _messages, dev)
                 for dev in mesh.distinct_devices}
+    # a dry run on meta runs entry (0, 0)'s first step for every entry's
+    # every step (they are alike: equal blocks, buckets padded to one
+    # cap), and charges the ring's moves by formula (_ring_moves)
+    dry = collapsing()
+    rows, cols, steps = ((0,), (0,), (0,)) if dry else (
+        range(p_data), range(p_model), range(p_data))
+    every = range(p_data * p_model)
+
+    def work(d, m, times=1):
+        return working(every if dry else d * p_model + m, times)
+
+    if dry:
+        _ring_moves(h, pos, p_data, p_model, n1, cfg, acc)
 
     def block(x, d, m, dev):
         """Block d as entry (d, m) holds it, on ``dev``."""
@@ -266,28 +322,33 @@ def ring_attention(layer, h: Placed, pos: Placed, src_b, dst_b,
     # phase 1: the streaming max of the logits, without gradient
     maxima = {}
     with torch.no_grad():
-        for d in range(p_data):
-            for m in range(p_model):
+        for d in rows:
+            for m in cols:
                 dev = devs[d, m]
-                x_in, p_in = block(h, d, m, dev), pos_block(d, m, dev)
-                mx = torch.full((n1, cfg.n_heads), -1e30, dtype=acc,
-                                device=dev)
-                for s in range(p_data):
+                with work(d, m):
+                    x_in, p_in = block(h, d, m, dev), pos_block(d, m, dev)
+                    mx = torch.full((n1, cfg.n_heads), -1e30, dtype=acc,
+                                    device=dev)
+                for s in steps:
                     sd = _source_block(d, s, p_data)
-                    x_blk, p_blk = block(h, sd, m, dev), pos_block(sd, m, dev)
-                    src, dst = buckets(d, m, s, dev)
-                    rel = p_in[dst] - p_blk[src]
-                    _, alpha = messages[dev](x_blk[src], x_in[dst], rel)
-                    alpha = torch.where((src < n1 - 1)[:, None], alpha, -1e30)
-                    blk_max = agg_max(alpha, dst, n1)
-                    mx = torch.maximum(mx, torch.nan_to_num(
-                        blk_max, neginf=-1e30).to(acc))
+                    with work(d, m, p_data if dry else 1):
+                        x_blk = block(h, sd, m, dev)
+                        p_blk = pos_block(sd, m, dev)
+                        src, dst = buckets(d, m, s, dev)
+                        rel = p_in[dst] - p_blk[src]
+                        _, alpha = messages[dev](x_blk[src], x_in[dst], rel)
+                        alpha = torch.where((src < n1 - 1)[:, None], alpha,
+                                            -1e30)
+                        blk_max = agg_max(alpha, dst, n1)
+                        mx = torch.maximum(mx, torch.nan_to_num(
+                            blk_max, neginf=-1e30).to(acc))
                 maxima[d, m] = mx
     shift = {}
-    for d in range(p_data):
-        top = pmax([maxima[d, m] for m in range(p_model)], devs[d, 0])
-        for m in range(p_model):
-            shift[d, m] = top.to(devs[d, m])
+    with quiet() if dry else contextlib.nullcontext():
+        for d in rows:
+            top = pmax([maxima[d, m] for m in cols], devs[d, 0])
+            for m in cols:
+                shift[d, m] = top.to(devs[d, m])
     del maxima
 
     # phase 2: numerators and denominators, each step rematerialised
@@ -303,30 +364,36 @@ def ring_attention(layer, h: Placed, pos: Placed, src_b, dst_b,
 
     out = {}
     hsz = cfg.d_hidden // cfg.n_heads
-    for d in range(p_data):
+    for d in rows:
         nums, dens = [], []
-        for m in range(p_model):
+        for m in cols:
             dev = devs[d, m]
-            x_in, p_in = block(h, d, m, dev), pos_block(d, m, dev)
-            num = torch.zeros((n1, cfg.d_hidden, cfg.comps), dtype=acc,
-                              device=dev)
-            den = torch.zeros((n1, cfg.n_heads), dtype=acc, device=dev)
-            for s in range(p_data):
+            with work(d, m):
+                x_in, p_in = block(h, d, m, dev), pos_block(d, m, dev)
+                num = torch.zeros((n1, cfg.d_hidden, cfg.comps), dtype=acc,
+                                  device=dev)
+                den = torch.zeros((n1, cfg.n_heads), dtype=acc, device=dev)
+            for s in steps:
                 sd = _source_block(d, s, p_data)
-                src, dst = buckets(d, m, s, dev)
-                dn, dd = torch.utils.checkpoint.checkpoint(
-                    step, block(h, sd, m, dev), x_in, pos_block(sd, m, dev),
-                    p_in, shift[d, m], src, dst, messages[dev],
-                    use_reentrant=False)
-                num = num + dn
-                den = den + dd
+                with work(d, m, p_data if dry else 1):
+                    src, dst = buckets(d, m, s, dev)
+                    dn, dd = torch.utils.checkpoint.checkpoint(
+                        step, block(h, sd, m, dev), x_in,
+                        pos_block(sd, m, dev), p_in, shift[d, m], src, dst,
+                        messages[dev], use_reentrant=False)
+                    num = num + dn
+                    den = den + dd
             nums.append(num)
             dens.append(den)
         home = devs[d, 0]
-        num = _psum(nums, home)
-        den = torch.clamp(_psum(dens, home), min=1e-30)
-        out[d] = (num / torch.repeat_interleave(den, hsz, dim=-1)[..., None]
-                  ).to(h.dtype)
+        with working(range(0, p_data * p_model, p_model) if dry else
+                     d * p_model):
+            num = _psum(nums, home)
+            den = torch.clamp(_psum(dens, home), min=1e-30)
+            out[d] = (num / torch.repeat_interleave(den, hsz, dim=-1)[
+                ..., None]).to(h.dtype)
+    if dry:
+        out = {d: out[0] for d in range(p_data)}
     return Placed(h.sharding, h.shape, h.dtype,
                   {key: out[key[0][0]].to(key[1]) for key in h.shards},
                   h.entry_keys)

@@ -29,13 +29,15 @@ reference's [in, out] layout, experts stacked [E, in, out].
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.graph import resolve_device
-from repro_torch.launch.mesh import psum
+from repro_torch.launch.mesh import (collect, count_move, each_entry,
+                                     each_row, psum)
 from repro_torch.models.common import dense_init, swiglu
 
 
@@ -264,26 +266,39 @@ def _moe_tp(groups, x: torch.Tensor, cfg):
     out_e = buf.new_empty((cfg.moe_experts,) + tuple(buf.shape[1:]))
     n = buf.shape[1]
     step = -(-n // len(groups))
-    e0 = 0
-    for m in range(len(groups[0][2])):
-        e1 = e0 + groups[0][2][m][1]["w_gate"].shape[0]
-        for gi, (_, _, ents) in enumerate(groups):
-            c0, c1 = min(gi * step, n), min((gi + 1) * step, n)
-            dev, p = ents[m]
-            if c1 > c0:
-                out_e[e0:e1, c0:c1] = _experts(
-                    buf[e0:e1, c0:c1].to(dev), p).to(home)
-        e0 = e1
+    ends = list(itertools.accumulate(p["w_gate"].shape[0]
+                                     for _, p, _ in groups[0][2]))
+    spans = list(zip([0] + ends[:-1], ends))
+    def row(gi, b0, b1, ents):
+        c0, c1 = min(gi * step, n), min((gi + 1) * step, n)
+        if c1 <= c0:
+            return None
+
+        def run(i, dev, p, e):
+            e0, e1 = spans[i]
+            part = buf[e0:e1, c0:c1]
+            count_move("dispatch", "all-to-all", 0, None,
+                       part.numel() * part.element_size())
+            return _experts(part.to(dev), p)
+        outs = each_entry(ents, run)
+        collect("dispatch", "all-to-all", outs)
+        return outs
+
+    for gi, outs in enumerate(each_row(groups, row)):
+        c0, c1 = min(gi * step, n), min((gi + 1) * step, n)
+        for (e0, e1), o in zip(spans, outs or ()):
+            # a row a dry run ran for a larger one reads its first columns
+            out_e[e0:e1, c0:c1] = o[:, :c1 - c0].to(home)
     routed = _combine(out_e, r, rows, cfg).reshape(b, t, d)
-    shared = torch.cat([psum([dense_ffn(_shared(p), x[b0:b1].to(dev))
-                              for dev, p in ents], home)
-                        for b0, b1, ents in groups])
+    shared = torch.cat(each_row(groups, lambda _, b0, b1, ents: psum(
+        each_entry(ents, lambda i, dev, p, e: dense_ffn(
+            _shared(p), x[b0:b1].to(dev))), home)))
     return routed + shared, r
 
 
 def moe_dispatch_tp(groups, x: torch.Tensor, cfg):
     """:func:`moe_dispatch`'s output with the experts over the mesh's
-    ``model`` axis: ``groups`` ``[(b0, b1, [(dev, p), ...]), ...]`` (as
+    ``model`` axis: ``groups`` ``[(b0, b1, [(dev, p, e), ...]), ...]`` (as
     ``attention.prefill_tp`` takes them; ``p`` an entry's layer-local
     FFN weights: ``E / p`` routed experts, its columns of the shared
     ``ws_gate`` / ``ws_up`` and rows of ``ws_down``, the router whole)
@@ -319,9 +334,9 @@ def ffn_tp(groups, x: torch.Tensor, cfg) -> torch.Tensor:
     partial output summed in entry order on ``x``'s device."""
     if cfg.is_moe:
         return moe_dispatch_tp(groups, x, cfg)
-    return torch.cat([psum([dense_ffn(p, x[b0:b1].to(dev))
-                            for dev, p in ents], x.device)
-                      for b0, b1, ents in groups])
+    return torch.cat(each_row(groups, lambda _, b0, b1, ents: psum(
+        each_entry(ents, lambda i, dev, p, e: dense_ffn(
+            p, x[b0:b1].to(dev))), x.device)))
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg):

@@ -84,8 +84,9 @@ from repro_torch import sharding as SH
 from repro_torch.core.graph import resolve_device
 from repro_torch.launch.mesh import (Placed, block_bounds, entry_bounds,
                                      entry_grid, entry_view, entry_views,
-                                     gather, local_tree, place_tree,
-                                     place_zeros)
+                                     as_controller, gather, gather_entry,
+                                     local_tree,
+                                     place_tree, place_zeros, row_groups)
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models.common import (dense_init, init_rms, load_tree,
@@ -259,7 +260,7 @@ def check_tp(cfg: TransformerConfig, mesh) -> None:
         if n % p:
             raise ValueError(f"{cfg.name}: {name} ({n}) does not split "
                              f"evenly over the mesh's model axis of {p}")
-    if cfg.tp != p:
+    if cfg.tp != p and p != 1:
         raise ValueError(f"{cfg.name}: tp = {cfg.tp} must equal the mesh's "
                          f"model axis ({p}): the reference pads the query "
                          f"heads to it")
@@ -494,7 +495,10 @@ def _prefill_attention(cfg: TransformerConfig, t: int):
     blockwise = A.mla_prefill_blockwise if mla else A.gqa_prefill_blockwise
 
     def attn_fn(p, h, c, pos, **kw):
-        return blockwise(p, h, c, pos, block_k=cfg.prefill_block_k, **kw)
+        # a prefill's positions are 0..t-1: known on the host, so no
+        # block reads them back from the device
+        return blockwise(p, h, c, pos, block_k=cfg.prefill_block_k,
+                         q_last=range(t), **kw)
     return attn_fn
 
 
@@ -544,27 +548,18 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
 # -------------------------------------------------------------------------
 def _tp_setup(params: dict, cfg: TransformerConfig, b: int):
     """(mesh, rules, groups) of a placed tree: ``groups`` ``[(b0, b1,
-    [(device, entry's tree), ...]), ...]``, each batch range (``batch``
-    through the active rules, ``TP_ONLY`` outside a context) with its
-    ``model`` entries in order.  Raises where the path cannot run
-    (:func:`check_tp`, or a weight split over another axis than
-    ``model``)."""
+    [(entry, device), ...]), ...]``, each batch range (``batch`` through
+    the active rules, ``TP_ONLY`` outside a context) with its ``model``
+    entries in order.  Raises where the path cannot run
+    (:func:`check_tp`)."""
     mesh = params["embed"].sharding.mesh
     check_tp(cfg, mesh)
-    for path, x in _leaves(params):
-        used = {a for e in x.sharding.spec if e is not None
-                for a in (e if isinstance(e, tuple) else (e,))}
-        if used - {"model"}:
-            raise ValueError(f"{path} is split over {sorted(used)}: the "
-                             f"tensor-parallel path splits weights over "
-                             f"'model' only (TP_ONLY)")
     rules = SH.active_rules() or SH.TP_ONLY
     batch = SH.resolve(("batch",), rules, mesh)
     rows: dict = {}
     for e, (coords, dev) in enumerate(batch.entries()):
         (r,) = batch.block_of(coords, 1)
-        rows.setdefault(r, {}).setdefault(
-            coords["model"], (dev, local_tree(params, e)))
+        rows.setdefault(r, {}).setdefault(coords["model"], (e, dev))
     groups = []
     for r in sorted(rows):
         ((b0, b1),) = block_bounds((b,), batch.parts(1), (r,))
@@ -573,19 +568,33 @@ def _tp_setup(params: dict, cfg: TransformerConfig, b: int):
     return mesh, rules, groups
 
 
-def _leaves(tree, prefix: str = ""):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, f"{prefix}{k}.")
-    else:
-        yield prefix[:-1], tree
+def _layer_view(tree: dict, e: int, i: int) -> dict:
+    """Entry ``e``'s layer ``i`` of a placed layer tree: its own shard's
+    layer of a leaf split over ``model`` only (``TP_ONLY``), its
+    gathered view of one split over ``data`` too (``FSDP_TP``:
+    ``launch.mesh.gather_entry``)."""
+    out = {}
+    for k, x in tree.items():
+        if isinstance(x, dict):
+            out[k] = _layer_view(x, e, i)
+        elif any(a == "data" for a in _spec_axes(x)):
+            out[k] = gather_entry(x, e, i)
+        else:
+            out[k] = x.shard(e)[i]
+    return out
 
 
-def _layer_groups(groups, i: int, part: str):
-    """Layer ``i``'s ``part`` (``"attn"`` / ``"ffn"``) of each entry's
-    tree, in the groups' layout."""
-    return [(b0, b1, [(dev, _layer(tree["layers"][part], i))
-                      for dev, tree in ents]) for b0, b1, ents in groups]
+def _spec_axes(x) -> tuple:
+    return tuple(a for entry in x.sharding.spec if entry is not None
+                 for a in (entry if isinstance(entry, tuple) else (entry,)))
+
+
+def _layer_groups(params: dict, groups, i: int, part: str):
+    """Layer ``i``'s ``part`` (``"attn"`` / ``"ffn"``) of each entry,
+    ``[(b0, b1, [(device, tree, entry), ...]), ...]``
+    (``launch.mesh.row_groups``)."""
+    tree = params["layers"][part]
+    return row_groups(groups, lambda e: _layer_view(tree, e, i))
 
 
 def _norm(g: torch.Tensor, x):
@@ -631,13 +640,13 @@ def _prefill_tp(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     n1, n2 = cache_names(cfg)
     for i in range(cfg.n_layers):
         lp = _layer(whole["layers"], i)
-        h, (c1, c2) = A.prefill_tp(_layer_groups(groups, i, "attn"),
+        h, (c1, c2) = A.prefill_tp(_layer_groups(params, groups, i, "attn"),
                                    _whole(_norm(lp["ln1"], x), home), cfg,
                                    positions, attn_fn)
         A.cache_fill(cache[n1], i, c1)
         A.cache_fill(cache[n2], i, c2)
         x = _add(x, h)
-        x = _add(x, M.ffn_tp(_layer_groups(groups, i, "ffn"),
+        x = _add(x, M.ffn_tp(_layer_groups(params, groups, i, "ffn"),
                              _whole(_norm(lp["ln2"], x), home), cfg))
     last = rms_norm(whole["ln_f"].to(home), _whole(x, home)[:, -1])
     cache["lengths"].fill_(t)
@@ -660,10 +669,10 @@ def _decode_step_tp(params: dict, cache: dict, token: torch.Tensor,
     decode = A.mla_decode_tp if cfg.attn == "mla" else A.gqa_decode_tp
     for i in range(cfg.n_layers):
         lp = _layer(whole["layers"], i)
-        x = _add(x, decode(_layer_groups(groups, i, "attn"),
+        x = _add(x, decode(_layer_groups(params, groups, i, "attn"),
                            _whole(_norm(lp["ln1"], x), home), cache[n1],
                            cache[n2], i, lengths, cfg))
-        x = _add(x, M.ffn_tp(_layer_groups(groups, i, "ffn"),
+        x = _add(x, M.ffn_tp(_layer_groups(params, groups, i, "ffn"),
                              _whole(_norm(lp["ln2"], x), home), cfg))
     last = rms_norm(whole["ln_f"].to(home), _whole(x, home)[:, 0])
     return (split_logits(last, params["lm_head"]),
@@ -686,7 +695,8 @@ def check_fsdp(cfg: TransformerConfig, mesh, batch: int) -> None:
             ("vocab", cfg.padded_vocab, p_model),
             ("mlp", cfg.moe_shared * cfg.moe_d_ff if cfg.is_moe
              else cfg.d_ff, p_model),
-            ("embed", cfg.d_model, p_data), ("batch", batch, p_data)]
+            ("embed", cfg.d_model, mesh.shape.get("data", 1)),
+            ("batch", batch, p_data)]
     if cfg.is_moe:
         dims.append(("experts", cfg.moe_experts, p_model))
     for name, n, p in dims:
@@ -705,18 +715,19 @@ def _fsdp_layer(layers: dict, x, i: int, cfg: TransformerConfig, grid,
 
     def groups(part, skip=()):
         tree = {k: v for k, v in layers[part].items() if k not in skip}
-        return [(b0, b1, [(dev, entry_views(tree, e, i)) for e, dev in row])
-                for (b0, b1), row in zip(rows, grid)]
+        return row_groups([(b0, b1, row) for (b0, b1), row in
+                           zip(rows, grid)],
+                          lambda e: entry_views(tree, e, i))
     h = _whole(_norm(entry_view(layers["ln1"], e0, i), x), home)
     x = _add(x, A.train_tp(groups("attn"), h, cfg, positions))
     h = _whole(_norm(entry_view(layers["ln2"], e0, i), x), home)
     if not cfg.is_moe:
         return _add(x, M.ffn_tp(groups("ffn"), h, cfg)), None
     g = groups("ffn", skip=("router",))
-    dev, first = g[0][2][0]
+    dev, first, _ = g[0][2][0]
     # route runs whole on one entry's view of the router
     g[0][2][0] = (dev, dict(first, router=entry_view(
-        layers["ffn"]["router"], e0, i)))
+        layers["ffn"]["router"], e0, i)), e0)
     f, aux = M.moe_ffn_tp(g, h, cfg)
     return _add(x, f), aux
 
@@ -751,7 +762,7 @@ def _fsdp_train_loss(params: dict, batch: dict, cfg: TransformerConfig):
         args = (params["layers"], x, i, cfg, grid, rows, positions, home)
         if cfg.remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                _fsdp_layer, *args, use_reentrant=False)
+                as_controller(_fsdp_layer), *args, use_reentrant=False)
         else:
             x, aux = _fsdp_layer(*args)
         if aux is not None:
@@ -765,6 +776,6 @@ def _fsdp_train_loss(params: dict, batch: dict, cfg: TransformerConfig):
         heads = [entry_view(params["lm_head"], e) for e, _ in row]
         for i in range(b0, b1):
             total = total + torch.utils.checkpoint.checkpoint(
-                _sequence_ce_tp, x[i], labels[i], *heads,
+                as_controller(_sequence_ce_tp), x[i], labels[i], *heads,
                 use_reentrant=False)
     return total / b + cfg.aux_loss_weight * aux

@@ -134,16 +134,19 @@ def test_length_zero_gives_zeros():
 
 
 def test_no_fallback_off_the_cpu():
-    """The kernel wrapper takes CUDA tensors only, and the ops raise on
-    any device that is neither the CPU nor CUDA; nothing is built."""
+    """The kernel wrapper takes CUDA tensors only; the ops give a dry
+    run's meta tensors empty outputs of the right shapes and dtypes
+    (the LSE too) and launch nothing; nothing is built."""
     q, k, v, lengths = (torch.from_numpy(x)
                         for x in gqa_inputs(2, 4, 2, 32, 16, 1))
     before = launches.count
     with pytest.raises(ValueError, match="CUDA"):
         flash_decode_cuda(q, k, v, lengths)
-    with pytest.raises(ValueError, match="unsupported device"):
-        decode_attention(q.to("meta"), k.to("meta"), v.to("meta"),
-                         lengths.to("meta"))
+    out, lse = decode_attention(q.to("meta"), k.to("meta"), v.to("meta"),
+                                lengths.to("meta"), return_lse=True)
+    assert (out.device.type, out.shape, out.dtype) == ("meta", q.shape,
+                                                      q.dtype)
+    assert (lse.shape, lse.dtype) == (q.shape[:2], torch.float32)
     assert launches.count == before
     assert "flash_decode" not in common._loaded
     path = common.library_path("flash_decode")

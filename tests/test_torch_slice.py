@@ -214,6 +214,11 @@ def test_chip_smoke_bound_counts_the_rows_work():
     assert common > 0
     assert chip_smoke.spc_query_work(rows) == (
         2 * b * l_cap * 4 + 24 * common + 12 * b, real + 4 * common, common)
+    # the kernel table reckons K4's bound by flash_decode's cost:
+    # qwen2-1.5b's main shape (B 16, H 12, KVH 2, S 32832, D 128, bf16)
+    from repro_torch.kernels.flash_decode.kernel import cost
+    ops, nbytes = cost(16, 12, 2, 32832, 128, torch.bfloat16)
+    assert round(chip_smoke.bound_ms(nbytes, ops)[0], 5) == 0.16060
 
 
 def test_kernel_build_is_lazy_and_keyed_by_source(monkeypatch):
