@@ -6,6 +6,13 @@
 Phases, each reported on its own line(s):
 
 1. device    -- the card's name and power limit (``nvidia-smi``).
+Z. analysis  -- host only: the port's analyzer, ``python -m
+                repro_torch.analysis``: its ``--self-test`` over the
+                shared fixture corpus (every check passing), a scan of
+                ``src/repro_torch`` (exit 0, 0 findings) and a scan of a
+                temporary copy of ``serve/service.py`` with one nested
+                acquisition inverted against the hierarchy (Z_FAULT:
+                exit 1 and a ``lock-order`` finding); one JSON line.
 2. build     -- compiles every CUDA kernel from the sources under
                 ``src/repro_torch/csrc`` (one ``nvcc`` per source,
                 started together) and prints the build seconds.
@@ -534,7 +541,8 @@ the front-door traffic of S2; the service readers, the dispatchers and
 the updater launch from their own threads) and the distributed path
 (D's sharded build, chunk and serving, which launch no kernel: the
 sharded relaxation is ``index_add_`` and the sharded query the merge
-core, as on the reference).  The launch counters are set to 0 just
+core, as on the reference) and the analysis path (phase Z, host only: no
+kernel).  The launch counters are set to 0 just
 before each of these phases and read just after it; the oracles, L4
 and the kernel checks run outside them and count nowhere.  Each path must have launched each of its kernels
 (``PATH_KERNELS``).  The line before the last is a JSON object with one
@@ -632,7 +640,9 @@ PATH_KERNELS = {"dspc": ("spc_query",), "kernels": ("spc_query",
                 "launch": ("flash_decode",),
                 # phase E: the DSPC examples' serving, analytics_spc's
                 # re-rank pooling and serve_lm's decode
-                "examples": ("spc_query", "embedding_bag", "flash_decode")}
+                "examples": ("spc_query", "embedding_bag", "flash_decode"),
+                # phase Z: the analyzer, a scan of the sources on the host
+                "analysis": ()}
 
 #: The segment_matmul sweep of tests/kernels/test_kernels.py (e, n, d),
 #: inputs drawn as that test draws them (ids in [0, n + 5): some dropped).
@@ -831,6 +841,14 @@ MAINTAIN_EVENTS = 16
 #: dspc event.
 B2_DECODE_BATCH, B2_DECODE_STEPS, B2_TRAIN_STEPS = 16, 16, 3
 B2_DSPC_SOURCES = 8
+#: Phase Z's planted fault: ``SPCService.stats()`` takes ``service.cond``
+#: (rank 3) around its ``service.reader_lock`` (rank 2) block, an
+#: inversion of the declared hierarchy, in a copy of the module.
+Z_FAULT = ("src/repro_torch/serve/service.py",
+           "        with self._reader_lock:\n"
+           "            engines = list(self._engines)",
+           "        with self._cond, self._reader_lock:\n"
+           "            engines = list(self._engines)")
 
 
 def log(msg: str) -> None:
@@ -5217,6 +5235,66 @@ def distributed_phase(edges, n: int, build_kw: dict, counts, seed: int,
 
 
 # -------------------------------------------------------------------------
+# Z. the analyzer
+# -------------------------------------------------------------------------
+def run_analyzer(*argv: str) -> tuple:
+    """``python -m repro_torch.analysis *argv`` from the checkout's root:
+    (exit code, lines of its output)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", *argv], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300)
+    return proc.returncode, proc.stdout.splitlines()
+
+
+def scan_summary(lines: list) -> tuple:
+    """(files, findings) from the analyzer's last line, ``N files
+    scanned, K findings``."""
+    words = lines[-1].split() if lines else []
+    if words[1:3] != ["files", "scanned,"] or words[4:5] != ["findings"]:
+        raise AssertionError(f"analyzer summary: {lines[-1:]}")
+    return int(words[0]), int(words[3])
+
+
+def analysis_phase() -> dict:
+    """Phase Z (module doc): the self-test, the port's scan and the
+    planted fault, each through the CLI.  Raises on any miss."""
+    import tempfile
+    from repro_torch.analysis import rules
+    t0 = time.monotonic()
+    checks = 2 * len(rules.RULE_DOCS)
+    code, lines = run_analyzer("--self-test")
+    if code != 0 or lines[-1:] != [
+            f"self-test: {checks} fixture checks, 0 failures"]:
+        raise AssertionError(f"Z self-test: exit {code}: {lines}")
+    code, lines = run_analyzer("src/repro_torch")
+    files, findings = scan_summary(lines)
+    if code != 0 or findings:
+        raise AssertionError(f"Z src/repro_torch: exit {code}: {lines}")
+    path, old, new = Z_FAULT
+    with open(os.path.join(ROOT, path), encoding="utf-8") as fh:
+        source = fh.read()
+    if source.count(old) != 1:
+        raise AssertionError(f"Z fault: {path} no longer has {old!r}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_z_") as tmp:
+        copy = os.path.join(tmp, os.path.basename(path))
+        with open(copy, "w", encoding="utf-8") as fh:
+            fh.write(source.replace(old, new))
+        fault_code, fault_lines = run_analyzer(copy)
+    fault_rules = sorted({line.split()[1] for line in fault_lines[:-1]})
+    if fault_code != 1 or "lock-order" not in fault_rules:
+        raise AssertionError(f"Z fault: exit {fault_code}: {fault_lines}")
+    out = {"phase": "analysis", "files": files, "findings": findings,
+           "self_test_checks": checks, "fault_rule": "lock-order",
+           "fault_rules": fault_rules,
+           "fault_findings": scan_summary(fault_lines)[1],
+           "seconds": time.monotonic() - t0}
+    log(json.dumps(out))
+    return out
+
+
+# -------------------------------------------------------------------------
 # B. the launch layer; E. the examples
 # -------------------------------------------------------------------------
 class Laps:
@@ -5962,6 +6040,15 @@ def main(argv=None) -> int:
     count = torch.cuda.device_count()
     log(f"device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    counts = PathLaunches({"spc_query": K.launches,
+                           "segment_matmul": SM.launches,
+                           "embedding_bag": EB.launches,
+                           "flash_decode": FD.launches})
+
+    # -- Z. analysis (host only) ---------------------------------------------
+    with counts.path("analysis"):
+        analysis_phase()
+    laps.lap("Z analysis")
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.monotonic()
@@ -6243,10 +6330,6 @@ def main(argv=None) -> int:
     log(f"graph: n={n} m={len(edges)} power-law w~i^-0.8 "
         f"({time.monotonic() - t0:.2f} s on the host)")
     log(f"reduced: {json.dumps(reduced)}")
-    counts = PathLaunches({"spc_query": K.launches,
-                           "segment_matmul": SM.launches,
-                           "embedding_bag": EB.launches,
-                           "flash_decode": FD.launches})
     B.frontier_syncs.count = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()

@@ -22,7 +22,9 @@ reference's names:
 * ``repro_torch.launch``    -- device meshes that one controller process
                                drives (edge-sharded updates, replicated
                                snapshots, batch-sharded serving).
-* ``repro_torch.analysis``  -- lock factories with the canonical names.
+* ``repro_torch.analysis``  -- lock factories with the canonical names,
+                               and the lock-order / lint analyzer
+                               (``python -m repro_torch.analysis``).
 * ``repro_torch.configs`` / ``repro_torch.data`` -- the ported
                                configurations (``dspc``, ``pna``,
                                ``qwen2-1.5b``) and the graph /

@@ -1,0 +1,8 @@
+"""Entry point for ``python -m repro_torch.analysis``."""
+
+import sys
+
+from repro_torch.analysis.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -77,18 +77,23 @@ class _ShadowLock:
 
     def acquire(self, blocking: bool = True, timeout: float = -1):
         stack = _held_stack()
-        bounded = (not blocking) or timeout >= 0
-        if any(held == self._name for held, _ in stack) and \
-                not (bounded or self._reentrant):
-            raise LockHierarchyViolation(
-                f"re-entry of non-reentrant lock '{self._name}' "
-                f"(held: {[n for n, _ in stack]}): self-deadlock")
-        for held, held_rank in stack:
-            if held != self._name and held_rank >= self._rank:
+        if any(held == self._name for held, _ in stack):
+            # held already: a reentrant lock, or a bounded (non-blocking
+            # or timed) probe, which times out instead of deadlocking, is
+            # taken again without a check of the order
+            if not (self._reentrant or not blocking or timeout >= 0):
                 raise LockHierarchyViolation(
-                    f"acquiring '{self._name}' (rank {self._rank}) while "
-                    f"holding '{held}' (rank {held_rank}) inverts the "
-                    f"declared hierarchy")
+                    f"re-entry of non-reentrant lock '{self._name}' "
+                    f"(held: {[n for n, _ in stack]}): self-deadlock")
+        else:
+            for held, held_rank in stack:
+                if held_rank >= self._rank:
+                    raise LockHierarchyViolation(
+                        f"acquiring '{self._name}' (rank {self._rank}) "
+                        f"while holding '{held}' (rank {held_rank}) "
+                        f"inverts the declared hierarchy "
+                        f"(repro_torch/analysis/hierarchy.py); held: "
+                        f"{[n for n, _ in stack]}")
         got = self._inner.acquire(blocking, timeout)
         if got:
             self._push()
@@ -124,6 +129,14 @@ class _ShadowCondition(_ShadowLock):
         self._pop()
         try:
             return self._inner.wait(timeout)
+        finally:
+            self._push()
+
+    def wait_for(self, predicate, timeout=None):
+        self._require_held("wait_for")
+        self._pop()
+        try:
+            return self._inner.wait_for(predicate, timeout)
         finally:
             self._push()
 
@@ -167,8 +180,9 @@ def assert_no_locks_held(where: str) -> None:
     held = held_locks()
     if held:
         raise LockHierarchyViolation(
-            f"{where}: device work entered while holding {list(held)}; "
-            f"device latency under a lock convoys every other thread")
+            f"{where}: device dispatch entered while holding "
+            f"{list(held)}; device latency under a lock convoys every "
+            f"other thread")
 
 
 def locks_required(*names: str):

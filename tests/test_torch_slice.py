@@ -166,7 +166,10 @@ def test_port_and_smoke_script_import_no_jax_or_reference():
             *(f"repro_torch.examples.{name}" for name in (
                 "quickstart", "dynamic_stream", "serve_spc", "fleet_spc",
                 "analytics_spc", "gnn_molecule", "serve_lm",
-                "train_lm"))} <= set(imported)
+                "train_lm")),
+            *(f"repro_torch.analysis.{name}" for name in (
+                "cli", "rules", "lockorder", "baseline", "findings",
+                "__main__"))} <= set(imported)
     scanned = {os.path.relpath(f, PORT) for f in files}
     assert {"bench/kernels_bench.py", "kernels/segment_matmul/ops.py",
             "core/directed.py", "train/checkpoint.py", "serve/replica.py",
@@ -178,7 +181,10 @@ def test_port_and_smoke_script_import_no_jax_or_reference():
             "data/pipelines.py", "sharding.py",
             "models/gnn/ring.py", "core/refimpl.py", "launch/steps.py",
             "launch/train.py", "examples/quickstart.py",
-            "examples/fleet_spc.py", "examples/serve_lm.py"} <= scanned
+            "examples/fleet_spc.py", "examples/serve_lm.py",
+            *(f"analysis/{name}.py" for name in (
+                "cli", "rules", "lockorder", "baseline", "findings",
+                "__main__"))} <= scanned
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
@@ -396,7 +402,8 @@ def test_chip_smoke_counts_launches_by_path():
         "tp": dict(zero, flash_decode=1792), "fsdp": zero,
         "launch": dict(zero, flash_decode=448),
         "examples": dict(zero, spc_query=30, embedding_bag=1,
-                         flash_decode=22)}
+                         flash_decode=22),
+        "analysis": zero}
     assert chip_smoke.PATH_KERNELS["recsys"] == () == \
         chip_smoke.PATH_KERNELS["train"] == chip_smoke.PATH_KERNELS["fsdp"]
     assert counts.of("spc_query") == (127, dict(paths, dspc=5, kernels=52,
