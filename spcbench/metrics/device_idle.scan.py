@@ -1,0 +1,8 @@
+"""device_idle.scan: the share of the traced window in which no
+operation ran on the device, in percent."""
+
+from spcbench.devtrace import idle_percent
+
+
+def read(run):
+    return idle_percent(run.trace)
